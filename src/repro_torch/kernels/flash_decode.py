@@ -1,0 +1,193 @@
+"""Paged flash-decode over block tables: CUDA kernels, plain versions, wrapper.
+
+Replaces the TPU kernels of ``repro/kernels/flash_decode.py``:
+``_decode_kernel`` (the span walk) and ``_decode_reduce_kernel`` (the
+split-KV fold).  Both kernels are in ``csrc/paged_attention.cu``.
+
+Layout (the reference's; the period dim of the pool is the caller's):
+
+    q            (B, Hq, hd) one decode token per request, or
+                 (B, K, Hq, hd) a K-token window (token qi at lengths[b] + qi)
+    k/v pages    (N, ps, Hkv, hd) page pool, float32 or bfloat16
+    block_tables (B, MB) int32, -1 pad (aliases page 0, always masked)
+    lengths      (B,) int32 tokens resident
+
+On the card the decode kernel runs one thread block per (request, kv head,
+split).  A loop inside the block walks the span's pages (in place of the
+TPU's sequential page grid axis) with the online-softmax state of the
+``gk = group*K`` query rows (row ``g*K + qi``) in shared memory, accumulating
+in fp32; pages past the resident length are skipped, bit-identically.  Each
+span emits its fp32 partial ``(acc/l, m, l)``; with S > 1 spans the reduce
+kernel, one block per (request, kv head) with threads over (gk, hd), folds
+them with the ``merge_softmax_states`` rule; at S = 1 the decode kernel's
+state is final and the reduce is not launched.  What bounds both on the card
+is bytes: every resident K/V page is read once per step, and a row's work is
+a few FLOPs per byte.  The simple design spends one block per (b, kv head,
+split), so split-KV (S > 1) is also what fills the SMs at small batch.
+
+The plain versions (``decode_partials_plain``, ``decode_reduce_plain``)
+compute the same functions with dense gathers, following
+``repro/kernels/ref.paged_decode_split_ref``; the wrappers use them only for
+CPU tensors.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import native
+
+NEG_INF = -1e30
+
+
+def decode_partials_plain(qg, k_pages, v_pages, block_tables, lengths, *,
+                          k_tokens: int, window: int, kv_splits: int):
+    """Plain version of the decode kernel.  qg: (B, Hkv, gk, hd) query rows
+    (row r = g*K + qi).  Returns the per-span fp32 partial state
+    ``(out, m, l)`` shaped (B, Hkv, S, gk, hd) / (B, Hkv, S, gk, 1); an empty
+    span is (0, NEG_INF, 0)."""
+    B, Hkv, gk, hd = qg.shape
+    N, ps = k_pages.shape[:2]
+    MB = block_tables.shape[1]
+    S = kv_splits
+    pps = -(-MB // S)
+    idx = block_tables.long().clamp(0, N - 1)
+    if S * pps > MB:                       # ragged last span: alias page 0
+        idx = F.pad(idx, (0, S * pps - MB))
+    L = pps * ps
+    kd = k_pages[idx].reshape(B, S, L, Hkv, hd).float()
+    vd = v_pages[idx].reshape(B, S, L, Hkv, hd).float()
+    s = torch.einsum("bhrd,bslhd->bhsrl", qg.float(), kd) * (hd ** -0.5)
+    k_pos = torch.arange(S * L, device=qg.device).reshape(1, 1, S, 1, L)
+    length = lengths.long().reshape(B, 1, 1, 1, 1)
+    mask = k_pos < length                                  # (B,1,S,1,L)
+    if window:
+        qi = (torch.arange(gk, device=qg.device) % k_tokens).reshape(
+            1, 1, 1, gk, 1)
+        mask = mask & (k_pos > length + qi - window)
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    m = torch.amax(s, dim=-1, keepdim=True)
+    p = torch.exp(s - m) * mask
+    l = torch.sum(p, dim=-1, keepdim=True)
+    out = torch.einsum("bhsrl,bslhd->bhsrd", p, vd) / torch.clamp(l, min=1e-30)
+    return out, m, l
+
+
+def decode_partials(qg, k_pages, v_pages, block_tables, lengths, *,
+                    k_tokens: int, window: int, kv_splits: int,
+                    guard_dead_pages: bool = True):
+    """Per-span partial state of the paged decode walk (see module doc).
+    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    native.check_inputs(qg, k_pages, v_pages, block_tables, lengths,
+                        "paged_decode")
+    B, Hkv, gk, hd = qg.shape
+    N, ps, Hkv_p, hd_p = k_pages.shape
+    MB = block_tables.shape[1]
+    if (Hkv_p, hd_p) != (Hkv, hd) or block_tables.shape[0] != B \
+            or lengths.shape != (B,):
+        raise ValueError(f"paged_decode: q rows {tuple(qg.shape)}, pool "
+                         f"{tuple(k_pages.shape)}, block_tables "
+                         f"{tuple(block_tables.shape)}, lengths "
+                         f"{tuple(lengths.shape)} do not agree")
+    S = kv_splits
+    if qg.device.type == "cpu":
+        return decode_partials_plain(qg, k_pages, v_pages, block_tables,
+                                     lengths, k_tokens=k_tokens,
+                                     window=window, kv_splits=S)
+    native.check_smem(gk, ps, hd, "paged_decode")
+    qg = qg.contiguous()
+    bt = block_tables.to(torch.int32).contiguous()
+    ln = lengths.to(torch.int32).contiguous()
+    out = torch.empty((B, Hkv, S, gk, hd), dtype=torch.float32,
+                      device=qg.device)
+    m = torch.empty((B, Hkv, S, gk, 1), dtype=torch.float32, device=qg.device)
+    l = torch.empty_like(m)
+    err = native.library().paged_decode(
+        native.dtype_code(qg), qg.data_ptr(), k_pages.data_ptr(),
+        v_pages.data_ptr(), bt.data_ptr(), ln.data_ptr(), out.data_ptr(),
+        m.data_ptr(), l.data_ptr(), B, Hkv, gk, k_tokens, hd, N, ps, MB, S,
+        -(-MB // S), int(window), int(bool(guard_dead_pages)), hd ** -0.5,
+        native.stream_of(qg))
+    native.check_launch("paged_decode", err)
+    native.LAUNCHES["paged_decode"] += 1
+    return out, m, l
+
+
+def decode_reduce_plain(out, m, l):
+    """Plain version of the reduce kernel: (B, Hkv, S, gk, .) span partials
+    -> (B, Hkv, gk, .) folded state."""
+    m_max = torch.amax(m, dim=2)                          # (B,Hkv,gk,1)
+    w = torch.exp(m - m_max[:, :, None]) * l              # (B,Hkv,S,gk,1)
+    l_sum = torch.sum(w, dim=2)
+    o = torch.sum(out * w, dim=2) / torch.clamp(l_sum, min=1e-30)
+    return o, m_max, l_sum
+
+
+def decode_reduce(out, m, l):
+    """Fold S span partials into one state (the second phase of
+    Flash-Decoding).  CPU tensors take the plain version; CUDA tensors
+    launch the kernel."""
+    B, Hkv, S, gk, hd = out.shape
+    if m.shape != (B, Hkv, S, gk, 1) or l.shape != m.shape:
+        raise ValueError(f"decode_reduce: partials {tuple(out.shape)}, m "
+                         f"{tuple(m.shape)}, l {tuple(l.shape)} do not agree")
+    for name, t in (("out", out), ("m", m), ("l", l)):
+        if t.dtype != torch.float32 or t.device != out.device:
+            raise TypeError(f"decode_reduce: {name} must be float32 on "
+                            f"{out.device}, got {t.dtype} on {t.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"decode_reduce: {name} must be contiguous")
+    if out.device.type == "cpu":
+        return decode_reduce_plain(out, m, l)
+    o2 = torch.empty((B, Hkv, gk, hd), dtype=torch.float32, device=out.device)
+    m2 = torch.empty((B, Hkv, gk, 1), dtype=torch.float32, device=out.device)
+    l2 = torch.empty_like(m2)
+    err = native.library().decode_reduce(
+        out.data_ptr(), m.data_ptr(), l.data_ptr(), o2.data_ptr(),
+        m2.data_ptr(), l2.data_ptr(), B, Hkv, S, gk, hd,
+        native.stream_of(out))
+    native.check_launch("decode_reduce", err)
+    native.LAUNCHES["decode_reduce"] += 1
+    return o2, m2, l2
+
+
+def flash_decode(q, k_pages, v_pages, block_tables, lengths, *,
+                 window: int = 0, kv_splits: int = 1,
+                 guard_dead_pages: bool = True):
+    """Paged flash attention for a decode window per request (the
+    reference's signature and return layout).
+
+    ``kv_splits`` partitions each request's page walk into S contiguous
+    spans of ``ceil(MB/S)`` pages (clamped to the table width; S=1 is the
+    sequential walk, no reduce).  Returns ``(out, m, l)`` fp32 partial
+    softmax state over the paged keys: (B, Hq, hd)/(B, Hq, 1) for 3-D q and
+    (B, K, Hq, hd)/(B, K, Hq, 1) for 4-D q.  Rows with ``lengths == 0`` come
+    back as (0, NEG_INF, 0)."""
+    squeeze = q.ndim == 3
+    if squeeze:
+        q = q[:, None]
+    B, K, Hq, hd = q.shape
+    Hkv = k_pages.shape[2]
+    MB = block_tables.shape[1]
+    if Hq % Hkv:
+        raise ValueError(f"flash_decode: Hq={Hq} not a multiple of Hkv={Hkv}")
+    group = Hq // Hkv
+    gk = group * K
+    S = max(1, min(int(kv_splits), MB))
+    # query-row layout r = g*K + qi
+    qg = q.reshape(B, K, Hkv, group, hd).permute(0, 2, 3, 1, 4).reshape(
+        B, Hkv, gk, hd)
+    out, m, l = decode_partials(qg, k_pages, v_pages, block_tables, lengths,
+                                k_tokens=K, window=window, kv_splits=S,
+                                guard_dead_pages=guard_dead_pages)
+    if S == 1:
+        out, m, l = out[:, :, 0], m[:, :, 0], l[:, :, 0]
+    else:
+        out, m, l = decode_reduce(out, m, l)
+
+    def unrow(t, last):
+        t = t.reshape(B, Hkv, group, K, last).permute(0, 3, 1, 2, 4)
+        t = t.reshape(B, K, Hq, last)
+        return t[:, 0] if squeeze else t
+
+    return unrow(out, hd), unrow(m, 1), unrow(l, 1)

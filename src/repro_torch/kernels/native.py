@@ -1,0 +1,165 @@
+"""Build, load and count the port's hand-written CUDA kernels.
+
+The kernels live in ``csrc/*.cu`` with a plain C interface.  At first use
+``nvcc`` compiles a source into ``build/repro_torch/`` at the repository root
+(keyed by a hash of the source and flags, so an edit rebuilds) and the shared
+library is loaded with ``ctypes``.  No PyTorch headers enter the build, which
+keeps it to seconds.  A missing ``nvcc``, a failed build or a failed launch
+raises: there is no fallback to the plain versions for CUDA tensors.
+
+``LAUNCHES`` counts kernel launches by name; each wrapper adds one where it
+launches its kernel and nowhere else, so a run can show that the serving path
+went through the kernels.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+from typing import Dict
+
+import torch
+
+CSRC = Path(__file__).with_name("csrc")
+SOURCES = ("paged_attention.cu",)
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+# the card's per-block shared-memory limit (H100: 227 KB usable)
+MAX_SMEM_BYTES = 232448
+MAX_HEAD_DIM = 256
+
+LAUNCHES: Dict[str, int] = {"paged_decode": 0, "decode_reduce": 0,
+                            "paged_prefill": 0}
+# nvcc output (register / shared-memory report) of each build, by source
+BUILD_LOGS: Dict[str, str] = {}
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_SIGNATURES = {
+    "paged_decode": [_I] + [_P] * 8 + [_I] * 12 + [ctypes.c_float, _P],
+    "decode_reduce": [_P] * 6 + [_I] * 5 + [_P],
+    "paged_prefill": [_I] + [_P] * 9 + [_I] * 10 + [ctypes.c_float, _P],
+    "paged_attention_smem_bytes": [_I, _I, _I],
+}
+_RESTYPES = {"paged_attention_smem_bytes": ctypes.c_longlong}
+
+_lock = threading.Lock()
+_libs: Dict[str, ctypes.CDLL] = {}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def find_nvcc() -> str:
+    cands = [shutil.which("nvcc"),
+             os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                          "bin", "nvcc")]
+    for c in cands:
+        if c and os.path.isfile(c):
+            return c
+    raise RuntimeError("nvcc not found (looked on PATH and under CUDA_HOME "
+                       "or /usr/local/cuda); the port's CUDA kernels are "
+                       "compiled at first use")
+
+
+def build(source: str) -> Path:
+    """Compile ``csrc/<source>`` to a shared library (cached by content)."""
+    src = CSRC / source
+    digest = hashlib.sha256(src.read_bytes()
+                            + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    out = BUILD_DIR / f"{src.stem}-{digest}.so"
+    if out.exists():
+        return out
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_name(f"{out.stem}.{os.getpid()}.tmp.so")
+    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
+    res = subprocess.run(cmd, capture_output=True, text=True)
+    BUILD_LOGS[source] = res.stdout + res.stderr
+    if res.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {src} (exit {res.returncode}):\n"
+                           f"{res.stdout}{res.stderr}")
+    os.replace(tmp, out)
+    return out
+
+
+def build_all() -> Dict[str, Path]:
+    """Compile every source at once, one ``nvcc`` per source in parallel."""
+    with ThreadPoolExecutor(max_workers=len(SOURCES)) as ex:
+        futures = {s: ex.submit(build, s) for s in SOURCES}
+        return {s: f.result() for s, f in futures.items()}
+
+
+def library(source: str = "paged_attention.cu") -> ctypes.CDLL:
+    with _lock:
+        lib = _libs.get(source)
+        if lib is None:
+            lib = ctypes.CDLL(str(build(source)))
+            for name, args in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = args
+                fn.restype = _RESTYPES.get(name, ctypes.c_int)
+            _libs[source] = lib
+    return lib
+
+
+def check_launch(name: str, err: int) -> None:
+    """Raise on a non-zero ``cudaGetLastError()`` code from a C entry."""
+    if err != 0:
+        raise RuntimeError(f"CUDA kernel {name} failed to launch: "
+                           f"cudaError {err}")
+
+
+def dtype_code(t: torch.Tensor) -> int:
+    if t.dtype == torch.float32:
+        return 0
+    if t.dtype == torch.bfloat16:
+        return 1
+    raise TypeError(f"paged attention kernels take float32 or bfloat16 "
+                    f"tensors, got {t.dtype}")
+
+
+def check_smem(rows: int, ps: int, hd: int, kernel: str) -> None:
+    """The port's own shape limits (the TPU's (8, 128) tiling does not carry
+    over): head_dim <= 256 and the block's fp32 tiles within shared memory."""
+    if hd > MAX_HEAD_DIM:
+        raise ValueError(f"{kernel}: head_dim {hd} > {MAX_HEAD_DIM}")
+    need = library().paged_attention_smem_bytes(rows, ps, hd)
+    if need > MAX_SMEM_BYTES:
+        raise ValueError(f"{kernel}: {rows} query rows x page_size {ps} x "
+                         f"head_dim {hd} need {need} B of shared memory per "
+                         f"block, over the card's {MAX_SMEM_BYTES} B")
+
+
+def check_inputs(q, k_pages, v_pages, block_tables, lengths,
+                 kernel: str) -> None:
+    """Device, dtype, shape and contiguity checks shared by the paged
+    kernels' wrappers (the plain versions take the same inputs)."""
+    dev = q.device
+    for name, t in (("k_pages", k_pages), ("v_pages", v_pages),
+                    ("block_tables", block_tables), ("lengths", lengths)):
+        if t.device != dev:
+            raise ValueError(f"{kernel}: {name} on {t.device}, q on {dev}")
+    if k_pages.shape != v_pages.shape or k_pages.ndim != 4:
+        raise ValueError(f"{kernel}: k/v pools must share one (N, ps, Hkv, "
+                         f"hd) shape, got {tuple(k_pages.shape)} and "
+                         f"{tuple(v_pages.shape)}")
+    if not (q.dtype == k_pages.dtype == v_pages.dtype):
+        raise TypeError(f"{kernel}: q/k/v dtypes differ ({q.dtype}, "
+                        f"{k_pages.dtype}, {v_pages.dtype})")
+    if not (k_pages.is_contiguous() and v_pages.is_contiguous()):
+        raise ValueError(f"{kernel}: page pools must be contiguous")
+    for name, t in (("block_tables", block_tables), ("lengths", lengths)):
+        if t.dtype not in (torch.int32, torch.int64):
+            raise TypeError(f"{kernel}: {name} must be integer, got {t.dtype}")
+
+
+def stream_of(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream

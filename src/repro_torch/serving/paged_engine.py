@@ -1,0 +1,420 @@
+"""Paged continuous-batching engine: chunked prefill interleaved with decode
+(port of the base loop of ``repro/serving/paged_engine.py``).
+
+KV memory is a shared page pool (serving/kvcache.py).  Each ``step()``:
+
+  * admits waiting requests into free slots;
+  * runs this step's token-budget slice of prefill grants, one batch-1
+    forward call per grant, padded up to a bucket length
+    (``core/chunking.grant_buckets``) with the pad tail masked out of
+    attention and routed to the scratch page.  A fresh grant attends only
+    its own tokens (the dense intra path); a resumed grant reads its
+    page-resident prefix in place through the paged flash-prefill kernel.
+    Inside each call the ISO chunk order of ``core/iso.run_layer`` applies;
+  * runs ONE batched K=1 decode step over all slots whose prompt is
+    resident, reading the pools in place through the paged flash-decode
+    kernel, split into S spans by ``_kv_splits``, and scattering the new
+    token's KV into its page in place.
+
+When the pool runs dry a victim is evicted (recompute preemption: its pages
+are freed and prompt + generated re-enter the waiting queue).  Settings
+outside the port's slice raise ``NotImplementedError`` naming their ROADMAP
+item rather than doing something else.
+"""
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.config import Config, ServingConfig
+from repro_torch.core.chunking import grant_buckets
+from repro_torch.core.overlap import AxisCtx
+from repro_torch.device import resolve_device, synchronize
+from repro_torch.layers import embeddings as emb_lib
+from repro_torch.models import api
+from repro_torch.models.decoder import check_supported
+from repro_torch.serving.kvcache import OutOfPages, pages_for, \
+    token_page_coords
+from repro_torch.serving.kvstate import KVPool
+from repro_torch.serving.requests import Request, RequestState
+from repro_torch.serving.sampler import sample
+from repro_torch.serving.scheduler import TokenBudgetScheduler, plan_chunks
+
+# the reference engine's metric keys for the phases the port runs
+METRIC_KEYS = (
+    "prefill_s", "decode_s", "prefill_dispatch_s", "decode_dispatch_s",
+    "prefill_tokens", "decode_tokens", "completed", "decode_calls",
+    "prefill_calls", "steps", "preemptions", "ttft_sum", "ttft_n",
+    "peak_used_pages", "prefill_pad_tokens", "prefill_samples",
+    "prefill_grants", "resumed_grants")
+
+
+def _check_slice(sv: ServingConfig, mesh) -> None:
+    """Raise for every setting the port's slice does not run."""
+    todo = []
+    if mesh is not None:
+        todo.append("mesh (tensor-parallel serving): ROADMAP queue A item 7")
+    if sv.decode_schedule not in ("auto", "sequential"):
+        todo.append(f"decode_schedule={sv.decode_schedule!r}: ROADMAP queue "
+                    f"A item 7")
+    if sv.prefix_sharing:
+        todo.append("prefix_sharing=True (pass prefix_sharing=False): "
+                    "ROADMAP queue A item 8")
+    if sv.prefill_batching:
+        todo.append("prefill_batching=True (pass prefill_batching=False): "
+                    "ROADMAP queue A item 8")
+    if sv.spec_k:
+        todo.append("spec_k>0 (speculative decoding): ROADMAP queue A item 8")
+    if sv.cost_table or sv.cost_model is not None:
+        todo.append("cost_table/cost_model: ROADMAP queue A item 9")
+    if sv.disagg:
+        todo.append("disagg (disaggregated serving): ROADMAP queue A item 9")
+    if todo:
+        raise NotImplementedError("not in the port's slice yet: "
+                                  + "; ".join(todo))
+
+
+class PagedEngine:
+    def __init__(self, config: Config, params, *,
+                 serving: ServingConfig = None, mesh=None, device=None):
+        self.device = resolve_device(device)
+        sv = serving or config.serving
+        _check_slice(sv, mesh)
+        check_supported(config.model)
+        table = params["embed"]["table"]
+        if table.device.type != self.device.type:
+            raise ValueError(f"params live on {table.device}, the engine on "
+                             f"{self.device}; make them with "
+                             f"api.init_params(..., device=...)")
+        self.config = config
+        self.cfg = config.model
+        self.params = params
+        self.sv = sv
+        self.ps = sv.page_size
+        self.max_batch = sv.max_batch
+        self.max_len = sv.max_len
+        self.max_blocks = -(-sv.max_len // sv.page_size)
+        num_pages = sv.num_pages or sv.max_batch * self.max_blocks
+        self.tp = 1
+        self._ctx = AxisCtx()
+        self.pool = KVPool.create(self.cfg, num_pages, self.ps, tp=self.tp,
+                                  dtype=table.dtype, device=self.device)
+        self.alloc = self.pool.alloc
+        self.kv = self.pool.kv
+        self._buckets = grant_buckets(sv.max_len, sv.min_grant_bucket,
+                                      sv.grant_buckets) \
+            if sv.grant_bucketing else None
+        self.scheduler = TokenBudgetScheduler(
+            policy=sv.scheduler_policy,
+            prefill_token_budget=sv.prefill_token_budget,
+            grant_buckets=self._buckets)
+        self.slots: List[Optional[RequestState]] = [None] * sv.max_batch
+        self.lengths = np.zeros(sv.max_batch, np.int64)   # tokens resident
+        self.last_tokens = np.zeros(sv.max_batch, np.int64)
+        self._by_rid: Dict[int, RequestState] = {}        # waiting + running
+        self._finished: List[RequestState] = []
+        self.metrics: Dict[str, float] = dict.fromkeys(METRIC_KEYS, 0)
+
+    # ------------------------------------------------------------------
+    # request lifecycle
+    # ------------------------------------------------------------------
+    def add_request(self, req: Request) -> int:
+        if req.frames is not None or req.patches is not None:
+            raise NotImplementedError("audio/vision requests: ROADMAP queue "
+                                      "A item 10")
+        eff = len(req.prompt)
+        if eff + req.sampling.max_new_tokens > self.max_len:
+            raise ValueError(f"request {req.rid}: {eff} prompt + "
+                             f"{req.sampling.max_new_tokens} new tokens exceeds "
+                             f"max_len={self.max_len}")
+        need = pages_for(eff + req.sampling.max_new_tokens, self.ps)
+        if need > self.alloc.num_pages:
+            raise ValueError(f"request {req.rid}: needs {need} pages even with "
+                             f"every other request evicted; pool has "
+                             f"{self.alloc.num_pages} (raise "
+                             f"ServingConfig.num_pages)")
+        st = RequestState(request=req, slot=-1, t_submit=time.perf_counter())
+        st.prompt_len = eff
+        st.chunk_plan = plan_chunks(eff, self.config.iso, self.cfg)
+        self._by_rid[req.rid] = st
+        self.scheduler.add(req.rid, priority=req.priority)
+        return req.rid
+
+    def _admit(self) -> None:
+        free = [i for i, s in enumerate(self.slots) if s is None]
+        while free and self.scheduler.waiting:
+            rid = self.scheduler.pop_waiting()
+            st = self._by_rid[rid]
+            st.slot = free.pop(0)
+            st.prefilled = 0
+            self.slots[st.slot] = st
+            self.lengths[st.slot] = 0
+
+    def _preempt_one(self, protect: List[int]) -> bool:
+        """Evict one running request (recompute mode).  False if none left."""
+        running = [s.request.rid for s in self.slots if s is not None]
+        victim = self.scheduler.pick_victim(running, protect=protect)
+        if victim is None:
+            return False
+        st = self._by_rid[victim]
+        self.alloc.free(victim)
+        self.slots[st.slot] = None
+        self.lengths[st.slot] = 0
+        self.last_tokens[st.slot] = 0
+        st.slot = -1
+        # recompute mode: everything generated so far becomes prompt; the
+        # re-prefill's last-position logits yield the next token exactly where
+        # decode left off
+        st.prefilled = 0
+        st.chunk_plan = plan_chunks(st.prompt_len + len(st.generated),
+                                    self.config.iso, self.cfg)
+        self.scheduler.requeue_front(victim)
+        self.metrics["preemptions"] += 1
+        return True
+
+    def _ensure_pages(self, rid: int, n_tokens: int) -> bool:
+        """Grow rid's block table to n_tokens capacity, evicting if needed."""
+        while True:
+            try:
+                self.alloc.ensure(rid, n_tokens)
+                return True
+            except OutOfPages:
+                if not self._preempt_one(protect=[rid]):
+                    return False
+
+    def _resident_tokens(self, st: RequestState) -> np.ndarray:
+        """Token ids the request's re-prefill covers (recompute mode folds
+        generated tokens in)."""
+        toks = np.asarray(st.request.prompt, np.int32)
+        if st.generated:
+            toks = np.concatenate([toks, np.asarray(st.generated, np.int32)])
+        return toks
+
+    def _paged_prefix(self):
+        """Per-position prefill caches exposing the page pools in place."""
+        prefix, kv_i = [], 0
+        for i in range(len(self.cfg.block_pattern)):
+            c = {}
+            if i in self.kv.kv_positions:
+                c = {"k_pages": self.kv.k[kv_i], "v_pages": self.kv.v[kv_i]}
+                kv_i += 1
+            prefix.append(c)
+        return tuple(prefix)
+
+    def _kv_splits(self, K: int = 1) -> int:
+        """Split count S of this decode step's page walk.
+
+        ``decode_kv_splits`` 0 = auto: split by ``decode_split_factor`` only
+        when the deepest resident request spans at least
+        ``decode_split_min_pages`` pages; 1 = sequential; >1 forced.
+        Clamped to the block-table width.  (The reference's cost-model
+        choice is not ported.)"""
+        sv = self.sv
+        s = sv.decode_kv_splits
+        if s == 0:
+            deepest = pages_for(int(self.lengths.max()) + K, self.ps)
+            s = sv.decode_split_factor \
+                if deepest >= sv.decode_split_min_pages else 1
+        return max(1, min(int(s), self.max_blocks))
+
+    # ------------------------------------------------------------------
+    # step phases
+    # ------------------------------------------------------------------
+    def _run_grant(self, st: RequestState, start: int, n_tokens: int,
+                   padded: int, last: bool) -> Optional[int]:
+        """Execute one prefill grant; returns the sampled token if ``last``.
+        ``padded`` (>= n_tokens) is the forward-call length; the pad tail is
+        token 0, masked out of attention and scattered to the scratch page."""
+        dev = self.device
+        rid = st.request.rid
+        buf = np.zeros(padded, np.int32)
+        buf[:n_tokens] = self._resident_tokens(st)[start:start + n_tokens]
+        tokens = torch.from_numpy(buf[None]).to(dev)
+        bt_row = torch.from_numpy(
+            self.alloc.block_table(rid, self.max_blocks)[None]).to(dev)
+        resumed = start > 0
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            out = api.prefill(
+                self.params, self.cfg, self._ctx, self.config.iso,
+                {"tokens": tokens}, logits_mode="none",
+                prefix_caches=self._paged_prefix() if resumed else None,
+                pos_offset=start,
+                block_tables=bt_row if resumed else None,
+                prefix_lens=torch.tensor([start], dtype=torch.int32,
+                                         device=dev) if resumed else None,
+                valid_len=n_tokens, return_extras=True)
+            # logits of the last REAL token (the pad tail carries garbage)
+            h_last = out["hidden"][:, n_tokens - 1:n_tokens]
+            logits_last = emb_lib.lm_head_local(self.params["embed"],
+                                                h_last)[:, 0]
+            T = padded
+            scratch = self.kv.scratch_page
+            positions = start + torch.arange(T, device=dev)
+            page, off = token_page_coords(positions, bt_row[0], self.ps,
+                                          scratch)
+            # pad-tail tokens must not scatter KV into live pages
+            page = torch.where(torch.arange(T, device=dev) < n_tokens, page,
+                               torch.full_like(page, scratch))
+            # in-place scatter into every period's pool (the reference
+            # rebuilds the pools with .at[].set)
+            for kv_i, i in enumerate(self.kv.kv_positions):
+                ex = out["extras"][i]                 # (P, 1, T, Hkv, hd)
+                k_pool, v_pool = self.kv.k[kv_i], self.kv.v[kv_i]
+                k_pool[:, page, off] = ex["kv_k"][:, 0].to(k_pool.dtype)
+                v_pool[:, page, off] = ex["kv_v"][:, 0].to(v_pool.dtype)
+        self.metrics["prefill_dispatch_s"] += time.perf_counter() - t0
+        synchronize(dev)
+        dur = time.perf_counter() - t0
+        self.metrics["prefill_s"] += dur
+        self.metrics["prefill_tokens"] += n_tokens
+        self.metrics["prefill_pad_tokens"] += padded - n_tokens
+        self.metrics["prefill_calls"] += 1
+        logits_row = logits_last[0].float().cpu().numpy() if last else None
+        return self._commit_grant_row(st, start, n_tokens, logits_row, last)
+
+    def _commit_grant_row(self, st: RequestState, start: int, n_tokens: int,
+                          logits_row, last: bool) -> Optional[int]:
+        """Post-forward bookkeeping for one grant: commit tokens, advance
+        prefill progress and, for a prompt-finishing grant, sample the first
+        token and stamp TTFT."""
+        req = st.request
+        slot = st.slot
+        self.alloc.commit(req.rid, n_tokens)
+        st.prefilled = start + n_tokens
+        self.lengths[slot] = st.prefilled
+        self.metrics["prefill_grants"] += 1
+        if start > 0:
+            self.metrics["resumed_grants"] += 1
+        if not last:
+            return None
+        tok = sample(logits_row[:self.cfg.vocab_size], req.sampling,
+                     step=len(st.generated))
+        self.metrics["prefill_samples"] += 1
+        if st.t_first < 0:
+            st.t_first = time.perf_counter()
+            self.metrics["ttft_sum"] += st.t_first - st.t_submit
+            self.metrics["ttft_n"] += 1
+        st.generated.append(tok)
+        self.last_tokens[slot] = tok
+        st.finish_check()
+        return tok
+
+    def _finish(self, st: RequestState) -> None:
+        self.metrics["completed"] += 1
+        self.alloc.free(st.request.rid)
+        self.scheduler.forget(st.request.rid)
+        self._finished.append(st)
+        self._by_rid.pop(st.request.rid, None)
+        self.slots[st.slot] = None
+        self.lengths[st.slot] = 0
+        self.last_tokens[st.slot] = 0
+        st.slot = -1
+
+    def _prefill_phase(self, events: List[Tuple[int, int]]) -> None:
+        # prefill target = sum(chunk_plan): the prompt at admission, or
+        # prompt+generated after a recompute preemption
+        pending = [(s.request.rid, s.prefilled, s.chunk_plan)
+                   for s in self.slots
+                   if s is not None and s.prefilled < sum(s.chunk_plan)]
+        for g in self.scheduler.grant_prefill(pending):
+            st = self._by_rid.get(g.rid)
+            if st is None or st.slot < 0:
+                continue                      # preempted by an earlier grant
+            end = g.start + g.n_tokens
+            if not self._ensure_pages(g.rid, end):
+                raise RuntimeError(
+                    f"page pool too small for request {g.rid}'s prefill "
+                    f"chunk even after evicting; increase "
+                    f"ServingConfig.num_pages")
+            tok = self._run_grant(st, g.start, g.n_tokens,
+                                  g.padded or g.n_tokens, g.last)
+            if tok is not None:
+                events.append((st.request.rid, tok))
+                if st.done:
+                    self._finish(st)
+
+    def _decode_phase(self, events: List[Tuple[int, int]]) -> None:
+        active = [s for s in self.slots
+                  if s is not None and not s.done and s.generated
+                  and s.prefilled >= sum(s.chunk_plan)]
+        if not active:
+            return
+        # grow every decoder's capacity by one token (may evict; an evicted
+        # request drops out of `active` by its slot)
+        for st in active:
+            if st.slot < 0:
+                continue
+            if not self._ensure_pages(st.request.rid,
+                                      int(self.lengths[st.slot]) + 1):
+                raise RuntimeError("page pool too small for a decode step; "
+                                   "increase ServingConfig.num_pages")
+        active = [s for s in active if s.slot >= 0]
+        if not active:
+            return
+        dev = self.device
+        B = self.max_batch
+        mask = np.zeros(B, bool)
+        for st in active:
+            mask[st.slot] = True
+        bt = np.stack([self.alloc.block_table(s.request.rid, self.max_blocks)
+                       if s is not None and mask[i] else
+                       np.full(self.max_blocks, -1, np.int32)
+                       for i, s in enumerate(self.slots)])
+        toks = self.last_tokens.astype(np.int32)[:, None]
+        S = self._kv_splits(1)
+        caches = self._paged_prefix()
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            logits, _ = api.decode_step(
+                self.params, self.cfg, self._ctx,
+                torch.from_numpy(toks).to(dev), caches,
+                torch.from_numpy(self.lengths.astype(np.int32)).to(dev),
+                block_tables=torch.from_numpy(bt).to(dev),
+                decode_mask=torch.from_numpy(mask).to(dev), kv_splits=S,
+                schedule="sequential")
+        self.metrics["decode_dispatch_s"] += time.perf_counter() - t0
+        synchronize(dev)
+        dur = time.perf_counter() - t0
+        logits = logits.float().cpu().numpy()
+        self.metrics["decode_s"] += dur
+        self.metrics["decode_calls"] += 1
+
+        for st in active:
+            i = st.slot
+            tok = sample(logits[i, 0][:self.cfg.vocab_size],
+                         st.request.sampling, len(st.generated))
+            self.alloc.commit(st.request.rid, 1)
+            self.metrics["decode_tokens"] += 1
+            st.generated.append(tok)
+            events.append((st.request.rid, tok))
+            self.lengths[i] += 1
+            self.last_tokens[i] = tok
+            st.finish_check()
+            if st.done:
+                self._finish(st)
+
+    # ------------------------------------------------------------------
+    def step(self) -> List[Tuple[int, int]]:
+        """One engine iteration: admission -> budgeted prefill grants ->
+        batched decode.  Returns (rid, token) events."""
+        events: List[Tuple[int, int]] = []
+        self.metrics["steps"] += 1
+        self._admit()
+        self._prefill_phase(events)
+        self._decode_phase(events)
+        self.metrics["peak_used_pages"] = max(self.metrics["peak_used_pages"],
+                                              self.alloc.used_pages)
+        return events
+
+    def run_until_complete(self, max_steps: int = 10_000
+                           ) -> Dict[int, List[int]]:
+        for _ in range(max_steps):
+            self.step()
+            if not self.scheduler.waiting and \
+                    all(s is None for s in self.slots):
+                break
+        return {st.request.rid: st.generated for st in self._finished}
