@@ -6,25 +6,50 @@
 Phases, each fatal on failure:
 
   1. build     compile the port's CUDA kernels from ``src/repro_torch/kernels/
-               csrc`` with nvcc; print the build time, the compiler's
-               register/shared-memory report and the card's name and power
-               limit.
+               csrc`` with nvcc, one process per source, all at once; print
+               the build time, the compiler's register/shared-memory report
+               and the card's name and power limit.
   2. kernels   hold each kernel against its plain PyTorch version on the
-               card, at the serving path's shapes (Hq 32, Hkv 8, hd 128,
-               ps 16, lengths 1..2048 across page boundaries, S in {1, 4},
-               window 0 and > 0, fresh rows beside resumed rows) and at the
-               CPU tests' shapes (hd 16, ps 8), fp32 and bf16 pools; check
-               the dead-page skip is bit-identical; time each kernel.
-  3. serve     the main path: ``PagedEngine`` serving qwen3-8b at full width
+               card: the paged attention kernels at the serving path's
+               shapes (hd 128, ps 16, Hq/Hkv 32/8 at tp=1 and one rank's
+               16/4 at tp=2, lengths 1..2048 across page boundaries, S in
+               {1, 4}, window 0 and > 0, 512- and 256-query chunks with
+               fresh rows beside resumed rows) and at the CPU tests' shapes
+               (hd 16, ps 8), fp32 and bf16, dead-page skip bit-identical;
+               the int8 quantize kernel over bf16/fp32 rows of width
+               64..4096 (the 16-byte and the scalar path, an all-zero row,
+               .5 ties), q and scales EQUAL to the plain version.
+  3. serve     the tp=1 path: ``PagedEngine`` serving qwen3-8b at full width
                and depth in bf16 (random weights from a seed) on 6 greedy
                requests of 300-2000 prompt tokens; the launch counters of
-               all three kernels must be > 0, logits finite, every request
-               complete and every page free at the end.
+               the three attention kernels must be > 0, logits finite, every
+               request complete and every page free at the end.
   4. parity    a tiny fp32 model served on ``cuda`` and on ``cpu`` from the
                same weights must give equal greedy tokens (mixed traffic,
                forced 4-way split-KV decode, forced preemption).
+  5. tp        this slice's path, tensor parallelism at tp=2, run as two
+               rank processes sharing the one card over gloo (NCCL refuses
+               two ranks on one device; gloo moves every collective through
+               host memory, so the run proves the sharded model, the local
+               head counts, the int8 reduce and the ISO issue order on CUDA
+               tensors, and measures no overlap).  qwen3-8b at full width
+               and depth, bf16, each rank holding half the weights, serves
+               3 greedy requests of 300-1200 prompt tokens (a resumed grant,
+               split-KV decode) under the default batch-split schedule and
+               the sequential one, each again with ``quantized_comm``, whose
+               runs must launch the int8 kernel; the host time spent inside
+               the reduces is recorded, and one reduce is timed alone in the
+               sequential and the batch-split issue order; then a tiny fp32
+               model at tp=2 must give the tokens of tp=1 on the card under
+               all three decode schedules.
+  6. time      each kernel and its plain version at the main path's shapes
+               (the int8 kernel at both its decode and its prefill shapes).
 
-It imports nothing of JAX or of the JAX package.  The last line is
+Each launch count in the kernel line is read from the run of the path that
+launches it, with the counts set to 0 just before: the attention kernels
+from phase 3, the int8 kernel from rank 0 of phase 5's quantized
+batch-split run.  It
+imports nothing of JAX or of the JAX package.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and
 power limit from nvidia-smi, and before that a JSON line with each kernel's
 launches, error, times and bound.
@@ -56,7 +81,14 @@ SOURCES = {
                       "src/repro/kernels/flash_decode.py:154"),
     "paged_prefill": ("src/repro_torch/kernels/csrc/paged_attention.cu",
                       "src/repro/kernels/flash_prefill_paged.py:73"),
+    "quantize_int8": ("src/repro_torch/kernels/csrc/int8_quant.cu",
+                      "src/repro/kernels/int8_quant.py:18"),
 }
+# operations per element of the int8 quantize: |x|, max, x / s, rint, clamp
+QUANT_OPS_PER_ELEMENT = 6
+
+
+ATTENTION_KERNELS = ("paged_decode", "decode_reduce", "paged_prefill")
 
 
 def log(msg: str) -> None:
@@ -226,19 +258,24 @@ def check_kernels(report):
     main_lengths = [1, 15, 16, 17, 255, 256, 257, 1000, 2047, 2048]
     n = 0
     for dtype_name in ("bfloat16", "float32"):
-        for S in (1, 4):
-            for window in (0, 100):
-                decode_case(main_lengths, 16, 32, 8, 128, 1, S, window,
-                            dtype_name)
-                n += 1
+        # (Hq, Hkv): qwen3-8b at tp=1, and one rank's heads at tp=2
+        for hq, hkv in ((32, 8), (16, 4)):
+            for S in (1, 4):
+                for window in (0, 100):
+                    decode_case(main_lengths, 16, hq, hkv, 128, 1, S, window,
+                                dtype_name)
+                    n += 1
         for K, S, window in ((1, 1, 0), (2, 4, 12), (4, 2, 0)):
             decode_case([1, 7, 8, 9, 22, 37, 0], 8, 4, 2, 16, K, S, window,
                         dtype_name)
             n += 1
         for window in (0, 100):
-            prefill_case([0, 700, 2000], [0, 0, 256], 512, 16, 32, 8, 128,
-                         window, dtype_name)
-            n += 1
+            # a 512-token grant at tp=1; one rank's 256-token ISO chunk
+            # of a grant at tp=2
+            for Sq, hq, hkv in ((512, 32, 8), (256, 16, 4)):
+                prefill_case([0, 700, 2000], [0, 0, 256], Sq, 16, hq, hkv,
+                             128, window, dtype_name)
+                n += 1
         for window in (0, 5):
             prefill_case([0, 11, 24, 15], [0, 3, 0, 5], 10, 8, 4, 2, 16,
                          window, dtype_name)
@@ -246,14 +283,55 @@ def check_kernels(report):
     torch.cuda.synchronize()
     log(f"[kernels] {n} cases within tolerance {TOL}; dead-page skip "
         f"bit-identical; max abs err {errs}")
+    errs["quantize_int8"] = check_quantize(gen)
     report["errs"] = errs
+
+
+def check_quantize(gen) -> float:
+    """The int8 kernel against its plain version: q and scale must be equal
+    (``torch.equal``), so the max abs error reported is 0."""
+    import torch
+    from repro_torch.kernels import int8_quant as q8
+    n = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        for d in (64, 96, 100, 256, 1024, 2048, 2056, 4096):
+            for rows in (1, 37):
+                x = (torch.randn((rows, d), generator=gen, device="cuda")
+                     * 5).to(dtype)
+                x[0] = 0                                 # floor scale
+                # an element offset: no 16-byte loads, the scalar path
+                shifted = torch.cat([x.reshape(-1), x.reshape(-1)[:1]])[1:]
+                for xx in (x, shifted.view(rows, d)):
+                    got = q8.quantize_int8(xx)
+                    want = q8.quantize_int8_plain(xx)
+                    for g, w in zip(got, want):
+                        if not torch.equal(g, w):
+                            raise AssertionError(
+                                f"quantize_int8 {dtype} rows={rows} d={d}: "
+                                f"kernel differs from the plain version")
+                    n += 1
+    ties = torch.zeros((3, 8), device="cuda")
+    ties[0] = torch.tensor([127, 2.5, 3.5, -0.5, -1.5, 0.5, -126.5, 126.5])
+    for dtype in (torch.bfloat16, torch.float32):
+        q, s = q8.quantize_int8(ties.to(dtype))
+        qp, sp = q8.quantize_int8_plain(ties.to(dtype))
+        if not (torch.equal(q, qp) and torch.equal(s, sp)) or \
+                q[0].tolist() != [127, 2, 4, 0, -2, 0, -126, 126]:
+            raise AssertionError(f"quantize_int8 ties: {q[0].tolist()}")
+        n += 1
+    torch.cuda.synchronize()
+    log(f"[kernels] quantize_int8: {n} cases bit-equal to the plain version "
+        f"(bf16/fp32, d 64..4096, vector and scalar paths, zero row, .5 "
+        f"ties round half to even)")
+    return 0.0
 
 
 def time_kernels(report):
     """Time each kernel and its plain version at the serving path's shapes:
     decode B=4 rows of 700/1200/1700/2030 resident tokens (MB=128) with
     S=4 spans, as the engine splits walks past 16 pages; the reduce of those
-    spans; a 512-token resumed chunk over a 1024-token prefix."""
+    spans; a 512-token resumed chunk over a 1024-token prefix; the int8
+    quantize at the tp=2 decode and prefill reduce shapes."""
     import torch
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import flash_prefill_paged as fp
@@ -293,7 +371,39 @@ def time_kernels(report):
                  + 2 * prefix * hkv * hd * 2 + hq * Sq * (hd + 2) * 4)
     pre_ops = 4 * Sq * prefix * hq * hd
 
+    # the int8 reduces of qwen3-8b at tp=2 (d = 4096 in 2 shards of 2048):
+    # a decode half of 2 requests, (2, 1, 4096) bf16 -> (4, 2048) rows,
+    # and its fp32 re-quantize, (2, 2048); a 256-token ISO chunk,
+    # (1, 256, 4096) -> (512, 2048) bf16, and its (256, 2048) re-quantize
+    from repro_torch.kernels import int8_quant as q8
+    xq = {"decode": torch.randn((4, 2048), generator=gen,
+                                device="cuda").to(dt),
+          "decode_requant": torch.randn((2, 2048), generator=gen,
+                                        device="cuda"),
+          "prefill": torch.randn((512, 2048), generator=gen,
+                                 device="cuda").to(dt),
+          "prefill_requant": torch.randn((256, 2048), generator=gen,
+                                         device="cuda")}
+
+    def q_bytes(x):
+        return x.numel() * x.element_size() + x.numel() + x.shape[0] * 4
+
+    def q_case(key, what):
+        x = xq[key]
+        return (lambda: q8.quantize_int8(x), lambda: q8.quantize_int8_plain(x),
+                q_bytes(x), QUANT_OPS_PER_ELEMENT * x.numel(), "float32",
+                f"rows={x.shape[0]} d={x.shape[1]} "
+                f"{str(x.dtype).replace('torch.', '')} ({what})")
+
     cases = {
+        # the decode shape, which most launches take, is the kernel line's
+        "quantize_int8": q_case("decode", "tp=2 decode half of 2 requests"),
+        "quantize_int8/decode_requant": q_case(
+            "decode_requant", "its re-quantize of the reduced slice"),
+        "quantize_int8/prefill": q_case(
+            "prefill", "tp=2 256-token ISO chunk of a prefill grant"),
+        "quantize_int8/prefill_requant": q_case(
+            "prefill_requant", "its re-quantize of the reduced slice"),
         "paged_decode": (dec, dec_plain, dec_bytes, dec_ops, "bfloat16",
                          f"B={B} L={lengths} Hq={hq} Hkv={hkv} hd={hd} "
                          f"ps={ps} MB=128 S={S} bf16"),
@@ -315,12 +425,15 @@ def time_kernels(report):
                             bound_by="bytes" if t_bytes >= t_ops
                             else "operations", shape=shape,
                             bytes=nbytes, ops=ops, eager_ms=eager_ms)
+        why = ("no single PyTorch call computes per-row abs-max int8 with "
+               "its scale" if name.startswith("quantize") else
+               "no single PyTorch call computes paged attention over block "
+               "tables")
         log(f"[time] {name}: {ms:.4f} ms on the device, {eager_ms:.4f} ms "
             f"per eager call with the wrapper's host work (plain "
             f"{plain_ms:.4f} ms, bound "
             f"{max(t_bytes, t_ops):.5f} ms by {timing[name]['bound_by']}, "
-            f"library_ms none: no single PyTorch call computes paged "
-            f"attention over block tables) at {shape}")
+            f"library_ms none: {why}) at {shape}")
     report["timing"] = timing
 
 
@@ -385,7 +498,8 @@ def serve_full(report, card: str):
         raise AssertionError(f"not every request completed: {m}")
     if eng.alloc.free_pages != eng.alloc.num_pages:
         raise AssertionError("pages leaked")
-    for name, n in launches.items():
+    for name in ATTENTION_KERNELS:
+        n = launches[name]
         if n <= 0:
             raise AssertionError(f"kernel {name} never launched on the main "
                                  f"path: {launches}")
@@ -474,6 +588,286 @@ def parity_tiny():
             f"(preemptions {outs['cuda'][1]})")
 
 
+# ---------------------------------------------------------------------------
+# phase 5: tensor parallelism at tp=2, two ranks on the one card over gloo
+# ---------------------------------------------------------------------------
+
+TP_NEW_TOKENS = 16
+PROFILE_NEW = 4          # new tokens of the profiled quantized run
+# (reduce, decode schedule) of each full-width run; "auto" is batch_split
+TP_BIG_VARIANTS = (("default", "auto"), ("default", "sequential"),
+                   ("quantized_comm", "auto"),
+                   ("quantized_comm", "sequential"))
+TP_LABEL = "gloo, one card: no overlap measured"
+
+
+COLLECTIVE_PATTERNS = ("sync", "pipelined", "sync+ops", "pipelined+ops")
+STAGE_OPS = 40           # small launches between two reduces of a decode step
+
+
+def collective_ms(group, shape, quantized: bool, pattern: str,
+                  n: int = 20) -> float:
+    """Host ms per bf16 all-reduce (int8 ``quantized_psum`` when
+    ``quantized``) of ``shape`` over the group, after a warm-up.  Patterns:
+    ``sync`` reduces one after another with ``psum_now``; ``pipelined``
+    issues them in the batch-split decode order, each started with
+    ``psum_start`` before the previous one is completed with ``psum_wait``,
+    so one is in flight while the other finishes; ``+ops`` enqueues
+    ``STAGE_OPS`` small elementwise launches after each issue, standing for
+    the dispatch of one half's stage between two reduces."""
+    import torch
+    from repro_torch.core.overlap import psum_now, psum_start, psum_wait
+    ctx = group.axis_ctx(quantized)
+    x = torch.ones(shape, dtype=torch.bfloat16, device=group.device)
+    y = torch.ones(shape, dtype=torch.bfloat16, device=group.device)
+
+    def ops():
+        if pattern.endswith("+ops"):
+            z = y
+            for _ in range(STAGE_OPS):
+                z = z * 0.5 + y
+
+    def run(k):
+        if pattern.startswith("sync"):
+            for _ in range(k):
+                psum_now(x.clone(), ctx)
+                ops()
+            return
+        pend = psum_start(x.clone(), ctx)
+        ops()
+        for _ in range(k - 1):
+            nxt = psum_start(x.clone(), ctx)
+            ops()
+            psum_wait(pend)
+            pend = nxt
+        psum_wait(pend)
+
+    run(3)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    run(n)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e3
+
+
+class PsumTimers:
+    """Host seconds spent inside ``psum_start`` and ``psum_wait`` (and so
+    ``psum_now``) while serving, split by phase: a partial whose sequence
+    dim is 1 is a decode reduce, any other a prefill one.  Wraps the names
+    that ``core/iso.py`` and ``core/overlap.py`` call; ``restore`` puts the
+    originals back."""
+
+    def __init__(self):
+        from repro_torch.core import iso, overlap
+        self.mods = (iso, overlap)
+        self.orig = {n: getattr(overlap, n) for n in ("psum_start",
+                                                      "psum_wait")}
+        self.acc = {}
+        for mod in self.mods:
+            for name, fn in self.orig.items():
+                setattr(mod, name, self._wrap(name, fn))
+
+    def _wrap(self, name, fn):
+        def timed(*args, **kw):
+            part = args[0].partial if name == "psum_wait" else args[0]
+            phase = "decode" if part.shape[-2] == 1 else "prefill"
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            key = f"{phase} {name}"
+            s, n = self.acc.get(key, (0.0, 0))
+            self.acc[key] = (s + time.perf_counter() - t0, n + 1)
+            return out
+        return timed
+
+    def restore(self):
+        for mod in self.mods:
+            for name, fn in self.orig.items():
+                setattr(mod, name, fn)
+
+
+def tp_rank(group, big, tiny):
+    """Body of each rank (module level: the spawned ranks import it):
+    time one reduce at the decode and prefill shapes in each pattern, serve
+    the full-width variants one at a time with the host time inside the
+    reduces recorded, freeing the weights after each, a short quantized
+    batch-split run under the host profiler, then the tiny ones.
+    ``big``/``tiny`` are ``serve_rank`` arguments after the group."""
+    import torch
+    from repro_torch.launch.serve import serve_rank
+    d = big[0].model.d_model
+    shapes = {"decode half (2, 1, d)": (2, 1, d),
+              "prefill chunk (1, 256, d)": (1, 256, d)}
+    out = {"collective_ms": {
+        f"{name} {'int8' if q else 'bf16'} {pattern}":
+            collective_ms(group, shape, q, pattern)
+        for name, shape in shapes.items() for q in (False, True)
+        for pattern in COLLECTIVE_PATTERNS}}
+    config, variants, npz, seed, dtype = big
+    out["big"] = []
+    timers = PsumTimers()
+    try:
+        for v in variants:
+            timers.acc = {}
+            res = serve_rank(group, config, [v], npz, seed, dtype)[0]
+            res["psum_host_s"] = timers.acc
+            out["big"].append(res)
+            torch.cuda.empty_cache()
+    finally:
+        timers.restore()
+    # the quantized batch-split run again, short, under the host profiler:
+    # which calls the host waits in
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        serve_rank(group, config, [dict(variants[2], max_new=PROFILE_NEW)],
+                   npz, seed, dtype)
+    out["profile"] = prof.key_averages().table(
+        sort_by="self_cpu_time_total", row_limit=12, max_name_column_width=48)
+    torch.cuda.empty_cache()
+    out["tiny"] = serve_rank(group, *tiny)
+    return out
+
+
+def tiny_config(tp: int):
+    from repro_torch.config import Config, ISOConfig, ModelConfig, \
+        ParallelConfig, ServingConfig
+    cfg = ModelConfig(name="t-dense", family="dense", num_layers=2,
+                      d_model=64, num_heads=4, num_kv_heads=2, d_ff=128,
+                      vocab_size=64, qk_norm=True)
+    return Config(model=cfg, parallel=ParallelConfig(data=1, model=tp),
+                  iso=ISOConfig(enabled=True, num_chunks=2,
+                                min_chunk_tokens=8, chunk_align=8),
+                  serving=ServingConfig(page_size=8, max_batch=2,
+                                        max_len=160, prefix_sharing=False,
+                                        prefill_batching=False))
+
+
+def serve_tp(report, card: str):
+    import numpy as np
+    import torch
+    from repro_torch.config import Config, ISOConfig, ParallelConfig, \
+        ServingConfig, get_model_config
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.launch.serve import serve_rank
+
+    cfg = get_model_config("qwen3-8b")           # full width and depth
+    rng = np.random.default_rng(1)
+    lengths = [int(n) for n in rng.integers(300, 1201, 3)]
+    lengths[0] = max(lengths[0], 900)            # at least one resumed grant
+    prompts = [rng.integers(2, cfg.vocab_size, n).astype(np.int32)
+               for n in lengths]
+    sv = ServingConfig(page_size=16, max_batch=4, max_len=2048,
+                       prefill_token_budget=512, prefix_sharing=False,
+                       prefill_batching=False)
+    big_cfg = Config(model=cfg, parallel=ParallelConfig(data=1, model=2),
+                     iso=ISOConfig(), serving=sv)
+    big = (big_cfg, [dict(prompts=prompts, max_new=TP_NEW_TOKENS,
+                          serving=dict(decode_schedule=sched),
+                          iso=dict(quantized_comm=label == "quantized_comm"))
+                     for label, sched in TP_BIG_VARIANTS],
+           None, 0, "bfloat16")
+    rng = np.random.default_rng(3)
+    tiny_prompts = [rng.integers(2, 64, n).astype(np.int32)
+                    for n in (70, 12, 33, 7)]
+    tiny_cases = {"mixed": dict(prefill_token_budget=16),
+                  "splits4": dict(prefill_token_budget=64,
+                                  decode_kv_splits=4)}
+    tiny_keys = [(c, sched) for c in tiny_cases
+                 for sched in ("sequential", "batch_split", "cross_block")]
+    tiny = (tiny_config(2),
+            [dict(prompts=tiny_prompts, max_new=5,
+                  serving=dict(tiny_cases[c], decode_schedule=sched))
+             for c, sched in tiny_keys], None, 0, "float32")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    want = {c: serve_rank(None, tiny_config(1),
+                          [dict(prompts=tiny_prompts, max_new=5,
+                                serving=tiny_cases[c])], None, 0, "float32",
+                          device="cuda")[0]["tokens"] for c in tiny_cases}
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    ranks = spawn(tp_rank, 2, args=(big, tiny), device="cuda:0",
+                  backend="gloo", timeout_s=900)
+    log(f"[tp] 2 ranks on cuda:0 over gloo, {time.perf_counter() - t0:.1f}s "
+        f"with start-up and weights")
+    coll = ranks[0]["collective_ms"]
+    log(f"[tp] one reduce, host ms per reduce ({TP_LABEL}; patterns: sync = "
+        f"one after another, pipelined = batch-split order with one in "
+        f"flight, +ops = {STAGE_OPS} small launches between reduces):")
+    for k, v in coll.items():
+        log(f"[tp]   {k}: {v:.3f}")
+    log(f"[tp]   [{card}]")
+
+    for i, (label, sched) in enumerate(TP_BIG_VARIANTS):
+        runs = [r["big"][i] for r in ranks]
+        run = runs[0]
+        m, launches = run["metrics"], run["launches"]
+        name = f"{label}/{run['decode_schedule']}"
+        if any(r["tokens"] != run["tokens"] for r in runs):
+            raise AssertionError(f"[tp] {name}: ranks emitted different "
+                                 f"tokens")
+        if len(run["tokens"]) != len(prompts) or \
+                any(len(t) != TP_NEW_TOKENS for t in run["tokens"]):
+            raise AssertionError(f"[tp] {name}: not every request "
+                                 f"completed: {m}")
+        want_sched = "batch_split" if sched == "auto" else sched
+        if run["decode_schedule"] != want_sched or \
+                run["schedule_steps"].get(want_sched, 0) <= 0:
+            raise AssertionError(f"[tp] {name}: {want_sched} decode did not "
+                                 f"run: {run['schedule_steps']}")
+        if m["resumed_grants"] <= 0:
+            raise AssertionError(f"[tp] {name}: no resumed grant ran")
+        for kname in ATTENTION_KERNELS:
+            if launches[kname] <= 0:
+                raise AssertionError(f"[tp] {name}: {kname} never launched: "
+                                     f"{launches}")
+        n_q = launches["quantize_int8"]
+        if (n_q > 0) != (label == "quantized_comm"):
+            raise AssertionError(f"[tp] {name}: quantize_int8 launched "
+                                 f"{n_q} times")
+        steps = m["decode_calls"]
+        step_ms = 1e3 * m["decode_s"] / steps
+        ph = run["psum_host_s"]
+        inside = {k: (1e3 * t / steps if k.startswith("decode")
+                      else 1e3 * t, n)
+                  for k, (t, n) in sorted(ph.items())}
+        log(f"[tp] qwen3-8b {cfg.num_layers}L tp=2 bf16 {name}: "
+            f"{len(prompts)} requests, prompts {lengths}, "
+            f"{TP_NEW_TOKENS} new tokens each, ranks agree, "
+            f"{run['rows_checked']} logits rows finite, schedule steps "
+            f"{run['schedule_steps']}, launches per rank {launches}")
+        log(f"[tp] {name} ({TP_LABEL}): prefill {m['prefill_tokens']} tok "
+            f"in {m['prefill_s']:.3f}s = "
+            f"{m['prefill_tokens'] / m['prefill_s']:.0f} tok/s "
+            f"({m['prefill_calls']} calls, {m['resumed_grants']} resumed); "
+            f"decode {step_ms:.2f} ms/step over {steps} steps; host "
+            f"dispatch share prefill "
+            f"{m['prefill_dispatch_s'] / m['prefill_s']:.3f}, decode "
+            f"{m['decode_dispatch_s'] / m['decode_s']:.3f} [{card}]")
+        log(f"[tp] {name} rank 0 host time inside the reduces (decode: ms "
+            f"per step; prefill: ms in all; calls in all): "
+            + ", ".join(f"{k} {v:.2f} ({n})" for k, (v, n) in inside.items()))
+        report.setdefault("tp", {})[name] = dict(
+            prefill_tok_s=m["prefill_tokens"] / m["prefill_s"],
+            decode_ms_step=step_ms, launches=launches,
+            schedule_steps=run["schedule_steps"], psum_host=inside)
+    log(f"[tp] rank 0 host profile of a quantized_comm/batch_split run "
+        f"({PROFILE_NEW} new tokens, {TP_LABEL}), by self CPU time:")
+    for line in ranks[0]["profile"].splitlines():
+        log("[tp]   " + line)
+    # the kernel line's count: the default quantized run (batch-split)
+    report["launches"]["quantize_int8"] = \
+        ranks[0]["big"][2]["launches"]["quantize_int8"]
+
+    for i, (case, sched) in enumerate(tiny_keys):
+        for r, rank in enumerate(ranks):
+            got = rank["tiny"][i]["tokens"]
+            if got != want[case]:
+                raise AssertionError(f"[tp] tiny {case}/{sched} rank {r}: "
+                                     f"tp=2 {got} != tp=1 {want[case]}")
+    log(f"[tp] tiny fp32 model: tp=2 on cuda:0 == tp=1 on the card, greedy "
+        f"tokens on every rank, cases {tiny_keys}")
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -495,6 +889,7 @@ def main() -> int:
     check_kernels(report)
     serve_full(report, card)
     parity_tiny()
+    serve_tp(report, card)
     time_kernels(report)
 
     kernels = []

@@ -6,34 +6,36 @@ order of the paper's Figure 1(d):
 
     unit order:  (s1,c0) (s1,c1) (s2,c0) (s2,c1) | next layer (s1,c0) ...
 
-At every unit the unit's partial is computed FIRST, then the previous unit's
-pending collective completes (``psum_wait``) and its residual is applied; the
+A unit's partial is handed to ``psum_start`` as soon as it exists; the NEXT
+unit's compute is enqueued, and only then does ``psum_wait`` complete the
+collective and apply its residual, so each all-reduce runs beside the other
+chunk's compute.  Eager PyTorch keeps the program order, so this issue
+order IS the schedule (the reference leaves the placement to XLA).  The
 pending collective crosses layer boundaries.  The KV prefix is threaded
-chunk to chunk within each layer.  At tp=1 the collectives are identities, so
-the schedule is numerically the plain stack.  ``lax.scan`` over periods
-becomes a Python loop; the decode driver updates the page pools in place.
+chunk to chunk within each layer.  At tp=1 the collectives are identities,
+so every schedule is numerically the plain stack.  ``lax.scan`` over periods
+becomes a Python loop; the decode drivers update the page pools in place.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, replace
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch.core.overlap import AxisCtx, psum_now, psum_start, psum_wait
+from repro_torch.core.overlap import AxisCtx, Pending, psum_now, psum_start, \
+    psum_wait
 from repro_torch.models.blocks import BLOCK_STAGES, StageCtx
+
+DECODE_SCHEDULES = ("sequential", "batch_split", "cross_block")
 
 
 @dataclass
 class PipeState:
     """Carry of the layer pipeline."""
     xs: Tuple[torch.Tensor, ...]           # per-chunk hidden states
-    pend_partial: Optional[torch.Tensor]   # unreduced partial of the last unit
+    pend: Optional[Pending]                # issued reduce of the last unit
     pend_base: Optional[torch.Tensor]      # its residual base
-
-
-def _kind_reduces_last(kind: str) -> bool:
-    return BLOCK_STAGES[kind][-1][1]
 
 
 def _period(tree, p: int):
@@ -49,33 +51,36 @@ def run_layer(p_layer, kind: str, state: PipeState, sctx: StageCtx,
     stages = BLOCK_STAGES[kind]
     n_chunks = len(state.xs)
     xs = list(state.xs)
-    pend_partial, pend_base = state.pend_partial, state.pend_base
+    pend, pend_base = state.pend, state.pend_base
     pend_chunk = n_chunks - 1                 # invariant at layer entry
     kv_chunks: List = [None] * n_chunks
     seq_state = None
 
-    for s_idx, (fn, reduces) in enumerate(stages):
+    for fn, reduces in stages:
         for c in range(n_chunks):
             # a unit whose own chunk still owes a residual resolves it first
             # (the serial schedule of Figure 1(a)); with >= 2 chunks the
             # interleave resolves (s-1, c) during unit (s-1, c+1) instead
-            if pend_partial is not None and pend_chunk == c:
-                reduced, _ = psum_wait(psum_start(pend_partial, ctx))
-                xs[pend_chunk] = pend_base + reduced
-                pend_partial = pend_base = None
+            if pend is not None and pend_chunk == c:
+                reduced, _ = psum_wait(pend)
+                xs[c] = pend_base + reduced
+                pend = pend_base = None
             out, seq_state_new, extras = fn(
                 p_layer, xs[c], starts[c], seq_state, sctx, layer_cache)
-            # resolve the pending collective, hidden behind this unit
-            if pend_partial is not None:
+            # issue this unit's reduce at once: the next unit's compute is
+            # its overlap window
+            started = psum_start(out, ctx) if reduces else None
+            # the pending collective ran beside this unit's compute
+            if pend is not None:
                 reduced, (out, seq_state_new) = psum_wait(
-                    psum_start(pend_partial, ctx), (out, seq_state_new))
+                    pend, (out, seq_state_new))
                 xs[pend_chunk] = pend_base + reduced
-                pend_partial = pend_base = None
+                pend = pend_base = None
             seq_state = seq_state_new
             if "kv" in extras:
                 kv_chunks[c] = extras["kv"]
             if reduces:
-                pend_partial, pend_base, pend_chunk = out, xs[c], c
+                pend, pend_base, pend_chunk = started, xs[c], c
             else:
                 xs[c] = xs[c] + out
         seq_state = None                      # stage boundary
@@ -84,26 +89,16 @@ def run_layer(p_layer, kind: str, state: PipeState, sctx: StageCtx,
     if kv_chunks[0] is not None:
         extras_out["kv_k"] = torch.cat([kv[0] for kv in kv_chunks], dim=1)
         extras_out["kv_v"] = torch.cat([kv[1] for kv in kv_chunks], dim=1)
-    return PipeState(tuple(xs), pend_partial, pend_base), extras_out
+    return PipeState(tuple(xs), pend, pend_base), extras_out
 
 
-def flush_pending(state: PipeState, ctx: AxisCtx) -> Tuple[torch.Tensor, ...]:
+def flush_pending(state: PipeState) -> Tuple[torch.Tensor, ...]:
     """Complete the trailing collective after the last layer."""
     xs = list(state.xs)
-    if state.pend_partial is not None:
-        reduced, _ = psum_wait(psum_start(state.pend_partial, ctx))
+    if state.pend is not None:
+        reduced, _ = psum_wait(state.pend)
         xs[-1] = state.pend_base + reduced
     return tuple(xs)
-
-
-def init_pipe_state(x_chunks: Sequence[torch.Tensor], pattern: Sequence[str]
-                    ) -> PipeState:
-    """Zero pending (exact no-op: x += psum(0)) when the pattern ends in a
-    reducing stage; None pending otherwise."""
-    if _kind_reduces_last(pattern[-1]):
-        z = torch.zeros_like(x_chunks[-1])
-        return PipeState(tuple(x_chunks), z, x_chunks[-1] * 0 + x_chunks[-1])
-    return PipeState(tuple(x_chunks), None, None)
 
 
 def run_stack_prefill(params_periods, pattern: Sequence[str], x_chunks,
@@ -116,9 +111,12 @@ def run_stack_prefill(params_periods, pattern: Sequence[str], x_chunks,
     leaves (the paged prefix: ``k_pages``/``v_pages`` (P, N+1, ps, Hkv, hd)).
     ``starts`` are call-relative chunk offsets; a row's absolute position is
     ``sctx.pos_offset + starts[c] + t``.  Returns (x_chunks_final, per
-    position extras with ``kv_k``/``kv_v`` stacked over periods)."""
+    position extras with ``kv_k``/``kv_v`` stacked over periods).
+
+    The reference starts from a zero pending reduce (``x += psum(0)``); the
+    port starts with none, which is the same numbers without a collective."""
     n_periods = len(params_periods[0])
-    state = init_pipe_state(x_chunks, pattern)
+    state = PipeState(tuple(x_chunks), None, None)
     per_pos: List[List[Dict]] = [[] for _ in pattern]
     for p in range(n_periods):
         for i, kind in enumerate(pattern):
@@ -133,7 +131,7 @@ def run_stack_prefill(params_periods, pattern: Sequence[str], x_chunks,
             e["kv_k"] = torch.stack([x["kv_k"] for x in exs])
             e["kv_v"] = torch.stack([x["kv_v"] for x in exs])
         extras.append(e)
-    return flush_pending(state, ctx), tuple(extras)
+    return flush_pending(state), tuple(extras)
 
 
 def _scatter_token_to_pages(cache, kv_new, lengths, block_tables,
@@ -166,20 +164,92 @@ def run_stack_decode(params_periods, pattern: Sequence[str], x, caches,
                      sctx: StageCtx, ctx: AxisCtx,
                      schedule: str = "sequential"):
     """Decode (x: (B,K,D)) with cache read + in-place page update per layer.
-    caches: per position, dicts of period-stacked page pools.  Only the
-    ``"sequential"`` schedule (an immediate reduce per stage) is ported; the
-    deferred schedules are ROADMAP queue A item 7."""
-    if schedule != "sequential":
-        raise NotImplementedError(
-            f"decode schedule {schedule!r}: the port runs 'sequential' only "
-            f"(ROADMAP queue A item 7)")
-    n_periods = len(params_periods[0])
-    for p in range(n_periods):
+    caches: per position, dicts of period-stacked page pools.
+
+    ``schedule``:
+
+    * ``"sequential"``: an immediate reduce per reducing stage.
+    * ``"cross_block"``: every reduce is started at the end of its stage and
+      resolved at the top of the next one, across block and period
+      boundaries, so the stage's KV page scatter runs inside the window.
+      Same reduces and residual adds in the same order as sequential.
+    * ``"batch_split"``: ``run_stack_decode_overlap``.
+    """
+    if schedule == "batch_split":
+        return run_stack_decode_overlap(params_periods, pattern, x, caches,
+                                        sctx, ctx)
+    if schedule not in ("sequential", "cross_block"):
+        raise ValueError(f"unknown decode schedule {schedule!r}; one of "
+                         f"{DECODE_SCHEDULES}")
+    defer = schedule == "cross_block"
+    pend = None
+    for p in range(len(params_periods[0])):
         for i, kind in enumerate(pattern):
             cache_i = _period(caches[i], p)
             for fn, reduces in BLOCK_STAGES[kind]:
+                if pend is not None:          # cross-block: resolve here
+                    x = x + psum_wait(pend)[0]
+                    pend = None
                 out, _, extras = fn(params_periods[i][p], x, 0, None, sctx,
                                     cache_i)
-                x = x + (psum_now(out, ctx) if reduces else out)
+                if reduces and defer:
+                    pend = psum_start(out, ctx)       # scatter in the window
+                elif reduces:
+                    x = x + psum_now(out, ctx)
+                else:
+                    x = x + out
                 _apply_decode_cache_update(cache_i, extras, sctx)
+    if pend is not None:
+        x = x + psum_wait(pend)[0]
     return x, caches
+
+
+def run_stack_decode_overlap(params_periods, pattern: Sequence[str], x,
+                             caches, sctx: StageCtx, ctx: AxisCtx):
+    """Decode with the ISO schedule extended to the BATCH dimension.
+
+    At decode there is no sequence to split, but a continuous-batching step
+    carries independent requests, so slots [0, B/2) and [B/2, B) are the two
+    "chunks".  They share no state (separate KV pages), so there is no
+    cross-chunk edge: each half's reduce is started as soon as its partial
+    exists, its KV scatter lands inside the window, and the OTHER half's
+    pending reduce completes after this half's compute.  Paged caches only;
+    the pools are shared by both halves and scattered in place.  ``B < 2``
+    has no second half and runs the sequential schedule."""
+    B = x.shape[0]
+    if B < 2:
+        return run_stack_decode(params_periods, pattern, x, caches, sctx, ctx)
+    B2 = B // 2
+    bounds = ((0, B2), (B2, B))
+
+    def sctx_half(lo, hi):
+        return replace(
+            sctx, lengths=sctx.lengths[lo:hi],
+            block_tables=None if sctx.block_tables is None
+            else sctx.block_tables[lo:hi],
+            decode_mask=None if sctx.decode_mask is None
+            else sctx.decode_mask[lo:hi])
+
+    sctxs = [sctx_half(lo, hi) for lo, hi in bounds]
+    xs = [x[lo:hi] for lo, hi in bounds]
+    pend, pend_base, pend_h = None, None, 1
+    for p in range(len(params_periods[0])):
+        for i, kind in enumerate(pattern):
+            cache_i = _period(caches[i], p)
+            for fn, reduces in BLOCK_STAGES[kind]:
+                for h in range(2):
+                    out, _, extras = fn(params_periods[i][p], xs[h], 0, None,
+                                        sctxs[h], cache_i)
+                    started = psum_start(out, ctx) if reduces else None
+                    _apply_decode_cache_update(cache_i, extras, sctxs[h])
+                    # the other half's reduce ran beside this half's compute
+                    if pend is not None:
+                        xs[pend_h] = pend_base + psum_wait(pend)[0]
+                        pend = None
+                    if reduces:
+                        pend, pend_base, pend_h = started, xs[h], h
+                    else:
+                        xs[h] = xs[h] + out
+    if pend is not None:
+        xs[pend_h] = pend_base + psum_wait(pend)[0]
+    return torch.cat(xs, dim=0), caches

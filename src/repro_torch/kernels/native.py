@@ -1,6 +1,7 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
-The kernels live in ``csrc/*.cu`` with a plain C interface.  At first use
+The kernels live in ``csrc/*.cu`` with a plain C interface, one shared
+library per source.  At first use
 ``nvcc`` compiles a source into ``build/repro_torch/`` at the repository root
 (keyed by a hash of the source and flags, so an edit rebuilds) and the shared
 library is loaded with ``ctypes``.  No PyTorch headers enter the build, which
@@ -26,7 +27,7 @@ from typing import Dict
 import torch
 
 CSRC = Path(__file__).with_name("csrc")
-SOURCES = ("paged_attention.cu",)
+SOURCES = ("paged_attention.cu", "int8_quant.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -35,17 +36,23 @@ MAX_SMEM_BYTES = 232448
 MAX_HEAD_DIM = 256
 
 LAUNCHES: Dict[str, int] = {"paged_decode": 0, "decode_reduce": 0,
-                            "paged_prefill": 0}
+                            "paged_prefill": 0, "quantize_int8": 0}
 # nvcc output (register / shared-memory report) of each build, by source
 BUILD_LOGS: Dict[str, str] = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+# C entry points of each source: argument types
 _SIGNATURES = {
-    "paged_decode": [_I] + [_P] * 8 + [_I] * 12 + [ctypes.c_float, _P],
-    "decode_reduce": [_P] * 6 + [_I] * 5 + [_P],
-    "paged_prefill": [_I] + [_P] * 9 + [_I] * 10 + [ctypes.c_float, _P],
-    "paged_attention_smem_bytes": [_I, _I, _I],
+    "paged_attention.cu": {
+        "paged_decode": [_I] + [_P] * 8 + [_I] * 12 + [ctypes.c_float, _P],
+        "decode_reduce": [_P] * 6 + [_I] * 5 + [_P],
+        "paged_prefill": [_I] + [_P] * 9 + [_I] * 10 + [ctypes.c_float, _P],
+        "paged_attention_smem_bytes": [_I, _I, _I],
+    },
+    "int8_quant.cu": {
+        "quantize_int8": [_I] + [_P] * 3 + [_I] * 4 + [_P],
+    },
 }
 _RESTYPES = {"paged_attention_smem_bytes": ctypes.c_longlong}
 
@@ -102,7 +109,7 @@ def library(source: str = "paged_attention.cu") -> ctypes.CDLL:
         lib = _libs.get(source)
         if lib is None:
             lib = ctypes.CDLL(str(build(source)))
-            for name, args in _SIGNATURES.items():
+            for name, args in _SIGNATURES[source].items():
                 fn = getattr(lib, name)
                 fn.argtypes = args
                 fn.restype = _RESTYPES.get(name, ctypes.c_int)
@@ -122,8 +129,8 @@ def dtype_code(t: torch.Tensor) -> int:
         return 0
     if t.dtype == torch.bfloat16:
         return 1
-    raise TypeError(f"paged attention kernels take float32 or bfloat16 "
-                    f"tensors, got {t.dtype}")
+    raise TypeError(f"the kernels take float32 or bfloat16 tensors, got "
+                    f"{t.dtype}")
 
 
 def check_smem(rows: int, ps: int, hd: int, kernel: str) -> None:

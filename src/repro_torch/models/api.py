@@ -1,7 +1,7 @@
 """Model API used by launch/ and serving/ (port of the dense subset of
 ``repro/models/api.py``).
 
-  init_params(seed, cfg, tp, dtype, device)   -> params
+  init_params(seed, cfg, tp, dtype, device, rank) -> params
   prefill(params, cfg, ctx, iso, batch, ...)  -> dict (logits_local, ...)
   decode_step(params, cfg, ctx, tokens, caches, lengths, ...)
                                               -> (logits_local, caches)
@@ -21,11 +21,13 @@ from repro_torch.models import decoder as dec_lib
 
 
 def init_params(seed: int, cfg: ModelConfig, tp: int = 1,
-                dtype=torch.bfloat16, device=None):
+                dtype=torch.bfloat16, device=None, rank: int = None):
     """Random weights made on ``device`` (default ``cuda``; raises when CUDA
-    is absent unless ``device="cpu"``)."""
+    is absent unless ``device="cpu"``).  ``rank`` given: only that rank's
+    shard of the tp=``tp`` model (see decoder.init_decoder_params)."""
     return dec_lib.init_decoder_params(seed, cfg, tp, dtype,
-                                       device=resolve_device(device))
+                                       device=resolve_device(device),
+                                       rank=rank)
 
 
 def prefill(params, cfg: ModelConfig, ctx: AxisCtx, iso: ISOConfig,

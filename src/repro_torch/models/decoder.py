@@ -1,11 +1,13 @@
 """Decoder-stack model driver, dense family (port of the dense subset of
 ``repro/models/decoder.py``).
 
-Forward code is written in the local-shard view; at tp=1 (the only degree
-ported) that is the whole model.  Parameters are plain dicts of tensors:
-``{"embed": {"table", "head"}, "final_norm": {"scale"}, "periods": (per
-pattern position, a list of per-period layer dicts)}`` — the reference's
-``(P, ...)``-stacked leaves unstacked into one dict per layer.
+Forward code is written in the local-shard view: under tensor parallelism
+each rank holds its shard of every sharded leaf (``SHARD_AXIS``) and the
+collectives of ``AxisCtx`` join the ranks; at tp=1 that is the whole model.
+Parameters are plain dicts of tensors: ``{"embed": {"table", "head"},
+"final_norm": {"scale"}, "periods": (per pattern position, a list of
+per-period layer dicts)}`` — the reference's ``(P, ...)``-stacked leaves
+unstacked into one dict per layer.
 """
 from __future__ import annotations
 
@@ -36,6 +38,53 @@ def check_supported(cfg: ModelConfig) -> None:
         raise NotImplementedError(
             f"{cfg.name}: ladder residual wiring is not ported (ROADMAP "
             f"queue A item 9)")
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel sharding (the dense rules of the reference's
+# models/decoder._leaf_spec): leaf name -> the axis split over the tp ranks;
+# leaves not named here (norms, qk-norm scales) are replicated
+# ---------------------------------------------------------------------------
+
+SHARD_AXIS = {
+    "table": 0, "head": 0,                   # vocab-split
+    "wq": 1, "wk": 1, "wv": 1,               # (D, H, hd): column-split heads
+    "wo": 0,                                 # (H, hd, D): row-split
+    "w_up": 1, "w_gate": 1,                  # (D, F): column-split
+    "w_down": 0,                             # (F, D): row-split
+}
+
+
+def shard_leaf(name: str, t: torch.Tensor, rank: int, tp: int
+               ) -> torch.Tensor:
+    """Rank ``rank``'s shard of leaf ``name`` (a copy, so the full tensor can
+    be freed); replicated leaves come back as they are."""
+    axis = SHARD_AXIS.get(name)
+    if axis is None or tp == 1:
+        return t
+    n = t.shape[axis]
+    if n % tp:
+        raise ValueError(f"leaf {name} {tuple(t.shape)}: axis {axis} is not "
+                         f"divisible by tp={tp}; build the params at tp={tp}")
+    return t.narrow(axis, rank * (n // tp), n // tp).clone()
+
+
+def _shard_tree(tree, rank: int, tp: int, name: str = ""):
+    if isinstance(tree, dict):
+        return {k: _shard_tree(v, rank, tp, k) for k, v in tree.items()}
+    return shard_leaf(name, tree, rank, tp)
+
+
+def shard_params(params: Dict, rank: int, tp: int) -> Dict:
+    """Rank ``rank``'s local view of port params built at tp=``tp`` (head
+    slots and vocab padded for that degree)."""
+    if not 0 <= rank < tp:
+        raise ValueError(f"rank {rank} outside tp={tp}")
+    out = {k: _shard_tree(v, rank, tp) for k, v in params.items()
+           if k != "periods"}
+    out["periods"] = tuple([_shard_tree(layer, rank, tp) for layer in pos]
+                           for pos in params["periods"])
+    return out
 
 
 def pattern_periods(cfg: ModelConfig) -> int:
@@ -80,20 +129,28 @@ def _init_layer(gen, cfg: ModelConfig, layout, dtype, device) -> Dict:
 
 
 def init_decoder_params(seed: int, cfg: ModelConfig, tp: int = 1,
-                        dtype=torch.bfloat16,
-                        device: torch.device = None) -> Dict:
+                        dtype=torch.bfloat16, device: torch.device = None,
+                        rank: Optional[int] = None) -> Dict:
     """Random weights from ``seed`` with the reference's distributions
     (normal x 0.02; ``wo`` and ``w_down`` x 0.02/sqrt(2L); norms at one), made
     on ``device``.  The bits differ from the reference's: JAX's PRNG is not
-    re-implemented (``bridge.py`` imports the reference's own weights)."""
+    re-implemented (``bridge.py`` imports the reference's own weights).
+
+    With ``rank`` given, returns that rank's shard of the tp=``tp`` model,
+    equal to ``shard_params`` of the whole: every leaf is drawn in full from
+    the same stream and cut at once, so no more than one layer is ever held
+    whole."""
     check_supported(cfg)
     gen = torch.Generator(device=device).manual_seed(seed)
     layout = head_layout(cfg.num_heads, max(cfg.num_kv_heads, 1), tp)
     v = padded_vocab(cfg, tp)
+    cut = (lambda tree: _shard_tree(tree, rank, tp)) if rank is not None \
+        else (lambda tree: tree)
     embed = {"table": _normal(gen, (v, cfg.d_model), 0.02, dtype, device)}
     if not cfg.tie_embeddings:
         embed["head"] = _normal(gen, (v, cfg.d_model), 0.02, dtype, device)
-    periods = tuple([_init_layer(gen, cfg, layout, dtype, device)
+    embed = cut(embed)
+    periods = tuple([cut(_init_layer(gen, cfg, layout, dtype, device))
                      for _ in range(pattern_periods(cfg))]
                     for _ in cfg.block_pattern)
     return {"embed": embed, "final_norm": init_norm(cfg.d_model, device),
@@ -190,7 +247,9 @@ def decode_step(params, cfg: ModelConfig, ctx: AxisCtx, tokens, caches,
     ``decode_mask`` (B,) marks the slots really decoding (others scatter to
     the scratch page).  The window's KV is scattered into the pools IN PLACE.
     ``kv_splits`` runs each paged attention's page walk as that many split-KV
-    spans.  Returns (logits_local (B, K, V_loc), caches)."""
+    spans.  ``schedule`` is the collective schedule of core/iso.py
+    (``sequential``, ``batch_split`` or ``cross_block``; default
+    sequential).  Returns (logits_local (B, K, V_loc), caches)."""
     check_supported(cfg)
     x = embed_tokens(params, tokens, cfg, ctx)
     sctx = _stage_ctx(cfg, ctx, "decode", lengths=lengths)

@@ -149,7 +149,9 @@ def window_page_coords(lengths: torch.Tensor, block_tables: torch.Tensor,
 
 class PagedKVCache:
     """Owns the page pools: ``k[i]``/``v[i]`` for the i-th attention
-    position, each (P, N+1, page_size, Hkv, hd), zero-initialised."""
+    position, each (P, N+1, page_size, Hkv_loc, hd), zero-initialised.
+    ``Hkv_loc = hkv_eff // tp`` is this rank's share of the kv head slots
+    (the reference shards the pool's head axis over the model axis)."""
 
     def __init__(self, cfg: ModelConfig, num_pages: int, page_size: int,
                  tp: int = 1, dtype=torch.bfloat16, device=None):
@@ -158,7 +160,7 @@ class PagedKVCache:
         self.page_size = page_size
         periods = cfg.num_layers // len(cfg.block_pattern)
         layout = head_layout(cfg.num_heads, max(cfg.num_kv_heads, 1), tp)
-        shape = (periods, num_pages + 1, page_size, layout.hkv_eff,
+        shape = (periods, num_pages + 1, page_size, layout.hkv_eff // tp,
                  cfg.resolved_head_dim)
         self.kv_positions = tuple(i for i, kind in enumerate(cfg.block_pattern)
                                   if kind in KV_KINDS)

@@ -16,6 +16,17 @@ KV memory is a shared page pool (serving/kvcache.py).  Each ``step()``:
     kernel, split into S spans by ``_kv_splits``, and scattering the new
     token's KV into its page in place.
 
+Tensor parallelism: ``mesh=`` takes this rank's ``launch.mesh.TPGroup``;
+``params`` are then the rank's shard (``bridge.shard_params`` or
+``api.init_params(..., rank=)``) and the pool holds its share of the kv
+heads.  Every rank runs this same host loop on the same requests, so every
+rank takes the same decisions; the vocab-sharded logits are gathered before
+sampling, so every rank samples the same token.  The decode collective
+schedule follows the reference: ``auto`` is ``batch_split`` under TP when
+``decode_overlap`` and ``max_batch >= 2`` (``sequential`` otherwise), with
+a sequential step whenever fewer than 2 requests decode; ``sequential``,
+``batch_split`` and ``cross_block`` can be forced.
+
 When the pool runs dry a victim is evicted (recompute preemption: its pages
 are freed and prompt + generated re-enter the waiting queue).  Settings
 outside the port's slice raise ``NotImplementedError`` naming their ROADMAP
@@ -29,10 +40,12 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.config import Config, ServingConfig
+from repro_torch.config import Config, ServingConfig, padded_vocab
 from repro_torch.core.chunking import grant_buckets
-from repro_torch.core.overlap import AxisCtx
+from repro_torch.core.iso import DECODE_SCHEDULES
+from repro_torch.core.overlap import AxisCtx, all_gather_last
 from repro_torch.device import resolve_device, synchronize
+from repro_torch.launch.mesh import TPGroup
 from repro_torch.layers import embeddings as emb_lib
 from repro_torch.models import api
 from repro_torch.models.decoder import check_supported
@@ -52,14 +65,12 @@ METRIC_KEYS = (
     "prefill_grants", "resumed_grants")
 
 
-def _check_slice(sv: ServingConfig, mesh) -> None:
+def _check_slice(sv: ServingConfig) -> None:
     """Raise for every setting the port's slice does not run."""
+    if sv.decode_schedule not in ("auto",) + DECODE_SCHEDULES:
+        raise ValueError(f"decode_schedule={sv.decode_schedule!r}: one of "
+                         f"auto, {', '.join(DECODE_SCHEDULES)}")
     todo = []
-    if mesh is not None:
-        todo.append("mesh (tensor-parallel serving): ROADMAP queue A item 7")
-    if sv.decode_schedule not in ("auto", "sequential"):
-        todo.append(f"decode_schedule={sv.decode_schedule!r}: ROADMAP queue "
-                    f"A item 7")
     if sv.prefix_sharing:
         todo.append("prefix_sharing=True (pass prefix_sharing=False): "
                     "ROADMAP queue A item 8")
@@ -79,10 +90,19 @@ def _check_slice(sv: ServingConfig, mesh) -> None:
 
 class PagedEngine:
     def __init__(self, config: Config, params, *,
-                 serving: ServingConfig = None, mesh=None, device=None):
-        self.device = resolve_device(device)
+                 serving: ServingConfig = None, mesh: TPGroup = None,
+                 device=None):
+        if mesh is not None and not isinstance(mesh, TPGroup):
+            raise TypeError(f"mesh must be a launch.mesh.TPGroup, got "
+                            f"{type(mesh).__name__}")
+        if mesh is not None and device is not None \
+                and torch.device(device) != mesh.device:
+            raise ValueError(f"device {device} differs from the TP group's "
+                             f"{mesh.device}")
+        self.device = mesh.device if mesh is not None \
+            else resolve_device(device)
         sv = serving or config.serving
-        _check_slice(sv, mesh)
+        _check_slice(sv)
         check_supported(config.model)
         table = params["embed"]["table"]
         if table.device.type != self.device.type:
@@ -98,8 +118,30 @@ class PagedEngine:
         self.max_len = sv.max_len
         self.max_blocks = -(-sv.max_len // sv.page_size)
         num_pages = sv.num_pages or sv.max_batch * self.max_blocks
-        self.tp = 1
-        self._ctx = AxisCtx()
+        if mesh is not None:
+            if config.parallel.model != mesh.tp:
+                raise ValueError(f"ParallelConfig.model="
+                                 f"{config.parallel.model} but the TP group "
+                                 f"has {mesh.tp} ranks")
+            self.tp = mesh.tp
+            self._ctx = mesh.axis_ctx(config.iso.quantized_comm)
+        else:
+            self.tp = 1
+            self._ctx = AxisCtx()
+        if table.shape[0] * self.tp != padded_vocab(self.cfg, self.tp):
+            raise ValueError(f"embedding shard of {table.shape[0]} rows is "
+                             f"not 1/{self.tp} of the tp={self.tp} padded "
+                             f"vocab; pass this rank's shard of params built "
+                             f"at tp={self.tp}")
+        if sv.decode_schedule == "auto":
+            self._decode_schedule = "batch_split" \
+                if (mesh is not None and sv.decode_overlap
+                    and sv.max_batch >= 2) else "sequential"
+        else:
+            self._decode_schedule = sv.decode_schedule
+        # decode steps run per schedule (batch_split falls back to
+        # sequential on steps with fewer than 2 decoding requests)
+        self.decode_schedule_steps: Dict[str, int] = {}
         self.pool = KVPool.create(self.cfg, num_pages, self.ps, tp=self.tp,
                                   dtype=table.dtype, device=self.device)
         self.alloc = self.pool.alloc
@@ -251,6 +293,8 @@ class PagedEngine:
             h_last = out["hidden"][:, n_tokens - 1:n_tokens]
             logits_last = emb_lib.lm_head_local(self.params["embed"],
                                                 h_last)[:, 0]
+            if last:                          # the full vocab row to sample
+                logits_last = all_gather_last(logits_last, self._ctx)
             T = padded
             scratch = self.kv.scratch_page
             positions = start + torch.arange(T, device=dev)
@@ -366,6 +410,12 @@ class PagedEngine:
                        for i, s in enumerate(self.slots)])
         toks = self.last_tokens.astype(np.int32)[:, None]
         S = self._kv_splits(1)
+        schedule = self._decode_schedule
+        if schedule == "batch_split" and len(active) < 2:
+            # one decoding request has no second batch half to overlap with
+            schedule = "sequential"
+        self.decode_schedule_steps[schedule] = \
+            self.decode_schedule_steps.get(schedule, 0) + 1
         caches = self._paged_prefix()
         t0 = time.perf_counter()
         with torch.no_grad():
@@ -375,7 +425,8 @@ class PagedEngine:
                 torch.from_numpy(self.lengths.astype(np.int32)).to(dev),
                 block_tables=torch.from_numpy(bt).to(dev),
                 decode_mask=torch.from_numpy(mask).to(dev), kv_splits=S,
-                schedule="sequential")
+                schedule=schedule)
+            logits = all_gather_last(logits, self._ctx)
         self.metrics["decode_dispatch_s"] += time.perf_counter() - t0
         synchronize(dev)
         dur = time.perf_counter() - t0

@@ -113,13 +113,14 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
     (dict(spec_k=2), "item 8"),
     (dict(disagg=True), "item 9"),
     (dict(cost_table="auto"), "item 9"),
-    (dict(decode_schedule="batch_split"), "item 7"),
+    (dict(cost_model=object()), "item 9"),
 ])
 def test_settings_outside_the_slice_raise(setting, item):
     params = api.init_params(0, TINY, dtype=torch.float32, device="cpu")
     with pytest.raises(NotImplementedError, match=item):
         PagedEngine(_config(**setting), params, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 7"):
+    # tensor parallelism is in the slice: the mesh is a launch.mesh.TPGroup
+    with pytest.raises(TypeError, match="TPGroup"):
         PagedEngine(_config(), params, device="cpu", mesh=object())
 
 

@@ -1,6 +1,9 @@
 """The port's kernel wrappers on CPU tensors (their plain versions) against the
 JAX Pallas kernels under the interpreter, on the same numpy-seeded inputs.
 
+The int8 quantize grid is tests/test_kernels.py's ``test_int8_quant_sweep``,
+plus an all-zero row and exact .5 ties; q and the scales must be EQUAL.
+
 The decode grid covers every pair of (page size, K, S, window, dtype) values
 of tests/test_flash_decode.py in nine cases (each case compiles its own
 interpreted kernel, so the full product would cost minutes); the prefill
@@ -13,11 +16,13 @@ import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
 from repro.kernels import flash_decode as r_fd  # noqa: E402
+from repro.kernels import int8_quant as r_q8  # noqa: E402
 from repro.kernels.flash_prefill_paged import \
     flash_prefill_paged as r_prefill  # noqa: E402
 
 from repro_torch import bridge  # noqa: E402
 from repro_torch.kernels import flash_decode as fd  # noqa: E402
+from repro_torch.kernels import int8_quant as q8  # noqa: E402
 from repro_torch.kernels.flash_prefill_paged import \
     flash_prefill_paged  # noqa: E402
 
@@ -164,3 +169,49 @@ def test_wrappers_reject_bad_inputs():
         fd.flash_decode(q, k, k, bt.float(), ln)
     with pytest.raises(ValueError):                       # lengths shape
         flash_prefill_paged(q[:, :, None], k, k, bt, ln[:1], ln)
+
+
+def _q8_equal(x):
+    want_q, want_s = r_q8.quantize_int8(jnp.asarray(x), interpret=True)
+    got_q, got_s = q8.quantize_int8(_t(x))
+    assert got_q.dtype == torch.int8 and got_s.dtype == torch.float32
+    assert got_q.shape == x.shape and got_s.shape == (*x.shape[:-1], 1)
+    np.testing.assert_array_equal(got_q.numpy(), np.asarray(want_q))
+    np.testing.assert_array_equal(got_s.numpy(), np.asarray(want_s))
+    return got_q, got_s
+
+
+@pytest.mark.parametrize("shape", [(7, 64), (3, 37, 96), (1, 256)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_quant_plain_matches_pallas(shape, dtype):
+    x = np.random.default_rng(300 + len(shape)).standard_normal(shape)
+    x = (x * 5).astype(np.float32)
+    if dtype == "bfloat16":
+        import ml_dtypes
+        x = x.astype(ml_dtypes.bfloat16)
+    _q8_equal(x)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_int8_quant_zero_row_and_ties(dtype):
+    """amax 127 makes the scale exactly 1, so x/scale lands on .5 ties that
+    round half to even; an all-zero row takes the floor scale, 1e-8 times
+    the fp32 reciprocal of 127 (what the compiled reference kernel does)."""
+    x = np.zeros((3, 8), np.float32)
+    x[0] = [127, 2.5, 3.5, -0.5, -1.5, 0.5, -126.5, 126.5]
+    x[2] = [-127, 0.25, 1.5, -2.5, 4.5, 64.5, 5.5, -3.5]
+    if dtype == "bfloat16":
+        import ml_dtypes
+        x = x.astype(ml_dtypes.bfloat16)
+    q, s = _q8_equal(x)
+    assert q[0].tolist() == [127, 2, 4, 0, -2, 0, -126, 126]
+    assert q[1].abs().max() == 0
+    floor = np.float32(1e-8) * (np.float32(1) / np.float32(127))
+    assert float(s[1, 0]) == float(floor)
+
+
+def test_int8_quant_rejects_bad_inputs():
+    with pytest.raises(TypeError):
+        q8.quantize_int8(torch.zeros(2, 8, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        q8.quantize_int8(torch.zeros(2, 0))
