@@ -18,7 +18,13 @@ Phases, each fatal on failure:
                (hd 16, ps 8), fp32 and bf16, dead-page skip bit-identical;
                the int8 quantize kernel over bf16/fp32 rows of width
                64..4096 (the 16-byte and the scalar path, an all-zero row,
-               .5 ties), q and scales EQUAL to the plain version.
+               .5 ties), q and scales EQUAL to the plain version; the dense
+               flash-prefill kernel at the CPU tests' shapes and at full
+               width (Hq/Hkv 32/8, 16/4, hd 128), MHA, GQA and MQA, ragged
+               Sq/Sk, causal or not, windows > 0, rows with no key (0),
+               hd 16..256; RMSNorm and SwiGLU over fp32/bf16 rows up to
+               (2048, 4096) and (2048, 12288), fp32 and bf16 gamma, widths
+               and addresses that forbid 16-byte loads.
   3. serve     the tp=1 path: ``PagedEngine`` serving qwen3-8b at full width
                and depth in bf16 (random weights from a seed) on 6 greedy
                requests of 300-2000 prompt tokens; the launch counters of
@@ -43,12 +49,23 @@ Phases, each fatal on failure:
                model at tp=2 must give the tokens of tp=1 on the card under
                all three decode schedules.
   6. time      each kernel and its plain version at the main path's shapes
-               (the int8 kernel at both its decode and its prefill shapes).
+               (the int8 kernel at both its decode and its prefill shapes),
+               and where one PyTorch call computes the same function, that
+               call (SDPA for the flash-prefill kernel, ``F.rms_norm``).
+  7. ops       the kernel entry point ``repro_torch.kernels.ops`` at
+               qwen3-8b's widths in bf16: the ISO composition, a 2048-token
+               prompt as two 1024-token chunks, flash(chunk 0) ++
+               flash(chunk 1 | prefix) == flash(all 2048), at tp=1's heads
+               (32/8, hd 128) and one tp=2 rank's (16/4); ``rms_norm`` at
+               (2048, 4096) with an fp32 gamma; ``swiglu`` at (2048, 12288)
+               and one rank's (2048, 6144).  Each call is held against its
+               plain version; the three kernels must have launched.
 
 Each launch count in the kernel line is read from the run of the path that
 launches it, with the counts set to 0 just before: the attention kernels
 from phase 3, the int8 kernel from rank 0 of phase 5's quantized
-batch-split run.  It
+batch-split run, the flash-prefill, RMSNorm and SwiGLU kernels from
+phase 7 (the serving path does not launch them).  It
 imports nothing of JAX or of the JAX package.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and
 power limit from nvidia-smi, and before that a JSON line with each kernel's
@@ -83,9 +100,20 @@ SOURCES = {
                       "src/repro/kernels/flash_prefill_paged.py:73"),
     "quantize_int8": ("src/repro_torch/kernels/csrc/int8_quant.cu",
                       "src/repro/kernels/int8_quant.py:18"),
+    "flash_prefill": ("src/repro_torch/kernels/csrc/flash_prefill.cu",
+                      "src/repro/kernels/flash_prefill.py:27"),
+    "rms_norm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
+                 "src/repro/kernels/rmsnorm.py:11"),
+    "swiglu": ("src/repro_torch/kernels/csrc/swiglu.cu",
+               "src/repro/kernels/swiglu.py:12"),
 }
 # operations per element of the int8 quantize: |x|, max, x / s, rint, clamp
 QUANT_OPS_PER_ELEMENT = 6
+# of RMSNorm: square-add, times rsqrt, times gamma (the row's rsqrt apart)
+RMS_OPS_PER_ELEMENT = 4
+# of SwiGLU: negate, exp, add, divide, multiply
+SWIGLU_OPS_PER_ELEMENT = 5
+OPS_KERNELS = ("flash_prefill", "rms_norm", "swiglu")
 
 
 ATTENTION_KERNELS = ("paged_decode", "decode_reduce", "paged_prefill")
@@ -284,6 +312,7 @@ def check_kernels(report):
     log(f"[kernels] {n} cases within tolerance {TOL}; dead-page skip "
         f"bit-identical; max abs err {errs}")
     errs["quantize_int8"] = check_quantize(gen)
+    errs.update(check_ops_kernels(gen))
     report["errs"] = errs
 
 
@@ -326,12 +355,103 @@ def check_quantize(gen) -> float:
     return 0.0
 
 
+def check_ops_kernels(gen) -> dict:
+    """The flash-prefill, RMSNorm and SwiGLU kernels against their plain
+    versions; returns each one's max abs error."""
+    import torch
+    from repro_torch.kernels import flash_prefill as fp
+    from repro_torch.kernels import rmsnorm, swiglu
+    errs = {k: 0.0 for k in OPS_KERNELS}
+    n = 0
+
+    def randn(shape, dtype):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    def shifted(x):
+        """x's values one element past a 16-byte boundary: the scalar path."""
+        flat = torch.empty(x.numel() + 1, dtype=x.dtype, device="cuda")
+        flat[1:] = x.reshape(-1)
+        return flat[1:].view(x.shape)
+
+    def flash_case(B, hq, hkv, Sq, Sk, hd, dtype, q_start, causal=True,
+                   window=0, empty_from=None):
+        q, k, v = (randn(s, dtype) for s in ((B, hq, Sq, hd), (B, hkv, Sk, hd),
+                                              (B, hkv, Sk, hd)))
+        got = fp.flash_attention(q, k, v, q_start=q_start, causal=causal,
+                                 window=window)
+        want = fp.flash_attention_plain(q, k, v, q_start=q_start,
+                                        causal=causal, window=window)
+        if got.dtype != dtype:
+            raise AssertionError(f"flash_attention returned {got.dtype}")
+        errs["flash_prefill"] = max(errs["flash_prefill"], max_err(
+            [got.float()], [want.float()], TOL[str(dtype)[6:]]))
+        if empty_from is not None and \
+                float(got[:, :, empty_from:].abs().max()) != 0.0:
+            raise AssertionError("flash_attention: a row with no key is not 0")
+
+    for dtype in (torch.bfloat16, torch.float32):
+        # the CPU tests' shapes: MHA, GQA with a prefix, MQA ragged
+        for B, hq, hkv, Sq, Sk, hd in ((1, 2, 2, 16, 16, 32),
+                                       (2, 4, 2, 48, 80, 64),
+                                       (1, 8, 1, 33, 70, 128)):
+            flash_case(B, hq, hkv, Sq, Sk, hd, dtype, Sk - Sq)
+            n += 1
+        for window, causal in ((8, True), (24, True), (24, False),
+                               (0, False)):
+            flash_case(1, 2, 2, 32, 64, 32, dtype, 32, causal, window)
+            n += 1
+        # rows 3.. of 8 attend no key (q_start + i >= Sk - 1 + window)
+        flash_case(1, 4, 2, 8, 16, 16, dtype, 16, window=4, empty_from=3)
+        # full width, tp=1 and one tp=2 rank: the second ISO chunk, the
+        # whole prompt, ragged lengths with a window; head_dim limits
+        for hq, hkv in ((32, 8), (16, 4)):
+            flash_case(1, hq, hkv, 1024, 2048, 128, dtype, 1024)
+            flash_case(1, hq, hkv, 2048, 2048, 128, dtype, 0)
+            flash_case(2, hq, hkv, 1000, 1500, 128, dtype, 500, window=256)
+            n += 3
+        for hd in (80, 200, 256):
+            flash_case(1, 4, 2, 100, 130, hd, dtype, 30)
+            n += 1
+
+        for shape, gdt in (((5, 128), torch.float32),
+                           ((2, 33, 256), torch.float32),
+                           ((2048, 4096), torch.float32),
+                           ((2048, 4096), torch.bfloat16),
+                           ((3, 100), torch.bfloat16),
+                           ((37, 4104), torch.float32)):
+            x = randn(shape, dtype)
+            gamma = randn(shape[-1:], gdt)
+            for xx in (x, shifted(x)):
+                got = rmsnorm.rms_norm(xx, gamma)
+                want = rmsnorm.rms_norm_plain(xx, gamma)
+                errs["rms_norm"] = max(errs["rms_norm"], max_err(
+                    [got.float()], [want.float()], TOL[str(dtype)[6:]]))
+                n += 1
+        for shape in ((4, 512), (2, 17, 300), (2048, 12288), (2048, 6144),
+                      (3, 77)):
+            g, u = randn(shape, dtype), randn(shape, dtype)
+            for gg, uu in ((g, u), (shifted(g), u)):
+                got = swiglu.swiglu(gg, uu)
+                want = swiglu.swiglu_plain(gg, uu)
+                errs["swiglu"] = max(errs["swiglu"], max_err(
+                    [got.float()], [want.float()], TOL[str(dtype)[6:]]))
+                n += 1
+    torch.cuda.synchronize()
+    log(f"[kernels] flash_prefill / rms_norm / swiglu: {n} cases within "
+        f"tolerance of their plain versions (bf16/fp32; full width and the "
+        f"CPU tests' shapes; rows with no key 0; scalar paths); max abs err "
+        f"{errs}")
+    return errs
+
+
 def time_kernels(report):
-    """Time each kernel and its plain version at the serving path's shapes:
-    decode B=4 rows of 700/1200/1700/2030 resident tokens (MB=128) with
+    """Time each kernel and its plain version at the shapes its path gives
+    it: decode B=4 rows of 700/1200/1700/2030 resident tokens (MB=128) with
     S=4 spans, as the engine splits walks past 16 pages; the reduce of those
     spans; a 512-token resumed chunk over a 1024-token prefix; the int8
-    quantize at the tp=2 decode and prefill reduce shapes."""
+    quantize at the tp=2 decode and prefill reduce shapes; the ops path's
+    flash prefill, RMSNorm and SwiGLU (phase 7), each beside the one
+    PyTorch call that computes the same function where there is one."""
     import torch
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import flash_prefill_paged as fp
@@ -393,9 +513,57 @@ def time_kernels(report):
         return (lambda: q8.quantize_int8(x), lambda: q8.quantize_int8_plain(x),
                 q_bytes(x), QUANT_OPS_PER_ELEMENT * x.numel(), "float32",
                 f"rows={x.shape[0]} d={x.shape[1]} "
-                f"{str(x.dtype).replace('torch.', '')} ({what})")
+                f"{str(x.dtype).replace('torch.', '')} ({what})",
+                "no single PyTorch call computes per-row abs-max int8 with "
+                "its scale")
 
+    # the ops path's shapes (phase 7): the second 1024-token ISO chunk of a
+    # 2048-token prompt over its whole prefix (and the whole prompt in one
+    # call), RMSNorm (2048, 4096) with an fp32 gamma, SwiGLU (2048, 12288)
+    import torch.nn.functional as F
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_prefill import flash_attention_plain
+    from repro_torch.kernels.rmsnorm import rms_norm_plain
+    from repro_torch.kernels.swiglu import swiglu_plain
+    fk = torch.randn((1, hkv, 2048, hd), generator=gen, device="cuda").to(dt)
+    fv = torch.randn((1, hkv, 2048, hd), generator=gen, device="cuda").to(dt)
+    fq = torch.randn((1, hq, 2048, hd), generator=gen, device="cuda").to(dt)
+
+    def f_case(q0, what):
+        q = fq[:, :, q0:].contiguous()
+        Sq, Sk = q.shape[2], fk.shape[2]
+        # the offset-causal mask; the pairs it keeps are this run's work
+        mask = (torch.arange(Sk, device="cuda")[None, :]
+                <= q0 + torch.arange(Sq, device="cuda")[:, None])
+        pairs = int(mask.sum()) * hq
+        nbytes = 2 * (q.numel() * 2 + fk.numel() + fv.numel())
+        return (lambda: ops.flash_attention(q, fk, fv, q_start=q0),
+                lambda: flash_attention_plain(q, fk, fv, q_start=q0),
+                nbytes, 4 * hd * pairs, "bfloat16",
+                f"B=1 Sq={Sq} Sk={Sk} q_start={q0} Hq={hq} Hkv={hkv} "
+                f"hd={hd} bf16 ({what})",
+                lambda: F.scaled_dot_product_attention(
+                    q, fk, fv, attn_mask=mask, enable_gqa=True))
+
+    xr = torch.randn((2048, 4096), generator=gen, device="cuda").to(dt)
+    gr = torch.randn((4096,), generator=gen, device="cuda")
+    gs = torch.randn((2048, 12288), generator=gen, device="cuda").to(dt)
+    us = torch.randn((2048, 12288), generator=gen, device="cuda").to(dt)
+
+    paged = "no single PyTorch call computes paged attention over block tables"
     cases = {
+        "flash_prefill": f_case(1024, "second ISO chunk over its prefix"),
+        "flash_prefill/full": f_case(0, "the whole prompt in one call"),
+        "rms_norm": (lambda: ops.rms_norm(xr, gr),
+                     lambda: rms_norm_plain(xr, gr),
+                     2 * xr.numel() * 2 + gr.numel() * 4,
+                     RMS_OPS_PER_ELEMENT * xr.numel(), "float32",
+                     "rows=2048 d=4096 bf16, fp32 gamma",
+                     lambda: F.rms_norm(xr, (4096,), gr, 1e-6)),
+        "swiglu": (lambda: ops.swiglu(gs, us), lambda: swiglu_plain(gs, us),
+                   3 * gs.numel() * 2, SWIGLU_OPS_PER_ELEMENT * gs.numel(),
+                   "float32", "rows=2048 F=12288 bf16",
+                   "no single PyTorch call computes silu(gate) * up"),
         # the decode shape, which most launches take, is the kernel line's
         "quantize_int8": q_case("decode", "tp=2 decode half of 2 requests"),
         "quantize_int8/decode_requant": q_case(
@@ -406,34 +574,37 @@ def time_kernels(report):
             "prefill_requant", "its re-quantize of the reduced slice"),
         "paged_decode": (dec, dec_plain, dec_bytes, dec_ops, "bfloat16",
                          f"B={B} L={lengths} Hq={hq} Hkv={hkv} hd={hd} "
-                         f"ps={ps} MB=128 S={S} bf16"),
+                         f"ps={ps} MB=128 S={S} bf16", paged),
         "decode_reduce": (red, red_plain, red_bytes, red_ops, "float32",
-                          f"B={B} Hkv={hkv} S={S} gk={gk} hd={hd} fp32"),
+                          f"B={B} Hkv={hkv} S={S} gk={gk} hd={hd} fp32",
+                          paged),
         "paged_prefill": (pre, pre_plain, pre_bytes, pre_ops, "bfloat16",
                           f"B=1 Sq={Sq} prefix={prefix} Hq={hq} Hkv={hkv} "
-                          f"hd={hd} ps={ps} MB=128 bf16"),
+                          f"hd={hd} ps={ps} MB=128 bf16", paged),
     }
+    # each case ends in its library call, or why there is none
     timing = {}
-    for name, (fn, plain, nbytes, ops, kind, shape) in cases.items():
+    for name, (fn, plain, nbytes, n_ops, kind, shape, library) \
+            in cases.items():
         ms = time_ms(fn)
         plain_ms = time_ms(plain, reps=5)
+        library_ms = None if isinstance(library, str) \
+            else time_ms(library, reps=5)
         eager_ms = call_ms(fn)
         t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-        t_ops = ops / PEAK_FLOPS[kind] * 1e3
-        timing[name] = dict(ms=ms, plain_ms=plain_ms,
+        t_ops = n_ops / PEAK_FLOPS[kind] * 1e3
+        timing[name] = dict(ms=ms, plain_ms=plain_ms, library_ms=library_ms,
                             bound_ms=max(t_bytes, t_ops),
                             bound_by="bytes" if t_bytes >= t_ops
                             else "operations", shape=shape,
-                            bytes=nbytes, ops=ops, eager_ms=eager_ms)
-        why = ("no single PyTorch call computes per-row abs-max int8 with "
-               "its scale" if name.startswith("quantize") else
-               "no single PyTorch call computes paged attention over block "
-               "tables")
+                            bytes=nbytes, ops=n_ops, eager_ms=eager_ms)
+        lib = (f"library_ms none: {library}" if library_ms is None else
+               f"library {library_ms:.4f} ms, {ms / library_ms:.2f}x it")
         log(f"[time] {name}: {ms:.4f} ms on the device, {eager_ms:.4f} ms "
             f"per eager call with the wrapper's host work (plain "
             f"{plain_ms:.4f} ms, bound "
             f"{max(t_bytes, t_ops):.5f} ms by {timing[name]['bound_by']}, "
-            f"library_ms none: {why}) at {shape}")
+            f"{lib}) at {shape}")
     report["timing"] = timing
 
 
@@ -868,6 +1039,75 @@ def serve_tp(report, card: str):
         f"tokens on every rank, cases {tiny_keys}")
 
 
+# ---------------------------------------------------------------------------
+# phase 7: the kernel entry point at full width
+# ---------------------------------------------------------------------------
+
+def serve_ops(report, card: str):
+    """Drive ``repro_torch.kernels.ops`` at qwen3-8b's widths in bf16 (tp=1's
+    heads and d_ff, then one tp=2 rank's), read the launch counts, then hold
+    the ISO composition and every call against the plain versions."""
+    import torch
+    from repro_torch.kernels import native, ops
+    from repro_torch.kernels.flash_prefill import flash_attention_plain
+    from repro_torch.kernels.rmsnorm import rms_norm_plain
+    from repro_torch.kernels.swiglu import swiglu_plain
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    dt, S, c, hd, d_model = torch.bfloat16, 2048, 1024, 128, 4096
+
+    def randn(*shape, dtype=dt):
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
+
+    # (label, Hq, Hkv, d_ff): qwen3-8b at tp=1, and one rank's share at tp=2
+    widths = (("tp=1", 32, 8, 12288), ("tp=2 rank", 16, 4, 6144))
+    inputs = [(randn(1, hq, S, hd), randn(1, hkv, S, hd), randn(1, hkv, S, hd),
+               randn(S, d_model), randn(d_model, dtype=torch.float32),
+               randn(S, d_ff), randn(S, d_ff))
+              for _, hq, hkv, d_ff in widths]
+    torch.cuda.synchronize()
+    native.reset_launches()
+    t0 = time.perf_counter()
+    outs = []
+    for q, k, v, x, gamma, gate, up in inputs:
+        full = ops.flash_attention(q, k, v)
+        c0 = ops.flash_attention(q[:, :, :c], k[:, :, :c], v[:, :, :c])
+        c1 = ops.flash_attention(q[:, :, c:], k, v, q_start=c)
+        outs.append((full, c0, c1, ops.rms_norm(x, gamma),
+                     ops.swiglu(gate, up)))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: native.LAUNCHES[k] for k in OPS_KERNELS}
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"kernel {name} never launched on the ops "
+                                 f"path: {launches}")
+    tol = TOL["bfloat16"]
+    for (label, hq, hkv, d_ff), inp, out in zip(widths, inputs, outs):
+        q, k, v, x, gamma, gate, up = inp
+        full, c0, c1, y, a = out
+        composed = torch.cat([c0, c1], dim=2)
+        comp_err = max_err([composed.float()], [full.float()], tol)
+        errs = [
+            max_err([full.float()],
+                    [flash_attention_plain(q, k, v).float()], tol),
+            max_err([c0.float()], [flash_attention_plain(
+                q[:, :, :c], k[:, :, :c], v[:, :, :c]).float()], tol),
+            max_err([c1.float()], [flash_attention_plain(
+                q[:, :, c:], k, v, q_start=c).float()], tol),
+            max_err([y.float()], [rms_norm_plain(x, gamma).float()], tol),
+            max_err([a.float()], [swiglu_plain(gate, up).float()], tol)]
+        if full.shape != q.shape or y.shape != x.shape or \
+                a.shape != gate.shape:
+            raise AssertionError(f"[ops] {label}: output shapes")
+        log(f"[ops] qwen3-8b {label} widths (Hq {hq}, Hkv {hkv}, hd {hd}, "
+            f"d_model {d_model}, d_ff {d_ff}) bf16: flash({c}) ++ flash({c} "
+            f"| prefix {c}) == flash({S}) within {tol}, max abs err "
+            f"{comp_err}; each call vs its plain version, max abs err "
+            f"(full, chunk 0, chunk 1, rms_norm, swiglu) {errs}")
+    log(f"[ops] {wall:.3f}s for the calls, launches {launches} [{card}]")
+    report["launches"].update(launches)
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -891,6 +1131,7 @@ def main() -> int:
     parity_tiny()
     serve_tp(report, card)
     time_kernels(report)
+    serve_ops(report, card)
 
     kernels = []
     for name, (source, replaces) in SOURCES.items():
@@ -901,7 +1142,7 @@ def main() -> int:
                         "max_abs_err": report["errs"][name],
                         "ms": t["ms"], "plain_ms": t["plain_ms"],
                         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                        "library_ms": None})
+                        "library_ms": t["library_ms"]})
         assert all(math.isfinite(x) for x in (t["ms"], t["plain_ms"],
                                               t["bound_ms"]))
     print(json.dumps({"kernels": kernels}))

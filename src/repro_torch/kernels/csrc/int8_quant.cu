@@ -27,49 +27,13 @@
 // The entry returns cudaGetLastError() after its launch; the Python wrapper
 // raises on a non-zero code.  dtype codes: 0 = float32, 1 = bfloat16.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr float kInv127 = 1.0f / 127.0f;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-// 16 bytes of T unpacked to fp32 (exact for both types).
-template <typename T>
-struct Vec;
-
-template <>
-struct Vec<float> {
-  static constexpr int N = 4;
-  static __device__ __forceinline__ void unpack(const uint4& u, float* v) {
-    v[0] = __uint_as_float(u.x);
-    v[1] = __uint_as_float(u.y);
-    v[2] = __uint_as_float(u.z);
-    v[3] = __uint_as_float(u.w);
-  }
-};
-
-template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  static __device__ __forceinline__ void unpack(const uint4& u, float* v) {
-    const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const float2 f = __bfloat1622float2(h[j]);
-      v[2 * j] = f.x;
-      v[2 * j + 1] = f.y;
-    }
-  }
-};
 
 // N int8 values stored with one aligned store.
 template <int N>
@@ -82,13 +46,6 @@ template <>
 struct QStore<8> {
   using type = uint2;
 };
-
-__device__ __forceinline__ float warp_max(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
 
 __device__ __forceinline__ int8_t quant1(float v, float s) {
   const float r = fminf(fmaxf(rintf(v / s), -127.0f), 127.0f);

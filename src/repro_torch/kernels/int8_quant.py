@@ -33,7 +33,6 @@ import torch
 from repro_torch.kernels import native
 
 _SOURCE = "int8_quant.cu"
-_THREADS = 256           # threads of a block-per-row launch (csrc kThreads)
 # the fp32 reciprocal of 127, held exactly in a Python float
 _INV_127 = float(torch.tensor(1.0, dtype=torch.float32) / 127.0)
 
@@ -71,10 +70,7 @@ def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
                         device=x.device)
     if rows == 0:
         return q, scale
-    n_vec = 16 // x2.element_size()          # elements per 16-byte load
-    vec = d % n_vec == 0 and x2.data_ptr() % 16 == 0 \
-        and q.data_ptr() % 16 == 0
-    block_per_row = vec and d // n_vec >= _THREADS
+    vec, block_per_row = native.row_launch(x2, q)
     err = native.library(_SOURCE).quantize_int8(
         native.dtype_code(x2), x2.data_ptr(), q.data_ptr(), scale.data_ptr(),
         rows, d, int(vec), int(block_per_row), native.stream_of(x2))

@@ -1,12 +1,13 @@
 """Build, load and count the port's hand-written CUDA kernels.
 
 The kernels live in ``csrc/*.cu`` with a plain C interface, one shared
-library per source.  At first use
-``nvcc`` compiles a source into ``build/repro_torch/`` at the repository root
-(keyed by a hash of the source and flags, so an edit rebuilds) and the shared
-library is loaded with ``ctypes``.  No PyTorch headers enter the build, which
-keeps it to seconds.  A missing ``nvcc``, a failed build or a failed launch
-raises: there is no fallback to the plain versions for CUDA tensors.
+library per source; the device helpers they share are in ``csrc/*.cuh``.
+At first use ``nvcc`` compiles a source into ``build/repro_torch/`` at the
+repository root (keyed by a hash of the source, the headers and the flags,
+so an edit rebuilds) and the shared library is loaded with ``ctypes``.  No
+PyTorch headers enter the build, which keeps it to seconds.  A missing
+``nvcc``, a failed build or a failed launch raises: there is no fallback to
+the plain versions for CUDA tensors.
 
 ``LAUNCHES`` counts kernel launches by name; each wrapper adds one where it
 launches its kernel and nowhere else, so a run can show that the serving path
@@ -22,39 +23,54 @@ import subprocess
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict
+from typing import Dict, Tuple
 
 import torch
 
 CSRC = Path(__file__).with_name("csrc")
-SOURCES = ("paged_attention.cu", "int8_quant.cu")
+SOURCES = ("paged_attention.cu", "int8_quant.cu", "rmsnorm.cu", "swiglu.cu",
+           "flash_prefill.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 # the card's per-block shared-memory limit (H100: 227 KB usable)
 MAX_SMEM_BYTES = 232448
 MAX_HEAD_DIM = 256
+# threads of a block-per-row launch (kThreads of int8_quant.cu, rmsnorm.cu)
+ROW_THREADS = 256
 
 LAUNCHES: Dict[str, int] = {"paged_decode": 0, "decode_reduce": 0,
-                            "paged_prefill": 0, "quantize_int8": 0}
+                            "paged_prefill": 0, "quantize_int8": 0,
+                            "flash_prefill": 0, "rms_norm": 0, "swiglu": 0}
 # nvcc output (register / shared-memory report) of each build, by source
 BUILD_LOGS: Dict[str, str] = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
+_L = ctypes.c_longlong
 # C entry points of each source: argument types
 _SIGNATURES = {
     "paged_attention.cu": {
-        "paged_decode": [_I] + [_P] * 8 + [_I] * 12 + [ctypes.c_float, _P],
+        "paged_decode": [_I] + [_P] * 8 + [_I] * 12 + [_F, _P],
         "decode_reduce": [_P] * 6 + [_I] * 5 + [_P],
-        "paged_prefill": [_I] + [_P] * 9 + [_I] * 10 + [ctypes.c_float, _P],
+        "paged_prefill": [_I] + [_P] * 9 + [_I] * 10 + [_F, _P],
         "paged_attention_smem_bytes": [_I, _I, _I],
     },
     "int8_quant.cu": {
         "quantize_int8": [_I] + [_P] * 3 + [_I] * 4 + [_P],
     },
+    "rmsnorm.cu": {
+        "rms_norm": [_I, _I] + [_P] * 3 + [_I, _I, _F, _I, _I, _P],
+    },
+    "swiglu.cu": {
+        "swiglu": [_I] + [_P] * 3 + [_L, _I, _P],
+    },
+    "flash_prefill.cu": {
+        "flash_prefill": [_I] + [_P] * 4 + [_I] * 9 + [_F, _P],
+    },
 }
-_RESTYPES = {"paged_attention_smem_bytes": ctypes.c_longlong}
+_RESTYPES = {"paged_attention_smem_bytes": _L}
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
@@ -80,7 +96,8 @@ def find_nvcc() -> str:
 def build(source: str) -> Path:
     """Compile ``csrc/<source>`` to a shared library (cached by content)."""
     src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    digest = hashlib.sha256(src.read_bytes() + headers
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     out = BUILD_DIR / f"{src.stem}-{digest}.so"
     if out.exists():
@@ -166,6 +183,17 @@ def check_inputs(q, k_pages, v_pages, block_tables, lengths,
     for name, t in (("block_tables", block_tables), ("lengths", lengths)):
         if t.dtype not in (torch.int32, torch.int64):
             raise TypeError(f"{kernel}: {name} must be integer, got {t.dtype}")
+
+
+def row_launch(x: torch.Tensor, out: torch.Tensor) -> Tuple[bool, bool]:
+    """``(vec, block_per_row)`` of a row kernel over x (rows, d) into out:
+    16-byte vectors where d and both base addresses allow them, and a block
+    of ``ROW_THREADS`` per row once a row holds that many vectors (a warp
+    per row below that, or on the scalar path)."""
+    n_vec = 16 // x.element_size()          # elements per 16-byte load
+    vec = x.shape[-1] % n_vec == 0 and x.data_ptr() % 16 == 0 \
+        and out.data_ptr() % 16 == 0
+    return vec, vec and x.shape[-1] // n_vec >= ROW_THREADS
 
 
 def stream_of(t: torch.Tensor) -> int:
