@@ -8,7 +8,8 @@ Phases, each fatal on failure:
   1. build     compile the port's CUDA kernels from ``src/repro_torch/kernels/
                csrc`` with nvcc, one process per source, all at once; print
                the build time, the compiler's register/shared-memory report
-               and the card's name and power limit.
+               (and the register and spill lines of the bf16 tensor-core
+               instantiations apart) and the card's name and power limit.
   2. kernels   hold each kernel against its plain PyTorch version on the
                card: the paged attention kernels at the serving path's
                shapes (hd 128, ps 16, Hq/Hkv 32/8 at tp=1 and one rank's
@@ -16,6 +17,10 @@ Phases, each fatal on failure:
                {1, 4}, window 0 and > 0, 512- and 256-query chunks with
                fresh rows beside resumed rows) and at the CPU tests' shapes
                (hd 16, ps 8), fp32 and bf16, dead-page skip bit-identical;
+               the bf16 paged-prefill tile loop's edges (hd 64/80/256 x ps
+               8/16/32 x group 1/2/4/8, Sq 100, prefixes off the 64-key
+               grid, windows that leave rows with no key, which must come
+               back neutral, group 80, hd 20);
                the int8 quantize kernel over bf16/fp32 rows of width
                64..4096 (the 16-byte and the scalar path, an all-zero row,
                .5 ties), q and scales EQUAL to the plain version; the dense
@@ -29,7 +34,8 @@ Phases, each fatal on failure:
                and depth in bf16 (random weights from a seed) on 6 greedy
                requests of 300-2000 prompt tokens; the launch counters of
                the three attention kernels must be > 0, logits finite, every
-               request complete and every page free at the end.
+               request complete and every page free at the end; every
+               paged-prefill launch must be the bf16 tensor-core one.
   4. parity    a tiny fp32 model served on ``cuda`` and on ``cpu`` from the
                same weights must give equal greedy tokens (mixed traffic,
                forced 4-way split-KV decode, forced preemption).
@@ -49,7 +55,9 @@ Phases, each fatal on failure:
                model at tp=2 must give the tokens of tp=1 on the card under
                all three decode schedules.
   6. time      each kernel and its plain version at the main path's shapes
-               (the int8 kernel at both its decode and its prefill shapes),
+               (the int8 kernel at both its decode and its prefill shapes,
+               the paged prefill at a 512-query chunk and at the serving
+               path's 256-query ISO chunk, both over a 1024-token prefix),
                and where one PyTorch call computes the same function, that
                call (SDPA for the flash-prefill kernel, ``F.rms_norm``).
   7. ops       the kernel entry point ``repro_torch.kernels.ops`` at
@@ -225,6 +233,7 @@ def check_kernels(report):
     import torch
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import flash_prefill_paged as fp
+    from repro_torch.kernels import native
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = {"paged_decode": 0.0, "decode_reduce": 0.0, "paged_prefill": 0.0}
 
@@ -270,6 +279,9 @@ def check_kernels(report):
 
     def prefill_case(prefix_lens, offsets, Sq, ps, hq, hkv, hd, window,
                      dtype_name):
+        """Returns how many rows of a resumed request (prefix > 0) the
+        window left with no key: those, and every fresh row (prefix 0),
+        must come back exactly neutral (0, NEG_INF, 0)."""
         dtype = getattr(torch, dtype_name)
         k, v, bt, lens = make_pool(gen, prefix_lens, ps, hkv, hd, dtype)
         q = torch.randn((len(prefix_lens), hq, Sq, hd), generator=gen,
@@ -279,9 +291,18 @@ def check_kernels(report):
         want = fp.prefill_partial_plain(q, k, v, bt, lens, qs, window=window)
         errs["paged_prefill"] = max(errs["paged_prefill"],
                                     max_err(got, want, TOL[dtype_name]))
-        if float(got[0][0].abs().max()) != 0.0 or \
-                float(got[2][0].max()) != 0.0:
-            raise AssertionError("fresh row (prefix 0) is not neutral")
+        # row i of request b attends no key iff its prefix is empty or the
+        # window ends before it: q_start + i - window >= prefix_len - 1
+        pos = qs.long()[:, None] + torch.arange(Sq, device="cuda")[None]
+        empty = (lens.long()[:, None] == 0).expand(-1, Sq)
+        if window:
+            empty = empty | (pos - window >= lens.long()[:, None] - 1)
+        o, m, l = (t[empty[:, None, :].expand(-1, hq, -1)] for t in got)
+        if bool((o != 0).any()) or bool((l != 0).any()) or \
+                bool((m != fd.NEG_INF).any()):
+            raise AssertionError("a row with no key (fresh, or wholly "
+                                 "outside the window) is not neutral")
+        return int((empty & (lens.long()[:, None] > 0)).sum())
 
     main_lengths = [1, 15, 16, 17, 255, 256, 257, 1000, 2047, 2048]
     n = 0
@@ -308,8 +329,34 @@ def check_kernels(report):
             prefill_case([0, 11, 24, 15], [0, 3, 0, 5], 10, 8, 4, 2, 16,
                          window, dtype_name)
             n += 1
+    # the bf16 tile loop's edges: hd 64/80/256 (a padded width at 80), page
+    # sizes 8/16/32 (a 64-key tile from 8/4/2 pages), group 1/2/4/8 (64/32/
+    # 16/8 query rows per head), Sq 100 (a ragged last query block),
+    # prefixes that are not multiples of 64, a fresh row; then a window that
+    # leaves rows of resumed requests with no key, group 80 (80 rows: two
+    # row blocks), and hd 20 (the synchronous loads past cp.async)
+    n_tc = 0
+    for hd in (64, 80, 256):
+        for ps in (8, 16, 32):
+            for group in (1, 2, 4, 8):
+                prefill_case([0, 37, 130, 200], [0, 3, 0, 50], 100, ps,
+                             2 * group, 2, hd, 0, "bfloat16")
+                n_tc += 1
+    emptied = 0
+    for hd, ps, group in ((128, 16, 4), (80, 8, 1), (64, 32, 8)):
+        emptied += prefill_case([0, 37, 130, 200], [0, 3, 0, 50], 100, ps,
+                                2 * group, 2, hd, 20, "bfloat16")
+        n_tc += 1
+    if emptied <= 0:
+        raise AssertionError("no windowed row of a resumed request was left "
+                             "with no key")
+    prefill_case([0, 70, 129], [0, 0, 7], 10, 16, 80, 1, 64, 0, "bfloat16")
+    prefill_case([0, 70, 129], [0, 0, 7], 37, 16, 8, 2, 20, 9, "bfloat16")
+    n_tc += 2
     torch.cuda.synchronize()
-    log(f"[kernels] {n} cases within tolerance {TOL}; dead-page skip "
+    log(f"[kernels] {n + n_tc} cases within tolerance {TOL} ({n_tc} of them "
+        f"the bf16 tile loop's edges: {emptied} rows of resumed requests "
+        f"wholly outside the window, neutral); dead-page skip "
         f"bit-identical; max abs err {errs}")
     errs["quantize_int8"] = check_quantize(gen)
     errs.update(check_ops_kernels(gen))
@@ -412,6 +459,9 @@ def check_ops_kernels(gen) -> dict:
         for hd in (80, 200, 256):
             flash_case(1, 4, 2, 100, 130, hd, dtype, 30)
             n += 1
+        # hd 20: rows of no whole 16-byte chunk, the synchronous loads
+        flash_case(2, 4, 2, 70, 90, 20, dtype, 20, window=33)
+        n += 1
 
         for shape, gdt in (((5, 128), torch.float32),
                            ((2, 33, 256), torch.float32),
@@ -448,7 +498,8 @@ def time_kernels(report):
     """Time each kernel and its plain version at the shapes its path gives
     it: decode B=4 rows of 700/1200/1700/2030 resident tokens (MB=128) with
     S=4 spans, as the engine splits walks past 16 pages; the reduce of those
-    spans; a 512-token resumed chunk over a 1024-token prefix; the int8
+    spans; a 512-token resumed chunk over a 1024-token prefix, and the
+    serving path's 256-token ISO chunk over it; the int8
     quantize at the tp=2 decode and prefill reduce shapes; the ops path's
     flash prefill, RMSNorm and SwiGLU (phase 7), each beside the one
     PyTorch call that computes the same function where there is one."""
@@ -481,15 +532,20 @@ def time_kernels(report):
     red_bytes = out_bytes + B * hkv * gk * (hd + 2) * 4
     red_ops = 4 * B * hkv * S * gk * hd
 
-    Sq, prefix = 512, 1024
+    prefix = 1024
     pk, pv, pbt, plens = make_pool(gen, [prefix], ps, hkv, hd, dt, mb=128)
-    q = torch.randn((1, hq, Sq, hd), generator=gen, device="cuda").to(dt)
-    qs = plens + 512
-    pre = lambda: fp.flash_prefill_paged(q, pk, pv, pbt, plens, qs)
-    pre_plain = lambda: fp.prefill_partial_plain(q, pk, pv, pbt, plens, qs)
-    pre_bytes = (q.numel() * 2 + pbt.numel() * 4 + 8
-                 + 2 * prefix * hkv * hd * 2 + hq * Sq * (hd + 2) * 4)
-    pre_ops = 4 * Sq * prefix * hq * hd
+    paged = "no single PyTorch call computes paged attention over block tables"
+
+    def p_case(Sq, q_off, what):
+        q = torch.randn((1, hq, Sq, hd), generator=gen, device="cuda").to(dt)
+        qs = plens + q_off
+        nbytes = (q.numel() * 2 + pbt.numel() * 4 + 8
+                  + 2 * prefix * hkv * hd * 2 + hq * Sq * (hd + 2) * 4)
+        return (lambda: fp.flash_prefill_paged(q, pk, pv, pbt, plens, qs),
+                lambda: fp.prefill_partial_plain(q, pk, pv, pbt, plens, qs),
+                nbytes, 4 * Sq * prefix * hq * hd, "bfloat16",
+                f"B=1 Sq={Sq} prefix={prefix} Hq={hq} Hkv={hkv} hd={hd} "
+                f"ps={ps} MB=128 bf16 ({what})", paged)
 
     # the int8 reduces of qwen3-8b at tp=2 (d = 4096 in 2 shards of 2048):
     # a decode half of 2 requests, (2, 1, 4096) bf16 -> (4, 2048) rows,
@@ -550,7 +606,6 @@ def time_kernels(report):
     gs = torch.randn((2048, 12288), generator=gen, device="cuda").to(dt)
     us = torch.randn((2048, 12288), generator=gen, device="cuda").to(dt)
 
-    paged = "no single PyTorch call computes paged attention over block tables"
     cases = {
         "flash_prefill": f_case(1024, "second ISO chunk over its prefix"),
         "flash_prefill/full": f_case(0, "the whole prompt in one call"),
@@ -578,9 +633,11 @@ def time_kernels(report):
         "decode_reduce": (red, red_plain, red_bytes, red_ops, "float32",
                           f"B={B} Hkv={hkv} S={S} gk={gk} hd={hd} fp32",
                           paged),
-        "paged_prefill": (pre, pre_plain, pre_bytes, pre_ops, "bfloat16",
-                          f"B=1 Sq={Sq} prefix={prefix} Hq={hq} Hkv={hkv} "
-                          f"hd={hd} ps={ps} MB=128 bf16", paged),
+        # the earlier PRs' shape, kept for continuity, is the kernel line's
+        "paged_prefill": p_case(512, 512, "a 512-token resumed chunk"),
+        "paged_prefill/iso_chunk": p_case(
+            256, 256, "the second 256-token ISO chunk of a resumed 512-token "
+            "grant, the serving path's shape"),
     }
     # each case ends in its library call, or why there is none
     timing = {}
@@ -676,10 +733,17 @@ def serve_full(report, card: str):
                                  f"path: {launches}")
     if m["resumed_grants"] <= 0:
         raise AssertionError("no resumed grant ran")
+    variants = {k: v for k, v in native.VARIANTS.items()
+                if k.startswith("paged_prefill/")}
+    if variants["paged_prefill/tc"] != launches["paged_prefill"]:
+        raise AssertionError(f"bf16 serving launched paged_prefill "
+                             f"{launches['paged_prefill']} times, "
+                             f"{variants} by instantiation: not all on the "
+                             f"tensor-core one")
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"[serve] {len(outs)} requests, prompts {lengths}, 32 new tokens "
         f"each, {checked['rows']} logits rows finite, wall {wall:.1f}s, "
-        f"launches {launches}")
+        f"launches {launches}; paged_prefill by instantiation {variants}")
     log(f"[serve] prefill {m['prefill_tokens']} tok in {m['prefill_s']:.3f}s "
         f"= {m['prefill_tokens'] / m['prefill_s']:.0f} tok/s "
         f"({m['prefill_calls']} calls, {m['resumed_grants']} resumed); decode "
@@ -691,7 +755,7 @@ def serve_full(report, card: str):
     log(f"[serve] host dispatch share: prefill "
         f"{m['prefill_dispatch_s'] / m['prefill_s']:.3f}, decode "
         f"{m['decode_dispatch_s'] / m['decode_s']:.3f} of the fenced time")
-    report["launches"] = launches
+    report["launches"].update(launches)
     report["serve"] = dict(prefill_tok_s=m["prefill_tokens"] / m["prefill_s"],
                            decode_ms_step=1e3 * m["decode_s"]
                            / m["decode_calls"], peak_gib=peak)
@@ -1108,6 +1172,20 @@ def serve_ops(report, card: str):
     report["launches"].update(launches)
 
 
+def tc_report(logs: str) -> list:
+    """ptxas's register and spill lines of the tensor-core instantiations
+    (``*_tc_kernel<KD>``), one line each."""
+    import re
+    out, cur = [], ""
+    for line in logs.splitlines():
+        if "Compiling entry function" in line:
+            hit = re.search(r"([a-z_]+_tc_kernel)ILi(\d+)E", line)
+            cur = f"{hit.group(1)}<{hit.group(2)}>" if hit else ""
+        elif cur and ("registers" in line or "spill" in line):
+            out.append(f"{cur}: {line.split(':', 1)[-1].strip()}")
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1123,9 +1201,13 @@ def main() -> int:
     for line in "".join(native.BUILD_LOGS.values()).splitlines():
         if "registers" in line or "Compiling entry" in line or "spill" in line:
             log("  " + line.strip())
+    log("[build] tensor-core instantiations (flash_tc.cuh), registers and "
+        "spills:")
+    for line in tc_report("".join(native.BUILD_LOGS.values())):
+        log("  " + line)
     log(f"[build] card: {card}")
 
-    report = {}
+    report = {"launches": {}}
     check_kernels(report)
     serve_full(report, card)
     parity_tiny()

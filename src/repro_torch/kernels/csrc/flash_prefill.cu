@@ -15,24 +15,34 @@
 // Pallas kernel leaves a padding-dependent value there: it does not mask p).
 //
 // What bounds it on the card is operations: 4 * hd FLOPs per attended
-// (query, key) pair against one read of q, k and v.  This first version runs
-// them as fp32 FMAs on the CUDA cores (tensor cores, wgmma and TMA are later
-// work).  One block of 256 threads owns (b, q head, 64-query tile) and walks
-// the 64-key tiles in a loop, which takes the place of the TPU's sequential
-// k grid axis.  Tiles wholly above the causal diagonal or wholly below the
-// window are skipped; that is exact, since such a tile only ever adds p = 0
-// (after a valid key) or is wiped by alpha = 0 (before one).  Each key tile
-// is staged in shared memory as fp32, and the block's 16 x 16 threads each
-// hold a 4 x 4 patch of the score tile and a 4 x (4 * NV) patch of the
-// output accumulator in registers (NV = ceil(hd / 64)), reading q, k, p and
-// v from shared memory as float4s: rows are padded so that the k reads of a
-// quarter-warp fall in distinct banks.  Query tiles are issued last-first,
-// so the longest causal rows start first.
+// (query, key) pair against one read of q, k and v, at 989 TFLOP/s bf16.
+// The dtype picks the kernel:
+//   - bfloat16: flash_prefill_tc_kernel, the tensor-core tile loop of
+//     flash_tc.cuh (mma.sync m16n8k16 from ldmatrix fragments, K/V stages
+//     filled by cp.async, the online softmax in registers; P rounded to bf16
+//     before P V).  A block of 4 warps owns (b, q head, 128-query tile), 32
+//     rows a warp, up to hd 128 (64-query tiles above).  mma.sync does not
+//     reach half of the bf16 peak: wgmma fed by TMA is where the remaining
+//     headroom lies.
+//   - float32: flash_prefill_kernel, fp32 FMAs on the CUDA cores (TF32 would
+//     keep three digits, against fp32's 1e-5 tolerance).  One block of 256
+//     threads owns (b, q head, 64-query tile); each key tile is staged in
+//     shared memory, and the block's 16 x 16 threads each hold a 4 x 4 patch
+//     of the score tile and a 4 x (4 * NV) patch of the output accumulator in
+//     registers (NV = ceil(hd / 64)), reading q, k, p and v from shared
+//     memory as float4s: rows are padded so that the k reads of a
+//     quarter-warp fall in distinct banks.
+// Both walk the 64-key tiles in a loop, which takes the place of the TPU's
+// sequential k grid axis.  Tiles wholly above the causal diagonal or wholly
+// below the window are skipped; that is exact, since such a tile only ever
+// adds p = 0 (after a valid key) or is wiped by alpha = 0 (before one).
+// Query tiles are issued last-first, so the longest causal rows start first.
 //
 // The entry returns cudaGetLastError() after its launch; the Python wrapper
 // raises on a non-zero code.  dtype codes: 0 = float32, 1 = bfloat16.
 
 #include "common.cuh"
+#include "flash_tc.cuh"
 
 namespace {
 
@@ -285,21 +295,126 @@ cudaError_t launch_t(const void* q, const void* k, const void* v, void* out,
   }
 }
 
+// ---------------------------------------------------------------------------
+// bfloat16: the tensor-core tile loop (flash_tc.cuh)
+// ---------------------------------------------------------------------------
+
+// m-tiles a warp owns: two (128 query rows a block) up to hd 128, where the
+// fp32 output fragments of 32 rows fit in registers beside the scores
+__host__ __device__ constexpr int dense_m(int KD) { return KD <= 8 ? 2 : 1; }
+
+// grid (Hq, query tiles, B); KD = the largest hd / 16 it takes (4, 8, 16),
+// exactly that one when kExact.  Query tiles are issued longest first
+// (blockIdx.y 0 is the last tile, whose causal rows are longest) so a wave's
+// tail holds the short ones; when the whole grid fits in one wave (`pair`),
+// the second half of the issue order runs shortest first instead, so that
+// the blocks sharing an SM pair a long tile with a short one.
+template <int KD, bool kExact>
+__global__ void __launch_bounds__(kTcThreads, tc_min_blocks(KD, dense_m(KD)))
+flash_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v,
+                        __nv_bfloat16* __restrict__ out, int Hq, int Hkv,
+                        int Sq, int Sk, int hd, int q_start, int causal,
+                        int window, float scale_log2, int vec,
+                        int pair) {
+  const int nq = gridDim.y, y = blockIdx.y, half = (nq + 1) / 2;
+  const int iq = (pair && y >= half) ? y - half : nq - 1 - y;
+  const int h = blockIdx.x, b = blockIdx.z;
+  const int hkv = h / (Hq / Hkv);
+  constexpr int kRows = kTcRows * dense_m(KD);
+  const int row0 = iq * kRows;
+  const int rows = min(kRows, Sq - row0);
+  const size_t q_base = (((size_t)b * Hq + h) * Sq + row0) * hd;
+  const size_t kv_base = ((size_t)b * Hkv + hkv) * Sk * hd;
+
+  const int q_lo = q_start + row0, q_hi = q_start + row0 + rows - 1;
+  const int nk = (Sk + kTcKeys - 1) / kTcKeys;
+  int t_begin = 0, t_end = nk;
+  if (window) t_begin = max(0, q_lo - window + 1) / kTcKeys;
+  if (causal) t_end = q_hi < 0 ? 0 : min(nk, q_hi / kTcKeys + 1);
+
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  __nv_bfloat16* ob = out + q_base;
+  flash_tc_block<KD, dense_m(KD), kExact>(
+      reinterpret_cast<__nv_bfloat16*>(tc_smem), q + q_base, k + kv_base,
+      v + kv_base, hd, vec != 0, scale_log2, t_begin, t_end,
+      [=](int r) { return r < rows ? (long long)r * hd : -1LL; },
+      [=](int key) { return key < Sk ? (long long)key * hd : -1LL; },
+      [=](int r, int key) {
+        return attended(key, q_start + row0 + r, Sk, causal, window);
+      },
+      [=](int k0) {  // every row attends keys k0 .. k0 + 63
+        const int k1 = k0 + kTcKeys - 1;
+        return k1 < Sk && (!causal || k1 <= q_lo) &&
+               (!window || k0 > q_hi - window);
+      },
+      [=](int r, int d, float x0, float x1) {
+        if (r >= rows) return;
+        __nv_bfloat16* p = ob + (size_t)r * hd + d;
+        if (d + 1 < hd && !(hd & 1)) {
+          *reinterpret_cast<__nv_bfloat162*>(p) = __floats2bfloat162_rn(x0, x1);
+        } else {
+          if (d < hd) p[0] = __float2bfloat16(x0);
+          if (d + 1 < hd) p[1] = __float2bfloat16(x1);
+        }
+      },
+      [](int, float, float) {});
+}
+
+template <int KD, bool kExact>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* out,
+                      int B, int Hq, int Hkv, int Sq, int Sk, int hd,
+                      int q_start, int causal, int window, int vec,
+                      float scale, cudaStream_t stream) {
+  static size_t allowed = 0;
+  const size_t smem = tc_smem_bytes(hd, dense_m(KD));
+  if (smem > 48 * 1024 && smem > allowed) {
+    cudaError_t e = cudaFuncSetAttribute(
+        flash_prefill_tc_kernel<KD, kExact>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    allowed = smem;
+  }
+  static int sms = 0;
+  if (!sms) {
+    int dev = 0;
+    cudaError_t e = cudaGetDevice(&dev);
+    if (e == cudaSuccess)
+      e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+  }
+  const int rows = kTcRows * dense_m(KD);
+  const int nq = (Sq + rows - 1) / rows;
+  const int pair = (long long)nq * Hq * B <=
+                   (long long)tc_min_blocks(KD, dense_m(KD)) * sms;
+  flash_prefill_tc_kernel<KD, kExact>
+      <<<dim3(Hq, nq, B), kTcThreads, smem, stream>>>(
+      (const __nv_bfloat16*)q, (const __nv_bfloat16*)k,
+      (const __nv_bfloat16*)v, (__nv_bfloat16*)out, Hq, Hkv, Sq, Sk, hd,
+      q_start, causal, window, scale * kLog2e, vec, pair);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
+// vec: hd % 8 == 0 and q, k, v 16-byte aligned (bf16 only: cp.async chunks)
 int flash_prefill(int dtype, const void* q, const void* k, const void* v,
                   void* out, int B, int Hq, int Hkv, int Sq, int Sk, int hd,
-                  int q_start, int causal, int window, float scale,
+                  int q_start, int causal, int window, int vec, float scale,
                   void* stream) {
   auto st = (cudaStream_t)stream;
   if (dtype == 0)
     return (int)launch_t<float>(q, k, v, out, B, Hq, Hkv, Sq, Sk, hd, q_start,
                                 causal, window, scale, st);
   if (dtype == 1)
-    return (int)launch_t<__nv_bfloat16>(q, k, v, out, B, Hq, Hkv, Sq, Sk, hd,
-                                        q_start, causal, window, scale, st);
+    return (int)tc_dispatch_hd(hd, [&](auto kd, auto exact) {
+      return launch_tc<decltype(kd)::value, decltype(exact)::value>(
+          q, k, v, out, B, Hq, Hkv, Sq, Sk, hd, q_start, causal, window, vec,
+          scale, st);
+    });
   return (int)cudaErrorInvalidValue;
 }
 

@@ -6,19 +6,32 @@
 //   decode_reduce  replaces repro/kernels/flash_decode.py::_decode_reduce_kernel
 //   paged_prefill  replaces repro/kernels/flash_prefill_paged.py::_prefill_kernel
 //
-// All three are bound by bytes at the serving shapes (decode reads every
-// resident K/V page once per step) or, for long resumed prefill chunks, by
-// operations.  This first version is simple and exact: one thread block per
-// output tile, a loop over the pages of the block table in place of the TPU's
-// sequential page grid axis, fp32 accumulation on the CUDA cores with the
-// running softmax state (max, denominator, accumulator) in shared memory.
-// Tensor cores (wgmma) and TMA page loads are later work.
+// Decode is bound by bytes at the serving shapes (it reads every resident
+// K/V page once per step): one thread block per output tile, a loop over the
+// pages of the block table in place of the TPU's sequential page grid axis,
+// fp32 accumulation on the CUDA cores with the running softmax state (max,
+// denominator, accumulator) in shared memory.  Tensor cores (wgmma) and TMA
+// page loads are later work for it.
+//
+// Paged prefill is bound by operations (4 * hd FLOPs per attended pair
+// against one read of the prefix, at 989 TFLOP/s bf16).  The dtype picks the
+// kernel:
+//   - bfloat16: paged_prefill_tc_kernel, the tensor-core tile loop of
+//     flash_tc.cuh (mma.sync m16n8k16 from ldmatrix fragments, K/V stages
+//     filled by cp.async, the online softmax in registers; P rounded to bf16
+//     before P V), each 64-key tile gathered through the block table from
+//     ceil(64 / ps) pages.  mma.sync does not reach half of the bf16 peak:
+//     wgmma fed by TMA is where the remaining headroom lies.
+//   - float32: paged_prefill_kernel, the CUDA-core page loop of the decode
+//     kernel (TF32 would keep three digits, against fp32's 1e-5 tolerance).
 //
 // Every entry returns cudaGetLastError() after its launch; the Python wrapper
 // raises on a non-zero code.  dtype codes: 0 = float32, 1 = bfloat16.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include "flash_tc.cuh"
 
 namespace {
 
@@ -304,6 +317,83 @@ paged_prefill_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   }
 }
 
+// bfloat16 paged prefill: the tensor-core tile loop of flash_tc.cuh.  The
+// R = group * bq rows of (query block iq, kv head h) are cut into blocks of
+// 64 (one when group <= 64); grid (query blocks * row blocks, Hkv, B).  Key
+// position j is attended iff j < min(prefix_len, MB * ps) and, with a
+// window, j > q0 + i - window; tiles wholly past the prefix or wholly below
+// every row's window are skipped (exact: they would be wholly masked).
+template <int KD, bool kExact>
+__global__ void __launch_bounds__(kTcThreads, tc_min_blocks(KD, 1))
+paged_prefill_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k_pages,
+                        const __nv_bfloat16* __restrict__ v_pages,
+                        const int* __restrict__ block_tables,
+                        const int* __restrict__ prefix_lens,
+                        const int* __restrict__ q_starts,
+                        float* __restrict__ out, float* __restrict__ m_out,
+                        float* __restrict__ l_out, int Hkv, int group, int Sq,
+                        int hd, int N, int ps, int MB, int bq, int window,
+                        float scale_log2, int vec) {
+  const int R = group * bq, nrb = (R + kTcRows - 1) / kTcRows;
+  const int iq = blockIdx.x / nrb, row_base = (blockIdx.x % nrb) * kTcRows;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int Hq = Hkv * group;
+  const int klen = max(0, min(prefix_lens[b], MB * ps));
+  const int q0 = q_starts[b] + iq * bq;        // absolute position of row i=0
+  const int t_end = (klen + kTcKeys - 1) / kTcKeys;
+  const int t_begin =
+      window ? min(t_end, max(0, q0 - window + 1) / kTcKeys) : 0;
+  const int* bt = block_tables + (size_t)b * MB;
+
+  // row r of the block is row_base + r = g * bq + i of the group's rows;
+  // its element offset in q and out, or -1 past R or Sq
+  auto q_row = [=](int r) -> long long {
+    const int rr = row_base + r;
+    if (rr >= R) return -1;
+    const int g = rr / bq, qi = iq * bq + (rr - g * bq);
+    if (qi >= Sq) return -1;
+    return (((long long)b * Hq + h * group + g) * Sq + qi) * hd;
+  };
+  extern __shared__ __align__(16) unsigned char tc_smem[];
+  flash_tc_block<KD, 1, kExact>(
+      reinterpret_cast<__nv_bfloat16*>(tc_smem), q, k_pages, v_pages, hd,
+      vec != 0, scale_log2, t_begin, t_end, q_row,
+      [=](int key) -> long long {
+        if (key >= klen) return -1;
+        const int j = key / ps;
+        const int page = min(max(__ldg(bt + j), 0), N - 1);  // -1 pads: page 0
+        return (((long long)page * ps + (key - j * ps)) * Hkv + h) * hd;
+      },
+      [=](int r, int key) {
+        // causality vs the prefix is implied: every valid prefix position
+        // is < q_start <= the query's position
+        bool ok = key < klen;
+        if (window) ok = ok && key > q0 + (row_base + r) % bq - window;
+        return ok;
+      },
+      [=](int k0) {  // every row (query index < bq) attends k0 .. k0 + 63
+        return k0 + kTcKeys <= klen && (!window || k0 > q0 + bq - 1 - window);
+      },
+      [=](int r, int d, float x0, float x1) {
+        const long long o = q_row(r);
+        if (o < 0) return;
+        float* p = out + o + d;
+        if (d + 1 < hd && !(hd & 1)) {
+          *reinterpret_cast<float2*>(p) = make_float2(x0, x1);
+        } else {
+          if (d < hd) p[0] = x0;
+          if (d + 1 < hd) p[1] = x1;
+        }
+      },
+      [=](int r, float m, float l) {
+        const long long o = q_row(r);
+        if (o < 0) return;
+        m_out[o / hd] = m;
+        l_out[o / hd] = l;
+      });
+}
+
 // Raise a kernel's dynamic shared-memory limit past the 48 KB default when a
 // launch needs it.  Each kernel instantiation remembers the largest limit it
 // has set, so steady-state launches (and CUDA-graph captures) make no call.
@@ -353,12 +443,36 @@ cudaError_t launch_prefill(const void* q, const void* k_pages,
   return cudaGetLastError();
 }
 
+template <int KD, bool kExact>
+cudaError_t launch_prefill_tc(const void* q, const void* k_pages,
+                              const void* v_pages, const int* block_tables,
+                              const int* prefix_lens, const int* q_starts,
+                              float* out, float* m, float* l, int B, int Hkv,
+                              int group, int Sq, int hd, int N, int ps, int MB,
+                              int bq, int window, int vec, float scale,
+                              cudaStream_t stream) {
+  static size_t allowed = 0;
+  const size_t smem = tc_smem_bytes(hd, 1);
+  cudaError_t e =
+      allow_smem(paged_prefill_tc_kernel<KD, kExact>, smem, &allowed);
+  if (e != cudaSuccess) return e;
+  const int nq = (Sq + bq - 1) / bq;
+  const int nrb = (group * bq + kTcRows - 1) / kTcRows;
+  paged_prefill_tc_kernel<KD, kExact>
+      <<<dim3(nq * nrb, Hkv, B), kTcThreads, smem, stream>>>(
+          (const __nv_bfloat16*)q, (const __nv_bfloat16*)k_pages,
+          (const __nv_bfloat16*)v_pages, block_tables, prefix_lens, q_starts,
+          out, m, l, Hkv, group, Sq, hd, N, ps, MB, bq, window,
+          scale * kLog2e, vec);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
 
-// Shared-memory bytes a block of R query rows needs (the wrappers check it
-// against the card's per-block limit before launching).
+// Shared-memory bytes a CUDA-core block of R query rows needs (the wrappers
+// check it against the card's per-block limit before launching).
 long long paged_attention_smem_bytes(int R, int ps, int hd) {
   return (long long)(smem_floats(R, ps, hd) * sizeof(float));
 }
@@ -393,12 +507,14 @@ int decode_reduce(const void* o, const void* m, const void* l, void* o_out,
   return (int)cudaGetLastError();
 }
 
+// vec: hd % 8 == 0 and q and the pools 16-byte aligned (bf16 only:
+// cp.async chunks)
 int paged_prefill(int dtype, const void* q, const void* k_pages,
                   const void* v_pages, const void* block_tables,
                   const void* prefix_lens, const void* q_starts, void* out,
                   void* m, void* l, int B, int Hkv, int group, int Sq, int hd,
-                  int N, int ps, int MB, int bq, int window, float scale,
-                  void* stream) {
+                  int N, int ps, int MB, int bq, int window, int vec,
+                  float scale, void* stream) {
   auto st = (cudaStream_t)stream;
   auto bt = (const int*)block_tables;
   auto pl = (const int*)prefix_lens;
@@ -409,9 +525,11 @@ int paged_prefill(int dtype, const void* q, const void* k_pages,
                                       Hkv, group, Sq, hd, N, ps, MB, bq,
                                       window, scale, st);
   if (dtype == 1)
-    return (int)launch_prefill<__nv_bfloat16>(
-        q, k_pages, v_pages, bt, pl, qs, (float*)out, (float*)m, (float*)l, B,
-        Hkv, group, Sq, hd, N, ps, MB, bq, window, scale, st);
+    return (int)tc_dispatch_hd(hd, [&](auto kd, auto exact) {
+      return launch_prefill_tc<decltype(kd)::value, decltype(exact)::value>(
+          q, k_pages, v_pages, bt, pl, qs, (float*)out, (float*)m, (float*)l,
+          B, Hkv, group, Sq, hd, N, ps, MB, bq, window, vec, scale, st);
+    });
   return (int)cudaErrorInvalidValue;
 }
 

@@ -21,11 +21,16 @@ comes out 0, as ``repro/kernels/ref.flash_prefill_ref`` gives it; the Pallas
 kernel does not mask ``p`` and leaves a value there that depends on its
 padding.  Every row with an attended key matches it.
 
-On the card one block owns (b, q head, 64-query tile) and walks 64-key
-tiles, skipping those wholly above the causal diagonal or below the window;
-fp32 FMAs on the CUDA cores, bound by operations (4 * hd FLOPs per attended
-pair).  Limit: ``hd <= 256``, where the block's tiles take 216.8 KB of the
-227 KB of shared memory a block may use.
+On the card one block owns a query tile of one (b, q head) and walks
+64-key tiles, skipping those wholly above the causal diagonal or below the
+window; bound by operations (4 * hd FLOPs per attended pair).  The dtype
+picks the instantiation: bfloat16 runs the tensor-core tile loop of
+``csrc/flash_tc.cuh`` (mma.sync on bf16 tiles fed by cp.async, fp32 sums,
+p rounded to bf16 before p @ v; 128-query tiles, 102 KB of shared memory,
+up to hd 128, 64-query tiles above), float32 the fp32 CUDA-core kernel
+(64-query tiles, 216.8 KB at hd 256).  Both are launched and held against
+the plain version on the card; neither is a fallback for the other.
+Limit: ``hd <= 256``.
 
 ``flash_attention_plain`` follows ``flash_prefill_ref``; the wrapper uses it
 only for CPU tensors.
@@ -67,7 +72,8 @@ def flash_attention(q, k, v, *, q_start: int = 0, causal: bool = True,
     the causal offset ``q_start`` and an optional sliding ``window`` (the
     reference's signature minus the TPU's ``block_q``/``block_k``/
     ``interpret``).  Returns (B, Hq, Sq, hd) in q's dtype.  CPU tensors take
-    the plain version; CUDA tensors launch the kernel."""
+    the plain version; CUDA tensors launch the kernel: the tensor-core one
+    for bfloat16, the CUDA-core one for float32."""
     if q.dtype not in (torch.float32, torch.bfloat16) \
             or not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"flash_attention takes q, k, v of one type, float32 "
@@ -97,7 +103,8 @@ def flash_attention(q, k, v, *, q_start: int = 0, causal: bool = True,
     err = native.library(_SOURCE).flash_prefill(
         native.dtype_code(q), q.data_ptr(), k.data_ptr(), v.data_ptr(),
         out.data_ptr(), B, Hq, Hkv, Sq, Sk, hd, int(q_start), int(causal),
-        int(window), hd ** -0.5, native.stream_of(q))
+        int(window), int(native.cp_async_ok(hd, q, k, v)), hd ** -0.5,
+        native.stream_of(q))
     native.check_launch("flash_prefill", err)
-    native.LAUNCHES["flash_prefill"] += 1
+    native.count_launch("flash_prefill", q.dtype)
     return out

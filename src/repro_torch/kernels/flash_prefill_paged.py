@@ -15,17 +15,22 @@ Layout (the reference's):
 Every per-row input is heterogeneous; a row with ``prefix_len == 0`` comes
 back as the neutral state (0, NEG_INF, 0).  On the card one thread block
 handles (request, kv head, query block) with the ``group * block_q`` query
-rows of that kv head's group (row ``g*block_q + i``) and walks the pages of
-the prefix with the online-softmax state in shared memory, fp32.  The TPU's
-``block_q=128`` does not fit: with group 4 and head_dim 128 its fp32
-accumulator alone is 256 KB, over the 227 KB a block may use, so the card
-takes ``block_q = 64 // group`` rows per kv-head group member and leaves the
-rows past Sq unwritten.  Pages past ``prefix_len`` are skipped (the
-reference walks all MB; the skip is bit-identical since such pages are
-wholly masked).  What bounds it on the card is operations for long chunks
-over long prefixes (2*2*Sq*prefix*Hq*hd FLOPs against one read of the
-prefix), which this fp32 CUDA-core version is far from; tensor cores come
-later.
+rows of that kv head's group (row ``g*block_q + i``), so each K/V tile is
+read once per group.  The TPU's ``block_q=128`` does not fit: with group 4
+and head_dim 128 its fp32 accumulator alone is 256 KB, over the 227 KB a
+block may use, so the card takes ``block_q = max(1, 64 // group)`` rows per
+kv-head group member and leaves the rows past Sq unwritten.  Keys past
+``prefix_len`` are skipped (the reference walks all MB pages; the skip is
+exact since such keys are wholly masked).  What bounds it on the card is
+operations (2*2*Sq*prefix*Hq*hd FLOPs against one read of the prefix).
+
+The dtype picks the instantiation: bfloat16 runs the tensor-core tile loop
+of ``csrc/flash_tc.cuh`` (64 rows a block, 64-key tiles gathered through the
+block table by cp.async, mma.sync with fp32 sums, p rounded to bf16 before
+p @ v, the rows' softmax state in registers); float32 runs the CUDA-core
+page loop with the state in shared memory, fp32 throughout.  Both are
+launched and held against the plain version on the card; neither is a
+fallback for the other.
 
 ``prefill_partial_plain`` computes the same function with a dense gather,
 following ``repro/kernels/ref.paged_prefill_ref``; the wrapper uses it only
@@ -78,7 +83,8 @@ def flash_prefill_paged(q, k_pages, v_pages, block_tables, prefix_lens,
 
     Returns ``(out, m, l)`` fp32 partial softmax state over the paged
     prefix: out (B, Hq, Sq, hd) = acc/l, m and l (B, Hq, Sq, 1).  CPU
-    tensors take the plain version; CUDA tensors launch the kernel."""
+    tensors take the plain version; CUDA tensors launch the kernel: the
+    tensor-core one for bfloat16, the CUDA-core one for float32."""
     native.check_inputs(q, k_pages, v_pages, block_tables, prefix_lens,
                         "paged_prefill")
     B, Hq, Sq, hd = q.shape
@@ -97,7 +103,11 @@ def flash_prefill_paged(q, k_pages, v_pages, block_tables, prefix_lens,
                                      prefix_lens, q_starts, window=window)
     group = Hq // Hkv
     bq = max(1, BLOCK_ROWS // group)
-    native.check_smem(group * bq, ps, hd, "paged_prefill")
+    if q.dtype == torch.float32:
+        native.check_smem(group * bq, ps, hd, "paged_prefill")
+    elif hd > native.MAX_HEAD_DIM:      # every bf16 block up to it fits
+        raise ValueError(f"paged_prefill: head_dim {hd} > "
+                         f"{native.MAX_HEAD_DIM}")
     q = q.contiguous()
     bt = block_tables.to(torch.int32).contiguous()
     pl = prefix_lens.to(torch.int32).contiguous()
@@ -109,7 +119,9 @@ def flash_prefill_paged(q, k_pages, v_pages, block_tables, prefix_lens,
         native.dtype_code(q), q.data_ptr(), k_pages.data_ptr(),
         v_pages.data_ptr(), bt.data_ptr(), pl.data_ptr(), qs.data_ptr(),
         out.data_ptr(), m.data_ptr(), l.data_ptr(), B, Hkv, group, Sq, hd, N,
-        ps, MB, bq, int(window), hd ** -0.5, native.stream_of(q))
+        ps, MB, bq, int(window),
+        int(native.cp_async_ok(hd, q, k_pages, v_pages)), hd ** -0.5,
+        native.stream_of(q))
     native.check_launch("paged_prefill", err)
-    native.LAUNCHES["paged_prefill"] += 1
+    native.count_launch("paged_prefill", q.dtype)
     return out, m, l

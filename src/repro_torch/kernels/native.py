@@ -11,7 +11,9 @@ the plain versions for CUDA tensors.
 
 ``LAUNCHES`` counts kernel launches by name; each wrapper adds one where it
 launches its kernel and nowhere else, so a run can show that the serving path
-went through the kernels.
+went through the kernels.  ``VARIANTS`` splits the two flash-prefill kernels'
+counts by instantiation: ``/tc`` for bf16 inputs (the tensor-core tile loop of
+``csrc/flash_tc.cuh``), ``/fp32`` for float32 inputs (CUDA cores).
 """
 from __future__ import annotations
 
@@ -42,6 +44,9 @@ ROW_THREADS = 256
 LAUNCHES: Dict[str, int] = {"paged_decode": 0, "decode_reduce": 0,
                             "paged_prefill": 0, "quantize_int8": 0,
                             "flash_prefill": 0, "rms_norm": 0, "swiglu": 0}
+# launches of B3 and B4 by instantiation (their sum is the LAUNCHES count)
+VARIANTS: Dict[str, int] = {"paged_prefill/tc": 0, "paged_prefill/fp32": 0,
+                            "flash_prefill/tc": 0, "flash_prefill/fp32": 0}
 # nvcc output (register / shared-memory report) of each build, by source
 BUILD_LOGS: Dict[str, str] = {}
 
@@ -54,7 +59,7 @@ _SIGNATURES = {
     "paged_attention.cu": {
         "paged_decode": [_I] + [_P] * 8 + [_I] * 12 + [_F, _P],
         "decode_reduce": [_P] * 6 + [_I] * 5 + [_P],
-        "paged_prefill": [_I] + [_P] * 9 + [_I] * 10 + [_F, _P],
+        "paged_prefill": [_I] + [_P] * 9 + [_I] * 11 + [_F, _P],
         "paged_attention_smem_bytes": [_I, _I, _I],
     },
     "int8_quant.cu": {
@@ -67,7 +72,7 @@ _SIGNATURES = {
         "swiglu": [_I] + [_P] * 3 + [_L, _I, _P],
     },
     "flash_prefill.cu": {
-        "flash_prefill": [_I] + [_P] * 4 + [_I] * 9 + [_F, _P],
+        "flash_prefill": [_I] + [_P] * 4 + [_I] * 10 + [_F, _P],
     },
 }
 _RESTYPES = {"paged_attention_smem_bytes": _L}
@@ -77,8 +82,15 @@ _libs: Dict[str, ctypes.CDLL] = {}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, VARIANTS):
+        for k in counts:
+            counts[k] = 0
+
+
+def count_launch(name: str, dtype: torch.dtype) -> None:
+    """Count one launch of B3 or B4 (``name``), and of its instantiation."""
+    LAUNCHES[name] += 1
+    VARIANTS[f"{name}/{'tc' if dtype == torch.bfloat16 else 'fp32'}"] += 1
 
 
 def find_nvcc() -> str:
@@ -160,6 +172,12 @@ def check_smem(rows: int, ps: int, hd: int, kernel: str) -> None:
         raise ValueError(f"{kernel}: {rows} query rows x page_size {ps} x "
                          f"head_dim {hd} need {need} B of shared memory per "
                          f"block, over the card's {MAX_SMEM_BYTES} B")
+
+
+def cp_async_ok(hd: int, *tensors: torch.Tensor) -> bool:
+    """Whether the bf16 tile loop may fill its tiles with 16-byte cp.async
+    chunks: rows of whole chunks (hd % 8 == 0) at 16-byte aligned bases."""
+    return hd % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
 
 
 def check_inputs(q, k_pages, v_pages, block_tables, lengths,
