@@ -21,6 +21,10 @@ Phases, each fatal on failure:
                8/16/32 x group 1/2/4/8, Sq 100, prefixes off the 64-key
                grid, windows that leave rows with no key, which must come
                back neutral, group 80, hd 20);
+               the paged decode kernel's edges (hd 64/80/256/20/18, ps 32/64,
+               query rows 1/12/32, 8192 tokens at S 1 and 4, rows and
+               batches with no key; every span partial with no key must
+               come back neutral);
                the int8 quantize kernel over bf16/fp32 rows of width
                64..4096 (the 16-byte and the scalar path, an all-zero row,
                .5 ties), q and scales EQUAL to the plain version; the dense
@@ -55,11 +59,15 @@ Phases, each fatal on failure:
                model at tp=2 must give the tokens of tp=1 on the card under
                all three decode schedules.
   6. time      each kernel and its plain version at the main path's shapes
-               (the int8 kernel at both its decode and its prefill shapes,
+               (the decode kernel also at one tp=2 rank's heads and at one
+               request of 8192 tokens; the int8 kernel at both its decode
+               and its prefill shapes,
                the paged prefill at a 512-query chunk and at the serving
                path's 256-query ISO chunk, both over a 1024-token prefix),
                and where one PyTorch call computes the same function, that
-               call (SDPA for the flash-prefill kernel, ``F.rms_norm``).
+               call (SDPA for the flash-prefill kernel, ``F.rms_norm``);
+               then the per-launch floor (a trivial launch through the same
+               graph replay) and each row's gap to max(bound, floor).
   7. ops       the kernel entry point ``repro_torch.kernels.ops`` at
                qwen3-8b's widths in bf16: the ISO composition, a 2048-token
                prompt as two 1024-token chunks, flash(chunk 0) ++
@@ -229,6 +237,109 @@ def max_err(got, want, tol) -> float:
     return err
 
 
+def decode_case(gen, errs, lengths, ps, hq, hkv, hd, K, S, window,
+                dtype_name, mb=0) -> int:
+    """B1 (and B2 at S > 1) against the plain versions on one random pool:
+    the span partials within ``TOL``, the dead-page skip bit-identical to the
+    full walk, every span partial of a row with no key in its span (past the
+    row's length, or wholly outside the window) exactly neutral (0, NEG_INF,
+    0), and the whole wrapper against the plain pipeline.  Returns how many
+    such neutral (request, span, row) partials the case held."""
+    import torch
+    from repro_torch.kernels import flash_decode as fd
+    dtype = getattr(torch, dtype_name)
+    k, v, bt, lens = make_pool(gen, lengths, ps, hkv, hd, dtype, mb)
+    B = len(lengths)
+    q = torch.randn((B, K, hq, hd), generator=gen, device="cuda").to(dtype)
+    group = hq // hkv
+    gk = group * K
+    qg = q.reshape(B, K, hkv, group, hd).permute(0, 2, 3, 1, 4).reshape(
+        B, hkv, gk, hd)
+    S = max(1, min(S, bt.shape[1]))
+    got = fd.decode_partials(qg, k, v, bt, lens, k_tokens=K, window=window,
+                             kv_splits=S)
+    want = fd.decode_partials_plain(qg, k, v, bt, lens, k_tokens=K,
+                                    window=window, kv_splits=S)
+    tol = TOL[dtype_name]
+    errs["paged_decode"] = max(errs["paged_decode"], max_err(got, want, tol))
+    walked = fd.decode_partials(qg, k, v, bt, lens, k_tokens=K,
+                                window=window, kv_splits=S,
+                                guard_dead_pages=False)
+    for a, b in zip(got, walked):
+        if not torch.equal(a, b):
+            raise AssertionError("dead-page skip is not bit-identical")
+    # span s holds key positions [s * L, (s + 1) * L), L = pps * ps
+    L = -(-bt.shape[1] // S) * ps
+    pos = torch.arange(S * L, device="cuda").reshape(1, S, 1, L)
+    ln = lens.long().reshape(B, 1, 1, 1)
+    ok = pos < ln
+    if window:
+        qi = (torch.arange(gk, device="cuda") % K).reshape(1, 1, gk, 1)
+        ok = ok & (pos > ln + qi - window)
+    empty = (~ok.any(-1)).expand(B, S, gk)[:, None].expand(
+        -1, hkv, -1, -1)                                      # (B,Hkv,S,gk)
+    o, m, l = (t[empty] for t in got)
+    if bool((o != 0).any()) or bool((l != 0).any()) or \
+            bool((m != fd.NEG_INF).any()):
+        raise AssertionError("a span partial with no key is not neutral")
+    if S > 1:
+        red = fd.decode_reduce(*got)
+        red_plain = fd.decode_reduce_plain(*got)
+        errs["decode_reduce"] = max(errs["decode_reduce"],
+                                    max_err(red, red_plain, TOL["float32"]))
+    # the whole wrapper (reduce included) against the plain pipeline
+    o = fd.flash_decode(q, k, v, bt, lens, window=window, kv_splits=S)
+    po, pm, pl = fd.decode_partials_plain(qg, k, v, bt, lens, k_tokens=K,
+                                          window=window, kv_splits=S)
+    if S > 1:
+        po, pm, pl = fd.decode_reduce_plain(po, pm, pl)
+    else:
+        po, pm, pl = po[:, :, 0], pm[:, :, 0], pl[:, :, 0]
+    unrow = lambda t, last: t.reshape(B, hkv, group, K, last).permute(
+        0, 3, 1, 2, 4).reshape(B, K, hq, last)
+    max_err(o, (unrow(po, hd), unrow(pm, 1), unrow(pl, 1)), tol)
+    return int(empty.sum()) // hkv
+
+
+def check_decode_edges(gen, errs) -> tuple:
+    """B1's edges, bf16 and fp32: head dims 64 and 256, 80 (six idle lanes
+    of sixteen per key), 20 (bf16: the synchronous loads; fp32: a lane's
+    second 16-byte piece past hd) and 18 (rows off the 16-byte grid: the
+    synchronous loads in both); page sizes 32 and 64; query rows 1, 12 (a
+    ragged 4-row tile) and 32 (group 8 with a K = 4 window, the largest gk
+    the kernel takes); one
+    request of 8192 tokens (MB 512) at S = 1 and S = 4; a batch in which
+    every span of one row is dead; a batch whose lengths are all 0.  Returns
+    (cases, neutral span partials held)."""
+    n = neutral = 0
+    short = [1, 15, 16, 17, 100, 300, 0]
+    for dtype_name in ("bfloat16", "float32"):
+        cases = []
+        for hd in (64, 80, 256, 20, 18):
+            cases += [(short, 16, 8, 2, hd, 1, 4, 0),
+                      (short, 16, 8, 2, hd, 2, 1, 37)]
+        for ps in (32, 64):
+            for S, window in ((1, 0), (4, 100)):
+                cases.append(([1, 31, 32, 33, 500, 2047, 0], ps, 32, 8, 128,
+                               1, S, window))
+        for hq, hkv, K, S, window in ((2, 2, 1, 4, 0), (8, 2, 3, 2, 20),
+                                      (16, 2, 4, 2, 12), (16, 2, 4, 1, 0)):
+            cases.append(([3, 17, 64, 130, 0], 16, hq, hkv, 128, K, S,
+                          window))
+        for S in (1, 4):
+            cases.append(([8192], 16, 32, 8, 128, 1, S, 0, 512))
+        cases += [([700, 0, 2030], 16, 32, 8, 128, 1, 4, 0),
+                  ([5, 2000], 16, 32, 8, 128, 1, 4, 0),
+                  ([0, 0, 0], 16, 32, 8, 128, 1, 4, 0),
+                  ([0, 0], 16, 32, 8, 128, 1, 1, 100)]
+        for case in cases:
+            lengths, ps, hq, hkv, hd, K, S, window = case[:8]
+            neutral += decode_case(gen, errs, lengths, ps, hq, hkv, hd, K, S,
+                                   window, dtype_name, *case[8:])
+            n += 1
+    return n, neutral
+
+
 def check_kernels(report):
     import torch
     from repro_torch.kernels import flash_decode as fd
@@ -236,46 +347,6 @@ def check_kernels(report):
     from repro_torch.kernels import native
     gen = torch.Generator(device="cuda").manual_seed(0)
     errs = {"paged_decode": 0.0, "decode_reduce": 0.0, "paged_prefill": 0.0}
-
-    def decode_case(lengths, ps, hq, hkv, hd, K, S, window, dtype_name):
-        dtype = getattr(torch, dtype_name)
-        k, v, bt, lens = make_pool(gen, lengths, ps, hkv, hd, dtype)
-        q = torch.randn((len(lengths), K, hq, hd), generator=gen,
-                        device="cuda").to(dtype)
-        group = hq // hkv
-        qg = q.reshape(len(lengths), K, hkv, group, hd).permute(
-            0, 2, 3, 1, 4).reshape(len(lengths), hkv, group * K, hd)
-        S = max(1, min(S, bt.shape[1]))
-        got = fd.decode_partials(qg, k, v, bt, lens, k_tokens=K,
-                                 window=window, kv_splits=S)
-        want = fd.decode_partials_plain(qg, k, v, bt, lens, k_tokens=K,
-                                        window=window, kv_splits=S)
-        tol = TOL[dtype_name]
-        errs["paged_decode"] = max(errs["paged_decode"],
-                                   max_err(got, want, tol))
-        walked = fd.decode_partials(qg, k, v, bt, lens, k_tokens=K,
-                                    window=window, kv_splits=S,
-                                    guard_dead_pages=False)
-        for a, b in zip(got, walked):
-            if not torch.equal(a, b):
-                raise AssertionError("dead-page skip is not bit-identical")
-        if S > 1:
-            red = fd.decode_reduce(*got)
-            red_plain = fd.decode_reduce_plain(*got)
-            errs["decode_reduce"] = max(errs["decode_reduce"],
-                                        max_err(red, red_plain, TOL["float32"]))
-        # the whole wrapper (reduce included) against the plain pipeline
-        o = fd.flash_decode(q, k, v, bt, lens, window=window, kv_splits=S)
-        po, pm, pl = fd.decode_partials_plain(qg, k, v, bt, lens, k_tokens=K,
-                                              window=window, kv_splits=S)
-        if S > 1:
-            po, pm, pl = fd.decode_reduce_plain(po, pm, pl)
-        else:
-            po, pm, pl = po[:, :, 0], pm[:, :, 0], pl[:, :, 0]
-        B = len(lengths)
-        unrow = lambda t, last: t.reshape(B, hkv, group, K, last).permute(
-            0, 3, 1, 2, 4).reshape(B, K, hq, last)
-        max_err(o, (unrow(po, hd), unrow(pm, 1), unrow(pl, 1)), tol)
 
     def prefill_case(prefix_lens, offsets, Sq, ps, hq, hkv, hd, window,
                      dtype_name):
@@ -311,12 +382,12 @@ def check_kernels(report):
         for hq, hkv in ((32, 8), (16, 4)):
             for S in (1, 4):
                 for window in (0, 100):
-                    decode_case(main_lengths, 16, hq, hkv, 128, 1, S, window,
-                                dtype_name)
+                    decode_case(gen, errs, main_lengths, 16, hq, hkv, 128,
+                                1, S, window, dtype_name)
                     n += 1
         for K, S, window in ((1, 1, 0), (2, 4, 12), (4, 2, 0)):
-            decode_case([1, 7, 8, 9, 22, 37, 0], 8, 4, 2, 16, K, S, window,
-                        dtype_name)
+            decode_case(gen, errs, [1, 7, 8, 9, 22, 37, 0], 8, 4, 2, 16, K,
+                        S, window, dtype_name)
             n += 1
         for window in (0, 100):
             # a 512-token grant at tp=1; one rank's 256-token ISO chunk
@@ -353,11 +424,15 @@ def check_kernels(report):
     prefill_case([0, 70, 129], [0, 0, 7], 10, 16, 80, 1, 64, 0, "bfloat16")
     prefill_case([0, 70, 129], [0, 0, 7], 37, 16, 8, 2, 20, 9, "bfloat16")
     n_tc += 2
+    n_dec, neutral = check_decode_edges(gen, errs)
     torch.cuda.synchronize()
-    log(f"[kernels] {n + n_tc} cases within tolerance {TOL} ({n_tc} of them "
-        f"the bf16 tile loop's edges: {emptied} rows of resumed requests "
-        f"wholly outside the window, neutral); dead-page skip "
-        f"bit-identical; max abs err {errs}")
+    log(f"[kernels] {n + n_tc + n_dec} cases within tolerance {TOL} ({n_tc} "
+        f"of them the bf16 tile loop's edges: {emptied} rows of resumed "
+        f"requests wholly outside the window, neutral; {n_dec} the decode "
+        f"kernel's edges: hd 64/80/256/20/18, ps 32/64, gk 1/12/32, 8192 "
+        f"tokens at S 1 and 4, dead rows, all lengths 0, {neutral} span "
+        f"partials with no key, neutral); dead-page skip bit-identical; max "
+        f"abs err {errs}")
     errs["quantize_int8"] = check_quantize(gen)
     errs.update(check_ops_kernels(gen))
     report["errs"] = errs
@@ -497,44 +572,28 @@ def check_ops_kernels(gen) -> dict:
 def time_kernels(report):
     """Time each kernel and its plain version at the shapes its path gives
     it: decode B=4 rows of 700/1200/1700/2030 resident tokens (MB=128) with
-    S=4 spans, as the engine splits walks past 16 pages; the reduce of those
-    spans; a 512-token resumed chunk over a 1024-token prefix, and the
+    S=4 spans, as the engine splits walks past 16 pages (and at one tp=2
+    rank's heads, and one request of 8192 tokens, MB=512); the reduce of
+    those spans; a 512-token resumed chunk over a 1024-token prefix, and the
     serving path's 256-token ISO chunk over it; the int8
     quantize at the tp=2 decode and prefill reduce shapes; the ops path's
     flash prefill, RMSNorm and SwiGLU (phase 7), each beside the one
-    PyTorch call that computes the same function where there is one."""
+    PyTorch call that computes the same function where there is one.  Then
+    the per-launch floor, and each row's gap to its bound and to
+    max(bound, floor)."""
     import torch
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import flash_prefill_paged as fp
     gen = torch.Generator(device="cuda").manual_seed(1)
     dt = torch.bfloat16
-    ps, hq, hkv, hd, S, K = 16, 32, 8, 128, 4, 1
-    group = hq // hkv
-    gk = group * K
-    lengths = [700, 1200, 1700, 2030]
-    B = len(lengths)
-    k, v, bt, lens = make_pool(gen, lengths, ps, hkv, hd, dt, mb=128)
-    qg = torch.randn((B, hkv, gk, hd), generator=gen, device="cuda").to(dt)
-    dec = lambda: fd.decode_partials(qg, k, v, bt, lens, k_tokens=K,
-                                     window=0, kv_splits=S)
-    dec_plain = lambda: fd.decode_partials_plain(qg, k, v, bt, lens,
-                                                 k_tokens=K, window=0,
-                                                 kv_splits=S)
-    parts = dec()
+    ps, hq, hkv, hd, S = 16, 32, 8, 128, 4
+    paged = "no single PyTorch call computes paged attention over block tables"
+    dec, (parts, red_bytes, red_ops, red_shape) = decode_timing_case(
+        gen, [700, 1200, 1700, 2030], hq, hkv, S, 128, paged)
     red = lambda: fd.decode_reduce(*parts)
     red_plain = lambda: fd.decode_reduce_plain(*parts)
-    walked_pages = sum(-(-L // ps) for L in lengths)
-    tokens = sum(lengths)
-    out_bytes = B * hkv * S * gk * (hd + 2) * 4
-    dec_bytes = (qg.numel() * 2 + bt.numel() * 4 + B * 4
-                 + 2 * walked_pages * ps * hkv * hd * 2 + out_bytes)
-    dec_ops = 4 * tokens * hq * hd
-    red_bytes = out_bytes + B * hkv * gk * (hd + 2) * 4
-    red_ops = 4 * B * hkv * S * gk * hd
-
     prefix = 1024
     pk, pv, pbt, plens = make_pool(gen, [prefix], ps, hkv, hd, dt, mb=128)
-    paged = "no single PyTorch call computes paged attention over block tables"
 
     def p_case(Sq, q_off, what):
         q = torch.randn((1, hq, Sq, hd), generator=gen, device="cuda").to(dt)
@@ -627,12 +686,16 @@ def time_kernels(report):
             "prefill", "tp=2 256-token ISO chunk of a prefill grant"),
         "quantize_int8/prefill_requant": q_case(
             "prefill_requant", "its re-quantize of the reduced slice"),
-        "paged_decode": (dec, dec_plain, dec_bytes, dec_ops, "bfloat16",
-                         f"B={B} L={lengths} Hq={hq} Hkv={hkv} hd={hd} "
-                         f"ps={ps} MB=128 S={S} bf16", paged),
+        # the earlier PRs' shape is the kernel line's; one request of 8192
+        # tokens (a short grid: 32 spans for 132 SMs); one tp=2 rank's heads
+        "paged_decode": dec,
+        "paged_decode/long": decode_timing_case(gen, [8192], hq, hkv, S, 512,
+                                                paged)[0],
+        "paged_decode/tp2": decode_timing_case(
+            gen, [700, 1200, 1700, 2030], hq // 2, hkv // 2, S, 128,
+            paged)[0],
         "decode_reduce": (red, red_plain, red_bytes, red_ops, "float32",
-                          f"B={B} Hkv={hkv} S={S} gk={gk} hd={hd} fp32",
-                          paged),
+                          red_shape, paged),
         # the earlier PRs' shape, kept for continuity, is the kernel line's
         "paged_prefill": p_case(512, 512, "a 512-token resumed chunk"),
         "paged_prefill/iso_chunk": p_case(
@@ -662,7 +725,47 @@ def time_kernels(report):
             f"{plain_ms:.4f} ms, bound "
             f"{max(t_bytes, t_ops):.5f} ms by {timing[name]['bound_by']}, "
             f"{lib}) at {shape}")
+    # the device time of one trivial launch through the same graph replay:
+    # no kernel can take less, whatever its bound
+    one = torch.zeros(1, device="cuda")
+    floor_ms = time_ms(one.zero_)
+    log(f"[time] per-launch floor (one zero_() of a 1-element tensor through "
+        f"the same CUDA-graph replay; no kernel's time): {floor_ms:.5f} ms")
+    for name, t in timing.items():
+        log(f"[time] {name}: ms - bound {t['ms'] - t['bound_ms']:.5f}, ms - "
+            f"max(bound, floor) {t['ms'] - max(t['bound_ms'], floor_ms):.5f}")
     report["timing"] = timing
+    report["floor_ms"] = floor_ms
+
+
+def decode_timing_case(gen, lengths, hq, hkv, S, mb, paged):
+    """B1's timing case at ``lengths`` resident tokens (hd 128, ps 16, K 1,
+    bf16, table width ``mb``, ``S`` spans): (fn, plain, bytes, ops, kind,
+    shape, library), and (its partials, bytes, ops and shape of their
+    reduce).  Bytes: q, the block tables, lengths, every resident page of K
+    and V once, the partials; operations: 4 * hd per (query row, key)."""
+    import torch
+    from repro_torch.kernels import flash_decode as fd
+    ps, hd, K, dt = 16, 128, 1, torch.bfloat16
+    gk = hq // hkv * K
+    B = len(lengths)
+    k, v, bt, lens = make_pool(gen, lengths, ps, hkv, hd, dt, mb=mb)
+    qg = torch.randn((B, hkv, gk, hd), generator=gen, device="cuda").to(dt)
+    dec = lambda: fd.decode_partials(qg, k, v, bt, lens, k_tokens=K,
+                                     window=0, kv_splits=S)
+    dec_plain = lambda: fd.decode_partials_plain(qg, k, v, bt, lens,
+                                                 k_tokens=K, window=0,
+                                                 kv_splits=S)
+    walked_pages = sum(-(-L // ps) for L in lengths)
+    out_bytes = B * hkv * S * gk * (hd + 2) * 4
+    nbytes = (qg.numel() * 2 + bt.numel() * 4 + B * 4
+              + 2 * walked_pages * ps * hkv * hd * 2 + out_bytes)
+    red_bytes = out_bytes + B * hkv * gk * (hd + 2) * 4
+    return ((dec, dec_plain, nbytes, 4 * sum(lengths) * hq * hd, "bfloat16",
+             f"B={B} L={lengths} Hq={hq} Hkv={hkv} hd={hd} ps={ps} MB={mb} "
+             f"S={S} bf16", paged),
+            (dec(), red_bytes, 4 * B * hkv * S * gk * hd,
+             f"B={B} Hkv={hkv} S={S} gk={gk} hd={hd} fp32"))
 
 
 # ---------------------------------------------------------------------------

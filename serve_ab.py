@@ -10,12 +10,13 @@ is one process that builds its checkout's kernels and runs that checkout's
 ``chip_smoke.serve_full`` (phase 3: qwen3-8b at full width and depth, bf16,
 six greedy requests).  The runs go OTHER, this, this, OTHER, and again, until
 each side has ``RUNS`` runs, so neither side gains from its place in the
-order.  Each run also times the host work of the paged-prefill (B3) wrapper
-``flash_prefill_paged``: over its calls in the serving run, and over 200
-calls in a row at the serving path's shape (a 256-query ISO chunk over a
-1024-token prefix, Hq/Hkv 32/8, hd 128, bf16; host time until the calls
-return, before waiting for the card).  Prints every run, then each side's
-median, minimum and maximum, and the card's name and power limit.
+order.  Each run also times the host work (until the calls return, before
+waiting for the card) of the paged-decode (B1) wrapper ``decode_partials``
+over its calls in the serving run, and of the paged-prefill (B3) wrapper
+``flash_prefill_paged`` over its calls in the serving run and over 200 calls
+in a row at the serving path's shape (a 256-query ISO chunk over a
+1024-token prefix, Hq/Hkv 32/8, hd 128, bf16).  Prints every run, then each
+side's median, minimum and maximum, and the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -31,7 +32,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 RUNS = 10                # of each side
 LOOP_CALLS = 200
-KEYS = ("prefill_tok_s", "decode_ms_step", "b3_host_us", "b3_loop_us")
+KEYS = ("prefill_tok_s", "decode_ms_step", "b3_host_us", "b3_loop_us",
+        "b1_host_us")
 
 
 def b3_loop_us(smoke, fp) -> float:
@@ -59,25 +61,38 @@ def child() -> None:
     """One run, from the checkout in the working directory."""
     sys.path[0] = os.getcwd()        # that checkout's chip_smoke and src
     import chip_smoke as smoke
+    from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import flash_prefill_paged as fp
     from repro_torch.kernels import native
     native.build_all()
-    host = []
-    wrapper = fp.flash_prefill_paged
+    # the B3 and B1 wrappers, timed in place: layers/attention.py looks up
+    # flash_prefill_paged per call, flash_decode looks up decode_partials
+    host = {"b3": [], "b1": []}
+    wrappers = {"b3": (fp, "flash_prefill_paged"),
+                "b1": (fd, "decode_partials")}
 
-    def timed(*args, **kwargs):
-        t0 = time.perf_counter()
-        out = wrapper(*args, **kwargs)
-        host.append(time.perf_counter() - t0)
-        return out
+    def timed(key, wrapper):
+        def call(*args, **kwargs):
+            t0 = time.perf_counter()
+            out = wrapper(*args, **kwargs)
+            host[key].append(time.perf_counter() - t0)
+            return out
+        return call
 
-    fp.flash_prefill_paged = timed   # layers/attention.py looks it up per call
+    orig = {key: getattr(mod, name) for key, (mod, name) in wrappers.items()}
+    for key, (mod, name) in wrappers.items():
+        setattr(mod, name, timed(key, orig[key]))
     report = {"launches": {}}
-    smoke.serve_full(report, smoke.nvidia_smi())
-    fp.flash_prefill_paged = wrapper
+    try:
+        smoke.serve_full(report, smoke.nvidia_smi())
+    finally:
+        for key, (mod, name) in wrappers.items():
+            setattr(mod, name, orig[key])
     print("SERVE_AB " + json.dumps(dict(
-        report["serve"], b3_calls=len(host),
-        b3_host_us=1e6 * statistics.mean(host),
+        report["serve"], b3_calls=len(host["b3"]),
+        b3_host_us=1e6 * statistics.mean(host["b3"]),
+        b1_calls=len(host["b1"]),
+        b1_host_us=1e6 * statistics.mean(host["b1"]),
         b3_loop_us=b3_loop_us(smoke, fp))), flush=True)
 
 
@@ -112,7 +127,9 @@ def main() -> int:
         print(f"[ab] {label} ({trees[label]}): prefill {r['prefill_tok_s']} "
               f"tok/s, decode {r['decode_ms_step']} ms/step; B3 wrapper host "
               f"{r['b3_host_us']} us a call over {r['b3_calls']} serving "
-              f"calls, {r['b3_loop_us']} us in a loop", flush=True)
+              f"calls, {r['b3_loop_us']} us in a loop; B1 wrapper host "
+              f"{r['b1_host_us']} us a call over {r['b1_calls']} serving "
+              f"calls", flush=True)
     for label, rs in runs.items():
         for key in KEYS:
             xs = [r[key] for r in rs]

@@ -12,18 +12,26 @@ Layout (the reference's; the period dim of the pool is the caller's):
     block_tables (B, MB) int32, -1 pad (aliases page 0, always masked)
     lengths      (B,) int32 tokens resident
 
-On the card the decode kernel runs one thread block per (request, kv head,
-split).  A loop inside the block walks the span's pages (in place of the
-TPU's sequential page grid axis) with the online-softmax state of the
-``gk = group*K`` query rows (row ``g*K + qi``) in shared memory, accumulating
-in fp32; pages past the resident length are skipped, bit-identically.  Each
-span emits its fp32 partial ``(acc/l, m, l)``; with S > 1 spans the reduce
-kernel, one block per (request, kv head) with threads over (gk, hd), folds
-them with the ``merge_softmax_states`` rule; at S = 1 the decode kernel's
-state is final and the reduce is not launched.  What bounds both on the card
-is bytes: every resident K/V page is read once per step, and a row's work is
-a few FLOPs per byte.  The simple design spends one block per (b, kv head,
-split), so split-KV (S > 1) is also what fills the SMs at small batch.
+On the card the decode kernel is bound by bytes (every resident K/V page is
+read once per step; a query row does ~4 FLOPs per byte), so its design keeps
+bytes in flight and every lane busy.  A block of 8 warps takes each (span,
+kv head, request, 4 of the ``gk = group*K`` query rows, row ``g*K + qi``).
+The warps split the span's pages round-robin; each walks its pages through a
+cp.async ring of its own (16-byte loads, two 8 KB batches in flight while it
+computes a third) with the running softmax state of the 4 rows in registers,
+fp32 for both dtypes: a lane owns 8 head dims of a key, and a shuffle
+reduce-scatter over the key's lanes completes the scores.  The warps then
+merge in warp order with the ``merge_softmax_states`` rule, and the block
+writes the span's fp32 partial ``(acc/l, m, l)``.  When the grid is short (one
+long request, one rank's heads) the launch puts a cluster of 2-8 blocks on
+each span, merged through distributed shared memory: still one partial a
+span.  Pages past the resident length are skipped, bit-identically (the
+assignment and merge order do not depend on the skip).  With S > 1 spans
+the reduce kernel, one block per (request, kv head) with threads over (gk,
+hd), folds the partials with the same rule; at S = 1 the decode kernel's
+state is final and the reduce is not launched.  Limits: ``hd <= 256`` and
+``gk <= 32`` (``MAX_ROWS``), checked from the shapes before any dispatch, so
+the CPU path refuses them too.
 
 The plain versions (``decode_partials_plain``, ``decode_reduce_plain``)
 compute the same functions with dense gathers, following
@@ -38,6 +46,9 @@ import torch.nn.functional as F
 from repro_torch.kernels import native
 
 NEG_INF = -1e30
+# query rows (group * K) the decode kernel takes: 8 tiles of 4 rows, each a
+# block that re-reads its span (from L2 while the tiles run together)
+MAX_ROWS = 32
 
 
 def decode_partials_plain(qg, k_pages, v_pages, block_tables, lengths, *,
@@ -77,7 +88,8 @@ def decode_partials(qg, k_pages, v_pages, block_tables, lengths, *,
                     k_tokens: int, window: int, kv_splits: int,
                     guard_dead_pages: bool = True):
     """Per-span partial state of the paged decode walk (see module doc).
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    CPU tensors take the plain version; CUDA tensors launch the kernel.
+    Raises ValueError past the kernel's limits (hd, gk) on either device."""
     native.check_inputs(qg, k_pages, v_pages, block_tables, lengths,
                         "paged_decode")
     B, Hkv, gk, hd = qg.shape
@@ -89,12 +101,15 @@ def decode_partials(qg, k_pages, v_pages, block_tables, lengths, *,
                          f"{tuple(k_pages.shape)}, block_tables "
                          f"{tuple(block_tables.shape)}, lengths "
                          f"{tuple(lengths.shape)} do not agree")
+    if hd > native.MAX_HEAD_DIM or gk > MAX_ROWS:
+        raise ValueError(f"paged_decode: head_dim {hd} (limit "
+                         f"{native.MAX_HEAD_DIM}) or group*K {gk} query rows "
+                         f"(limit {MAX_ROWS}) past the kernel's limits")
     S = kv_splits
     if qg.device.type == "cpu":
         return decode_partials_plain(qg, k_pages, v_pages, block_tables,
                                      lengths, k_tokens=k_tokens,
                                      window=window, kv_splits=S)
-    native.check_smem(gk, ps, hd, "paged_decode")
     qg = qg.contiguous()
     bt = block_tables.to(torch.int32).contiguous()
     ln = lengths.to(torch.int32).contiguous()
@@ -106,7 +121,8 @@ def decode_partials(qg, k_pages, v_pages, block_tables, lengths, *,
         native.dtype_code(qg), qg.data_ptr(), k_pages.data_ptr(),
         v_pages.data_ptr(), bt.data_ptr(), ln.data_ptr(), out.data_ptr(),
         m.data_ptr(), l.data_ptr(), B, Hkv, gk, k_tokens, hd, N, ps, MB, S,
-        -(-MB // S), int(window), int(bool(guard_dead_pages)), hd ** -0.5,
+        -(-MB // S), int(window), int(bool(guard_dead_pages)),
+        int(native.cp_async_ok(hd, qg, k_pages, v_pages)), hd ** -0.5,
         native.stream_of(qg))
     native.check_launch("paged_decode", err)
     native.LAUNCHES["paged_decode"] += 1

@@ -18,6 +18,7 @@ counts by instantiation: ``/tc`` for bf16 inputs (the tensor-core tile loop of
 from __future__ import annotations
 
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -57,7 +58,7 @@ _L = ctypes.c_longlong
 # C entry points of each source: argument types
 _SIGNATURES = {
     "paged_attention.cu": {
-        "paged_decode": [_I] + [_P] * 8 + [_I] * 12 + [_F, _P],
+        "paged_decode": [_I] + [_P] * 8 + [_I] * 13 + [_F, _P],
         "decode_reduce": [_P] * 6 + [_I] * 5 + [_P],
         "paged_prefill": [_I] + [_P] * 9 + [_I] * 11 + [_F, _P],
         "paged_attention_smem_bytes": [_I, _I, _I],
@@ -162,12 +163,18 @@ def dtype_code(t: torch.Tensor) -> int:
                     f"{t.dtype}")
 
 
+@functools.lru_cache(maxsize=None)
+def _smem_need(rows: int, ps: int, hd: int) -> int:
+    return library().paged_attention_smem_bytes(rows, ps, hd)
+
+
 def check_smem(rows: int, ps: int, hd: int, kernel: str) -> None:
-    """The port's own shape limits (the TPU's (8, 128) tiling does not carry
-    over): head_dim <= 256 and the block's fp32 tiles within shared memory."""
+    """Limits of the fp32 paged-prefill block (the TPU's (8, 128) tiling does
+    not carry over): head_dim <= 256 and its fp32 tiles within shared
+    memory.  The library is asked once per (rows, ps, hd)."""
     if hd > MAX_HEAD_DIM:
         raise ValueError(f"{kernel}: head_dim {hd} > {MAX_HEAD_DIM}")
-    need = library().paged_attention_smem_bytes(rows, ps, hd)
+    need = _smem_need(rows, ps, hd)
     if need > MAX_SMEM_BYTES:
         raise ValueError(f"{kernel}: {rows} query rows x page_size {ps} x "
                          f"head_dim {hd} need {need} B of shared memory per "
@@ -175,9 +182,12 @@ def check_smem(rows: int, ps: int, hd: int, kernel: str) -> None:
 
 
 def cp_async_ok(hd: int, *tensors: torch.Tensor) -> bool:
-    """Whether the bf16 tile loop may fill its tiles with 16-byte cp.async
-    chunks: rows of whole chunks (hd % 8 == 0) at 16-byte aligned bases."""
-    return hd % 8 == 0 and all(t.data_ptr() % 16 == 0 for t in tensors)
+    """Whether a kernel may fill its tiles with 16-byte cp.async pieces:
+    rows of whole pieces (hd a multiple of 16 bytes' worth of the tensors'
+    elements: 8 bf16, 4 fp32) at 16-byte aligned bases."""
+    per_piece = 16 // tensors[0].element_size()
+    return hd % per_piece == 0 and all(t.data_ptr() % 16 == 0
+                                       for t in tensors)
 
 
 def check_inputs(q, k_pages, v_pages, block_tables, lengths,
