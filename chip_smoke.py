@@ -22,12 +22,19 @@ Phases, each fatal on failure:
                grid, windows that leave rows with no key, which must come
                back neutral, group 80, hd 20);
                the paged decode kernel's edges (hd 64/80/256/20/18, ps 32/64,
-               query rows 1/12/32, 8192 tokens at S 1 and 4, rows and
-               batches with no key; every span partial with no key must
-               come back neutral);
+               query rows 1/12/32/33/40/48/64, 8192 and 3000 tokens on
+               clustered grids, rows and batches with no key; every span
+               partial with no key must come back neutral); at S > 1 the
+               split-KV fold inside the decode launch EQUAL to the
+               standalone reduce of the same partials, and the fold's
+               arrival counters back at 0 after launches in a row and after
+               CUDA-graph replays;
                the int8 quantize kernel over bf16/fp32 rows of width
                64..4096 (the 16-byte and the scalar path, an all-zero row,
-               .5 ties), q and scales EQUAL to the plain version; the dense
+               .5 ties), q and scales EQUAL to the plain version, and the
+               int8 all-reduce's three kernels (shards quantize, rank sum
+               and re-quantize, gathered dequantize) at tp 2 and 4 EQUAL to
+               theirs; the dense
                flash-prefill kernel at the CPU tests' shapes and at full
                width (Hq/Hkv 32/8, 16/4, hd 128), MHA, GQA and MQA, ragged
                Sq/Sk, causal or not, windows > 0, rows with no key (0),
@@ -37,9 +44,12 @@ Phases, each fatal on failure:
   3. serve     the tp=1 path: ``PagedEngine`` serving qwen3-8b at full width
                and depth in bf16 (random weights from a seed) on 6 greedy
                requests of 300-2000 prompt tokens; the launch counters of
-               the three attention kernels must be > 0, logits finite, every
-               request complete and every page free at the end; every
-               paged-prefill launch must be the bf16 tensor-core one.
+               the paged decode and prefill kernels must be > 0, logits
+               finite, every request complete and every page free at the
+               end; every paged-prefill launch must be the bf16 tensor-core
+               one; every decode step at S > 1 must launch the decode
+               kernel with the fold inside once a layer, and the standalone
+               reduce never.
   4. parity    a tiny fp32 model served on ``cuda`` and on ``cpu`` from the
                same weights must give equal greedy tokens (mixed traffic,
                forced 4-way split-KV decode, forced preemption).
@@ -53,16 +63,21 @@ Phases, each fatal on failure:
                3 greedy requests of 300-1200 prompt tokens (a resumed grant,
                split-KV decode) under the default batch-split schedule and
                the sequential one, each again with ``quantized_comm``, whose
-               runs must launch the int8 kernel; the host time spent inside
+               runs must launch the int8 reduce's three kernels once each a
+               reduce, and B7 alone never; the host time spent inside
                the reduces is recorded, and one reduce is timed alone in the
                sequential and the batch-split issue order; then a tiny fp32
                model at tp=2 must give the tokens of tp=1 on the card under
                all three decode schedules.
   6. time      each kernel and its plain version at the main path's shapes
-               (the decode kernel also at one tp=2 rank's heads and at one
-               request of 8192 tokens; the int8 kernel at both its decode
-               and its prefill shapes,
-               the paged prefill at a 512-query chunk and at the serving
+               (the decode kernel with its fold, and the walk alone, the
+               fold's cost being the difference; also at one tp=2 rank's
+               heads and at one request of 8192 tokens; the standalone
+               reduce; the int8 kernel at both its decode and its prefill
+               shapes; the int8 all-reduce's three kernels, and one
+               reduce's local part against the composition of B7
+               and PyTorch ops at the decode and prefill shapes; the paged
+               prefill at a 512-query chunk and at the serving
                path's 256-query ISO chunk, both over a 1024-token prefix),
                and where one PyTorch call computes the same function, that
                call (SDPA for the flash-prefill kernel, ``F.rms_norm``);
@@ -74,14 +89,18 @@ Phases, each fatal on failure:
                flash(chunk 1 | prefix) == flash(all 2048), at tp=1's heads
                (32/8, hd 128) and one tp=2 rank's (16/4); ``rms_norm`` at
                (2048, 4096) with an fp32 gamma; ``swiglu`` at (2048, 12288)
-               and one rank's (2048, 6144).  Each call is held against its
-               plain version; the three kernels must have launched.
+               and one rank's (2048, 6144); ``quantize_int8`` at (2048,
+               4096).  Each call is held against its plain version; the four
+               kernels must have launched.
 
 Each launch count in the kernel line is read from the run of the path that
 launches it, with the counts set to 0 just before: the attention kernels
-from phase 3, the int8 kernel from rank 0 of phase 5's quantized
-batch-split run, the flash-prefill, RMSNorm and SwiGLU kernels from
-phase 7 (the serving path does not launch them).  It
+from phase 3 (``decode_reduce``: the decode launches that ran its fold,
+``native.VARIANTS["paged_decode/fold"]``; its times are the standalone
+kernel's, which runs the same fold code), the int8 reduce's three kernels
+from rank 0 of phase 5's quantized batch-split run, the flash-prefill,
+RMSNorm, SwiGLU and int8 quantize kernels from phase 7 (the serving path
+does not launch them).  It
 imports nothing of JAX or of the JAX package.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and
 power limit from nvidia-smi, and before that a JSON line with each kernel's
@@ -116,6 +135,16 @@ SOURCES = {
                       "src/repro/kernels/flash_prefill_paged.py:73"),
     "quantize_int8": ("src/repro_torch/kernels/csrc/int8_quant.cu",
                       "src/repro/kernels/int8_quant.py:18"),
+    # the int8 all-reduce's local steps (B7 and the XLA ops around it in
+    # the reference's quantized_psum)
+    "quantize_int8_shards": ("src/repro_torch/kernels/csrc/int8_quant.cu",
+                             "src/repro/core/quantized_collectives.py:65"),
+    "dequant_sum_quantize_int8": (
+        "src/repro_torch/kernels/csrc/int8_quant.cu",
+        "src/repro/core/quantized_collectives.py:71"),
+    "dequantize_int8_gathered": (
+        "src/repro_torch/kernels/csrc/int8_quant.cu",
+        "src/repro/core/quantized_collectives.py:78"),
     "flash_prefill": ("src/repro_torch/kernels/csrc/flash_prefill.cu",
                       "src/repro/kernels/flash_prefill.py:27"),
     "rms_norm": ("src/repro_torch/kernels/csrc/rmsnorm.cu",
@@ -130,9 +159,13 @@ RMS_OPS_PER_ELEMENT = 4
 # of SwiGLU: negate, exp, add, divide, multiply
 SWIGLU_OPS_PER_ELEMENT = 5
 OPS_KERNELS = ("flash_prefill", "rms_norm", "swiglu")
+INT8_REDUCE_KERNELS = ("quantize_int8_shards", "dequant_sum_quantize_int8",
+                       "dequantize_int8_gathered")
 
 
-ATTENTION_KERNELS = ("paged_decode", "decode_reduce", "paged_prefill")
+# the serving path's attention kernels (B2 runs inside paged_decode's
+# launches: the paged_decode/fold variant)
+ATTENTION_KERNELS = ("paged_decode", "paged_prefill")
 
 
 def log(msg: str) -> None:
@@ -287,7 +320,16 @@ def decode_case(gen, errs, lengths, ps, hq, hkv, hd, K, S, window,
         red_plain = fd.decode_reduce_plain(*got)
         errs["decode_reduce"] = max(errs["decode_reduce"],
                                     max_err(red, red_plain, TOL["float32"]))
-    # the whole wrapper (reduce included) against the plain pipeline
+        # the fold inside the decode launch: the standalone reduce's bits,
+        # whichever block of a tile arrived last
+        folded = fd.decode_folded(qg, k, v, bt, lens, k_tokens=K,
+                                  window=window, kv_splits=S)
+        for a, b in zip(folded, red):
+            if not torch.equal(a, b):
+                raise AssertionError(
+                    f"the fold in the decode launch differs from the "
+                    f"standalone reduce (gk {gk}, S {S}, {dtype_name})")
+    # the whole wrapper (the fold included) against the plain pipeline
     o = fd.flash_decode(q, k, v, bt, lens, window=window, kv_splits=S)
     po, pm, pl = fd.decode_partials_plain(qg, k, v, bt, lens, k_tokens=K,
                                           window=window, kv_splits=S)
@@ -306,11 +348,13 @@ def check_decode_edges(gen, errs) -> tuple:
     of sixteen per key), 20 (bf16: the synchronous loads; fp32: a lane's
     second 16-byte piece past hd) and 18 (rows off the 16-byte grid: the
     synchronous loads in both); page sizes 32 and 64; query rows 1, 12 (a
-    ragged 4-row tile) and 32 (group 8 with a K = 4 window, the largest gk
-    the kernel takes); one
-    request of 8192 tokens (MB 512) at S = 1 and S = 4; a batch in which
-    every span of one row is dead; a batch whose lengths are all 0.  Returns
-    (cases, neutral span partials held)."""
+    ragged 4-row tile), 32, and 33, 40, 48 and 64 (past the 8 row tiles the
+    kernel took until the limit was lifted), one of them on clustered grids;
+    one request of 8192 tokens (MB 512) at S = 1 and S = 4 (clusters of
+    blocks a span); a batch in which every span of one row is dead; a batch
+    whose lengths are all 0.  At S > 1 every case also holds the fold inside
+    the decode launch bit-equal to the standalone reduce.  Returns (cases,
+    neutral span partials held)."""
     n = neutral = 0
     short = [1, 15, 16, 17, 100, 300, 0]
     for dtype_name in ("bfloat16", "float32"):
@@ -322,10 +366,18 @@ def check_decode_edges(gen, errs) -> tuple:
             for S, window in ((1, 0), (4, 100)):
                 cases.append(([1, 31, 32, 33, 500, 2047, 0], ps, 32, 8, 128,
                                1, S, window))
+        # gk 1, 12, 32, then 33 (group 11, K 3), 40 (group 8, K 5: a
+        # group-8 model's spec_k = 4 window), 48 and 64
         for hq, hkv, K, S, window in ((2, 2, 1, 4, 0), (8, 2, 3, 2, 20),
-                                      (16, 2, 4, 2, 12), (16, 2, 4, 1, 0)):
+                                      (16, 2, 4, 2, 12), (16, 2, 4, 1, 0),
+                                      (22, 2, 3, 4, 0), (16, 2, 5, 4, 30),
+                                      (24, 2, 4, 1, 0), (32, 2, 4, 7, 0)):
             cases.append(([3, 17, 64, 130, 0], 16, hq, hkv, 128, K, S,
                           window))
+        # 40 rows on short grids (clusters of blocks a span): one request
+        # of 3000 tokens at S 2 and 4
+        for S in (2, 4):
+            cases.append(([3000], 16, 16, 2, 128, 5, S, 0))
         for S in (1, 4):
             cases.append(([8192], 16, 32, 8, 128, 1, S, 0, 512))
         cases += [([700, 0, 2030], 16, 32, 8, 128, 1, 4, 0),
@@ -429,11 +481,14 @@ def check_kernels(report):
     log(f"[kernels] {n + n_tc + n_dec} cases within tolerance {TOL} ({n_tc} "
         f"of them the bf16 tile loop's edges: {emptied} rows of resumed "
         f"requests wholly outside the window, neutral; {n_dec} the decode "
-        f"kernel's edges: hd 64/80/256/20/18, ps 32/64, gk 1/12/32, 8192 "
-        f"tokens at S 1 and 4, dead rows, all lengths 0, {neutral} span "
-        f"partials with no key, neutral); dead-page skip bit-identical; max "
-        f"abs err {errs}")
+        f"kernel's edges: hd 64/80/256/20/18, ps 32/64, gk 1/12/32/33/40/"
+        f"48/64, 8192 and 3000 tokens on clustered grids, dead rows, all "
+        f"lengths 0, {neutral} span partials with no key, neutral); "
+        f"dead-page skip bit-identical; at S > 1 the fold in the decode "
+        f"launch bit-equal to the standalone reduce; max abs err {errs}")
+    check_fold_arrivals(gen)
     errs["quantize_int8"] = check_quantize(gen)
+    errs.update(check_int8_reduce(gen))
     errs.update(check_ops_kernels(gen))
     report["errs"] = errs
 
@@ -475,6 +530,100 @@ def check_quantize(gen) -> float:
         f"(bf16/fp32, d 64..4096, vector and scalar paths, zero row, .5 "
         f"ties round half to even)")
     return 0.0
+
+
+def check_fold_arrivals(gen) -> None:
+    """The fold's arrival counters are back at 0 after three launches in a
+    row on the stream (no wait between them) and after the replays of a
+    CUDA graph that captured three more, and every launch gives the same
+    bits: the counter of a tile is reset by the block that folds it."""
+    import torch
+    from repro_torch.kernels import flash_decode as fd
+    k, v, bt, lens = make_pool(gen, [700, 1200, 1700, 2030], 16, 8, 128,
+                               torch.bfloat16, mb=128)
+    qg = torch.randn((4, 8, 40, 128), generator=gen, device="cuda").to(
+        torch.bfloat16)
+    run = lambda: fd.decode_folded(qg, k, v, bt, lens, k_tokens=5, window=0,
+                                   kv_splits=4)
+    want = run()
+    outs = [run() for _ in range(3)]
+    torch.cuda.synchronize()
+    counters = fd._ARRIVALS[qg.device]
+    if int(counters.abs().sum()) != 0:
+        raise AssertionError("fold arrival counters not 0 after three "
+                             "launches in a row")
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        captured = [run() for _ in range(3)]
+    for _ in range(2):
+        graph.replay()
+    torch.cuda.synchronize()
+    if int(fd._ARRIVALS[qg.device].abs().sum()) != 0:
+        raise AssertionError("fold arrival counters not 0 after a CUDA-graph "
+                             "replay")
+    for got in outs + captured:
+        for a, b in zip(got, want):
+            if not torch.equal(a, b):
+                raise AssertionError("a repeated fused decode launch gave "
+                                     "other bits")
+    log(f"[kernels] fold arrivals: {counters.numel()} counters at 0 after 3 "
+        f"launches in a row and after 2 replays of a graph of 3 (gk 40, S 4, "
+        f"32 tiles a launch); every launch the same bits")
+
+
+def check_int8_reduce(gen) -> dict:
+    """The int8 all-reduce's three kernels against their plain versions,
+    EQUAL (``torch.equal``): the shards quantize over bf16/fp32 rows at tp
+    2 and 4 (vector and scalar paths), the rank sum and re-quantize over
+    random exchanges at tp 2 and 4 (d 2048, 256, 18, and an unaligned
+    base), the gathered dequantize into bf16 and fp32.  Returns each one's
+    max abs error (0)."""
+    import torch
+    from repro_torch.kernels import int8_quant as q8
+    n = 0
+
+    def equal(name, got, want):
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        for g, w in zip(got, want):
+            if g.shape != w.shape or not torch.equal(g, w):
+                raise AssertionError(f"{name}: kernel differs from the plain "
+                                     f"version at {tuple(w.shape)}")
+
+    for tp in (2, 4):
+        for dtype in (torch.bfloat16, torch.float32):
+            for shape in ((4, 4096), (512, 4096), (2, 1, 4096), (3, 72),
+                          (5, 4 * 18)):
+                x = (torch.randn(shape, generator=gen, device="cuda")
+                     * 5).to(dtype)
+                x.reshape(-1, shape[-1])[0] = 0          # floor scales
+                equal("quantize_int8_shards", q8.quantize_int8_shards(x, tp),
+                      q8.quantize_int8_shards_plain(x, tp))
+                n += 1
+        for R, d in ((4, 2048), (512, 2048), (3, 256), (5, 18)):
+            q = torch.randint(-127, 128, (tp, R, d), generator=gen,
+                              device="cuda").to(torch.int8)
+            s = torch.rand((tp, R, 1), generator=gen, device="cuda") + 1e-3
+            q[:, 0] = 0                                   # an all-zero sum
+            flat = torch.empty(q.numel() + 1, dtype=torch.int8,
+                               device="cuda")
+            flat[1:] = q.reshape(-1)
+            shifted = flat[1:].view(q.shape)              # the scalar path
+            for qq in (q, shifted):
+                equal("dequant_sum_quantize_int8",
+                      q8.dequant_sum_quantize_int8(qq, s),
+                      q8.dequant_sum_quantize_int8_plain(qq, s))
+                for dtype in (torch.bfloat16, torch.float32):
+                    equal("dequantize_int8_gathered",
+                          q8.dequantize_int8_gathered(qq, s, dtype),
+                          q8.dequantize_int8_gathered_plain(qq, s, dtype))
+                n += 3
+    torch.cuda.synchronize()
+    log(f"[kernels] int8 reduce: quantize_int8_shards, "
+        f"dequant_sum_quantize_int8, dequantize_int8_gathered: {n} cases "
+        f"bit-equal to their plain versions (tp 2 and 4, bf16/fp32, vector "
+        f"and scalar paths, zero rows)")
+    return {k: 0.0 for k in INT8_REDUCE_KERNELS}
 
 
 def check_ops_kernels(gen) -> dict:
@@ -572,15 +721,19 @@ def check_ops_kernels(gen) -> dict:
 def time_kernels(report):
     """Time each kernel and its plain version at the shapes its path gives
     it: decode B=4 rows of 700/1200/1700/2030 resident tokens (MB=128) with
-    S=4 spans, as the engine splits walks past 16 pages (and at one tp=2
-    rank's heads, and one request of 8192 tokens, MB=512); the reduce of
-    those spans; a 512-token resumed chunk over a 1024-token prefix, and the
-    serving path's 256-token ISO chunk over it; the int8
-    quantize at the tp=2 decode and prefill reduce shapes; the ops path's
-    flash prefill, RMSNorm and SwiGLU (phase 7), each beside the one
-    PyTorch call that computes the same function where there is one.  Then
-    the per-launch floor, and each row's gap to its bound and to
-    max(bound, floor)."""
+    S=4 spans, as the engine splits walks past 16 pages, folded in the
+    launch as the serving path runs it (and at one tp=2 rank's heads, and
+    one request of 8192 tokens, MB=512), and the walk alone into its span
+    partials; the standalone reduce of those partials; a 512-token resumed
+    chunk over a 1024-token prefix, and the serving path's 256-token ISO
+    chunk over it; the int8 quantize at the tp=2 decode and prefill reduce
+    shapes; the int8 all-reduce's three kernels, and its local part against
+    B7 composed with PyTorch ops; the ops path's flash prefill, RMSNorm and
+    SwiGLU (phase 7), each beside the one PyTorch call that computes the
+    same function where there is one.  Then the per-launch floor, each
+    row's gap to its bound and to max(bound, floor), what the fold adds to
+    the decode launch, and the int8 reduce's local time against B7's with
+    PyTorch ops."""
     import torch
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import flash_prefill_paged as fp
@@ -588,8 +741,9 @@ def time_kernels(report):
     dt = torch.bfloat16
     ps, hq, hkv, hd, S = 16, 32, 8, 128, 4
     paged = "no single PyTorch call computes paged attention over block tables"
-    dec, (parts, red_bytes, red_ops, red_shape) = decode_timing_case(
-        gen, [700, 1200, 1700, 2030], hq, hkv, S, 128, paged)
+    dec, dec_spans, (parts, red_bytes, red_ops, red_shape) = \
+        decode_timing_case(gen, [700, 1200, 1700, 2030], hq, hkv, S, 128,
+                           paged)
     red = lambda: fd.decode_reduce(*parts)
     red_plain = lambda: fd.decode_reduce_plain(*parts)
     prefix = 1024
@@ -686,14 +840,18 @@ def time_kernels(report):
             "prefill", "tp=2 256-token ISO chunk of a prefill grant"),
         "quantize_int8/prefill_requant": q_case(
             "prefill_requant", "its re-quantize of the reduced slice"),
-        # the earlier PRs' shape is the kernel line's; one request of 8192
-        # tokens (a short grid: 32 spans for 132 SMs); one tp=2 rank's heads
+        # the earlier PRs' shape is the kernel line's, now with the spans
+        # folded in the launch (the walk alone beside it); one request of
+        # 8192 tokens (a short grid: 32 spans for 132 SMs); one tp=2 rank's
+        # heads
         "paged_decode": dec,
+        "paged_decode/spans": dec_spans,
         "paged_decode/long": decode_timing_case(gen, [8192], hq, hkv, S, 512,
                                                 paged)[0],
         "paged_decode/tp2": decode_timing_case(
             gen, [700, 1200, 1700, 2030], hq // 2, hkv // 2, S, 128,
             paged)[0],
+        # B2 as a launch of its own, over the same walk's partials
         "decode_reduce": (red, red_plain, red_bytes, red_ops, "float32",
                           red_shape, paged),
         # the earlier PRs' shape, kept for continuity, is the kernel line's
@@ -702,12 +860,15 @@ def time_kernels(report):
             256, 256, "the second 256-token ISO chunk of a resumed 512-token "
             "grant, the serving path's shape"),
     }
+    cases.update(int8_reduce_cases(
+        gen, "no single PyTorch call computes a step of the int8 "
+        "all-reduce"))
     # each case ends in its library call, or why there is none
     timing = {}
     for name, (fn, plain, nbytes, n_ops, kind, shape, library) \
             in cases.items():
         ms = time_ms(fn)
-        plain_ms = time_ms(plain, reps=5)
+        plain_ms = None if plain is None else time_ms(plain, reps=5)
         library_ms = None if isinstance(library, str) \
             else time_ms(library, reps=5)
         eager_ms = call_ms(fn)
@@ -720,9 +881,10 @@ def time_kernels(report):
                             bytes=nbytes, ops=n_ops, eager_ms=eager_ms)
         lib = (f"library_ms none: {library}" if library_ms is None else
                f"library {library_ms:.4f} ms, {ms / library_ms:.2f}x it")
+        plain_txt = "none" if plain_ms is None else f"{plain_ms:.4f} ms"
         log(f"[time] {name}: {ms:.4f} ms on the device, {eager_ms:.4f} ms "
             f"per eager call with the wrapper's host work (plain "
-            f"{plain_ms:.4f} ms, bound "
+            f"{plain_txt}, bound "
             f"{max(t_bytes, t_ops):.5f} ms by {timing[name]['bound_by']}, "
             f"{lib}) at {shape}")
     # the device time of one trivial launch through the same graph replay:
@@ -734,16 +896,30 @@ def time_kernels(report):
     for name, t in timing.items():
         log(f"[time] {name}: ms - bound {t['ms'] - t['bound_ms']:.5f}, ms - "
             f"max(bound, floor) {t['ms'] - max(t['bound_ms'], floor_ms):.5f}")
+    fold_ms = timing["paged_decode"]["ms"] - timing["paged_decode/spans"]["ms"]
+    log(f"[time] the fold inside the decode launch costs {fold_ms:.5f} ms "
+        f"(paged_decode - paged_decode/spans); the two launches it replaces "
+        f"took {timing['paged_decode/spans']['ms']:.5f} + "
+        f"{timing['decode_reduce']['ms']:.5f} ms")
+    for name in ("decode", "prefill"):
+        new_ms = timing[f"int8_reduce/{name}"]["ms"]
+        old_ms = timing[f"int8_reduce/{name}/b7_ops"]["ms"]
+        log(f"[time] int8 reduce local part at the {name} shape: three "
+            f"kernels {new_ms:.5f} ms, B7 with PyTorch ops in eleven launches "
+            f"{old_ms:.5f} ms ({old_ms / new_ms:.2f}x)")
     report["timing"] = timing
     report["floor_ms"] = floor_ms
 
 
 def decode_timing_case(gen, lengths, hq, hkv, S, mb, paged):
-    """B1's timing case at ``lengths`` resident tokens (hd 128, ps 16, K 1,
-    bf16, table width ``mb``, ``S`` spans): (fn, plain, bytes, ops, kind,
-    shape, library), and (its partials, bytes, ops and shape of their
-    reduce).  Bytes: q, the block tables, lengths, every resident page of K
-    and V once, the partials; operations: 4 * hd per (query row, key)."""
+    """B1's timing cases at ``lengths`` resident tokens (hd 128, ps 16, K 1,
+    bf16, table width ``mb``, ``S`` > 1 spans), each (fn, plain, bytes, ops,
+    kind, shape, library): the serving path's form, the walk with its S span
+    partials folded inside the launch; the walk alone into its S partials
+    (the launch before the fold moved in); then (its partials, bytes, ops
+    and shape of their reduce).  Bytes: q, the block tables, lengths, every
+    resident page of K and V once, and the output (the folded state, or the
+    partials); operations: 4 * hd per (query row, key)."""
     import torch
     from repro_torch.kernels import flash_decode as fd
     ps, hd, K, dt = 16, 128, 1, torch.bfloat16
@@ -751,21 +927,102 @@ def decode_timing_case(gen, lengths, hq, hkv, S, mb, paged):
     B = len(lengths)
     k, v, bt, lens = make_pool(gen, lengths, ps, hkv, hd, dt, mb=mb)
     qg = torch.randn((B, hkv, gk, hd), generator=gen, device="cuda").to(dt)
-    dec = lambda: fd.decode_partials(qg, k, v, bt, lens, k_tokens=K,
-                                     window=0, kv_splits=S)
-    dec_plain = lambda: fd.decode_partials_plain(qg, k, v, bt, lens,
-                                                 k_tokens=K, window=0,
-                                                 kv_splits=S)
+    kw = dict(k_tokens=K, window=0, kv_splits=S)
+    dec = lambda: fd.decode_partials(qg, k, v, bt, lens, **kw)
+    dec_plain = lambda: fd.decode_partials_plain(qg, k, v, bt, lens, **kw)
+    fold = lambda: fd.decode_folded(qg, k, v, bt, lens, **kw)
+    fold_plain = lambda: fd.decode_reduce_plain(*dec_plain())
     walked_pages = sum(-(-L // ps) for L in lengths)
-    out_bytes = B * hkv * S * gk * (hd + 2) * 4
-    nbytes = (qg.numel() * 2 + bt.numel() * 4 + B * 4
-              + 2 * walked_pages * ps * hkv * hd * 2 + out_bytes)
-    red_bytes = out_bytes + B * hkv * gk * (hd + 2) * 4
-    return ((dec, dec_plain, nbytes, 4 * sum(lengths) * hq * hd, "bfloat16",
-             f"B={B} L={lengths} Hq={hq} Hkv={hkv} hd={hd} ps={ps} MB={mb} "
-             f"S={S} bf16", paged),
-            (dec(), red_bytes, 4 * B * hkv * S * gk * hd,
+    in_bytes = (qg.numel() * 2 + bt.numel() * 4 + B * 4
+                + 2 * walked_pages * ps * hkv * hd * 2)
+    part_bytes = B * hkv * S * gk * (hd + 2) * 4
+    fold_bytes = B * hkv * gk * (hd + 2) * 4
+    n_ops = 4 * sum(lengths) * hq * hd
+    shape = (f"B={B} L={lengths} Hq={hq} Hkv={hkv} hd={hd} ps={ps} MB={mb} "
+             f"S={S} bf16")
+    return ((fold, fold_plain, in_bytes + fold_bytes, n_ops, "bfloat16",
+             shape + ", spans folded in the launch", paged),
+            (dec, dec_plain, in_bytes + part_bytes, n_ops, "bfloat16",
+             shape + ", the S span partials", paged),
+            (dec(), part_bytes + fold_bytes, 4 * B * hkv * S * gk * hd,
              f"B={B} Hkv={hkv} S={S} gk={gk} hd={hd} fp32"))
+
+
+def int8_reduce_cases(gen, hint):
+    """Timing cases of the int8 all-reduce's local part at qwen3-8b's tp=2
+    shapes, each (fn, plain, bytes, ops, kind, shape, library): its three
+    kernels at the decode shape, and at (4, 4096) (a decode batch) and
+    (512, 4096) (a prefill grant) one reduce's local steps as this port
+    runs them (three launches) and as the composition of B7 with PyTorch
+    ops that they replace (eleven).  The all-to-all and the all-gather are
+    left out: each rank's own shards stand in for what it would receive.
+    Bytes: each step's inputs read once and outputs written once."""
+    import torch
+    from repro_torch.kernels import int8_quant as q8
+    tp, dt = 2, torch.bfloat16
+
+    def three(x):
+        q, s = q8.quantize_int8_shards(x, tp)
+        q8.dequant_sum_quantize_int8(q, s)
+        return q8.dequantize_int8_gathered(q, s, x.dtype)
+
+    def three_plain(x):
+        q, s = q8.quantize_int8_shards_plain(x, tp)
+        q8.dequant_sum_quantize_int8_plain(q, s)
+        return q8.dequantize_int8_gathered_plain(q, s, x.dtype)
+
+    def eleven(x):
+        """The steps as B7 and PyTorch ops: B7 on the shards, two copies,
+        dequantize (2) and sum, B7 again, dequantize (2), a copy back and
+        the cast."""
+        d = x.shape[-1] // tp
+        q, s = q8.quantize_int8(x.reshape(*x.shape[:-1], tp, d))
+        q, s = q.movedim(-2, 0).contiguous(), s.movedim(-2, 0).contiguous()
+        part = q8.dequantize_int8(q, s).sum(dim=0)
+        q8.quantize_int8(part)
+        out = q8.dequantize_int8(q, s).movedim(0, -2)
+        return out.reshape(x.shape).to(x.dtype)
+
+    def step_bytes(R, D):
+        d = D // tp
+        shards = R * D * 2 + R * D + tp * R * 4
+        rank_sum = R * D + tp * R * 4 + R * d + R * 4
+        gathered = R * D + tp * R * 4 + R * D * 2
+        return shards, rank_sum, gathered
+
+    cases = {}
+    xd = torch.randn((4, 4096), generator=gen, device="cuda").to(dt)
+    qd, sd = q8.quantize_int8_shards(xd, tp)
+    b = step_bytes(4, 4096)
+    shape = "x (4, 4096) bf16 at tp=2"
+    cases["quantize_int8_shards"] = (
+        lambda: q8.quantize_int8_shards(xd, tp),
+        lambda: q8.quantize_int8_shards_plain(xd, tp), b[0],
+        QUANT_OPS_PER_ELEMENT * xd.numel(), "float32", shape, hint)
+    cases["dequant_sum_quantize_int8"] = (
+        lambda: q8.dequant_sum_quantize_int8(qd, sd),
+        lambda: q8.dequant_sum_quantize_int8_plain(qd, sd), b[1],
+        (2 * tp + QUANT_OPS_PER_ELEMENT) * xd.numel() // tp, "float32",
+        "q (2, 4, 2048) int8, s (2, 4, 1) at tp=2", hint)
+    cases["dequantize_int8_gathered"] = (
+        lambda: q8.dequantize_int8_gathered(qd, sd, dt),
+        lambda: q8.dequantize_int8_gathered_plain(qd, sd, dt), b[2],
+        2 * xd.numel(), "float32", "q (2, 4, 2048) int8 -> (4, 4096) bf16",
+        hint)
+    for name, R in (("decode", 4), ("prefill", 512)):
+        x = torch.randn((R, 4096), generator=gen, device="cuda").to(dt)
+        n_ops = (QUANT_OPS_PER_ELEMENT + 2 * tp + QUANT_OPS_PER_ELEMENT / tp
+                 + 2) * x.numel()
+        cases[f"int8_reduce/{name}"] = (
+            lambda x=x: three(x), lambda x=x: three_plain(x),
+            sum(step_bytes(R, 4096)), int(n_ops), "float32",
+            f"x ({R}, 4096) bf16 at tp=2, three kernels", hint)
+        cases[f"int8_reduce/{name}/b7_ops"] = (
+            lambda x=x: eleven(x), None, sum(step_bytes(R, 4096)),
+            int(n_ops), "float32",
+            f"x ({R}, 4096) bf16 at tp=2, eleven launches (B7 "
+            f"twice, nine PyTorch ops)", hint)
+    return cases
 
 
 # ---------------------------------------------------------------------------
@@ -807,6 +1064,15 @@ def serve_full(report, card: str):
         return real_sample(logits, sp, step)
 
     paged_engine.sample = finite_sample
+    # the split count of every decode step, as the engine passes it
+    real_decode_step = paged_engine.api.decode_step
+    splits = []
+
+    def counted_decode_step(*args, **kwargs):
+        splits.append(kwargs["kv_splits"])
+        return real_decode_step(*args, **kwargs)
+
+    paged_engine.api.decode_step = counted_decode_step
     rng = np.random.default_rng(0)
     lengths = [int(n) for n in rng.integers(300, 2001, 6)]
     lengths[0] = max(lengths[0], 1500)           # at least one resumed grant
@@ -822,8 +1088,10 @@ def serve_full(report, card: str):
         outs = eng.run_until_complete()
     finally:
         paged_engine.sample = real_sample
+        paged_engine.api.decode_step = real_decode_step
     wall = time.perf_counter() - t0
     launches = dict(native.LAUNCHES)
+    folds = native.VARIANTS["paged_decode/fold"]
     m = eng.metrics
     if len(outs) != len(lengths) or any(len(t) != 32 for t in outs.values()):
         raise AssertionError(f"not every request completed: {m}")
@@ -836,6 +1104,16 @@ def serve_full(report, card: str):
                                  f"path: {launches}")
     if m["resumed_grants"] <= 0:
         raise AssertionError("no resumed grant ran")
+    # B2 runs inside the decode launch: one fused launch per layer of every
+    # decode step at S > 1, and no reduce launch of its own
+    split_steps = sum(1 for S in splits if S > 1)
+    if split_steps <= 0 or launches["decode_reduce"] != 0 or \
+            folds != cfg.num_layers * split_steps:
+        raise AssertionError(
+            f"decode steps at S > 1: {split_steps} of {len(splits)}; "
+            f"paged_decode/fold launched {folds} times, want "
+            f"{cfg.num_layers} a step; decode_reduce {launches['decode_reduce']}"
+            f" times, want 0")
     variants = {k: v for k, v in native.VARIANTS.items()
                 if k.startswith("paged_prefill/")}
     if variants["paged_prefill/tc"] != launches["paged_prefill"]:
@@ -846,7 +1124,10 @@ def serve_full(report, card: str):
     peak = torch.cuda.max_memory_allocated() / 2**30
     log(f"[serve] {len(outs)} requests, prompts {lengths}, 32 new tokens "
         f"each, {checked['rows']} logits rows finite, wall {wall:.1f}s, "
-        f"launches {launches}; paged_prefill by instantiation {variants}")
+        f"launches {launches}; paged_prefill by instantiation {variants}; "
+        f"{split_steps} of {len(splits)} decode steps at S > 1 (S "
+        f"{sorted(set(splits))}), paged_decode/fold {folds} = "
+        f"{cfg.num_layers} a step, decode_reduce 0")
     log(f"[serve] prefill {m['prefill_tokens']} tok in {m['prefill_s']:.3f}s "
         f"= {m['prefill_tokens'] / m['prefill_s']:.0f} tok/s "
         f"({m['prefill_calls']} calls, {m['resumed_grants']} resumed); decode "
@@ -859,6 +1140,8 @@ def serve_full(report, card: str):
         f"{m['prefill_dispatch_s'] / m['prefill_s']:.3f}, decode "
         f"{m['decode_dispatch_s'] / m['decode_s']:.3f} of the fenced time")
     report["launches"].update(launches)
+    # B2's kernel-line count: the launches in which its fold ran
+    report["launches"]["decode_reduce"] = folds
     report["serve"] = dict(prefill_tok_s=m["prefill_tokens"] / m["prefill_s"],
                            decode_ms_step=1e3 * m["decode_s"]
                            / m["decode_calls"], peak_gib=peak)
@@ -1158,13 +1441,21 @@ def serve_tp(report, card: str):
             if launches[kname] <= 0:
                 raise AssertionError(f"[tp] {name}: {kname} never launched: "
                                      f"{launches}")
-        n_q = launches["quantize_int8"]
-        if (n_q > 0) != (label == "quantized_comm"):
-            raise AssertionError(f"[tp] {name}: quantize_int8 launched "
-                                 f"{n_q} times")
         steps = m["decode_calls"]
         step_ms = 1e3 * m["decode_s"] / steps
         ph = run["psum_host_s"]
+        # every int8 reduce is three kernel launches, one of each, and no
+        # standalone B7; a bf16 run launches none of them
+        n_reduces = sum(n for k, (_, n) in ph.items()
+                        if k.endswith("psum_start"))
+        int8 = {k: launches[k] for k in INT8_REDUCE_KERNELS}
+        want_int8 = n_reduces if label == "quantized_comm" else 0
+        if n_reduces <= 0 or launches["quantize_int8"] != 0 or \
+                any(n != want_int8 for n in int8.values()):
+            raise AssertionError(f"[tp] {name}: {n_reduces} reduces, int8 "
+                                 f"launches {int8}, quantize_int8 "
+                                 f"{launches['quantize_int8']}: want "
+                                 f"{want_int8} of each and 0")
         inside = {k: (1e3 * t / steps if k.startswith("decode")
                       else 1e3 * t, n)
                   for k, (t, n) in sorted(ph.items())}
@@ -1184,6 +1475,8 @@ def serve_tp(report, card: str):
         log(f"[tp] {name} rank 0 host time inside the reduces (decode: ms "
             f"per step; prefill: ms in all; calls in all): "
             + ", ".join(f"{k} {v:.2f} ({n})" for k, (v, n) in inside.items()))
+        log(f"[tp] {name}: {n_reduces} reduces, int8 kernel launches {int8}"
+            f" ({sum(int8.values()) / n_reduces:.0f} a reduce)")
         report.setdefault("tp", {})[name] = dict(
             prefill_tok_s=m["prefill_tokens"] / m["prefill_s"],
             decode_ms_step=step_ms, launches=launches,
@@ -1192,9 +1485,9 @@ def serve_tp(report, card: str):
         f"({PROFILE_NEW} new tokens, {TP_LABEL}), by self CPU time:")
     for line in ranks[0]["profile"].splitlines():
         log("[tp]   " + line)
-    # the kernel line's count: the default quantized run (batch-split)
-    report["launches"]["quantize_int8"] = \
-        ranks[0]["big"][2]["launches"]["quantize_int8"]
+    # the kernel line's counts: the default quantized run (batch-split)
+    for k in INT8_REDUCE_KERNELS:
+        report["launches"][k] = ranks[0]["big"][2]["launches"][k]
 
     for i, (case, sched) in enumerate(tiny_keys):
         for r, rank in enumerate(ranks):
@@ -1217,6 +1510,7 @@ def serve_ops(report, card: str):
     import torch
     from repro_torch.kernels import native, ops
     from repro_torch.kernels.flash_prefill import flash_attention_plain
+    from repro_torch.kernels.int8_quant import quantize_int8_plain
     from repro_torch.kernels.rmsnorm import rms_norm_plain
     from repro_torch.kernels.swiglu import swiglu_plain
     gen = torch.Generator(device="cuda").manual_seed(2)
@@ -1240,10 +1534,11 @@ def serve_ops(report, card: str):
         c0 = ops.flash_attention(q[:, :, :c], k[:, :, :c], v[:, :, :c])
         c1 = ops.flash_attention(q[:, :, c:], k, v, q_start=c)
         outs.append((full, c0, c1, ops.rms_norm(x, gamma),
-                     ops.swiglu(gate, up)))
+                     ops.swiglu(gate, up), ops.quantize_int8(x)))
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {k: native.LAUNCHES[k] for k in OPS_KERNELS}
+    launches = {k: native.LAUNCHES[k]
+                for k in OPS_KERNELS + ("quantize_int8",)}
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"kernel {name} never launched on the ops "
@@ -1251,7 +1546,11 @@ def serve_ops(report, card: str):
     tol = TOL["bfloat16"]
     for (label, hq, hkv, d_ff), inp, out in zip(widths, inputs, outs):
         q, k, v, x, gamma, gate, up = inp
-        full, c0, c1, y, a = out
+        full, c0, c1, y, a, xq = out
+        for g, w in zip(xq, quantize_int8_plain(x)):
+            if not torch.equal(g, w):
+                raise AssertionError(f"[ops] {label}: quantize_int8 differs "
+                                     f"from its plain version")
         composed = torch.cat([c0, c1], dim=2)
         comp_err = max_err([composed.float()], [full.float()], tol)
         errs = [
@@ -1270,7 +1569,8 @@ def serve_ops(report, card: str):
             f"d_model {d_model}, d_ff {d_ff}) bf16: flash({c}) ++ flash({c} "
             f"| prefix {c}) == flash({S}) within {tol}, max abs err "
             f"{comp_err}; each call vs its plain version, max abs err "
-            f"(full, chunk 0, chunk 1, rms_norm, swiglu) {errs}")
+            f"(full, chunk 0, chunk 1, rms_norm, swiglu) {errs}; "
+            f"quantize_int8 ({S}, {d_model}) equal")
     log(f"[ops] {wall:.3f}s for the calls, launches {launches} [{card}]")
     report["launches"].update(launches)
 

@@ -11,8 +11,11 @@ is one process that builds its checkout's kernels and runs that checkout's
 six greedy requests).  The runs go OTHER, this, this, OTHER, and again, until
 each side has ``RUNS`` runs, so neither side gains from its place in the
 order.  Each run also times the host work (until the calls return, before
-waiting for the card) of the paged-decode (B1) wrapper ``decode_partials``
-over its calls in the serving run, and of the paged-prefill (B3) wrapper
+waiting for the card) of the paged-decode (B1) wrapper over its calls in the
+serving run (``decode_folded``, which folds the split-KV spans in the same
+launch, or ``decode_partials`` in a checkout without it), of the split-KV
+reduce (B2) wrapper ``decode_reduce`` (no call where the fold runs in the
+decode launch), and of the paged-prefill (B3) wrapper
 ``flash_prefill_paged`` over its calls in the serving run and over 200 calls
 in a row at the serving path's shape (a 256-query ISO chunk over a
 1024-token prefix, Hq/Hkv 32/8, hd 128, bf16).  Prints every run, then each
@@ -33,7 +36,7 @@ ROOT = Path(__file__).resolve().parent
 RUNS = 10                # of each side
 LOOP_CALLS = 200
 KEYS = ("prefill_tok_s", "decode_ms_step", "b3_host_us", "b3_loop_us",
-        "b1_host_us")
+        "b1_host_us", "b2_host_us", "b2_calls")
 
 
 def b3_loop_us(smoke, fp) -> float:
@@ -65,11 +68,13 @@ def child() -> None:
     from repro_torch.kernels import flash_prefill_paged as fp
     from repro_torch.kernels import native
     native.build_all()
-    # the B3 and B1 wrappers, timed in place: layers/attention.py looks up
-    # flash_prefill_paged per call, flash_decode looks up decode_partials
-    host = {"b3": [], "b1": []}
-    wrappers = {"b3": (fp, "flash_prefill_paged"),
-                "b1": (fd, "decode_partials")}
+    # the B3, B1 and B2 wrappers, timed in place: layers/attention.py looks
+    # up flash_prefill_paged per call, flash_decode the B1 and B2 wrappers
+    host = {"b3": [], "b1": [], "b2": []}
+    b1 = "decode_folded" if hasattr(fd, "decode_folded") else \
+        "decode_partials"
+    wrappers = {"b3": (fp, "flash_prefill_paged"), "b1": (fd, b1),
+                "b2": (fd, "decode_reduce")}
 
     def timed(key, wrapper):
         def call(*args, **kwargs):
@@ -93,6 +98,8 @@ def child() -> None:
         b3_host_us=1e6 * statistics.mean(host["b3"]),
         b1_calls=len(host["b1"]),
         b1_host_us=1e6 * statistics.mean(host["b1"]),
+        b2_calls=len(host["b2"]),
+        b2_host_us=1e6 * statistics.mean(host["b2"]) if host["b2"] else 0.0,
         b3_loop_us=b3_loop_us(smoke, fp))), flush=True)
 
 
@@ -129,7 +136,8 @@ def main() -> int:
               f"{r['b3_host_us']} us a call over {r['b3_calls']} serving "
               f"calls, {r['b3_loop_us']} us in a loop; B1 wrapper host "
               f"{r['b1_host_us']} us a call over {r['b1_calls']} serving "
-              f"calls", flush=True)
+              f"calls; B2 wrapper host {r['b2_host_us']} us a call over "
+              f"{r['b2_calls']} serving calls", flush=True)
     for label, rs in runs.items():
         for key in KEYS:
             xs = [r[key] for r in rs]

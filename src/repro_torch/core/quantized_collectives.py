@@ -6,16 +6,21 @@ Both wire phases carry int8 payloads; the reduction itself runs in fp32 on
 each rank, so int8 summation cannot overflow:
 
     1. split the partial along its last dim into tp shards; quantize each
-       (shard row) with a per-row abs-max fp32 scale (kernels/int8_quant.py);
+       (shard row) with a per-row abs-max fp32 scale, shard first
+       (``quantize_int8_shards``);
     2. ``all_to_all_single`` the int8 shards and their scales;
-    3. dequantize and sum the tp contributions in fp32 -> this rank's slice
-       of the reduced tensor;
-    4. re-quantize the slice, ``all_gather`` int8 + scales;
-    5. dequantize and reassemble -> the replicated result.
+    3. dequantize and sum the tp contributions in fp32, in rank order, ->
+       this rank's slice of the reduced tensor, and re-quantize it
+       (``dequant_sum_quantize_int8``);
+    4. ``all_gather`` int8 + scales;
+    5. dequantize and reassemble -> the replicated result
+       (``dequantize_int8_gathered``).
 
-Wire bytes ~= 2 (n-1)/n * size * 1 B, against 2 (n-1)/n * size * 2 B for a
-bf16 ring all-reduce.  ``quantized_pmean`` (the data-parallel gradient mean)
-belongs to training and is not ported yet.
+Steps 1, 3 and 5 are one kernel each (``kernels/int8_quant.py``): three
+launches a reduce on the card.  Wire bytes ~= 2 (n-1)/n * size * 1 B,
+against 2 (n-1)/n * size * 2 B for a bf16 ring all-reduce.
+``quantized_pmean`` (the data-parallel gradient mean) belongs to training
+and is not ported yet.
 """
 from __future__ import annotations
 
@@ -25,7 +30,8 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-from repro_torch.kernels.int8_quant import dequantize_int8, quantize_int8
+from repro_torch.kernels.int8_quant import dequant_sum_quantize_int8, \
+    dequantize_int8_gathered, quantize_int8_shards
 
 # all-gather into one tensor: ``all_gather_into_tensor``, which newer torch
 # renames ``all_gather_single``
@@ -46,7 +52,6 @@ def all_gather_stack(x: torch.Tensor, group, tp: int) -> torch.Tensor:
 class QuantizedPending:
     """Phase 1 in flight: the exchanged int8 shards and scales land in
     ``q_recv``/``s_recv`` once ``works`` complete."""
-    x_shape: torch.Size
     x_dtype: torch.dtype
     q_recv: torch.Tensor                  # (tp, ..., d/tp) int8
     s_recv: torch.Tensor                  # (tp, ..., 1) fp32
@@ -63,17 +68,13 @@ def quantized_psum_start(x: torch.Tensor, group, tp: int
     if d % tp:
         raise ValueError(f"quantized_psum: last dim {d} is not divisible by "
                          f"tp={tp}")
-    xs = x.reshape(*x.shape[:-1], tp, d // tp)
-    q, scale = quantize_int8(xs)              # (..., tp, d/tp), (..., tp, 1)
-    # all_to_all_single exchanges dim-0 blocks: put the shard axis first
-    q = q.movedim(-2, 0).contiguous()
-    scale = scale.movedim(-2, 0).contiguous()
+    # all_to_all_single exchanges dim-0 blocks: the shard axis comes first
+    q, scale = quantize_int8_shards(x, tp)    # (tp, ..., d/tp), (tp, ..., 1)
     q_recv, s_recv = torch.empty_like(q), torch.empty_like(scale)
     works = (dist.all_to_all_single(q_recv, q, group=group, async_op=True),
              dist.all_to_all_single(s_recv, scale, group=group,
                                     async_op=True))
-    return QuantizedPending(x.shape, x.dtype, q_recv, s_recv, works, group,
-                            tp)
+    return QuantizedPending(x.dtype, q_recv, s_recv, works, group, tp)
 
 
 def quantized_psum_finish(pend: QuantizedPending) -> torch.Tensor:
@@ -83,12 +84,10 @@ def quantized_psum_finish(pend: QuantizedPending) -> torch.Tensor:
         w.wait()
     tp = pend.tp
     # row j of the exchange is rank j's contribution to my slice
-    part = dequantize_int8(pend.q_recv, pend.s_recv).sum(dim=0)
-    q2, s2 = quantize_int8(part)              # (..., d/tp), (..., 1)
+    q2, s2 = dequant_sum_quantize_int8(pend.q_recv, pend.s_recv)
     q2_g = all_gather_stack(q2, pend.group, tp)        # (tp, ..., d/tp)
     s2_g = all_gather_stack(s2, pend.group, tp)        # (tp, ..., 1)
-    out = dequantize_int8(q2_g, s2_g).movedim(0, -2)   # (..., tp, d/tp)
-    return out.reshape(pend.x_shape).to(pend.x_dtype)
+    return dequantize_int8_gathered(q2_g, s2_g, pend.x_dtype)   # (..., d)
 
 
 def quantized_psum(x: torch.Tensor, group, tp: int) -> torch.Tensor:

@@ -2,8 +2,10 @@
 // (sm_90a), with a plain C interface loaded through ctypes
 // (repro_torch/kernels/native.py).  Three kernels:
 //
-//   paged_decode   replaces repro/kernels/flash_decode.py::_decode_kernel
-//   decode_reduce  replaces repro/kernels/flash_decode.py::_decode_reduce_kernel
+//   paged_decode   replaces repro/kernels/flash_decode.py::_decode_kernel,
+//                  and at S > 1 spans also _decode_reduce_kernel: the fold
+//                  runs inside the decode launch (fold_tile below)
+//   decode_reduce  the same fold as a launch of its own, over given partials
 //   paged_prefill  replaces repro/kernels/flash_prefill_paged.py::_prefill_kernel
 //
 // Decode is bound by bytes: every resident K/V page is read once per step and
@@ -41,11 +43,23 @@
 //     span (the largest whose clusters all fit the card at once), their warps
 //     splitting its pages, and the cluster merges in rank order through
 //     distributed shared memory: still one launch and one partial a span.
+//   - With S > 1 spans the launch folds its own partials (the split-KV
+//     reduce, which as a launch of its own cost more than its work: ~4 us
+//     on an H100 against a 0.1 us bound).  Each block writes its share of a span's
+//     partial to the caller's scratch, fences, and counts itself in with one
+//     atomicAdd on the (request, kv head, row tile)'s arrival counter; the
+//     block that arrives last (S * C arrivals close a tile) reads the S
+//     partials back through L2 and folds them in span order, then puts the
+//     counter back to 0 for the next launch (or graph replay).  The fold's
+//     order depends on the shapes only, so the result is the same bits
+//     whichever block arrives last, and those of the standalone reduce.
 //   - Arithmetic is fp32 for both dtypes; bf16 takes exp2 on the SFU in log2
-//     units, fp32 the accurate expf (its tolerance is 1e-5).
-//   - Limits: hd <= 256 (32 lanes x 8 dims) and gk <= 32 rows (8 row tiles,
-//     each a block re-reading the span from L2).  The shared memory is one
-//     constexpr count (kDecSmemBytes) asserted to fit at compile time.
+//     units, fp32 the accurate expf (its tolerance is 1e-5).  The fold takes
+//     expf for both, with every rounding spelled out.
+//   - Limits: hd <= 256 (32 lanes x 8 dims).  Any number of query rows: each
+//     4-row tile is a block of its own, re-reading the span from L2.  The
+//     shared memory is one constexpr count (kDecSmemBytes) asserted to fit
+//     at compile time.
 // Measured on an H100, the walk is bound by the latency of each warp's
 // dependent shuffle and FMA chain (236 registers a thread leave two warps a
 // scheduler) and a block's fixed cost, not by bytes.
@@ -78,7 +92,6 @@ namespace {
 
 constexpr float kNegInf = -1e30f;   // finite, so an empty span folds NaN-free
 constexpr int kPrefillThreads = 256;
-constexpr int kReduceThreads = 128;
 
 // The fp32 paged prefill's page step (paged_prefill_kernel below).
 // Load one (ps, hd) page of head h into shared memory as fp32: K with a
@@ -165,7 +178,6 @@ __host__ __device__ inline size_t smem_floats(int R, int ps, int hd) {
 constexpr int kDecWarps = 8;
 constexpr int kDecThreads = 32 * kDecWarps;
 constexpr int kDecRows = 4;                 // query rows of a block
-constexpr int kDecMaxRows = 32;             // gk limit: 8 row tiles
 constexpr int kDecDims = 8;                 // consecutive head dims of a lane
 constexpr int kDecMaxHd = 32 * kDecDims;    // 256
 constexpr int kDecStages = 3;               // cp.async ring of each warp
@@ -187,6 +199,129 @@ constexpr size_t kDecSmemBytes = kDecRingBytes + kDecPBytes > kDecMergeBytes
                                      : kDecMergeBytes;
 static_assert(kDecSmemBytes <= kTcMaxSmemBytes,
               "the decode block's shared memory must fit the card's 227 KB");
+
+// ---------------------------------------------------------------------------
+// split-KV fold: one 4-row tile of one (request, kv head), a block of
+// kDecThreads; the decode launch's last block of a tile and the standalone
+// decode_reduce_kernel both run it
+// ---------------------------------------------------------------------------
+
+constexpr int kFoldSpans = 256;             // span weights held at a time
+constexpr int kFoldElems = 4;               // (row, dim) elements a thread
+constexpr int kFoldPre = 8;                 // spans of them loaded up front
+constexpr size_t kFoldSmemBytes =
+    (size_t)kDecRows * (kFoldSpans + 1) * sizeof(float);   // ws, then mxs
+static_assert(kFoldSmemBytes + sizeof(int) <= kDecSmemBytes,
+              "the fold reuses the decode block's shared memory");
+
+// Folds the S span partials o (.., S, gk, hd), m/l (.., S, gk) of rows
+// row0 .. row0 + rows - 1 of (request, kv head) bh into o_out (.., gk, hd),
+// m_out/l_out (.., gk):
+//   m = max_s m_s,  w_s = exp(m_s - m) * l_s,  l = sum_s w_s,
+//   out = (sum_s o_s * w_s) / max(l, 1e-30),
+// each w_s once per (row, span), by warp r for row r, into shared memory;
+// the sums in span order 0 .. S-1 with every rounding spelled out (no
+// contraction left to the compiler), so every caller gets the same bits
+// from the same partials.  A neutral span (0, NEG_INF, 0) contributes
+// nothing.  The partials are read through L2 (ld.global.cg): in the decode
+// launch other blocks wrote them.  The fold sits at the end of a launch, on
+// its critical path, so every load it needs (each row's first 32 spans' m
+// and l, each thread's elements of the first kFoldPre spans) is asked for
+// before anything waits: one round trip to L2 up to S = 8.  ws:
+// kFoldSmemBytes of shared memory.
+__device__ __forceinline__ void fold_tile(
+    const float* o, const float* m, const float* l, float* __restrict__ o_out,
+    float* __restrict__ m_out, float* __restrict__ l_out, size_t bh, int S,
+    int gk, int hd, int row0, int rows, float* ws) {
+  float* mxs = ws + kDecRows * kFoldSpans;         // [row]
+  const int t = threadIdx.x, warp = t >> 5, lane = t & 31;
+  const size_t pr = bh * S * gk + row0;            // (bh, span 0, row0)
+  const size_t orow = bh * gk + row0;
+  const int n_el = rows * hd;
+  const bool row_warp = warp < rows;
+  // (row, dim) elements in rounds of kFoldElems a thread (one round up to
+  // hd 256)
+  for (int e0 = 0; e0 < n_el; e0 += kFoldElems * kDecThreads) {
+    float ov[kFoldElems][kFoldPre];
+#pragma unroll
+    for (int e = 0; e < kFoldElems; ++e) {
+      const int i = e0 + e * kDecThreads + t;
+      const int r = i / hd, d = i - r * hd;
+      const float* op = o + ((pr + r) * hd + d);
+#pragma unroll
+      for (int s = 0; s < kFoldPre; ++s)
+        if (i < n_el && s < S) ov[e][s] = __ldcg(op + (size_t)s * gk * hd);
+    }
+    // warp r: row r's max over the spans, lane s holding span s's m and l
+    float mv = kNegInf, lv = 0.f, mx = kNegInf;
+    if (row_warp) {
+      const float* mr = m + pr + warp;
+      if (lane < S) {
+        mv = __ldcg(mr + (size_t)lane * gk);
+        lv = __ldcg(l + pr + warp + (size_t)lane * gk);
+      }
+      mx = mv;
+      for (int s = lane + 32; s < S; s += 32)
+        mx = fmaxf(mx, __ldcg(mr + (size_t)s * gk));
+      mx = warp_max(mx);
+      if (lane == 0) mxs[warp] = mx;
+    }
+    // each element's l is its row's, summed by the element's thread
+    float acc[kFoldElems], lsum[kFoldElems];
+#pragma unroll
+    for (int e = 0; e < kFoldElems; ++e) acc[e] = lsum[e] = 0.f;
+    for (int s0 = 0; s0 < S; s0 += kFoldSpans) {
+      const int n = min(kFoldSpans, S - s0);
+      if (s0 > 0) __syncthreads();                 // the last weights' reads
+      if (row_warp)
+        for (int s = lane; s < n; s += 32) {
+          const size_t j = pr + warp + (size_t)(s0 + s) * gk;
+          const bool held = s0 == 0 && s < 32;
+          ws[warp * kFoldSpans + s] =
+              __fmul_rn(expf((held ? mv : __ldcg(m + j)) - mx),
+                        held ? lv : __ldcg(l + j));
+        }
+      __syncthreads();
+#pragma unroll
+      for (int e = 0; e < kFoldElems; ++e) {
+        const int i = e0 + e * kDecThreads + t;
+        if (i < n_el) {
+          const int r = i / hd, d = i - r * hd;
+          const float* wr = ws + r * kFoldSpans;
+          int s = 0;
+          if (s0 == 0) {
+#pragma unroll
+            for (int p = 0; p < kFoldPre; ++p)
+              if (p < n) {
+                acc[e] = __fmaf_rn(ov[e][p], wr[p], acc[e]);
+                lsum[e] = __fadd_rn(lsum[e], wr[p]);
+              }
+            s = kFoldPre;
+          }
+          const float* op = o + ((pr + (size_t)s0 * gk + r) * hd + d);
+          for (; s < n; ++s) {
+            acc[e] = __fmaf_rn(__ldcg(op + (size_t)s * gk * hd), wr[s],
+                               acc[e]);
+            lsum[e] = __fadd_rn(lsum[e], wr[s]);
+          }
+        }
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < kFoldElems; ++e) {
+      const int i = e0 + e * kDecThreads + t;
+      if (i < n_el) {
+        o_out[orow * hd + i] = acc[e] / fmaxf(lsum[e], 1e-30f);
+        const int r = i / hd;
+        if (i == r * hd) {
+          m_out[orow + r] = mxs[r];
+          l_out[orow + r] = lsum[e];
+        }
+      }
+    }
+    if (e0 + kFoldElems * kDecThreads < n_el) __syncthreads();  // next round
+  }
+}
 
 template <int N>
 __device__ __forceinline__ void cp_async_wait() {
@@ -284,19 +419,25 @@ __device__ __forceinline__ void dec_scatter(float (&s)[V], int lane) {
 // q (B, Hkv, gk, hd) with row r = g*K + qi; out (B, Hkv, S, gk, hd) fp32,
 // m/l (B, Hkv, S, gk) fp32.  Grid (S * row tiles * C, Hkv, B) in clusters
 // of C blocks along x: the C blocks of a cluster share one (span, tile), their
-// 8 * C warps taking its pages round-robin.  Span `split` walks page-walk
-// indices j = split*pps + jj, jj < pps; indices >= MB (a ragged last span)
-// read page 0 and are always masked (their key positions are >= MB*ps >=
-// length).  With the guard, the walk stops at the resident pages: a dead
-// page would leave every state unchanged.  LPK lanes cover a key row (16 up
-// to hd 128, 32 up to 256).
-template <typename T, int LPK>
+// 8 * C warps taking its pages round-robin.  kFold (S > 1): out/m/l are
+// scratch and the tile's last block folds them into fo (B, Hkv, gk, hd),
+// fm/fl (B, Hkv, gk); arrivals[(b * Hkv + h) * tiles + tile] counts the
+// blocks done, 0 between launches.  (An instantiation of its own: compiled
+// with the fold's code, the walk ran ~30% slower on an H100.)  Span `split`
+// walks page-walk indices j = split*pps + jj, jj < pps; indices >= MB (a
+// ragged last span) read page 0 and are always masked (their key positions
+// are >= MB*ps >= length).  With the guard, the walk stops at the resident
+// pages: a dead page would leave every state unchanged.  LPK lanes cover a
+// key row (16 up to hd 128, 32 up to 256).
+template <typename T, int LPK, bool kFold>
 __global__ void __launch_bounds__(kDecThreads, 1)
 paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                     const T* __restrict__ v_pages,
                     const int* __restrict__ block_tables,
                     const int* __restrict__ lengths, float* __restrict__ out,
                     float* __restrict__ m_out, float* __restrict__ l_out,
+                    float* __restrict__ fo, float* __restrict__ fm,
+                    float* __restrict__ fl, int* __restrict__ arrivals,
                     int Hkv, int gk, int K, int hd, int N, int ps, int MB,
                     int S, int pps, int window, int guard, int vec,
                     float scale) {
@@ -614,70 +755,74 @@ paged_decode_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
       }
     }
   }
-  if (C == 1) return;
-  // the cluster: rank c merges every C-th block of elements, reading each
-  // block's state through distributed shared memory
-  cluster.sync();
-  for (int i = crank * kDecThreads + threadIdx.x; i < rows * hd;
-       i += C * kDecThreads) {
-    const int r = i / hd, d = i - r * hd;
-    float bm[kDecMaxCluster], bl[kDecMaxCluster], ba[kDecMaxCluster];
-    float mx = kNegInf;
+  if (C > 1) {
+    // the cluster: rank c merges every C-th block of elements, reading each
+    // block's state through distributed shared memory
+    cluster.sync();
+    for (int i = crank * kDecThreads + threadIdx.x; i < rows * hd;
+         i += C * kDecThreads) {
+      const int r = i / hd, d = i - r * hd;
+      float bm[kDecMaxCluster], bl[kDecMaxCluster], ba[kDecMaxCluster];
+      float mx = kNegInf;
 #pragma unroll
-    for (int c = 0; c < kDecMaxCluster; ++c)
-      if (c < C) {
-        const float* rb = cluster.map_shared_rank(bs, c);
-        bm[c] = rb[r];
-        bl[c] = rb[kDecRows + r];
-        ba[c] = rb[2 * kDecRows + r * hd + d];
-        mx = fmaxf(mx, bm[c]);
-      }
-    float lsum = 0.f, a = 0.f;
+      for (int c = 0; c < kDecMaxCluster; ++c)
+        if (c < C) {
+          const float* rb = cluster.map_shared_rank(bs, c);
+          bm[c] = rb[r];
+          bl[c] = rb[kDecRows + r];
+          ba[c] = rb[2 * kDecRows + r * hd + d];
+          mx = fmaxf(mx, bm[c]);
+        }
+      float lsum = 0.f, a = 0.f;
 #pragma unroll
-    for (int c = 0; c < kDecMaxCluster; ++c)
-      if (c < C) {
-        const float w = dec_exp<kLog2>(bm[c] - mx);
-        lsum += w * bl[c];
-        a += w * ba[c];
-      }
-    write(r, d, mx, lsum, a);
+      for (int c = 0; c < kDecMaxCluster; ++c)
+        if (c < C) {
+          const float w = dec_exp<kLog2>(bm[c] - mx);
+          lsum += w * bl[c];
+          a += w * ba[c];
+        }
+      write(r, d, mx, lsum, a);
+    }
+    cluster.sync();                // every block's state stays readable
   }
-  cluster.sync();                  // every block's state stays readable
+  if (!kFold) return;
+
+  // the split-KV fold: this block's share of the span's partial is written
+  // (the barrier orders every thread's stores before thread 0's fence,
+  // which makes them visible device-wide before the block counts itself
+  // in).  The block that closes the tile (S spans x C ranks) folds the
+  // tile's S partials, then resets the counter for the next launch.
+  int* arrived = arrivals + ((size_t)b * Hkv + h) * tiles + row0 / kDecRows;
+  // past the fold's buffers in the (now free) dynamic shared memory
+  int* closes = reinterpret_cast<int*>(dec_smem + kFoldSmemBytes);
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    __threadfence();
+    *closes = atomicAdd(arrived, 1) == S * C - 1;
+    if (*closes) __threadfence();  // the others' partials, before reading
+  }
+  __syncthreads();
+  if (!*closes) return;
+  fold_tile(out, m_out, l_out, fo, fm, fl, (size_t)b * Hkv + h, S, gk, hd,
+            row0, rows, reinterpret_cast<float*>(dec_smem));
+  if (threadIdx.x == 0) *arrived = 0;
 }
 
 
 // ---------------------------------------------------------------------------
-// split-KV reduce: one block per (kv head, request), threads over (gk, hd)
+// split-KV reduce as a launch of its own: one block per (4-row tile, kv head,
+// request), the decode launch's fold over given partials
 // ---------------------------------------------------------------------------
 
-// Folds the S span partials: m = max_s m_s, w_s = exp(m_s - m) * l_s,
-// out = sum_s o_s * w_s / max(sum_s w_s, 1e-30).  A neutral span
-// (0, NEG_INF, 0) contributes nothing.
-__global__ void __launch_bounds__(kReduceThreads)
-decode_reduce_kernel(const float* __restrict__ o, const float* __restrict__ m,
-                     const float* __restrict__ l, float* __restrict__ o_out,
-                     float* __restrict__ m_out, float* __restrict__ l_out,
-                     int Hkv, int S, int gk, int hd) {
-  const size_t bh = (size_t)blockIdx.y * Hkv + blockIdx.x;
-  const float* ob = o + bh * S * gk * hd;
-  const float* mb = m + bh * S * gk;
-  const float* lb = l + bh * S * gk;
-  for (int i = threadIdx.x; i < gk * hd; i += blockDim.x) {
-    const int r = i / hd, d = i - r * hd;
-    float mx = kNegInf;
-    for (int s = 0; s < S; ++s) mx = fmaxf(mx, mb[s * gk + r]);
-    float lsum = 0.f, acc = 0.f;
-    for (int s = 0; s < S; ++s) {
-      const float w = expf(mb[s * gk + r] - mx) * lb[s * gk + r];
-      lsum += w;
-      acc += ob[((size_t)s * gk + r) * hd + d] * w;
-    }
-    o_out[bh * gk * hd + i] = acc / fmaxf(lsum, 1e-30f);
-    if (d == 0) {
-      m_out[bh * gk + r] = mx;
-      l_out[bh * gk + r] = lsum;
-    }
-  }
+__global__ void __launch_bounds__(kDecThreads)
+decode_reduce_kernel(const float* o, const float* m, const float* l,
+                     float* __restrict__ o_out, float* __restrict__ m_out,
+                     float* __restrict__ l_out, int Hkv, int S, int gk,
+                     int hd) {
+  __shared__ float ws[kFoldSmemBytes / sizeof(float)];
+  const int row0 = blockIdx.x * kDecRows;
+  fold_tile(o, m, l, o_out, m_out, l_out, (size_t)blockIdx.z * Hkv + blockIdx.y,
+            S, gk, hd, row0, min(kDecRows, gk - row0), ws);
 }
 
 // ---------------------------------------------------------------------------
@@ -872,10 +1017,11 @@ cudaLaunchConfig_t dec_config(cudaLaunchAttribute* attr, dim3 grid,
   return cfg;
 }
 
-template <typename T, int LPK>
+template <typename T, int LPK, bool kFold>
 cudaError_t launch_decode(const void* q, const void* k_pages,
                           const void* v_pages, const int* block_tables,
                           const int* lengths, float* out, float* m, float* l,
+                          float* fo, float* fm, float* fl, int* arrivals,
                           int B, int Hkv, int gk, int K, int hd, int N, int ps,
                           int MB, int S, int pps, int window, int guard,
                           int vec, float scale, cudaStream_t stream) {
@@ -885,7 +1031,7 @@ cudaError_t launch_decode(const void* q, const void* k_pages,
   // a short grid (one long request, one rank's heads) fills more SMs; the
   // choice depends on the shapes only, never on the guard
   static int fits[kDecMaxCluster + 1] = {};
-  auto kernel = paged_decode_kernel<T, LPK>;
+  auto kernel = paged_decode_kernel<T, LPK, kFold>;
   cudaError_t e = allow_smem(kernel, kDecSmemBytes, &allowed);
   if (e != cudaSuccess) return e;
   cudaLaunchAttribute attr[1];
@@ -906,8 +1052,8 @@ cudaError_t launch_decode(const void* q, const void* k_pages,
       attr, dim3(units / (Hkv * B) * cluster, Hkv, B), cluster, stream);
   e = cudaLaunchKernelEx(&cfg, kernel, (const T*)q, (const T*)k_pages,
                          (const T*)v_pages, block_tables, lengths, out, m, l,
-                         Hkv, gk, K, hd, N, ps, MB, S, pps, window, guard, vec,
-                         scale);
+                         fo, fm, fl, arrivals, Hkv, gk, K, hd, N, ps, MB, S,
+                         pps, window, guard, vec, scale);
   if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
@@ -966,25 +1112,32 @@ long long paged_attention_smem_bytes(int R, int ps, int hd) {
   return (long long)(smem_floats(R, ps, hd) * sizeof(float));
 }
 
-// gk <= 32 and hd <= 256 (the wrapper checks both); vec: hd a multiple of 8
-// (bf16) or 4 (fp32) values and q and both pools 16-byte aligned (cp.async
-// pieces, 16-byte q loads)
+// hd <= 256 (the wrapper checks it); vec: hd a multiple of 8 (bf16) or 4
+// (fp32) values and q and both pools 16-byte aligned (cp.async pieces,
+// 16-byte q loads).  arrivals != null (S > 1): out/m/l are scratch, the
+// folded state goes to fo/fm/fl, and arrivals holds B * Hkv * ceil(gk / 4)
+// counters, all 0.
 int paged_decode(int dtype, const void* q, const void* k_pages,
                  const void* v_pages, const void* block_tables,
-                 const void* lengths, void* out, void* m, void* l, int B,
-                 int Hkv, int gk, int K, int hd, int N, int ps, int MB, int S,
-                 int pps, int window, int guard, int vec, float scale,
-                 void* stream) {
-  if (gk < 1 || gk > kDecMaxRows || hd < 1 || hd > kDecMaxHd)
+                 const void* lengths, void* out, void* m, void* l, void* fo,
+                 void* fm, void* fl, void* arrivals, int B, int Hkv, int gk,
+                 int K, int hd, int N, int ps, int MB, int S, int pps,
+                 int window, int guard, int vec, float scale, void* stream) {
+  if (gk < 1 || hd < 1 || hd > kDecMaxHd || (arrivals && S < 2))
     return (int)cudaErrorInvalidValue;
   auto st = (cudaStream_t)stream;
   auto bt = (const int*)block_tables;
   auto ln = (const int*)lengths;
   auto launch = [&](auto tag, auto lpk) {
     using T = typename decltype(tag)::type;
-    return (int)launch_decode<T, decltype(lpk)::value>(
-        q, k_pages, v_pages, bt, ln, (float*)out, (float*)m, (float*)l, B,
-        Hkv, gk, K, hd, N, ps, MB, S, pps, window, guard, vec, scale, st);
+    constexpr int kLpk = decltype(lpk)::value;
+    auto go = [&](auto fold) {
+      return (int)launch_decode<T, kLpk, decltype(fold)::value>(
+          q, k_pages, v_pages, bt, ln, (float*)out, (float*)m, (float*)l,
+          (float*)fo, (float*)fm, (float*)fl, (int*)arrivals, B, Hkv, gk, K,
+          hd, N, ps, MB, S, pps, window, guard, vec, scale, st);
+    };
+    return arrivals ? go(std::true_type()) : go(std::false_type());
   };
   using f32 = std::common_type<float>;
   using bf16 = std::common_type<__nv_bfloat16>;
@@ -1000,8 +1153,9 @@ int paged_decode(int dtype, const void* q, const void* k_pages,
 int decode_reduce(const void* o, const void* m, const void* l, void* o_out,
                   void* m_out, void* l_out, int B, int Hkv, int S, int gk,
                   int hd, void* stream) {
-  decode_reduce_kernel<<<dim3(Hkv, B), kReduceThreads, 0,
-                         (cudaStream_t)stream>>>(
+  if (gk < 1 || hd < 1) return (int)cudaErrorInvalidValue;
+  decode_reduce_kernel<<<dim3((gk + kDecRows - 1) / kDecRows, Hkv, B),
+                         kDecThreads, 0, (cudaStream_t)stream>>>(
       (const float*)o, (const float*)m, (const float*)l, (float*)o_out,
       (float*)m_out, (float*)l_out, Hkv, S, gk, hd);
   return (int)cudaGetLastError();

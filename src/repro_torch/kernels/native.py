@@ -13,7 +13,9 @@ the plain versions for CUDA tensors.
 launches its kernel and nowhere else, so a run can show that the serving path
 went through the kernels.  ``VARIANTS`` splits the two flash-prefill kernels'
 counts by instantiation: ``/tc`` for bf16 inputs (the tensor-core tile loop of
-``csrc/flash_tc.cuh``), ``/fp32`` for float32 inputs (CUDA cores).
+``csrc/flash_tc.cuh``), ``/fp32`` for float32 inputs (CUDA cores); and counts
+the paged-decode launches that fold their split-KV spans themselves
+(``paged_decode/fold``, a part of the ``paged_decode`` count).
 """
 from __future__ import annotations
 
@@ -44,10 +46,15 @@ ROW_THREADS = 256
 
 LAUNCHES: Dict[str, int] = {"paged_decode": 0, "decode_reduce": 0,
                             "paged_prefill": 0, "quantize_int8": 0,
+                            "quantize_int8_shards": 0,
+                            "dequant_sum_quantize_int8": 0,
+                            "dequantize_int8_gathered": 0,
                             "flash_prefill": 0, "rms_norm": 0, "swiglu": 0}
-# launches of B3 and B4 by instantiation (their sum is the LAUNCHES count)
+# launches of B3 and B4 by instantiation (their sum is the LAUNCHES count),
+# and of B1 with the split-KV fold inside
 VARIANTS: Dict[str, int] = {"paged_prefill/tc": 0, "paged_prefill/fp32": 0,
-                            "flash_prefill/tc": 0, "flash_prefill/fp32": 0}
+                            "flash_prefill/tc": 0, "flash_prefill/fp32": 0,
+                            "paged_decode/fold": 0}
 # nvcc output (register / shared-memory report) of each build, by source
 BUILD_LOGS: Dict[str, str] = {}
 
@@ -58,13 +65,16 @@ _L = ctypes.c_longlong
 # C entry points of each source: argument types
 _SIGNATURES = {
     "paged_attention.cu": {
-        "paged_decode": [_I] + [_P] * 8 + [_I] * 13 + [_F, _P],
+        "paged_decode": [_I] + [_P] * 12 + [_I] * 13 + [_F, _P],
         "decode_reduce": [_P] * 6 + [_I] * 5 + [_P],
         "paged_prefill": [_I] + [_P] * 9 + [_I] * 11 + [_F, _P],
         "paged_attention_smem_bytes": [_I, _I, _I],
     },
     "int8_quant.cu": {
         "quantize_int8": [_I] + [_P] * 3 + [_I] * 4 + [_P],
+        "quantize_int8_shards": [_I] + [_P] * 3 + [_L] + [_I] * 4 + [_P],
+        "dequant_sum_quantize_int8": [_P] * 4 + [_L] + [_I] * 4 + [_P],
+        "dequantize_int8_gathered": [_I] + [_P] * 3 + [_L] + [_I] * 3 + [_P],
     },
     "rmsnorm.cu": {
         "rms_norm": [_I, _I] + [_P] * 3 + [_I, _I, _F, _I, _I, _P],
@@ -213,12 +223,13 @@ def check_inputs(q, k_pages, v_pages, block_tables, lengths,
             raise TypeError(f"{kernel}: {name} must be integer, got {t.dtype}")
 
 
-def row_launch(x: torch.Tensor, out: torch.Tensor) -> Tuple[bool, bool]:
+def row_launch(x: torch.Tensor, out: torch.Tensor,
+               vec_bytes: int = 16) -> Tuple[bool, bool]:
     """``(vec, block_per_row)`` of a row kernel over x (rows, d) into out:
-    16-byte vectors where d and both base addresses allow them, and a block
-    of ``ROW_THREADS`` per row once a row holds that many vectors (a warp
-    per row below that, or on the scalar path)."""
-    n_vec = 16 // x.element_size()          # elements per 16-byte load
+    vectors of ``vec_bytes`` of x where d and both base addresses allow
+    them, and a block of ``ROW_THREADS`` per row once a row holds that many
+    vectors (a warp per row below that, or on the scalar path)."""
+    n_vec = vec_bytes // x.element_size()   # elements per vector load
     vec = x.shape[-1] % n_vec == 0 and x.data_ptr() % 16 == 0 \
         and out.data_ptr() % 16 == 0
     return vec, vec and x.shape[-1] // n_vec >= ROW_THREADS
