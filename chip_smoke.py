@@ -43,13 +43,29 @@ Phases, each fatal on failure:
                and addresses that forbid 16-byte loads.
   3. serve     the tp=1 path: ``PagedEngine`` serving qwen3-8b at full width
                and depth in bf16 (random weights from a seed) on 6 greedy
-               requests of 300-2000 prompt tokens; the launch counters of
-               the paged decode and prefill kernels must be > 0, logits
-               finite, every request complete and every page free at the
-               end; every paged-prefill launch must be the bf16 tensor-core
-               one; every decode step at S > 1 must launch the decode
-               kernel with the fold inside once a layer, and the standalone
-               reduce never.
+               requests of 300-2000 prompt tokens, first on an eager engine
+               (``cuda_graphs=False``), then on a graphed one (each decode
+               step and each bucket-padded grant one CUDA-graph replay): a
+               capture pass, then a timed pass of replays only.  Both
+               graphed passes must give the eager tokens; the graph count
+               must stay within the closure keys' bound; logits finite,
+               every request complete and every page free after each pass;
+               in the timed pass, counted through the replays, the paged
+               decode and prefill kernels must have launched, every
+               paged-prefill launch on the bf16 tensor-core instantiation,
+               the decode kernel with the fold inside once a layer of every
+               step at S > 1 (by the engine's record of S) and the
+               standalone reduce never, and the fold's arrival counters
+               must read 0 after it; the graphed decode dispatch share must
+               be below the eager one.  Prints each engine's prefill tok/s,
+               decode ms/step, dispatch shares and peak memory (allocated
+               and reserved), the graph count, capture seconds and the
+               reserved memory after each capture, and the device's idle
+               share over ten graphed decode steps (a lower bound from CUDA
+               events around each step's staging and replay, and the
+               ``torch.profiler`` figure with CUDA activities, checked
+               against those events) with the kernels that took the most
+               device time.
   4. parity    a tiny fp32 model served on ``cuda`` and on ``cpu`` from the
                same weights must give equal greedy tokens (mixed traffic,
                forced 4-way split-KV decode, forced preemption).
@@ -1029,15 +1045,215 @@ def int8_reduce_cases(gen, hint):
 # phase 3: the main path at full width
 # ---------------------------------------------------------------------------
 
+def serve_pass(eng, prompts, label: str, card: str) -> dict:
+    """Serve ``prompts`` (32 greedy tokens each) on ``eng`` from zeroed
+    metrics and launch counts; check that every request completed, every
+    page came back and the attention kernels launched; print the pass."""
+    import torch
+    from repro_torch.kernels import native
+    from repro_torch.serving import Request, paged_engine
+    from repro_torch.serving.requests import SamplingParams
+
+    eng.metrics = dict.fromkeys(paged_engine.METRIC_KEYS, 0)
+    eng.decode_splits = {}
+    rids = [eng.add_request(Request(
+        prompt=p.copy(), sampling=SamplingParams(max_new_tokens=32,
+                                                 eos_id=-1)))
+        for p in prompts]
+    torch.cuda.synchronize()
+    native.reset_launches()
+    t0 = time.perf_counter()
+    outs = eng.run_until_complete()
+    wall = time.perf_counter() - t0
+    m = dict(eng.metrics)
+    res = dict(tokens=[outs.get(r) for r in rids], m=m, wall=wall,
+               launches=dict(native.LAUNCHES),
+               variants=dict(native.VARIANTS),
+               splits=dict(eng.decode_splits))
+    if any(t is None or len(t) != 32 for t in res["tokens"]):
+        raise AssertionError(f"{label}: not every request completed: {m}")
+    if eng.alloc.free_pages != eng.alloc.num_pages:
+        raise AssertionError(f"{label}: pages leaked")
+    for name in ATTENTION_KERNELS:
+        if res["launches"][name] <= 0:
+            raise AssertionError(f"{label}: kernel {name} never launched on "
+                                 f"the main path: {res['launches']}")
+    if m["resumed_grants"] <= 0:
+        raise AssertionError(f"{label}: no resumed grant ran")
+    log(f"[serve] {label}: prefill {m['prefill_tokens']} tok in "
+        f"{m['prefill_s']:.3f}s = {m['prefill_tokens'] / m['prefill_s']:.0f} "
+        f"tok/s ({m['prefill_calls']} calls, {m['resumed_grants']} resumed); "
+        f"decode {1e3 * m['decode_s'] / m['decode_calls']:.2f} ms/step over "
+        f"{m['decode_calls']} steps; host dispatch share (host time until the "
+        f"calls return, of the fenced time): prefill "
+        f"{m['prefill_dispatch_s'] / m['prefill_s']:.3f}, decode "
+        f"{m['decode_dispatch_s'] / m['decode_s']:.3f}; host "
+        f"{1e3 * m['decode_dispatch_s'] / m['decode_calls']:.3f} ms a decode "
+        f"step; wall {wall:.1f}s; preemptions {m['preemptions']} [{card}]")
+    return res
+
+
+def device_activity(prof, skip: str = None) -> dict:
+    """From a ``torch.profiler`` trace with CUDA activities: the device
+    intervals (kernels, copies, fills) whose names do not start with
+    ``skip``, the union of their time, the span from the first start to the
+    last end, and the time by name (ms)."""
+    from torch.autograd import DeviceType
+    evs = [e for e in prof.events() if e.device_type == DeviceType.CUDA
+           and not (skip and e.name.startswith(skip))]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in evs)
+    busy, end = 0.0, -math.inf
+    for a, b in spans:                        # union of the intervals
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    by_name = {}
+    for e in evs:
+        n, t = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (n + 1, t + e.time_range.elapsed_us() / 1e3)
+    return dict(n=len(spans), busy_ms=busy / 1e3,
+                span_ms=(end - spans[0][0]) / 1e3 if spans else 0.0,
+                by_name=sorted(by_name.items(), key=lambda kv: -kv[1][1]))
+
+
+def log_top(label: str, act: dict, per: int, card: str) -> None:
+    """The eight names that took the most device time, per step."""
+    total = sum(t for _, (_, t) in act["by_name"])
+    log(f"[serve] {label}: {act['n'] / per:.0f} device intervals and "
+        f"{total / per:.3f} ms of device time a step; by name, ms a step "
+        f"(launches a step) [{card}]:")
+    for name, (n, t) in act["by_name"][:8]:
+        log(f"    {t / per:8.3f} ({n / per:5.0f})  {name[:90]}")
+
+
+def decode_idle_share(eng, prompts, card: str) -> None:
+    """The device's idle share over ten decode steps of ``eng`` (through the
+    graphs the trace captured).  Four of the trace's requests are
+    prefilled; then ten decode steps run with CUDA events from before each
+    call's staging to after its replay, and ten more the same way under
+    ``torch.profiler`` with CUDA activities.  Once those requests are done,
+    four more are prefilled under the profiler (where the device time of a
+    step with grants goes): the untraced steps run before any tracing.
+
+    Untraced, the device can be busy only inside those windows or while it
+    copies the logits back, so one minus (the windows' time plus the traced
+    logits copies) over the wall is a lower bound on the idle share.  The
+    gaps inside a graph show only in the trace, which may stretch the
+    kernels too: one minus the traced device time (the union of the
+    intervals) over the untraced wall is the idle share if tracing leaves
+    the kernels' time alone.  It does not if the traced device time outside
+    the logits copies exceeds the untraced windows' time, and the script
+    prints which holds; beside them, the traced steps' own idle share."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.serving import Request, paged_engine
+    from repro_torch.serving.requests import SamplingParams
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+
+    def prefill_four() -> int:
+        """Add four requests and step until their prompts are resident;
+        returns the steps taken."""
+        for p in prompts[:4]:
+            eng.add_request(Request(prompt=p.copy(), sampling=SamplingParams(
+                max_new_tokens=32, eos_id=-1)))
+        steps = 0
+        while eng.scheduler.waiting or any(
+                s is not None and s.prefilled < sum(s.chunk_plan)
+                for s in eng.slots):
+            eng.step()
+            steps += 1
+        return steps
+
+    prefill_four()
+    graphs = eng.graphs
+    windows = []
+    stage = paged_engine.StepClosure.stage
+    call = paged_engine.StepClosure.__call__
+
+    def timed_stage(self, **host):
+        a = torch.cuda.Event(enable_timing=True)
+        a.record()
+        windows.append([a, None])
+        stage(self, **host)
+
+    def timed_call(self):
+        out = call(self)
+        b = torch.cuda.Event(enable_timing=True)
+        b.record()
+        windows[-1][1] = b
+        return out
+
+    def ten_steps():
+        del windows[:]
+        t0 = time.perf_counter()
+        for _ in range(10):
+            eng.step()
+        wall = time.perf_counter() - t0
+        if eng.graphs != graphs or len(windows) != 10:
+            raise AssertionError(f"ten decode steps made {len(windows)} "
+                                 f"calls and {eng.graphs - graphs} captures")
+        return 1e3 * wall, sum(a.elapsed_time(b) for a, b in windows)
+
+    paged_engine.StepClosure.stage = timed_stage
+    paged_engine.StepClosure.__call__ = timed_call
+    try:
+        wall, inside = ten_steps()
+        with profile(activities=acts) as prof:
+            traced_wall, traced_inside = ten_steps()
+    finally:
+        paged_engine.StepClosure.stage = stage
+        paged_engine.StepClosure.__call__ = call
+    act = device_activity(prof)
+
+    def drain():             # not run_until_complete, which serve_ab.py times
+        while any(s is not None for s in eng.slots):
+            eng.step()
+
+    drain()
+    grants = eng.metrics["prefill_calls"]
+    with profile(activities=acts) as prefill_prof:
+        steps = prefill_four()
+    log_top(f"{steps} steps with {eng.metrics['prefill_calls'] - grants} "
+            f"grants", device_activity(prefill_prof), steps, card)
+    drain()
+    log(f"[serve] ten graphed decode steps: {wall / 10:.3f} ms a step "
+        f"untraced, {traced_wall / 10:.3f} traced; staging and replay "
+        f"windows (CUDA events) {inside / 10:.3f} ms a step untraced, "
+        f"{traced_inside / 10:.3f} traced [{card}]")
+    if not act["n"]:
+        log("[serve] torch.profiler saw no device activity: the idle share "
+            "is not measured")
+        return
+    copies = act["busy_ms"] - device_activity(prof, "Memcpy DtoH")["busy_ms"]
+    kernels = act["busy_ms"] - copies
+    holds = kernels <= inside
+    log(f"[serve] device idle share over ten graphed decode steps: at least "
+        f"{1 - (inside + copies) / wall:.4f} (untraced windows "
+        f"{inside:.3f} ms + traced logits copies {copies:.3f} ms over the "
+        f"untraced wall {wall:.3f} ms); {1 - act['busy_ms'] / wall:.4f} if "
+        f"tracing leaves the kernels' time alone (traced device time "
+        f"{act['busy_ms']:.3f} ms over the untraced wall); the traced device "
+        f"time outside the logits copies, {kernels:.3f} ms, "
+        + ("fits within the untraced windows' time, as it must if so" if holds
+           else f"exceeds the untraced windows' {inside:.3f} ms: tracing "
+                f"stretched the kernels, and the second figure is low")
+        + f"; the traced steps' own: {1 - act['busy_ms'] / act['span_ms']:.4f}"
+        f" of a {act['span_ms']:.3f} ms span [{card}]")
+    log_top("ten graphed decode steps", act, 10, card)
+
+
 def serve_full(report, card: str):
+    """Phase 3: the six requests on an eager engine (``cuda_graphs=False``),
+    then on a graphed one, a capture pass and a timed pass; the graphed
+    tokens must equal the eager ones."""
     import numpy as np
     import torch
     from repro_torch.config import Config, ISOConfig, ParallelConfig, \
         ServingConfig, get_model_config
-    from repro_torch.kernels import native
+    from repro_torch.kernels import flash_decode as fd
     from repro_torch.models import api
-    from repro_torch.serving import PagedEngine, Request, paged_engine
-    from repro_torch.serving.requests import SamplingParams
+    from repro_torch.serving import PagedEngine, paged_engine
 
     cfg = get_model_config("qwen3-8b")           # full width and depth
     t0 = time.perf_counter()
@@ -1052,7 +1268,11 @@ def serve_full(report, card: str):
                        prefill_batching=False)
     config = Config(model=cfg, parallel=ParallelConfig(data=1, model=1),
                     iso=ISOConfig(), serving=sv)
-    eng = PagedEngine(config, params, device="cuda")
+    rng = np.random.default_rng(0)
+    lengths = [int(n) for n in rng.integers(300, 2001, 6)]
+    lengths[0] = max(lengths[0], 1500)           # at least one resumed grant
+    prompts = [rng.integers(2, cfg.vocab_size, n).astype(np.int32)
+               for n in lengths]
 
     checked = {"rows": 0}
     real_sample = paged_engine.sample
@@ -1063,88 +1283,114 @@ def serve_full(report, card: str):
         checked["rows"] += 1
         return real_sample(logits, sp, step)
 
+    # the card's reserved memory after each capture
+    reserved = []
+    capture = paged_engine.StepClosure.capture
+
+    def noted_capture(self, side, pool):
+        out = capture(self, side, pool)
+        reserved.append(torch.cuda.memory_reserved() / 2**30)
+        return out
+
+    def peaks():
+        return (torch.cuda.max_memory_allocated() / 2**30,
+                torch.cuda.max_memory_reserved() / 2**30)
+
     paged_engine.sample = finite_sample
-    # the split count of every decode step, as the engine passes it
-    real_decode_step = paged_engine.api.decode_step
-    splits = []
-
-    def counted_decode_step(*args, **kwargs):
-        splits.append(kwargs["kv_splits"])
-        return real_decode_step(*args, **kwargs)
-
-    paged_engine.api.decode_step = counted_decode_step
-    rng = np.random.default_rng(0)
-    lengths = [int(n) for n in rng.integers(300, 2001, 6)]
-    lengths[0] = max(lengths[0], 1500)           # at least one resumed grant
-    for n in lengths:
-        eng.add_request(Request(
-            prompt=rng.integers(2, cfg.vocab_size, n).astype(np.int32),
-            sampling=SamplingParams(max_new_tokens=32, eos_id=-1)))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    native.reset_launches()
-    t0 = time.perf_counter()
+    paged_engine.StepClosure.capture = noted_capture
     try:
-        outs = eng.run_until_complete()
+        torch.cuda.reset_peak_memory_stats()
+        eng = PagedEngine(config, params, device="cuda", cuda_graphs=False)
+        eager = serve_pass(eng, prompts, "eager", card)
+        eager_peak = peaks()
+        del eng
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_reserved() / 2**30
+        eng = PagedEngine(config, params, device="cuda")
+        first = serve_pass(eng, prompts, "graphed, capture pass", card)
+        graphs, capture_s = eng.graphs, eng.capture_s
+        res = serve_pass(eng, prompts, "graphed, timed pass", card)
+        peak = peaks()
+        decode_idle_share(eng, prompts, card)
     finally:
         paged_engine.sample = real_sample
-        paged_engine.api.decode_step = real_decode_step
-    wall = time.perf_counter() - t0
-    launches = dict(native.LAUNCHES)
-    folds = native.VARIANTS["paged_decode/fold"]
-    m = eng.metrics
-    if len(outs) != len(lengths) or any(len(t) != 32 for t in outs.values()):
-        raise AssertionError(f"not every request completed: {m}")
-    if eng.alloc.free_pages != eng.alloc.num_pages:
-        raise AssertionError("pages leaked")
-    for name in ATTENTION_KERNELS:
-        n = launches[name]
-        if n <= 0:
-            raise AssertionError(f"kernel {name} never launched on the main "
-                                 f"path: {launches}")
-    if m["resumed_grants"] <= 0:
-        raise AssertionError("no resumed grant ran")
+        paged_engine.StepClosure.capture = capture
+    closures = (len(eng._prefill_fns) + len(eng._decode_fns)
+                + len(eng._decode_fallback_fns))
+    bound = eng.max_prefill_compiles() + len(eng._decode_fns) \
+        + len(eng._decode_fallback_fns)
+    log(f"[serve] {graphs} CUDA graphs captured in {capture_s:.2f}s (prefill "
+        f"keys {sorted(eng._prefill_fns)}, decode keys "
+        f"{sorted(eng._decode_fns)}; bound {bound}); the timed pass captured "
+        f"{eng.graphs - graphs}; reserved memory {before:.3f} GiB before the "
+        f"engine, after each capture {[round(r, 3) for r in reserved]} GiB "
+        f"[{card}]")
+    if graphs != closures or graphs > bound or eng.graphs != graphs:
+        raise AssertionError(f"{graphs} graphs for {closures} closures "
+                             f"(bound {bound}), {eng.graphs - graphs} more "
+                             f"in the timed pass")
+    for label, r in (("capture pass", first), ("timed pass", res)):
+        if r["tokens"] != eager["tokens"]:
+            diff = [i for i, (a, b) in enumerate(zip(r["tokens"],
+                                                     eager["tokens"]))
+                    if a != b]
+            raise AssertionError(f"graphed {label} tokens differ from the "
+                                 f"eager tokens in requests {diff}")
+    launches, m, splits = res["launches"], res["m"], res["splits"]
+    folds = res["variants"]["paged_decode/fold"]
     # B2 runs inside the decode launch: one fused launch per layer of every
-    # decode step at S > 1, and no reduce launch of its own
-    split_steps = sum(1 for S in splits if S > 1)
+    # decode step at S > 1 (counted through the replays), and no reduce
+    # launch of its own
+    split_steps = sum(n for S, n in splits.items() if S > 1)
     if split_steps <= 0 or launches["decode_reduce"] != 0 or \
-            folds != cfg.num_layers * split_steps:
+            folds != cfg.num_layers * split_steps or \
+            sum(splits.values()) != m["decode_calls"]:
         raise AssertionError(
-            f"decode steps at S > 1: {split_steps} of {len(splits)}; "
+            f"decode steps at S > 1: {split_steps} of {m['decode_calls']} "
+            f"({splits}); "
             f"paged_decode/fold launched {folds} times, want "
             f"{cfg.num_layers} a step; decode_reduce {launches['decode_reduce']}"
             f" times, want 0")
-    variants = {k: v for k, v in native.VARIANTS.items()
+    variants = {k: v for k, v in res["variants"].items()
                 if k.startswith("paged_prefill/")}
     if variants["paged_prefill/tc"] != launches["paged_prefill"]:
         raise AssertionError(f"bf16 serving launched paged_prefill "
                              f"{launches['paged_prefill']} times, "
                              f"{variants} by instantiation: not all on the "
                              f"tensor-core one")
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    log(f"[serve] {len(outs)} requests, prompts {lengths}, 32 new tokens "
-        f"each, {checked['rows']} logits rows finite, wall {wall:.1f}s, "
-        f"launches {launches}; paged_prefill by instantiation {variants}; "
-        f"{split_steps} of {len(splits)} decode steps at S > 1 (S "
-        f"{sorted(set(splits))}), paged_decode/fold {folds} = "
-        f"{cfg.num_layers} a step, decode_reduce 0")
-    log(f"[serve] prefill {m['prefill_tokens']} tok in {m['prefill_s']:.3f}s "
-        f"= {m['prefill_tokens'] / m['prefill_s']:.0f} tok/s "
-        f"({m['prefill_calls']} calls, {m['resumed_grants']} resumed); decode "
-        f"{1e3 * m['decode_s'] / m['decode_calls']:.2f} ms/step over "
-        f"{m['decode_calls']} steps; peak memory {peak:.2f} GiB; "
-        f"preemptions {m['preemptions']} [{card}]")
-    # host time until the eager calls return, before waiting for the card:
-    # close to the fenced time means the host never got ahead of the card
-    log(f"[serve] host dispatch share: prefill "
-        f"{m['prefill_dispatch_s'] / m['prefill_s']:.3f}, decode "
-        f"{m['decode_dispatch_s'] / m['decode_s']:.3f} of the fenced time")
+    arrivals = fd._ARRIVALS[torch.device("cuda", 0)]
+    if int(arrivals.abs().sum()) != 0:
+        raise AssertionError("fold arrival counters not 0 after the replays")
+    shares = {k: r["m"]["decode_dispatch_s"] / r["m"]["decode_s"]
+              for k, r in (("eager", eager), ("graphed", res))}
+    if not shares["graphed"] < shares["eager"]:
+        raise AssertionError(f"decode dispatch share {shares}: graphed not "
+                             f"below eager")
+    log(f"[serve] {len(prompts)} requests, prompts {lengths}, 32 new tokens "
+        f"each, {checked['rows']} logits rows finite; graphed tokens == "
+        f"eager tokens (both passes); timed pass launches {launches} (through "
+        f"replays); paged_prefill by instantiation {variants}; {split_steps} "
+        f"of {m['decode_calls']} decode steps at S > 1 (steps by S "
+        f"{splits}), "
+        f"paged_decode/fold {folds} = {cfg.num_layers} a step, decode_reduce "
+        f"0; fold arrival counters 0")
+    for label, r, pk in (("eager", eager, eager_peak),
+                         ("graphed", res, peak)):
+        rm = r["m"]
+        tok_s = rm["prefill_tokens"] / rm["prefill_s"]
+        ms_step = 1e3 * rm["decode_s"] / rm["decode_calls"]
+        log(f"[serve] {label}: prefill {tok_s:.0f} tok/s, decode "
+            f"{ms_step:.3f} ms/step, dispatch share prefill "
+            f"{rm['prefill_dispatch_s'] / rm['prefill_s']:.3f} decode "
+            f"{rm['decode_dispatch_s'] / rm['decode_s']:.3f}, peak memory "
+            f"allocated {pk[0]:.3f} GiB, reserved {pk[1]:.3f} GiB [{card}]")
     report["launches"].update(launches)
     # B2's kernel-line count: the launches in which its fold ran
     report["launches"]["decode_reduce"] = folds
     report["serve"] = dict(prefill_tok_s=m["prefill_tokens"] / m["prefill_s"],
                            decode_ms_step=1e3 * m["decode_s"]
-                           / m["decode_calls"], peak_gib=peak)
+                           / m["decode_calls"], peak_gib=peak[0])
     del eng, params
     torch.cuda.empty_cache()
 

@@ -18,8 +18,14 @@ reduce (B2) wrapper ``decode_reduce`` (no call where the fold runs in the
 decode launch), and of the paged-prefill (B3) wrapper
 ``flash_prefill_paged`` over its calls in the serving run and over 200 calls
 in a row at the serving path's shape (a 256-query ISO chunk over a
-1024-token prefix, Hq/Hkv 32/8, hd 128, bf16).  Prints every run, then each
-side's median, minimum and maximum, and the card's name and power limit.
+1024-token prefix, Hq/Hkv 32/8, hd 128, bf16).  On a checkout whose engine
+replays CUDA graphs the wrappers run only in its eager pass and while
+capturing, so beside them each run reports the engine's own host time per
+decode step (``decode_dispatch_s / decode_calls``, until the step's call
+returns) of the last serving run of ``serve_full``: the timed graphed pass
+on such a checkout, the one eager run on an older one.  Prints every run,
+then each side's median, minimum and maximum, and the card's name and power
+limit.
 """
 from __future__ import annotations
 
@@ -35,8 +41,8 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 RUNS = 10                # of each side
 LOOP_CALLS = 200
-KEYS = ("prefill_tok_s", "decode_ms_step", "b3_host_us", "b3_loop_us",
-        "b1_host_us", "b2_host_us", "b2_calls")
+KEYS = ("prefill_tok_s", "decode_ms_step", "decode_host_us", "b3_host_us",
+        "b3_loop_us", "b1_host_us", "b2_host_us", "b2_calls")
 
 
 def b3_loop_us(smoke, fp) -> float:
@@ -67,7 +73,16 @@ def child() -> None:
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import flash_prefill_paged as fp
     from repro_torch.kernels import native
+    from repro_torch.serving.paged_engine import PagedEngine
     native.build_all()
+    # the metrics of the last serving run
+    runs = []
+    run_until_complete = PagedEngine.run_until_complete
+
+    def recorded(self, *args, **kwargs):
+        out = run_until_complete(self, *args, **kwargs)
+        runs.append(dict(self.metrics))
+        return out
     # the B3, B1 and B2 wrappers, timed in place: layers/attention.py looks
     # up flash_prefill_paged per call, flash_decode the B1 and B2 wrappers
     host = {"b3": [], "b1": [], "b2": []}
@@ -87,14 +102,19 @@ def child() -> None:
     orig = {key: getattr(mod, name) for key, (mod, name) in wrappers.items()}
     for key, (mod, name) in wrappers.items():
         setattr(mod, name, timed(key, orig[key]))
+    PagedEngine.run_until_complete = recorded
     report = {"launches": {}}
     try:
         smoke.serve_full(report, smoke.nvidia_smi())
     finally:
         for key, (mod, name) in wrappers.items():
             setattr(mod, name, orig[key])
+        PagedEngine.run_until_complete = run_until_complete
+    m = runs[-1]
     print("SERVE_AB " + json.dumps(dict(
-        report["serve"], b3_calls=len(host["b3"]),
+        report["serve"],
+        decode_host_us=1e6 * m["decode_dispatch_s"] / m["decode_calls"],
+        b3_calls=len(host["b3"]),
         b3_host_us=1e6 * statistics.mean(host["b3"]),
         b1_calls=len(host["b1"]),
         b1_host_us=1e6 * statistics.mean(host["b1"]),
@@ -132,7 +152,8 @@ def main() -> int:
                         if ln.startswith("SERVE_AB ")][-1][len("SERVE_AB "):])
         runs[label].append(r)
         print(f"[ab] {label} ({trees[label]}): prefill {r['prefill_tok_s']} "
-              f"tok/s, decode {r['decode_ms_step']} ms/step; B3 wrapper host "
+              f"tok/s, decode {r['decode_ms_step']} ms/step, host "
+              f"{r['decode_host_us']} us a decode step; B3 wrapper host "
               f"{r['b3_host_us']} us a call over {r['b3_calls']} serving "
               f"calls, {r['b3_loop_us']} us in a loop; B1 wrapper host "
               f"{r['b1_host_us']} us a call over {r['b1_calls']} serving "

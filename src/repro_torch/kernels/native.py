@@ -15,7 +15,10 @@ went through the kernels.  ``VARIANTS`` splits the two flash-prefill kernels'
 counts by instantiation: ``/tc`` for bf16 inputs (the tensor-core tile loop of
 ``csrc/flash_tc.cuh``), ``/fp32`` for float32 inputs (CUDA cores); and counts
 the paged-decode launches that fold their split-KV spans themselves
-(``paged_decode/fold``, a part of the ``paged_decode`` count).
+(``paged_decode/fold``, a part of the ``paged_decode`` count).  A CUDA graph
+launches its kernels without the wrappers: whoever captures one takes the
+counts made while capturing back out (``launch_counts``, ``add_launches``)
+and adds them again at every replay.
 """
 from __future__ import annotations
 
@@ -96,6 +99,18 @@ def reset_launches() -> None:
     for counts in (LAUNCHES, VARIANTS):
         for k in counts:
             counts[k] = 0
+
+
+def launch_counts() -> Dict[str, int]:
+    """A copy of every launch counter, ``LAUNCHES`` and ``VARIANTS``."""
+    return {**LAUNCHES, **VARIANTS}
+
+
+def add_launches(delta: Dict[str, int]) -> None:
+    """Add ``delta`` (counter name -> launches, of ``launch_counts``) to the
+    counters."""
+    for name, n in delta.items():
+        (VARIANTS if "/" in name else LAUNCHES)[name] += n
 
 
 def count_launch(name: str, dtype: torch.dtype) -> None:

@@ -66,8 +66,8 @@ def row_positions(start_pos, B: int, S: int, device) -> torch.Tensor:
 
 
 def _k_limit_col(k_limit, device):
-    """Broadcast a key-position bound (int, or per-row (B,) tensor) against
-    (B, Sk) key positions."""
+    """Broadcast a key-position bound (int, 0-d or per-row (B,) tensor)
+    against (B, Sk) key positions."""
     if isinstance(k_limit, torch.Tensor):
         kl = k_limit.to(device=device, dtype=torch.int32)
         return kl[:, None] if kl.ndim == 1 else kl

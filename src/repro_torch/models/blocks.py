@@ -28,7 +28,8 @@ class StageCtx:
     window: int = 0
     # decode: (B,) cached token counts; paged prefill: (B,) prefix lengths
     lengths: Optional[torch.Tensor] = None
-    # absolute position of this call's first token: int or per-row (B,)
+    # absolute position of this call's first token: int, 0-d or per-row
+    # (B,) tensor (a compiled closure's device scalar)
     pos_offset: Any = 0
     # paged attention: (B, MB) int32 page ids per request, and the (B,) bool
     # mask of slots really decoding this step
@@ -36,8 +37,9 @@ class StageCtx:
     decode_mask: Optional[torch.Tensor] = None
     # split-KV flash-decode: spans of each request's page walk
     kv_splits: int = 1
-    # grant-size bucketing: REAL tokens in this call (int or (B,)); call
-    # positions >= valid_len are pad, never attended as keys.  None = no pad
+    # grant-size bucketing: REAL tokens in this call (int, 0-d or (B,)
+    # tensor); call positions >= valid_len are pad, never attended as keys.
+    # None = no pad
     valid_len: Any = None
 
 

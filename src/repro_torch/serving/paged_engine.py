@@ -1,5 +1,6 @@
 """Paged continuous-batching engine: chunked prefill interleaved with decode
-(port of the base loop of ``repro/serving/paged_engine.py``).
+(port of the base loop and the compiled closures of
+``repro/serving/paged_engine.py``).
 
 KV memory is a shared page pool (serving/kvcache.py).  Each ``step()``:
 
@@ -15,6 +16,22 @@ KV memory is a shared page pool (serving/kvcache.py).  Each ``step()``:
     resident, reading the pools in place through the paged flash-decode
     kernel, split into S spans by ``_kv_splits``, and scattering the new
     token's KV into its page in place.
+
+Compiled closures.  As the reference jits one prefill closure per (bucket,
+fresh|resumed) and one decode closure per (K, S), the port builds one
+``StepClosure`` per key: static input buffers of the key's shape (tokens,
+lengths, block tables, the decode mask; a grant's tokens, block-table row and
+the device scalars ``start`` and ``n_real``) and the step's body over them.
+A step copies its host arrays into the buffers and calls the closure.  On
+the card at tp=1 the body is captured once per key in a
+``torch.cuda.CUDAGraph`` (every graph drawing on one shared memory pool) and
+each call is one replay, the counterpart of calling a ``jax.jit``
+executable; ``cuda_graphs=False`` runs the same bodies eagerly, as
+``jax.disable_jit()`` would.  A failed capture or replay raises; nothing
+gives way to the eager path.  On the CPU, and in a TP engine, the bodies run
+eagerly over the same buffers: a TP engine's collectives go through gloo on
+the host, which a graph cannot hold, and capturing NCCL collectives waits on
+ROADMAP queue A item 7.
 
 Tensor parallelism: ``mesh=`` takes this rank's ``launch.mesh.TPGroup``;
 ``params`` are then the rank's shard (``bridge.shard_params`` or
@@ -45,6 +62,7 @@ from repro_torch.core.chunking import grant_buckets
 from repro_torch.core.iso import DECODE_SCHEDULES
 from repro_torch.core.overlap import AxisCtx, all_gather_last
 from repro_torch.device import resolve_device, synchronize
+from repro_torch.kernels import native
 from repro_torch.launch.mesh import TPGroup
 from repro_torch.layers import embeddings as emb_lib
 from repro_torch.models import api
@@ -63,6 +81,81 @@ METRIC_KEYS = (
     "prefill_calls", "steps", "preemptions", "ttft_sum", "ttft_n",
     "peak_used_pages", "prefill_pad_tokens", "prefill_samples",
     "prefill_grants", "resumed_grants")
+
+
+class StepClosure:
+    """One compiled step: static input buffers of a fixed shape, the step's
+    body over them, and, once ``capture`` has run, the CUDA graph of that
+    body (the port's counterpart of one ``jax.jit`` executable).
+
+    ``stage`` copies host arrays into the buffers (on the card through
+    pinned staging buffers, without waiting: the engine fences every call
+    before it stages the next).  Calling the closure runs the body, or
+    replays the graph and returns its static output, which the next replay
+    of any graph of the shared pool may overwrite: callers copy out what
+    they keep first.  A replay adds to the kernels' launch counters the
+    launches its capture recorded, so the counts stay those of the kernels
+    that ran."""
+
+    def __init__(self, buffers: Dict[str, torch.Tensor], body,
+                 graphed: bool):
+        self.inputs = buffers
+        self._body = torch.no_grad()(body)
+        self.graphed = graphed
+        on_card = next(iter(buffers.values())).device.type == "cuda"
+        self._pinned = {k: torch.empty(v.shape, dtype=v.dtype,
+                                       pin_memory=True)
+                        for k, v in buffers.items()} if on_card else None
+        self.graph: Optional[torch.cuda.CUDAGraph] = None
+        self._out = None
+        self._launches: Dict[str, int] = {}
+
+    def stage(self, **host) -> None:
+        """Copy host arrays (numpy or ints) into the input buffers."""
+        for name, value in host.items():
+            if self._pinned is None:
+                self.inputs[name].numpy()[...] = value
+            else:
+                pin = self._pinned[name]
+                pin.numpy()[...] = value
+                self.inputs[name].copy_(pin, non_blocking=True)
+
+    def capture(self, side: torch.cuda.Stream, pool) -> float:
+        """Record the body in a CUDA graph drawing on the memory ``pool``;
+        returns the seconds it took.  The body first runs once on the side
+        stream ``side`` over the staged inputs, so the kernels' library is
+        loaded, their attributes are set and B1's arrival counters are
+        grown before the capture, which must allocate nothing that outlives
+        it.  The warm-up writes the KV the replay then writes again."""
+        dev = next(iter(self.inputs.values())).device
+        t0 = time.perf_counter()
+        main = torch.cuda.current_stream(dev)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            self._body()
+        main.wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        before = native.launch_counts()
+        with torch.cuda.graph(graph, pool=pool):
+            out = self._body()
+        # the capture recorded these launches; replays make them
+        after = native.launch_counts()
+        self._launches = {k: after[k] - before[k] for k in after
+                          if after[k] != before[k]}
+        native.add_launches({k: -n for k, n in self._launches.items()})
+        self.graph, self._out = graph, out
+        synchronize(dev)
+        return time.perf_counter() - t0
+
+    def __call__(self):
+        if not self.graphed:
+            return self._body()
+        if self.graph is None:
+            raise RuntimeError("a graphed step closure was called before "
+                               "its capture")
+        self.graph.replay()
+        native.add_launches(self._launches)
+        return self._out
 
 
 def _check_slice(sv: ServingConfig) -> None:
@@ -89,9 +182,14 @@ def _check_slice(sv: ServingConfig) -> None:
 
 
 class PagedEngine:
+    """``cuda_graphs`` (default True) captures each step closure in a CUDA
+    graph on the card at tp=1; False runs the closures eagerly (A/B runs,
+    the eager-vs-graphed check).  CPU and TP engines always run them
+    eagerly (module doc)."""
+
     def __init__(self, config: Config, params, *,
                  serving: ServingConfig = None, mesh: TPGroup = None,
-                 device=None):
+                 device=None, cuda_graphs: bool = True):
         if mesh is not None and not isinstance(mesh, TPGroup):
             raise TypeError(f"mesh must be a launch.mesh.TPGroup, got "
                             f"{type(mesh).__name__}")
@@ -159,6 +257,27 @@ class PagedEngine:
         self._by_rid: Dict[int, RequestState] = {}        # waiting + running
         self._finished: List[RequestState] = []
         self.metrics: Dict[str, float] = dict.fromkeys(METRIC_KEYS, 0)
+        # decode steps run per split count S
+        self.decode_splits: Dict[int, int] = {}
+        # compiled closures, keyed as the reference's jit caches: prefill
+        # (bucket, resumed); decode (K, S); the batch-split engine's
+        # sequential fallback (K, S) apart, so the decode keys stay
+        # schedule-pure
+        self._prefill_fns: Dict[Tuple[int, bool], StepClosure] = {}
+        self._decode_fns: Dict[Tuple[int, int], StepClosure] = {}
+        self._decode_fallback_fns: Dict[Tuple[int, int], StepClosure] = {}
+        self._graphed = cuda_graphs and mesh is None \
+            and self.device.type == "cuda"
+        # one memory pool for every graph, and one side stream for every
+        # capture's warm-up (the allocator keeps a stream's freed blocks for
+        # that stream alone)
+        self._graph_pool = torch.cuda.graph_pool_handle() \
+            if self._graphed else None
+        self._capture_stream = torch.cuda.Stream(self.device) \
+            if self._graphed else None
+        # CUDA graphs captured, and the seconds their captures took
+        self.graphs = 0
+        self.capture_s = 0.0
 
     # ------------------------------------------------------------------
     # request lifecycle
@@ -263,45 +382,57 @@ class PagedEngine:
         return max(1, min(int(s), self.max_blocks))
 
     # ------------------------------------------------------------------
-    # step phases
+    # compiled closures
     # ------------------------------------------------------------------
-    def _run_grant(self, st: RequestState, start: int, n_tokens: int,
-                   padded: int, last: bool) -> Optional[int]:
-        """Execute one prefill grant; returns the sampled token if ``last``.
-        ``padded`` (>= n_tokens) is the forward-call length; the pad tail is
-        token 0, masked out of attention and scattered to the scratch page."""
-        dev = self.device
-        rid = st.request.rid
-        buf = np.zeros(padded, np.int32)
-        buf[:n_tokens] = self._resident_tokens(st)[start:start + n_tokens]
-        tokens = torch.from_numpy(buf[None]).to(dev)
-        bt_row = torch.from_numpy(
-            self.alloc.block_table(rid, self.max_blocks)[None]).to(dev)
-        resumed = start > 0
-        t0 = time.perf_counter()
-        with torch.no_grad():
+    def _compile(self, fn: StepClosure, host: Dict) -> None:
+        """Capture ``fn`` on its first call, over the call's ``host`` inputs,
+        outside the timed window of the call (which stages them again)."""
+        if fn.graphed and fn.graph is None:
+            fn.stage(**host)
+            self.capture_s += fn.capture(self._capture_stream,
+                                         self._graph_pool)
+            self.graphs += 1
+
+    def _get_prefill(self, n_text: int, resumed: bool) -> StepClosure:
+        """Prefill closure of a (bucket-padded) grant length, fresh or
+        resumed: the reference's ``(n_text, n_patches, resumed)`` key
+        without patches.  Inputs: ``tokens`` (1, n_text), the block-table
+        row ``bt`` (1, MB) and the 0-d ``start`` and ``n_real``, so one
+        closure serves every grant of its bucket: pad-tail tokens are
+        masked out of attention (``valid_len``), scatter to the scratch
+        page, and the logits come from the last real row, each through a
+        device comparison or index.  Returns the last real row's local
+        logits (1, V_loc)."""
+        key = (n_text, resumed)
+        if key in self._prefill_fns:
+            return self._prefill_fns[key]
+        dev, T = self.device, n_text
+        i32 = dict(dtype=torch.int32, device=dev)
+        bufs = {"tokens": torch.zeros((1, T), **i32),
+                "bt": torch.full((1, self.max_blocks), -1, **i32),
+                "start": torch.zeros((), **i32),
+                "n_real": torch.zeros((), **i32)}
+        prefix = self._paged_prefix() if resumed else None
+        scratch = self.kv.scratch_page
+
+        def body():
+            start, n_real, bt = bufs["start"], bufs["n_real"], bufs["bt"]
             out = api.prefill(
                 self.params, self.cfg, self._ctx, self.config.iso,
-                {"tokens": tokens}, logits_mode="none",
-                prefix_caches=self._paged_prefix() if resumed else None,
-                pos_offset=start,
-                block_tables=bt_row if resumed else None,
-                prefix_lens=torch.tensor([start], dtype=torch.int32,
-                                         device=dev) if resumed else None,
-                valid_len=n_tokens, return_extras=True)
+                {"tokens": bufs["tokens"]}, logits_mode="none",
+                prefix_caches=prefix, pos_offset=start,
+                block_tables=bt if resumed else None,
+                prefix_lens=start.reshape(1) if resumed else None,
+                valid_len=n_real, return_extras=True)
             # logits of the last REAL token (the pad tail carries garbage)
-            h_last = out["hidden"][:, n_tokens - 1:n_tokens]
+            h_last = out["hidden"].index_select(
+                1, (n_real - 1).reshape(1).long())
             logits_last = emb_lib.lm_head_local(self.params["embed"],
                                                 h_last)[:, 0]
-            if last:                          # the full vocab row to sample
-                logits_last = all_gather_last(logits_last, self._ctx)
-            T = padded
-            scratch = self.kv.scratch_page
-            positions = start + torch.arange(T, device=dev)
-            page, off = token_page_coords(positions, bt_row[0], self.ps,
-                                          scratch)
+            t = torch.arange(T, device=dev)
+            page, off = token_page_coords(start + t, bt[0], self.ps, scratch)
             # pad-tail tokens must not scatter KV into live pages
-            page = torch.where(torch.arange(T, device=dev) < n_tokens, page,
+            page = torch.where(t < n_real, page,
                                torch.full_like(page, scratch))
             # in-place scatter into every period's pool (the reference
             # rebuilds the pools with .at[].set)
@@ -310,8 +441,88 @@ class PagedEngine:
                 k_pool, v_pool = self.kv.k[kv_i], self.kv.v[kv_i]
                 k_pool[:, page, off] = ex["kv_k"][:, 0].to(k_pool.dtype)
                 v_pool[:, page, off] = ex["kv_v"][:, 0].to(v_pool.dtype)
+            return logits_last
+
+        self._prefill_fns[key] = StepClosure(bufs, body, self._graphed)
+        return self._prefill_fns[key]
+
+    def prefill_compile_count(self) -> int:
+        """Prefill closures built so far; each is built, and on the card
+        captured, once (the reference counts its jit cache entries)."""
+        return len(self._prefill_fns)
+
+    def max_prefill_compiles(self) -> Optional[int]:
+        """Bound on prefill closures under bucketing: one per (bucket,
+        fresh|resumed) pair, the reference's batch-1 bound.  None when
+        bucketing is off (one closure per distinct grant length)."""
+        if self._buckets is None:
+            return None
+        return 2 * len(self._buckets)
+
+    def _get_decode(self, K: int = 1, S: int = 1) -> StepClosure:
+        """Decode closure of a K-token window walking the pages in S
+        split-KV spans, on the engine's decode schedule: one per (K, S)."""
+        key = (K, S)
+        if key not in self._decode_fns:
+            self._decode_fns[key] = self._build_decode_fn(
+                K, S, self._decode_schedule)
+        return self._decode_fns[key]
+
+    def _get_fallback_decode(self, K: int = 1, S: int = 1) -> StepClosure:
+        """Sequential decode closure for a batch-split engine's step with
+        fewer than 2 decoding requests (no second half to overlap with),
+        cached apart from ``_decode_fns`` as in the reference."""
+        key = (K, S)
+        if key not in self._decode_fallback_fns:
+            self._decode_fallback_fns[key] = self._build_decode_fn(
+                K, S, "sequential")
+        return self._decode_fallback_fns[key]
+
+    def _build_decode_fn(self, K: int, S: int, schedule: str) -> StepClosure:
+        """Inputs at B = max_batch: ``toks`` (B, K), ``lengths`` (B,), the
+        block tables ``bt`` (B, MB) and the decode ``mask`` (B,).  The body
+        reads the pools in place, scatters the window's KV into them and
+        returns the local logits (B, K, V_loc)."""
+        B, dev = self.max_batch, self.device
+        i32 = dict(dtype=torch.int32, device=dev)
+        bufs = {"toks": torch.zeros((B, K), **i32),
+                "lengths": torch.zeros((B,), **i32),
+                "bt": torch.full((B, self.max_blocks), -1, **i32),
+                "mask": torch.zeros((B,), dtype=torch.bool, device=dev)}
+        caches = self._paged_prefix()
+
+        def body():
+            logits, _ = api.decode_step(
+                self.params, self.cfg, self._ctx, bufs["toks"], caches,
+                bufs["lengths"], block_tables=bufs["bt"],
+                decode_mask=bufs["mask"], kv_splits=S, schedule=schedule)
+            return logits
+
+        return StepClosure(bufs, body, self._graphed)
+
+    # ------------------------------------------------------------------
+    # step phases
+    # ------------------------------------------------------------------
+    def _run_grant(self, st: RequestState, start: int, n_tokens: int,
+                   padded: int, last: bool) -> Optional[int]:
+        """Execute one prefill grant; returns the sampled token if ``last``.
+        ``padded`` (>= n_tokens) is the forward-call length; the pad tail is
+        token 0, masked out of attention and scattered to the scratch page."""
+        buf = np.zeros(padded, np.int32)
+        buf[:n_tokens] = self._resident_tokens(st)[start:start + n_tokens]
+        fn = self._get_prefill(padded, resumed=start > 0)
+        host = dict(tokens=buf[None],
+                    bt=self.alloc.block_table(st.request.rid,
+                                              self.max_blocks)[None],
+                    start=start, n_real=n_tokens)
+        self._compile(fn, host)
+        t0 = time.perf_counter()
+        fn.stage(**host)
+        logits_last = fn()
+        if last:                              # the full vocab row to sample
+            logits_last = all_gather_last(logits_last, self._ctx)
         self.metrics["prefill_dispatch_s"] += time.perf_counter() - t0
-        synchronize(dev)
+        synchronize(self.device)
         dur = time.perf_counter() - t0
         self.metrics["prefill_s"] += dur
         self.metrics["prefill_tokens"] += n_tokens
@@ -399,7 +610,6 @@ class PagedEngine:
         active = [s for s in active if s.slot >= 0]
         if not active:
             return
-        dev = self.device
         B = self.max_batch
         mask = np.zeros(B, bool)
         for st in active:
@@ -408,27 +618,23 @@ class PagedEngine:
                        if s is not None and mask[i] else
                        np.full(self.max_blocks, -1, np.int32)
                        for i, s in enumerate(self.slots)])
-        toks = self.last_tokens.astype(np.int32)[:, None]
         S = self._kv_splits(1)
-        schedule = self._decode_schedule
-        if schedule == "batch_split" and len(active) < 2:
+        self.decode_splits[S] = self.decode_splits.get(S, 0) + 1
+        if self._decode_schedule == "batch_split" and len(active) < 2:
             # one decoding request has no second batch half to overlap with
-            schedule = "sequential"
+            schedule, fn = "sequential", self._get_fallback_decode(1, S)
+        else:
+            schedule, fn = self._decode_schedule, self._get_decode(1, S)
         self.decode_schedule_steps[schedule] = \
             self.decode_schedule_steps.get(schedule, 0) + 1
-        caches = self._paged_prefix()
+        host = dict(toks=self.last_tokens[:, None], lengths=self.lengths,
+                    bt=bt, mask=mask)
+        self._compile(fn, host)
         t0 = time.perf_counter()
-        with torch.no_grad():
-            logits, _ = api.decode_step(
-                self.params, self.cfg, self._ctx,
-                torch.from_numpy(toks).to(dev), caches,
-                torch.from_numpy(self.lengths.astype(np.int32)).to(dev),
-                block_tables=torch.from_numpy(bt).to(dev),
-                decode_mask=torch.from_numpy(mask).to(dev), kv_splits=S,
-                schedule=schedule)
-            logits = all_gather_last(logits, self._ctx)
+        fn.stage(**host)
+        logits = all_gather_last(fn(), self._ctx)
         self.metrics["decode_dispatch_s"] += time.perf_counter() - t0
-        synchronize(dev)
+        synchronize(self.device)
         dur = time.perf_counter() - t0
         logits = logits.float().cpu().numpy()
         self.metrics["decode_s"] += dur
