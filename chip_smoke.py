@@ -13,7 +13,9 @@ Phases, each fatal on failure:
   2. kernels   hold each kernel against its plain PyTorch version on the
                card: the paged attention kernels at the serving path's
                shapes (hd 128, ps 16, Hq/Hkv 32/8 at tp=1 and one rank's
-               16/4 at tp=2, lengths 1..2048 across page boundaries, S in
+               16/4 at tp=2, lengths 1..2048 across page boundaries, K 1
+               and 5 (the defaults pass's verify window, 20 query rows a kv
+               head at tp=1), S in
                {1, 4}, window 0 and > 0, 512- and 256-query chunks with
                fresh rows beside resumed rows) and at the CPU tests' shapes
                (hd 16, ps 8), fp32 and bf16, dead-page skip bit-identical;
@@ -65,10 +67,44 @@ Phases, each fatal on failure:
                events around each step's staging and replay, and the
                ``torch.profiler`` figure with CUDA activities, checked
                against those events) with the kernels that took the most
-               device time.
+               device time.  That pass is the batch-1 baseline (one call a
+               grant, no sharing, K=1).  A second pass serves the
+               reference's defaults, packed grants and copy-on-write prefix
+               sharing, with a spec_k=4 verify window, at a budget of 1024
+               on the same lengths, three prompts opening with one
+               1024-token system prompt and the third a copy of the first:
+               an eager engine, then a graphed one (capture pass, timed
+               pass), graphed tokens equal to eager; the timed pass must
+               launch B3 on a pack of more than one row, B1 on the 5-token
+               window once a layer of every verify step, and the page-copy
+               graph, and share and copy pages; a plain engine (batch-1, no
+               sharing, K=1) on the same prompts gives the peak pages
+               beside the pass's, and its tokens must equal the pass's or
+               first differ at a bf16 near-tie of the plain path (top-2 gap
+               within 2e-2 + 2e-2 |top-1|) at which the pass's logits for
+               the plain path's top-2 tokens each lie within that
+               tolerance of the plain path's; printed: both paths' top-2
+               logits there, how far the pass's logits moved from the plain
+               path's at every position of a shared context, and the plain
+               path's top-2 gaps over all its positions.  The same
+               decisions run once more in fp32, qwen3-8b at full width cut
+               to 2 layers, eager, against the plain engine under the same
+               rule at the fp32 tolerance (1e-5 + 1e-5 rel), the top-2
+               logits held within it at every shared-context position, so
+               a wrong pack, window or page cannot hide in bf16 rounding.
+               Prints
+               prefill calls, pad rows and pack
+               sizes, shared tokens and copies, peak pages, verify calls,
+               tokens and accepted tokens a call, decode ms/step, prefill
+               tok/s, graphs, capture seconds and peak memory.
   4. parity    a tiny fp32 model served on ``cuda`` and on ``cpu`` from the
-               same weights must give equal greedy tokens (mixed traffic,
-               forced 4-way split-KV decode, forced preemption).
+               same weights, each case with the reference's defaults
+               (mixed traffic, forced 4-way split-KV decode, forced
+               preemption, a 4-row pack, a shared two-page head with
+               identical prompts, spec_k 2 and 4, and all three features
+               under forced preemption): tokens and counters equal across
+               the devices, and tokens equal to the same device's batch-1,
+               no-sharing, K=1 engine.
   5. tp        this slice's path, tensor parallelism at tp=2, run as two
                rank processes sharing the one card over gloo (NCCL refuses
                two ranks on one device; gloo moves every collective through
@@ -77,7 +113,8 @@ Phases, each fatal on failure:
                tensors, and measures no overlap).  qwen3-8b at full width
                and depth, bf16, each rank holding half the weights, serves
                3 greedy requests of 300-1200 prompt tokens (a resumed grant,
-               split-KV decode) under the default batch-split schedule and
+               split-KV decode; the reference's default packed grants and
+               prefix sharing) under the default batch-split schedule and
                the sequential one, each again with ``quantized_comm``, whose
                runs must launch the int8 reduce's three kernels once each a
                reduce, and B7 alone never; the host time spent inside
@@ -94,7 +131,10 @@ Phases, each fatal on failure:
                reduce's local part against the composition of B7
                and PyTorch ops at the decode and prefill shapes; the paged
                prefill at a 512-query chunk and at the serving
-               path's 256-query ISO chunk, both over a 1024-token prefix),
+               path's 256-query ISO chunk, both over a 1024-token prefix,
+               and on a pack of four 128-query rows over prefixes 0, 700,
+               1200 and 2000; the decode kernel on a K = 5 verify window;
+               each paged case first held against its plain version),
                and where one PyTorch call computes the same function, that
                call (SDPA for the flash-prefill kernel, ``F.rms_norm``);
                then the per-launch floor (a trivial launch through the same
@@ -111,7 +151,8 @@ Phases, each fatal on failure:
 
 Each launch count in the kernel line is read from the run of the path that
 launches it, with the counts set to 0 just before: the attention kernels
-from phase 3 (``decode_reduce``: the decode launches that ran its fold,
+from phase 3's defaults pass (its timed pass; the baseline pass's counts
+are printed; ``decode_reduce``: the decode launches that ran its fold,
 ``native.VARIANTS["paged_decode/fold"]``; its times are the standalone
 kernel's, which runs the same fold code), the int8 reduce's three kernels
 from rank 0 of phase 5's quantized batch-split run, the flash-prefill,
@@ -446,13 +487,16 @@ def check_kernels(report):
     main_lengths = [1, 15, 16, 17, 255, 256, 257, 1000, 2047, 2048]
     n = 0
     for dtype_name in ("bfloat16", "float32"):
-        # (Hq, Hkv): qwen3-8b at tp=1, and one rank's heads at tp=2
+        # (Hq, Hkv): qwen3-8b at tp=1, and one rank's heads at tp=2; K 1
+        # and 5, the spec_k=4 verify window of phase 3's defaults pass
+        # (gk 20 at 32/8, the shape of its B1 launches)
         for hq, hkv in ((32, 8), (16, 4)):
-            for S in (1, 4):
-                for window in (0, 100):
-                    decode_case(gen, errs, main_lengths, 16, hq, hkv, 128,
-                                1, S, window, dtype_name)
-                    n += 1
+            for K in (1, 5):
+                for S in (1, 4):
+                    for window in (0, 100):
+                        decode_case(gen, errs, main_lengths, 16, hq, hkv,
+                                    128, K, S, window, dtype_name)
+                        n += 1
         for K, S, window in ((1, 1, 0), (2, 4, 12), (4, 2, 0)):
             decode_case(gen, errs, [1, 7, 8, 9, 22, 37, 0], 8, 4, 2, 16, K,
                         S, window, dtype_name)
@@ -867,6 +911,10 @@ def time_kernels(report):
         "paged_decode/tp2": decode_timing_case(
             gen, [700, 1200, 1700, 2030], hq // 2, hkv // 2, S, 128,
             paged)[0],
+        # the spec_k=4 verify window of phase 3's defaults pass: K = 5, 20
+        # query rows a kv head
+        "paged_decode/k5": decode_timing_case(
+            gen, [700, 1200, 1700, 2030], hq, hkv, S, 128, paged, K=5)[0],
         # B2 as a launch of its own, over the same walk's partials
         "decode_reduce": (red, red_plain, red_bytes, red_ops, "float32",
                           red_shape, paged),
@@ -875,10 +923,19 @@ def time_kernels(report):
         "paged_prefill/iso_chunk": p_case(
             256, 256, "the second 256-token ISO chunk of a resumed 512-token "
             "grant, the serving path's shape"),
+        "paged_prefill/packed": packed_case(gen, [0, 700, 1200, 2000], 128,
+                                            paged),
     }
     cases.update(int8_reduce_cases(
         gen, "no single PyTorch call computes a step of the int8 "
         "all-reduce"))
+    # the paged kernels' cases, the verify window's and the pack's among
+    # them, against their plain versions on the timed inputs
+    for name, (fn, plain, *_) in cases.items():
+        if name.startswith(("paged_decode", "paged_prefill")):
+            err = max_err(fn(), plain(), TOL["bfloat16"])
+            log(f"[time] {name}: kernel against its plain version, max abs "
+                f"err {err:.3e} (tolerance {TOL['bfloat16']})")
     # each case ends in its library call, or why there is none
     timing = {}
     for name, (fn, plain, nbytes, n_ops, kind, shape, library) \
@@ -927,9 +984,10 @@ def time_kernels(report):
     report["floor_ms"] = floor_ms
 
 
-def decode_timing_case(gen, lengths, hq, hkv, S, mb, paged):
-    """B1's timing cases at ``lengths`` resident tokens (hd 128, ps 16, K 1,
-    bf16, table width ``mb``, ``S`` > 1 spans), each (fn, plain, bytes, ops,
+def decode_timing_case(gen, lengths, hq, hkv, S, mb, paged, K=1):
+    """B1's timing cases at ``lengths`` resident tokens (hd 128, ps 16, a
+    ``K``-token window, bf16, table width ``mb``, ``S`` > 1 spans), each
+    (fn, plain, bytes, ops,
     kind, shape, library): the serving path's form, the walk with its S span
     partials folded inside the launch; the walk alone into its S partials
     (the launch before the fold moved in); then (its partials, bytes, ops
@@ -938,7 +996,7 @@ def decode_timing_case(gen, lengths, hq, hkv, S, mb, paged):
     partials); operations: 4 * hd per (query row, key)."""
     import torch
     from repro_torch.kernels import flash_decode as fd
-    ps, hd, K, dt = 16, 128, 1, torch.bfloat16
+    ps, hd, dt = 16, 128, torch.bfloat16
     gk = hq // hkv * K
     B = len(lengths)
     k, v, bt, lens = make_pool(gen, lengths, ps, hkv, hd, dt, mb=mb)
@@ -953,15 +1011,36 @@ def decode_timing_case(gen, lengths, hq, hkv, S, mb, paged):
                 + 2 * walked_pages * ps * hkv * hd * 2)
     part_bytes = B * hkv * S * gk * (hd + 2) * 4
     fold_bytes = B * hkv * gk * (hd + 2) * 4
-    n_ops = 4 * sum(lengths) * hq * hd
-    shape = (f"B={B} L={lengths} Hq={hq} Hkv={hkv} hd={hd} ps={ps} MB={mb} "
-             f"S={S} bf16")
+    n_ops = 4 * sum(lengths) * hq * K * hd
+    shape = (f"B={B} L={lengths} K={K} Hq={hq} Hkv={hkv} hd={hd} ps={ps} "
+             f"MB={mb} S={S} bf16")
     return ((fold, fold_plain, in_bytes + fold_bytes, n_ops, "bfloat16",
              shape + ", spans folded in the launch", paged),
             (dec, dec_plain, in_bytes + part_bytes, n_ops, "bfloat16",
              shape + ", the S span partials", paged),
             (dec(), part_bytes + fold_bytes, 4 * B * hkv * S * gk * hd,
              f"B={B} Hkv={hkv} S={S} gk={gk} hd={hd} fp32"))
+
+
+def packed_case(gen, prefixes, Sq, paged):
+    """B3's timing case on a pack: one ``Sq``-query chunk a row, each right
+    after its own prefix (a fresh row has prefix 0 and comes back neutral),
+    hd 128, ps 16, Hq/Hkv 32/8, MB 128, bf16.  Bytes: q, the block tables,
+    prefix_lens and q_starts, every prefix key and value once, the fp32
+    output state; operations: 4 * hd per (query row, prefix key)."""
+    import torch
+    from repro_torch.kernels import flash_prefill_paged as fp
+    ps, hq, hkv, hd, dt = 16, 32, 8, 128, torch.bfloat16
+    B = len(prefixes)
+    k, v, bt, lens = make_pool(gen, prefixes, ps, hkv, hd, dt, mb=128)
+    q = torch.randn((B, hq, Sq, hd), generator=gen, device="cuda").to(dt)
+    nbytes = (q.numel() * 2 + bt.numel() * 4 + 2 * B * 4
+              + 2 * sum(prefixes) * hkv * hd * 2 + B * hq * Sq * (hd + 2) * 4)
+    return (lambda: fp.flash_prefill_paged(q, k, v, bt, lens, lens),
+            lambda: fp.prefill_partial_plain(q, k, v, bt, lens, lens),
+            nbytes, 4 * Sq * sum(prefixes) * hq * hd, "bfloat16",
+            f"B={B} Sq={Sq} prefixes={prefixes} Hq={hq} Hkv={hkv} hd={hd} "
+            f"ps={ps} MB=128 bf16 (a pack of four rows, one fresh)", paged)
 
 
 def int8_reduce_cases(gen, hint):
@@ -1066,7 +1145,7 @@ def serve_pass(eng, prompts, label: str, card: str) -> dict:
     outs = eng.run_until_complete()
     wall = time.perf_counter() - t0
     m = dict(eng.metrics)
-    res = dict(tokens=[outs.get(r) for r in rids], m=m, wall=wall,
+    res = dict(tokens=[outs.get(r) for r in rids], rids=rids, m=m, wall=wall,
                launches=dict(native.LAUNCHES),
                variants=dict(native.VARIANTS),
                splits=dict(eng.decode_splits))
@@ -1263,6 +1342,9 @@ def serve_full(report, card: str):
     log(f"[serve] qwen3-8b {cfg.num_layers}L d={cfg.d_model} "
         f"{cfg.param_count() / 1e9:.2f}B params bf16 made on the card in "
         f"{time.perf_counter() - t0:.1f}s")
+    # the batch-1 baseline of earlier slices (one call a grant, no sharing,
+    # K=1), kept for continuity: serve_defaults runs the reference's
+    # defaults beside it
     sv = ServingConfig(page_size=16, max_batch=4, max_len=2048,
                        prefill_token_budget=512, prefix_sharing=False,
                        prefill_batching=False)
@@ -1274,6 +1356,10 @@ def serve_full(report, card: str):
     prompts = [rng.integers(2, cfg.vocab_size, n).astype(np.int32)
                for n in lengths]
 
+    # the defaults pass first: the idle share's torch.profiler, below,
+    # leaves a host cost on every later graph replay
+    serve_defaults(report, card, cfg, params, lengths)
+    serve_defaults_fp32(report, card, lengths)
     checked = {"rows": 0}
     real_sample = paged_engine.sample
 
@@ -1304,7 +1390,7 @@ def serve_full(report, card: str):
         eager = serve_pass(eng, prompts, "eager", card)
         eager_peak = peaks()
         del eng
-        torch.cuda.empty_cache()
+        free_cuda()
         torch.cuda.reset_peak_memory_stats()
         before = torch.cuda.memory_reserved() / 2**30
         eng = PagedEngine(config, params, device="cuda")
@@ -1385,14 +1471,431 @@ def serve_full(report, card: str):
             f"{rm['prefill_dispatch_s'] / rm['prefill_s']:.3f} decode "
             f"{rm['decode_dispatch_s'] / rm['decode_s']:.3f}, peak memory "
             f"allocated {pk[0]:.3f} GiB, reserved {pk[1]:.3f} GiB [{card}]")
-    report["launches"].update(launches)
-    # B2's kernel-line count: the launches in which its fold ran
-    report["launches"]["decode_reduce"] = folds
+    # the kernel line counts the defaults pass (serve_defaults), the
+    # reference's default serving; this baseline's counts are logged above
     report["serve"] = dict(prefill_tok_s=m["prefill_tokens"] / m["prefill_s"],
                            decode_ms_step=1e3 * m["decode_s"]
                            / m["decode_calls"], peak_gib=peak[0])
     del eng, params
+    free_cuda()
+
+
+def free_cuda() -> None:
+    """Return the cached blocks of the engines just dropped (an engine's
+    closures hold its params and pools, not the engine, so dropping it frees
+    its pools and graphs at once)."""
+    import torch
     torch.cuda.empty_cache()
+
+
+def defaults_prompts(cfg, lengths):
+    """The phase-3 lengths with shared heads: the three prompts longer than
+    1024 tokens open with one 1024-token system prompt, and the third is a
+    copy of the first (so its length is the first's), which shares the
+    first's partial last page and copies it at its first write."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(2, cfg.vocab_size, n).astype(np.int32)
+               for n in lengths]
+    system = np.random.default_rng(7).integers(2, cfg.vocab_size,
+                                               1024).astype(np.int32)
+    for i in (0, 1):
+        prompts[i] = np.concatenate([system, prompts[i][1024:]])
+    prompts[2] = prompts[0].copy()
+    return prompts
+
+
+class LogitsRecorder:
+    """While active, records the logits row (fp32, on the host, the vocab's
+    columns) of every emitted token by (rid, index into the request's
+    generated tokens): a prompt-finishing grant's row from
+    ``_commit_grant_row``, a decode step's rows from the logits
+    ``all_gather_last`` hands the engine (the rows of a verify window that
+    were emitted), and whether every logit it saw was finite.  Adds a check
+    and a copy to the host to every call, so it is kept off timed passes."""
+
+    def __init__(self, vocab: int):
+        self.vocab = vocab
+        self.rec = {}
+        self.finite = True
+        self._last = None
+
+    def __enter__(self):
+        import numpy as np
+        import torch
+        from repro_torch.serving import paged_engine
+        E = paged_engine.PagedEngine
+        self.orig = (paged_engine.all_gather_last, E._decode_phase,
+                     E._commit_grant_row)
+        gather, decode_phase, commit = self.orig
+
+        def rec_gather(x, ctx):
+            out = gather(x, ctx)
+            self.finite &= bool(torch.isfinite(out).all())
+            self._last = out[..., :self.vocab].float()
+            return out
+
+        def rec_decode_phase(eng, events):
+            before = [(st, len(st.generated), st.slot) for st in eng.slots
+                      if st is not None]
+            self._last = None
+            decode_phase(eng, events)
+            if self._last is None:
+                return
+            rows = self._last.cpu().numpy()                 # (B, K, V)
+            for st, g0, slot in before:
+                for qi in range(len(st.generated) - g0):
+                    self.rec[(st.request.rid, g0 + qi)] = \
+                        rows[slot, qi].copy()
+
+        def rec_commit(eng, st, start, n_tokens, logits_row, last):
+            if last:
+                self.rec[(st.request.rid, len(st.generated))] = np.array(
+                    logits_row[:self.vocab], np.float32)
+            return commit(eng, st, start, n_tokens, logits_row, last)
+
+        paged_engine.all_gather_last = rec_gather
+        E._decode_phase = rec_decode_phase
+        E._commit_grant_row = rec_commit
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.serving import paged_engine
+        E = paged_engine.PagedEngine
+        paged_engine.all_gather_last, E._decode_phase, \
+            E._commit_grant_row = self.orig
+        self._last = None
+        return False
+
+
+def check_against_plain(label: str, tol: dict, plain: dict, new: dict,
+                        rec_plain: LogitsRecorder, rec_new: LogitsRecorder,
+                        card: str, every_position: bool = False) -> dict:
+    """Hold a pass's tokens against the plain engine's on the same prompts.
+    Up to a request's first differing token both paths saw the same
+    context, so their logits there are comparable (the plain path's tokens
+    forced on both).  At each such position, the drift of the new path's
+    logits at the plain path's top-2 tokens is printed, as is the whole
+    row's.  A request must be token-equal, or first differ at a near-tie of
+    the plain path: its top-2 gap within ``tol`` of its top-1
+    (atol + rtol |top-1|), and the new path's logits at the plain path's
+    top-2 tokens each within ``tol`` of the plain path's.  Also prints the
+    plain path's top-2 gaps over every recorded position, against each
+    position's limit, so what the rule excuses shows.  With
+    ``every_position``, the top-2 logits must also lie within ``tol`` at
+    every position of a shared context, not only at the first difference.
+    Raises on a request that fails; returns the figures printed."""
+    import numpy as np
+    atol, rtol = tol["atol"], tol["rtol"]
+
+    def top2(row):
+        ids = np.argsort(row)[-2:][::-1]
+        return ids, row[ids]
+
+    gaps, under = [], 0
+    for row in rec_plain.rec.values():
+        _, v = top2(row)
+        gaps.append(float(v[0] - v[1]))
+        under += gaps[-1] <= atol + rtol * abs(float(v[0]))
+    q = np.quantile(gaps, [0.0, 0.1, 0.5, 0.9])
+    log(f"[{label}] the plain path's top-2 gap over its {len(gaps)} "
+        f"recorded positions: min {q[0]:.6f}, 10% {q[1]:.6f}, median "
+        f"{q[2]:.6f}, 90% {q[3]:.6f}; {under} within the near-tie limit "
+        f"atol + rtol |top-1| ({tol}) [{card}]")
+    drift_top2 = drift_row = 0.0
+    over, common, same, failed = 0, 0, 0, []
+    for i, (a, b) in enumerate(zip(plain["tokens"], new["tokens"])):
+        p = next((j for j, (x, y) in enumerate(zip(a, b)) if x != y), None)
+        same += p is None
+        for j in range(len(a) if p is None else p + 1):
+            key_p, key_n = (plain["rids"][i], j), (new["rids"][i], j)
+            if key_p not in rec_plain.rec or key_n not in rec_new.rec:
+                raise AssertionError(f"[{label}] request {i}: logits of "
+                                     f"generated token {j} not recorded")
+            P, N = rec_plain.rec[key_p], rec_new.rec[key_n]
+            pi, pv = top2(P)
+            d = np.abs(N[pi] - pv)
+            lim = atol + rtol * np.abs(pv)
+            common += 1
+            over += bool((d > lim).any())
+            drift_top2 = max(drift_top2, float(d.max()))
+            drift_row = max(drift_row, float(np.abs(N - P).max()))
+        if p is None:
+            continue
+        P, N = rec_plain.rec[(plain["rids"][i], p)], \
+            rec_new.rec[(new["rids"][i], p)]
+        (pi, pv), (ni, nv) = top2(P), top2(N)
+        gap = float(pv[0] - pv[1])
+        limit = atol + rtol * abs(float(pv[0]))
+        moved = np.abs(N[pi] - pv)
+        moved_lim = atol + rtol * np.abs(pv)
+        log(f"[{label}] request {i}: tokens differ from the plain path's "
+            f"first at generated token {p}: plain top-2 ids "
+            f"{[int(t) for t in pi]} logits {[float(v) for v in pv]}, this "
+            f"pass's top-2 ids {[int(t) for t in ni]} logits "
+            f"{[float(v) for v in nv]}, its logits at the plain top-2 ids "
+            f"{[float(v) for v in N[pi]]}; plain top-2 gap {gap:.6f}, limit "
+            f"{limit:.6f}; moved {[float(v) for v in moved]}, limits "
+            f"{[float(v) for v in moved_lim]}")
+        if gap > limit:
+            failed.append(f"request {i}: not a near-tie: gap {gap} > {limit}")
+        elif (moved > moved_lim).any():
+            failed.append(f"request {i}: the plain top-2 logits moved "
+                          f"{moved.tolist()} > {moved_lim.tolist()}")
+    log(f"[{label}] over the {common} positions of a shared context (each "
+        f"request up to its first differing token): the logits at the plain "
+        f"path's top-2 tokens moved at most {drift_top2:.6f} ({over} "
+        f"positions past the tolerance {tol}), the whole row at most "
+        f"{drift_row:.6f}; {same} of {len(plain['tokens'])} requests "
+        f"token-equal to the plain engine [{card}]")
+    if every_position and over:
+        failed.append(f"the plain top-2 logits moved past the tolerance at "
+                      f"{over} positions of a shared context")
+    if failed:
+        raise AssertionError(f"[{label}] " + "; ".join(failed))
+    return dict(same=same, positions=common, drift_top2=drift_top2,
+                drift_row=drift_row, over=over, gaps=len(gaps),
+                near_ties=under)
+
+
+def serve_defaults(report, card: str, cfg, params, lengths):
+    """Phase 3's second pass: the reference's default serving features,
+    packed prefill grants and copy-on-write prefix sharing, with a spec_k=4
+    verify window, on ``defaults_prompts``: an eager engine, then a graphed
+    one (a capture pass, a timed pass); graphed tokens must equal eager
+    tokens exactly.  The timed pass must launch B3 on a pack of more than
+    one row, B1 on the 5-token window (20 query rows a kv head) once a
+    layer of every verify step, and the page-copy closure; sharing and
+    speculation must have happened.  Then a plain engine (batch-1, no
+    sharing, K=1) serves the same prompts: its peak pages stand beside the
+    pass's, and where its tokens differ from the pass's, the first
+    differing position must be a bf16 near-tie of the plain path: a top-2
+    gap within 2e-2 + 2e-2 |top-1|, the kernel phases' tolerance, at which
+    this pass's logits for the plain path's top-2 tokens each lie within
+    that tolerance of the plain path's (``check_against_plain``)."""
+    import dataclasses
+    import torch
+    from repro_torch.config import Config, ISOConfig, ParallelConfig, \
+        ServingConfig
+    from repro_torch.serving import PagedEngine, paged_engine
+
+    # a budget of 1024 puts the first sharee's resumed tail and another
+    # request's second ISO chunk in one pack (found by the same lengths on
+    # a tiny model on the CPU); 512 grants one request a step here
+    sv = ServingConfig(page_size=16, max_batch=4, max_len=2048,
+                       prefill_token_budget=1024, spec_k=4)
+    plain_sv = dataclasses.replace(sv, prefix_sharing=False,
+                                   prefill_batching=False, spec_k=0)
+    prompts = defaults_prompts(cfg, lengths)
+
+    def config(s):
+        return Config(model=cfg, parallel=ParallelConfig(data=1, model=1),
+                      iso=ISOConfig(), serving=s)
+
+    packs, verify_rows = [], [0]
+    run_pack, spec_window = PagedEngine._run_pack, PagedEngine._spec_window
+
+    def noted_pack(eng, group, padded, events):
+        packs.append((len(group), padded))
+        return run_pack(eng, group, padded, events)
+
+    def noted_window(eng, active):
+        # (request, verify call) pairs: accepted_per_call sums a call's
+        # requests, so tokens a request a call is spec_tokens over these
+        K = spec_window(eng, active)
+        verify_rows[0] += len(active) if K > 1 else 0
+        return K
+
+    def peaks():
+        return (torch.cuda.max_memory_allocated() / 2**30,
+                torch.cuda.max_memory_reserved() / 2**30)
+
+    PagedEngine._run_pack = noted_pack
+    PagedEngine._spec_window = noted_window
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        eng = PagedEngine(config(sv), params, device="cuda",
+                          cuda_graphs=False)
+        with LogitsRecorder(cfg.vocab_size) as rec_new:
+            eager = serve_pass(eng, prompts, "defaults eager", card)
+        eager_peak = peaks()
+        del eng
+        free_cuda()
+        torch.cuda.reset_peak_memory_stats()
+        eng = PagedEngine(config(sv), params, device="cuda")
+        first = serve_pass(eng, prompts, "defaults graphed, capture pass",
+                           card)
+        graphs, capture_s = eng.graphs, eng.capture_s
+        del packs[:]
+        verify_rows[0] = 0
+        res = serve_pass(eng, prompts, "defaults graphed, timed pass", card)
+        rows = verify_rows[0]
+        peak = peaks()
+        timed_packs = list(packs)
+        closures = (len(eng._prefill_fns) + len(eng._decode_fns)
+                    + len(eng._decode_fallback_fns)
+                    + (eng._copy_page_fn is not None))
+        bound = eng.max_prefill_compiles() + len(eng._decode_fns) \
+            + len(eng._decode_fallback_fns) + 1
+        keys = (sorted(eng._prefill_fns), sorted(eng._decode_fns))
+        copy_graphed = eng._copy_page_fn is not None and \
+            eng._copy_page_fn.graph is not None
+        timed_graphs = eng.graphs - graphs
+        del eng
+        free_cuda()
+        eng = PagedEngine(config(plain_sv), params, device="cuda")
+        with LogitsRecorder(cfg.vocab_size) as rec_plain:
+            plain = serve_pass(eng, prompts, "plain (batch-1, no sharing, "
+                               "K=1) graphed, capture pass", card)
+        plain_timed = serve_pass(eng, prompts, "plain graphed, timed pass",
+                                 card)
+        if plain_timed["tokens"] != plain["tokens"]:
+            raise AssertionError("[defaults] the plain engine's passes "
+                                 "differ")
+        del eng
+        free_cuda()
+    finally:
+        PagedEngine._run_pack = run_pack
+        PagedEngine._spec_window = spec_window
+    m, launches, variants = res["m"], res["launches"], res["variants"]
+    log(f"[defaults] prompts {[len(p) for p in prompts]} (three open with "
+        f"one 1024-token system prompt; the third is a copy of the first), "
+        f"32 new tokens each; page 16, max_batch 4, budget 1024, "
+        f"prefix_sharing, prefill_batching, spec_k 4; {graphs} CUDA graphs "
+        f"captured in {capture_s:.2f}s (prefill keys {keys[0]}, decode keys "
+        f"{keys[1]}, the page copy {'captured' if copy_graphed else 'not'}; "
+        f"bound {bound}), the timed pass captured {timed_graphs} [{card}]")
+    if graphs != closures or graphs > bound or not copy_graphed or \
+            timed_graphs:
+        raise AssertionError(f"[defaults] {graphs} graphs for {closures} "
+                             f"closures (bound {bound}), page copy captured "
+                             f"{copy_graphed}, {timed_graphs} more in the "
+                             f"timed pass")
+    if not (rec_new.finite and rec_plain.finite):
+        raise AssertionError("[defaults] non-finite logits")
+    for label, r in (("capture pass", first), ("timed pass", res)):
+        if r["tokens"] != eager["tokens"]:
+            diff = [i for i, (a, b) in enumerate(zip(r["tokens"],
+                                                     eager["tokens"]))
+                    if a != b]
+            raise AssertionError(f"[defaults] graphed {label} tokens differ "
+                                 f"from the eager tokens in requests {diff}")
+    verify = variants["paged_decode/verify"]
+    packed = variants["paged_prefill/packed"]
+    if packed <= 0 or m["spec_calls"] <= 0 or \
+            verify != cfg.num_layers * m["spec_calls"] or \
+            m["cow_copies"] <= 0 or m["prefix_shared_tokens"] <= 0 or \
+            variants["paged_prefill/tc"] != launches["paged_prefill"]:
+        raise AssertionError(
+            f"[defaults] timed pass: B3 on packs {packed} times (want > 0), "
+            f"B1 on the verify window {verify} "
+            f"times (want {cfg.num_layers} x {m['spec_calls']} verify "
+            f"steps), cow_copies {m['cow_copies']}, prefix_shared_tokens "
+            f"{m['prefix_shared_tokens']}, variants {variants}")
+    sizes = sorted({n for n, _ in timed_packs})
+    log(f"[defaults] timed pass: prefill_calls {m['prefill_calls']} for "
+        f"{m['prefill_grants']} grants (the plain pass: "
+        f"{plain['m']['prefill_calls']} calls), prefill_pad_rows "
+        f"{m['prefill_pad_rows']}, packs (rows, padded) {timed_packs} (sizes "
+        f"{sizes}); prefix_shared_tokens {m['prefix_shared_tokens']}, "
+        f"cow_copies {m['cow_copies']}; peak_used_pages "
+        f"{m['peak_used_pages']} (plain pass {plain['m']['peak_used_pages']}"
+        f"); spec_calls {m['spec_calls']}, spec_tokens {m['spec_tokens']}, "
+        f"accepted_per_call {m['spec_tokens'] / m['spec_calls']:.4f} (the "
+        f"call's requests summed; {m['spec_tokens'] / rows:.4f} tokens a "
+        f"request a verify call over {rows} request-calls), "
+        f"decode_calls {m['decode_calls']}; launches {launches}; variants "
+        f"{variants} [{card}]")
+    for label, r, pk in (("eager (logits recorded)", eager, eager_peak),
+                         ("graphed", res, peak),
+                         ("plain graphed (timed pass)", plain_timed, None)):
+        rm = r["m"]
+        mem = "" if pk is None else (f", peak memory allocated {pk[0]:.3f} "
+                                     f"GiB, reserved {pk[1]:.3f} GiB")
+        log(f"[defaults] {label}: prefill "
+            f"{rm['prefill_tokens'] / rm['prefill_s']:.2f} tok/s, decode "
+            f"{1e3 * rm['decode_s'] / rm['decode_calls']:.3f} ms/step, "
+            f"{1e3 * rm['decode_s'] / rm['decode_tokens']:.3f} ms a decode "
+            f"token ({rm['decode_tokens'] / rm['decode_calls']:.3f} tokens a "
+            f"step), dispatch share prefill "
+            f"{rm['prefill_dispatch_s'] / rm['prefill_s']:.3f} decode "
+            f"{rm['decode_dispatch_s'] / rm['decode_s']:.3f}, host "
+            f"{1e3 * rm['decode_dispatch_s'] / rm['decode_calls']:.3f} ms a "
+            f"decode step{mem} [{card}]")
+    # the bf16 rule: tokens equal to the plain path's, or diverging first
+    # at a near-tie of the plain path that moved within the tolerance
+    report["defaults_vs_plain"] = check_against_plain(
+        "defaults", TOL["bfloat16"], plain, eager, rec_plain, rec_new, card)
+    log("[defaults] every difference from the plain engine starts at a "
+        "near-tie of the plain path; graphed == eager tokens (both passes)")
+    report["launches"].update(launches)
+    # B2's kernel-line count: the launches in which its fold ran
+    report["launches"]["decode_reduce"] = variants["paged_decode/fold"]
+    report["defaults"] = dict(
+        prefill_tok_s=m["prefill_tokens"] / m["prefill_s"],
+        decode_ms_step=1e3 * m["decode_s"] / m["decode_calls"],
+        peak_gib=peak[0])
+
+
+def serve_defaults_fp32(report, card: str, lengths):
+    """The defaults pass's decisions in fp32, where a wrong pack, window or
+    shared page cannot hide in bf16 rounding: qwen3-8b at full width cut to
+    2 layers, fp32 weights made on the card from seed 0, the defaults
+    pass's prompts and settings (packs, copy-on-write sharing, a spec_k=4
+    window) on an eager engine against a plain one (batch-1, no sharing,
+    K=1).  The pass must pack, share, copy and verify as the bf16 pass
+    does, its tokens must equal the plain engine's or first differ at an
+    fp32 near-tie, and its logits at the plain path's top-2 tokens must lie
+    within the fp32 tolerance at every position of a shared context
+    (``check_against_plain`` with ``every_position``)."""
+    import dataclasses
+    import torch
+    from repro_torch.config import Config, ISOConfig, ParallelConfig, \
+        ServingConfig, get_model_config
+    from repro_torch.models import api
+    from repro_torch.serving import PagedEngine
+
+    cfg = dataclasses.replace(get_model_config("qwen3-8b"), num_layers=2)
+    params = api.init_params(0, cfg, tp=1, dtype=torch.float32,
+                             device="cuda")
+    prompts = defaults_prompts(cfg, lengths)
+    sv = ServingConfig(page_size=16, max_batch=4, max_len=2048,
+                       prefill_token_budget=1024, spec_k=4)
+    plain_sv = dataclasses.replace(sv, prefix_sharing=False,
+                                   prefill_batching=False, spec_k=0)
+    res = {}
+    for name, s in (("defaults", sv), ("plain", plain_sv)):
+        eng = PagedEngine(Config(model=cfg,
+                                 parallel=ParallelConfig(data=1, model=1),
+                                 iso=ISOConfig(), serving=s),
+                          params, device="cuda", cuda_graphs=False)
+        with LogitsRecorder(cfg.vocab_size) as rec:
+            res[name] = serve_pass(eng, prompts, f"fp32 2-layer {name} "
+                                   f"eager", card)
+        res[name]["rec"] = rec
+        if not rec.finite:
+            raise AssertionError(f"[defaults fp32] {name}: non-finite "
+                                 f"logits")
+        del eng
+    del params
+    free_cuda()
+    m, variants = res["defaults"]["m"], res["defaults"]["variants"]
+    if variants["paged_prefill/packed"] <= 0 or m["spec_calls"] <= 0 or \
+            variants["paged_decode/verify"] <= 0 or m["cow_copies"] <= 0 \
+            or m["prefix_shared_tokens"] <= 0:
+        raise AssertionError(f"[defaults fp32] the pass did not pack, "
+                             f"verify, share and copy: {m}, {variants}")
+    log(f"[defaults fp32] qwen3-8b at full width, 2 layers, fp32: "
+        f"prefill_calls {m['prefill_calls']} (plain "
+        f"{res['plain']['m']['prefill_calls']}), prefix_shared_tokens "
+        f"{m['prefix_shared_tokens']}, cow_copies {m['cow_copies']}, "
+        f"spec_calls {m['spec_calls']}, spec_tokens {m['spec_tokens']}, "
+        f"B3 on packs {variants['paged_prefill/packed']} times, B1 on the "
+        f"verify window {variants['paged_decode/verify']} times [{card}]")
+    report["defaults_fp32_vs_plain"] = check_against_plain(
+        "defaults fp32", TOL["float32"], res["plain"], res["defaults"],
+        res["plain"]["rec"], res["defaults"]["rec"], card,
+        every_position=True)
 
 
 # ---------------------------------------------------------------------------
@@ -1425,34 +1928,90 @@ def parity_tiny():
         return tree.cuda()
 
     cuda_params = to_cuda(cpu_params)
-    cases = [("mixed", (70, 12, 33, 7), 3, 5,
-              dict(prefill_token_budget=16, max_len=160)),
-             ("splits4", (70, 12, 33, 7), 3, 5,
-              dict(prefill_token_budget=16, max_len=160, decode_kv_splits=4)),
-             ("preempt", (40, 40), 6, 8,
-              dict(prefill_token_budget=64, max_len=64, num_pages=8))]
-    for name, lens, seed, new, kw in cases:
-        outs = {}
-        for dev, params in (("cuda", cuda_params), ("cpu", cpu_params)):
-            sv = ServingConfig(page_size=8, max_batch=2, prefix_sharing=False,
-                               prefill_batching=False, **kw)
-            eng = PagedEngine(Config(model=cfg,
-                                     parallel=ParallelConfig(data=1, model=1),
-                                     iso=iso, serving=sv), params, device=dev)
-            rng = np.random.default_rng(seed)
-            rids = [eng.add_request(Request(
-                prompt=rng.integers(2, 64, n).astype(np.int32),
-                sampling=SamplingParams(max_new_tokens=new, eos_id=-1)))
+    rng = np.random.default_rng(5)
+    head = rng.integers(2, 64, 16).astype(np.int32)           # two pages
+    twin = np.concatenate([head, rng.integers(2, 64, 21)]).astype(np.int32)
+    shared = [np.concatenate([head, rng.integers(2, 64, n)]).astype(np.int32)
+              for n in (9, 13)] + [twin, twin.copy()]
+
+    def rand(lens, seed):
+        r = np.random.default_rng(seed)
+        return [r.integers(2, 64, n).astype(np.int32) for n in lens]
+
+    def rep(lens, seed):
+        r = np.random.default_rng(seed)
+        return [np.tile(r.integers(2, 64, 6), 12)[:n].astype(np.int32)
                 for n in lens]
-            res = eng.run_until_complete()
-            outs[dev] = ([res[r] for r in rids], eng.metrics["preemptions"])
+
+    # (name, prompts, new tokens, serving over page 8, max_batch 2); each
+    # runs with the reference's defaults (packed grants, prefix sharing)
+    cases = [("mixed", rand((70, 12, 33, 7), 3), 5,
+              dict(prefill_token_budget=16, max_len=160)),
+             ("splits4", rand((70, 12, 33, 7), 3), 5,
+              dict(prefill_token_budget=16, max_len=160, decode_kv_splits=4)),
+             ("preempt", rand((40, 40), 6), 8,
+              dict(prefill_token_budget=64, max_len=64, num_pages=8)),
+             # four same-bucket grants in one tick: one 4-row pack
+             ("packed", rand((32, 30, 27, 20), 7), 5,
+              dict(prefill_token_budget=256, max_len=96, max_batch=4)),
+             # a two-page common head, and two identical prompts that share
+             # a partial page and copy it on write
+             ("shared", shared, 6,
+              dict(prefill_token_budget=64, max_len=96, max_batch=4)),
+             ("spec2", rep((30, 24, 33), 8), 10,
+              dict(prefill_token_budget=64, max_len=96, spec_k=2)),
+             ("spec4", rep((30, 24, 33), 8), 10,
+              dict(prefill_token_budget=64, max_len=96, spec_k=4)),
+             ("all_preempt", shared[2:] + rep((40,), 9), 8,
+              dict(prefill_token_budget=64, max_len=64, num_pages=10,
+                   max_batch=3, spec_k=2))]
+    counters = ("prefill_calls", "prefill_pad_rows", "prefix_shared_tokens",
+                "cow_copies", "spec_calls", "spec_tokens", "preemptions",
+                "peak_used_pages")
+
+    def run(dev, params, prompts, new, kw):
+        sv = ServingConfig(page_size=8, **{"max_batch": 2, **kw})
+        eng = PagedEngine(Config(model=cfg,
+                                 parallel=ParallelConfig(data=1, model=1),
+                                 iso=iso, serving=sv), params, device=dev)
+        rids = [eng.add_request(Request(
+            prompt=p.copy(),
+            sampling=SamplingParams(max_new_tokens=new, eos_id=-1)))
+            for p in prompts]
+        res = eng.run_until_complete()
+        if eng.alloc.free_pages != eng.alloc.num_pages:
+            raise AssertionError("pages leaked")
+        return [res[r] for r in rids], {k: eng.metrics[k] for k in counters}
+
+    for name, prompts, new, kw in cases:
+        # the same prompts on the batch-1, no-sharing, K=1 engine: the
+        # reference's own differential invariant
+        plain_kw = dict(kw, prefix_sharing=False, prefill_batching=False,
+                        spec_k=0)
+        outs = {dev: run(dev, params, prompts, new, kw)
+                for dev, params in (("cuda", cuda_params),
+                                    ("cpu", cpu_params))}
+        plain = {dev: run(dev, params, prompts, new, plain_kw)[0]
+                 for dev, params in (("cuda", cuda_params),
+                                     ("cpu", cpu_params))}
         if outs["cuda"] != outs["cpu"]:
             raise AssertionError(f"{name}: cuda {outs['cuda']} != cpu "
                                  f"{outs['cpu']}")
-        if name == "preempt" and outs["cuda"][1] <= 0:
-            raise AssertionError("preemption case did not preempt")
-        log(f"[parity] {name}: cuda == cpu greedy tokens "
-            f"(preemptions {outs['cuda'][1]})")
+        for dev in ("cuda", "cpu"):
+            if outs[dev][0] != plain[dev]:
+                raise AssertionError(f"{name}: {dev} tokens {outs[dev][0]} "
+                                     f"!= the plain engine's {plain[dev]}")
+        m = outs["cuda"][1]
+        want = {"preempt": ("preemptions",), "packed": ("prefill_calls",),
+                "shared": ("prefix_shared_tokens", "cow_copies"),
+                "spec2": ("spec_calls",), "spec4": ("spec_calls",),
+                "all_preempt": ("preemptions", "prefix_shared_tokens",
+                                "spec_calls")}.get(name, ())
+        if any(m[k] <= 0 for k in want) or \
+                (name == "packed" and m["prefill_calls"] >= len(prompts)):
+            raise AssertionError(f"{name}: counters {m} (want {want} > 0)")
+        log(f"[parity] {name}: cuda == cpu == the plain engine's greedy "
+            f"tokens; counters equal on both devices: {m}")
 
 
 # ---------------------------------------------------------------------------
@@ -1578,7 +2137,7 @@ def tp_rank(group, big, tiny):
             res = serve_rank(group, config, [v], npz, seed, dtype)[0]
             res["psum_host_s"] = timers.acc
             out["big"].append(res)
-            torch.cuda.empty_cache()
+            free_cuda()
     finally:
         timers.restore()
     # the quantized batch-split run again, short, under the host profiler:
@@ -1589,7 +2148,7 @@ def tp_rank(group, big, tiny):
                    npz, seed, dtype)
     out["profile"] = prof.key_averages().table(
         sort_by="self_cpu_time_total", row_limit=12, max_name_column_width=48)
-    torch.cuda.empty_cache()
+    free_cuda()
     out["tiny"] = serve_rank(group, *tiny)
     return out
 
@@ -1604,8 +2163,7 @@ def tiny_config(tp: int):
                   iso=ISOConfig(enabled=True, num_chunks=2,
                                 min_chunk_tokens=8, chunk_align=8),
                   serving=ServingConfig(page_size=8, max_batch=2,
-                                        max_len=160, prefix_sharing=False,
-                                        prefill_batching=False))
+                                        max_len=160))
 
 
 def serve_tp(report, card: str):
@@ -1623,8 +2181,7 @@ def serve_tp(report, card: str):
     prompts = [rng.integers(2, cfg.vocab_size, n).astype(np.int32)
                for n in lengths]
     sv = ServingConfig(page_size=16, max_batch=4, max_len=2048,
-                       prefill_token_budget=512, prefix_sharing=False,
-                       prefill_batching=False)
+                       prefill_token_budget=512)
     big_cfg = Config(model=cfg, parallel=ParallelConfig(data=1, model=2),
                      iso=ISOConfig(), serving=sv)
     big = (big_cfg, [dict(prompts=prompts, max_new=TP_NEW_TOKENS,
@@ -1649,7 +2206,7 @@ def serve_tp(report, card: str):
                           [dict(prompts=tiny_prompts, max_new=5,
                                 serving=tiny_cases[c])], None, 0, "float32",
                           device="cuda")[0]["tokens"] for c in tiny_cases}
-    torch.cuda.empty_cache()
+    free_cuda()
 
     t0 = time.perf_counter()
     ranks = spawn(tp_rank, 2, args=(big, tiny), device="cuda:0",

@@ -23,7 +23,10 @@ replays CUDA graphs the wrappers run only in its eager pass and while
 capturing, so beside them each run reports the engine's own host time per
 decode step (``decode_dispatch_s / decode_calls``, until the step's call
 returns) of the last serving run of ``serve_full``: the timed graphed pass
-on such a checkout, the one eager run on an older one.  Prints every run,
+on such a checkout, the one eager run on an older one.  Where ``serve_full``
+also serves the reference's defaults (its ``serve_defaults`` pass, run
+first), the wrappers' calls include that pass's; the engine's host time
+and ``report["serve"]`` stay the baseline pass's.  Prints every run,
 then each side's median, minimum and maximum, and the card's name and power
 limit.
 """

@@ -91,8 +91,12 @@ def decode_partials_plain(qg, k_pages, v_pages, block_tables, lengths, *,
         mask = mask & (k_pos > length + qi - window)
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     m = torch.amax(s, dim=-1, keepdim=True)
-    p = torch.exp(s - m) * mask
+    p = torch.where(mask, torch.exp(s - m), torch.zeros_like(s))
     l = torch.sum(p, dim=-1, keepdim=True)
+    # slots past the length are selected away, not multiplied by p = 0: a
+    # page's tail may hold anything (no pos pool scrubs it), NaN included
+    vd = torch.where((k_pos < length).reshape(B, S, L, 1, 1), vd,
+                     torch.zeros_like(vd))
     out = torch.einsum("bhsrl,bslhd->bhsrd", p, vd) / torch.clamp(l, min=1e-30)
     return out, m, l
 
@@ -135,6 +139,8 @@ def _launch(qg, k_pages, v_pages, block_tables, lengths, ptrs, arrivals, *,
         native.stream_of(qg))
     native.check_launch("paged_decode", err)
     native.LAUNCHES["paged_decode"] += 1
+    if k_tokens > 1:
+        native.VARIANTS["paged_decode/verify"] += 1
 
 
 def _state(shape, hd, device):

@@ -69,8 +69,12 @@ def prefill_partial_plain(q, k_pages, v_pages, block_tables, prefix_lens,
         mask = mask & (k_pos > q_pos - window)
     s = torch.where(mask, s, torch.full_like(s, NEG_INF))
     m = torch.amax(s, dim=-1, keepdim=True)
-    p = torch.exp(s - m) * mask
+    p = torch.where(mask, torch.exp(s - m), torch.zeros_like(s))
     l = torch.sum(p, dim=-1, keepdim=True)
+    # slots past the prefix are selected away, not multiplied by p = 0: a
+    # page's tail may hold anything (no pos pool scrubs it), NaN included
+    vd = torch.where((k_pos < prefix_lens.long().reshape(B, 1, 1, 1, 1))
+                     .reshape(B, MB * ps, 1, 1), vd, torch.zeros_like(vd))
     out = torch.einsum("bhgqs,bshd->bhgqd", p, vd) / torch.clamp(l, min=1e-30)
     return (out.reshape(B, Hq, Sq, hd), m.reshape(B, Hq, Sq, 1),
             l.reshape(B, Hq, Sq, 1))
@@ -124,4 +128,6 @@ def flash_prefill_paged(q, k_pages, v_pages, block_tables, prefix_lens,
         native.stream_of(q))
     native.check_launch("paged_prefill", err)
     native.count_launch("paged_prefill", q.dtype)
+    if B > 1:
+        native.VARIANTS["paged_prefill/packed"] += 1
     return out, m, l

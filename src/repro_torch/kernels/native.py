@@ -15,7 +15,10 @@ went through the kernels.  ``VARIANTS`` splits the two flash-prefill kernels'
 counts by instantiation: ``/tc`` for bf16 inputs (the tensor-core tile loop of
 ``csrc/flash_tc.cuh``), ``/fp32`` for float32 inputs (CUDA cores); and counts
 the paged-decode launches that fold their split-KV spans themselves
-(``paged_decode/fold``, a part of the ``paged_decode`` count).  A CUDA graph
+(``paged_decode/fold``, a part of the ``paged_decode`` count), those over a
+verify window of more than one token (``paged_decode/verify``) and the
+paged-prefill launches over more than one row, a pack
+(``paged_prefill/packed``).  A CUDA graph
 launches its kernels without the wrappers: whoever captures one takes the
 counts made while capturing back out (``launch_counts``, ``add_launches``)
 and adds them again at every replay.
@@ -53,11 +56,13 @@ LAUNCHES: Dict[str, int] = {"paged_decode": 0, "decode_reduce": 0,
                             "dequant_sum_quantize_int8": 0,
                             "dequantize_int8_gathered": 0,
                             "flash_prefill": 0, "rms_norm": 0, "swiglu": 0}
-# launches of B3 and B4 by instantiation (their sum is the LAUNCHES count),
-# and of B1 with the split-KV fold inside
+# launches of B3 and B4 by instantiation (/tc + /fp32 is the LAUNCHES count),
+# of B1 with the split-KV fold inside and on a K > 1 window, of B3 on a pack
 VARIANTS: Dict[str, int] = {"paged_prefill/tc": 0, "paged_prefill/fp32": 0,
                             "flash_prefill/tc": 0, "flash_prefill/fp32": 0,
-                            "paged_decode/fold": 0}
+                            "paged_decode/fold": 0,
+                            "paged_prefill/packed": 0,
+                            "paged_decode/verify": 0}
 # nvcc output (register / shared-memory report) of each build, by source
 BUILD_LOGS: Dict[str, str] = {}
 

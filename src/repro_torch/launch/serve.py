@@ -119,6 +119,7 @@ def serve_rank(group: Optional[TPGroup], config: Config,
                 tokens=[outs[r] for r in rids], metrics=dict(eng.metrics),
                 launches=dict(native.LAUNCHES),
                 schedule_steps=dict(eng.decode_schedule_steps),
+                accepted_per_call=eng.accepted_per_call(),
                 decode_schedule=eng._decode_schedule, rows_checked=rows[0],
                 wall=wall))
             del eng
@@ -149,6 +150,15 @@ def main(argv=None) -> int:
     ap.add_argument("--page-size", type=int, default=16)
     ap.add_argument("--prefill-budget", type=int, default=64)
     ap.add_argument("--policy", default="fcfs", choices=["fcfs", "priority"])
+    ap.add_argument("--no-prefix-sharing", action="store_true")
+    ap.add_argument("--no-batched-prefill", action="store_true",
+                    help="run prefill grants batch-1 (one forward call per "
+                         "grant) instead of packing same-bucket grants into "
+                         "one batched call per scheduler tick")
+    ap.add_argument("--spec-k", type=int, default=0,
+                    help="speculative decoding: verify a (k+1)-token "
+                         "self-drafted window per decode step (greedy only, "
+                         "as every request here is)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if not args.paged:
@@ -156,17 +166,22 @@ def main(argv=None) -> int:
                  "--paged (the dense Engine is ROADMAP queue A item 6)")
     if args.tp < 1:
         ap.error("--tp must be >= 1")
+    if args.spec_k < 0:
+        ap.error("--spec-k must be >= 0")
     device = resolve_device(args.device)
 
     cfg = reduce_cfg(get_model_config(args.arch), args.preset)
     iso = ISOConfig(enabled=not args.iso_off, num_chunks=args.chunks,
                     min_chunk_tokens=16, chunk_align=16)
     max_len = args.prompt_len + args.max_new + 8
+    max_len += args.spec_k + 1 if args.spec_k else 0
     serving = ServingConfig(page_size=args.page_size, max_batch=args.max_batch,
                             max_len=max_len,
                             prefill_token_budget=args.prefill_budget,
                             scheduler_policy=args.policy,
-                            prefix_sharing=False, prefill_batching=False)
+                            prefix_sharing=not args.no_prefix_sharing,
+                            prefill_batching=not args.no_batched_prefill,
+                            spec_k=args.spec_k)
     config = Config(model=cfg, parallel=ParallelConfig(data=1, model=args.tp),
                     iso=iso, runtime=RuntimeConfig(mode="serve"),
                     serving=serving)
@@ -201,6 +216,14 @@ def main(argv=None) -> int:
           f"decode: {m['decode_calls']} steps in {m['decode_s']:.3f}s "
           f"({1e3 * m['decode_s'] / max(m['decode_calls'], 1):.2f} ms/step) "
           f"| preemptions={m['preemptions']} completed={m['completed']}")
+    print(f"sharing: prefix_shared_tokens={m['prefix_shared_tokens']} "
+          f"cow_copies={m['cow_copies']} peak_used_pages="
+          f"{m['peak_used_pages']} | packs: prefill_grants="
+          f"{m['prefill_grants']} pad_rows={m['prefill_pad_rows']}")
+    if args.spec_k:
+        print(f"spec: spec_calls={m['spec_calls']} spec_tokens="
+              f"{m['spec_tokens']} accepted_per_call="
+              f"{res['accepted_per_call']:.3f}")
     for rid, toks in enumerate(outs[:3]):
         print(f"  rid {rid}: {toks[:10]}{'...' if len(toks) > 10 else ''}")
     return 0

@@ -1,22 +1,34 @@
 """Paged KV cache: fixed-size token pages, free-list allocator, block tables
-(port of ``repro/serving/kvcache.py`` for the slice).
+(port of ``repro/serving/kvcache.py``).
 
   * ``PageAllocator``: pure-Python bookkeeping (free list, per-request block
-    tables, committed token counts), copied from the reference without the
-    prefix-sharing (adopt / copy-on-write) and serialization parts.
+    tables, committed token counts, page refcounts for prefix sharing:
+    ``adopt`` maps a donor's prefix pages into a fresh request, ``cow``
+    gives a writer its own copy of a shared page), copied from the
+    reference without its snapshot/restore and ``import_tables`` (page
+    migration, ROADMAP queue A item 9).
+  * ``PrefixCache``: the hash index over registered prompt prefixes that
+    finds a live donor for a new request.
   * ``PagedKVCache``: torch page pools, one (k, v) pair per attention
     position of ``cfg.block_pattern``, each ``(P, N+1, page_size, Hkv, hd)``
     with the period dim leading.  Page N is a reserved scratch page: decode
-    scatters from inactive slots and bucket-pad tails land there.
+    scatters from inactive slots, bucket-pad tails and pad rows of a
+    prefill pack land there.
 
-The reference also keeps a ``pos`` pool for position-driven gathers; the
-port's paged kernels mask by resident length alone (a request's pages cover
-positions [0, length) contiguously, all written before they are read), so
-it has no such pool.
+The reference also keeps a ``pos`` pool for position-driven gathers, and
+invalidates its entries when pages are freed and when a speculative
+verify's positions are rejected.  The port has no such pool: every paged
+read is masked by a resident length (decode by ``lengths``, prefill by
+``prefix_lens``), and a request's first ``length`` positions are all written
+before they are read.  What a page holds past that length is never read: a
+dead request's tail on a reused page, the KV of rejected verify positions
+(the window's own keys come from the in-call merge, not from the page), and
+a donor's tokens past a sharee's shared length on an adopted page (the
+sharee copies the page before it writes there).
 """
 from __future__ import annotations
 
-from typing import Dict, List
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -38,20 +50,26 @@ def pages_for(n_tokens: int, page_size: int) -> int:
 
 
 class PageAllocator:
-    """Free-list page allocator with per-request block tables.
+    """Free-list page allocator with per-request block tables and refcounted
+    prefix/page sharing.
 
-    Invariants: free + allocated == num_pages; a page belongs to at most one
-    table; a request's capacity ``len(table) * page_size`` covers its
-    committed token count."""
+    Invariants (``check``): free + unique-allocated == num_pages; a page's
+    refcount equals the number of block tables referencing it; a page handed
+    out (``ensure`` growth or a ``cow`` copy target) comes from the free
+    list, never from a page another request still holds; a request's
+    capacity ``len(table) * page_size`` covers its committed token count."""
 
     def __init__(self, num_pages: int, page_size: int):
         assert num_pages > 0 and page_size > 0
         self.num_pages = num_pages
         self.page_size = page_size
         self._free: List[int] = list(range(num_pages - 1, -1, -1))
+        self._free_set = set(self._free)
         self.tables: Dict[int, List[int]] = {}
         self.lengths: Dict[int, int] = {}
+        self.refcount: Dict[int, int] = {}        # page -> #tables holding it
 
+    # ---- queries ----------------------------------------------------------
     @property
     def free_pages(self) -> int:
         return len(self._free)
@@ -62,6 +80,44 @@ class PageAllocator:
 
     def capacity(self, rid: int) -> int:
         return len(self.tables.get(rid, ())) * self.page_size
+
+    def tokens(self, rid: int) -> int:
+        return self.lengths.get(rid, 0)
+
+    def shared_pages(self) -> int:
+        """Pages referenced by more than one block table."""
+        return sum(1 for rc in self.refcount.values() if rc > 1)
+
+    def page_shared(self, pg: int) -> bool:
+        return self.refcount.get(pg, 0) > 1
+
+    def logical_tokens(self) -> int:
+        """Tokens committed across requests (shared pages count per
+        sharer)."""
+        return sum(self.lengths.values())
+
+    def utilization(self) -> float:
+        """Committed tokens per allocated page slot; above 1.0 when sharing
+        maps several requests' tokens onto one page."""
+        used = self.used_pages * self.page_size
+        if not used:
+            return 1.0
+        return sum(self.lengths.values()) / used
+
+    def fragmentation(self) -> int:
+        """Allocated but empty token slots (tail waste of partial pages),
+        floored at 0 under sharing."""
+        return max(0, self.used_pages * self.page_size
+                   - sum(self.lengths.values()))
+
+    # ---- mutation ---------------------------------------------------------
+    def _take_free(self) -> int:
+        pg = self._free.pop()
+        self._free_set.discard(pg)
+        assert self.refcount.get(pg, 0) == 0, \
+            f"free list handed out live page {pg}"
+        self.refcount[pg] = 1
+        return pg
 
     def ensure(self, rid: int, n_tokens: int) -> None:
         """Grow ``rid``'s block table to hold ``n_tokens`` tokens.  Raises
@@ -75,7 +131,7 @@ class PageAllocator:
                 del self.tables[rid]
             raise OutOfPages(f"need {need} pages, {len(self._free)} free")
         for _ in range(need):
-            table.append(self._free.pop())
+            table.append(self._take_free())
 
     def commit(self, rid: int, n_tokens: int) -> None:
         """Record ``n_tokens`` more live tokens for ``rid``."""
@@ -83,23 +139,72 @@ class PageAllocator:
         assert new <= self.capacity(rid), (rid, new, self.capacity(rid))
         self.lengths[rid] = new
 
+    def adopt(self, rid: int, pages: List[int], n_tokens: int) -> None:
+        """Map another request's prefix ``pages`` into fresh request
+        ``rid``'s table (prefix sharing): refcounts go up and ``n_tokens``
+        are committed as resident.  Nothing is copied."""
+        assert rid not in self.tables, f"adopt into non-fresh request {rid}"
+        assert n_tokens <= len(pages) * self.page_size
+        for pg in pages:
+            assert self.refcount.get(pg, 0) > 0, f"adopting dead page {pg}"
+            assert pg not in self._free_set
+            self.refcount[pg] += 1
+        self.tables[rid] = list(pages)
+        self.lengths[rid] = n_tokens
+
+    def cow(self, rid: int, block_idx: int) -> Optional[Tuple[int, int]]:
+        """Copy-on-write: give ``rid`` a private copy of a shared page before
+        it writes into it.  Returns (old_page, new_page) for the device-side
+        copy, or None if the page was already exclusive.  Raises OutOfPages
+        (mutating nothing) when no page is free."""
+        table = self.tables[rid]
+        old = table[block_idx]
+        if self.refcount.get(old, 0) <= 1:
+            return None
+        if not self._free:
+            raise OutOfPages(f"cow of page {old}: no free pages")
+        new = self._take_free()
+        self.refcount[old] -= 1
+        table[block_idx] = new
+        return old, new
+
     def free(self, rid: int) -> List[int]:
-        """Release all of ``rid``'s pages; returns them."""
+        """Drop all of ``rid``'s page references; returns the pages whose
+        refcount reached zero (pages another request shares stay live)."""
         table = self.tables.pop(rid, [])
         self.lengths.pop(rid, None)
-        assert not set(table) & set(self._free), f"double free in {table}"
-        self._free.extend(table)
-        return table
+        released = []
+        for pg in table:
+            assert pg not in self._free_set, f"double free of page {pg}"
+            rc = self.refcount.get(pg, 0)
+            assert rc > 0, f"freeing page {pg} with refcount 0"
+            if rc == 1:
+                del self.refcount[pg]
+                self._free.append(pg)
+                self._free_set.add(pg)
+                released.append(pg)
+            else:
+                self.refcount[pg] = rc - 1
+        return released
 
     def check(self) -> None:
-        """Structural invariants: no page both free and allocated, no page
-        in two tables, every page accounted for, tokens within capacity."""
-        allocated = [pg for t in self.tables.values() for pg in t]
-        assert len(allocated) == len(set(allocated)), "page in two tables"
-        assert not set(allocated) & set(self._free)
-        assert len(self._free) + len(allocated) == self.num_pages
+        """Structural invariants: free + unique-allocated == num_pages, a
+        page's refcount equals the number of tables referencing it, no page
+        both free and referenced, tokens within capacity."""
+        allocated = {pg for t in self.tables.values() for pg in t}
+        assert not (allocated & self._free_set), \
+            f"pages both free and allocated: {allocated & self._free_set}"
+        assert len(self._free) == len(self._free_set), "free-list duplicates"
+        assert len(self._free) + len(allocated) == self.num_pages, \
+            (len(self._free), len(allocated), self.num_pages)
+        refs: Dict[int, int] = {}
+        for t in self.tables.values():
+            for pg in t:
+                refs[pg] = refs.get(pg, 0) + 1
+        assert refs == self.refcount, (refs, self.refcount)
         for rid, n in self.lengths.items():
-            assert n <= self.capacity(rid), (rid, n)
+            assert n <= len(self.tables.get(rid, ())) * self.page_size, \
+                (rid, n)
 
     def block_table(self, rid: int, max_blocks: int) -> np.ndarray:
         """Padded (-1) block table row of static width ``max_blocks``."""
@@ -108,6 +213,89 @@ class PageAllocator:
         row = np.full(max_blocks, -1, np.int32)
         row[:len(table)] = table
         return row
+
+    def stats(self) -> Dict[str, Any]:
+        return {"num_pages": self.num_pages, "page_size": self.page_size,
+                "free_pages": self.free_pages, "used_pages": self.used_pages,
+                "shared_pages": self.shared_pages(),
+                "logical_tokens": self.logical_tokens(),
+                "utilization": self.utilization(),
+                "fragmentation_tokens": self.fragmentation()}
+
+
+class PrefixCache:
+    """Hash index over registered prompt prefixes for page sharing.
+
+    Every admitted request registers its prompt: one hash per page-aligned
+    prefix.  A new request looks up the longest page-aligned prefix of its
+    prompt that a live donor holds (hash first, then token-by-token
+    verification: a collision can suggest, never corrupt), then extends
+    token by token into the donor's next page, so a partly matching page is
+    shared too (the engine copies it on write before the sharer's first
+    divergent write).  The index holds request ids, not pages: validity is
+    checked against the allocator at lookup, so a dead donor simply stops
+    matching."""
+
+    def __init__(self, page_size: int):
+        self.ps = page_size
+        self._prompts: Dict[int, np.ndarray] = {}       # rid -> prompt
+        self._by_hash: Dict[int, List[int]] = {}        # prefix hash -> rids
+
+    @staticmethod
+    def _h(tokens: np.ndarray) -> int:
+        return hash(np.asarray(tokens, np.int32).tobytes())
+
+    def register(self, rid: int, prompt: np.ndarray) -> None:
+        if rid in self._prompts:
+            return                            # re-admission after preemption
+        prompt = np.asarray(prompt, np.int32)
+        self._prompts[rid] = prompt
+        for k in range(1, len(prompt) // self.ps + 1):
+            self._by_hash.setdefault(self._h(prompt[:k * self.ps]),
+                                     []).append(rid)
+
+    def forget(self, rid: int) -> None:
+        prompt = self._prompts.pop(rid, None)
+        if prompt is None:
+            return
+        for k in range(1, len(prompt) // self.ps + 1):
+            h = self._h(prompt[:k * self.ps])
+            rids = self._by_hash.get(h, [])
+            if rid in rids:
+                rids.remove(rid)
+            if not rids:
+                self._by_hash.pop(h, None)
+
+    def lookup(self, prompt: np.ndarray, alloc: PageAllocator,
+               exclude: int = -1):
+        """Best live donor for ``prompt``: (donor_rid, shared_tokens,
+        shared_pages) or None.  ``shared_tokens`` is capped at
+        ``len(prompt) - 1``, so the sharer prefills at least one token (its
+        last-position logits give the first sample)."""
+        prompt = np.asarray(prompt, np.int32)
+        ps = self.ps
+        for k in range(len(prompt) // ps, 0, -1):
+            for rid in self._by_hash.get(self._h(prompt[:k * ps]), ()):
+                if rid == exclude or rid not in alloc.tables:
+                    continue
+                donor = self._prompts.get(rid)
+                if donor is None or len(donor) < k * ps or \
+                        not np.array_equal(donor[:k * ps], prompt[:k * ps]):
+                    continue
+                if alloc.tokens(rid) < k * ps or \
+                        len(alloc.tables[rid]) < k:
+                    continue                  # donor hasn't prefilled this far
+                # extend token-wise into the donor's page k (partial share)
+                limit = min(len(prompt) - 1, len(donor), alloc.tokens(rid),
+                            len(alloc.tables[rid]) * ps)
+                t = k * ps
+                while t < limit and donor[t] == prompt[t]:
+                    t += 1
+                t = min(t, len(prompt) - 1)
+                if t <= 0:
+                    continue
+                return rid, t, list(alloc.tables[rid][:pages_for(t, ps)])
+        return None
 
 
 # ---------------------------------------------------------------------------
@@ -172,3 +360,14 @@ class PagedKVCache:
     @property
     def scratch_page(self) -> int:
         return self.num_pages
+
+    def page_bytes(self) -> int:
+        """KV bytes of one page across all layers (k and v)."""
+        return sum(2 * k[:, 0].numel() * k.element_size() for k in self.k)
+
+    def kv_bytes(self, allocator: PageAllocator) -> int:
+        """Live KV footprint: bytes of the pages allocated to requests."""
+        return allocator.used_pages * self.page_bytes()
+
+    def total_bytes(self) -> int:
+        return sum(t.numel() * t.element_size() for t in self.k + self.v)

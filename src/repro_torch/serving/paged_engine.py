@@ -1,37 +1,68 @@
 """Paged continuous-batching engine: chunked prefill interleaved with decode
-(port of the base loop and the compiled closures of
-``repro/serving/paged_engine.py``).
+(port of ``repro/serving/paged_engine.py`` with its compiled closures).
 
 KV memory is a shared page pool (serving/kvcache.py).  Each ``step()``:
 
   * admits waiting requests into free slots;
-  * runs this step's token-budget slice of prefill grants, one batch-1
-    forward call per grant, padded up to a bucket length
-    (``core/chunking.grant_buckets``) with the pad tail masked out of
-    attention and routed to the scratch page.  A fresh grant attends only
-    its own tokens (the dense intra path); a resumed grant reads its
-    page-resident prefix in place through the paged flash-prefill kernel.
-    Inside each call the ISO chunk order of ``core/iso.run_layer`` applies;
-  * runs ONE batched K=1 decode step over all slots whose prompt is
-    resident, reading the pools in place through the paged flash-decode
-    kernel, split into S spans by ``_kv_splits``, and scattering the new
-    token's KV into its page in place.
+  * runs this step's token-budget slice of prefill grants, each padded up to
+    a bucket length (``core/chunking.grant_buckets``) with the pad tail
+    masked out of attention and routed to the scratch page.  With
+    ``prefill_batching`` (the default) grants of one padded length are
+    PACKED into one forward call (``scheduler.pack_grants``), the row count
+    padded up to a power-of-two row bucket; every row carries its own
+    start (doubling as its paged ``prefix_len``: a fresh row is a row with
+    prefix 0) and real length, and pad rows have n_real 0, an empty block
+    table and write only to the scratch page.  A pack whose rows are all
+    fresh takes the dense intra-call path, with no block-table walk; any
+    other reads its rows' page-resident prefixes in place through the paged
+    flash-prefill kernel.  Without it each grant is its own batch-1 call,
+    fresh or resumed.  Inside each call the ISO chunk order of
+    ``core/iso.run_layer`` applies;
+  * runs ONE batched decode step over all slots whose prompt is resident,
+    reading the pools in place through the paged flash-decode kernel, split
+    into S spans by ``_kv_splits``, and scattering the window's KV into its
+    pages in place.  With ``spec_k > 0`` the window is a (spec_k+1)-token
+    verify of each slot's self-drafted tokens (``serving/speculative.py``)
+    whenever every decoding request is greedy, drafted, fits under
+    ``max_len`` and the window's pages fit without eviction; only the
+    accepted tokens are committed.
 
-Compiled closures.  As the reference jits one prefill closure per (bucket,
-fresh|resumed) and one decode closure per (K, S), the port builds one
-``StepClosure`` per key: static input buffers of the key's shape (tokens,
-lengths, block tables, the decode mask; a grant's tokens, block-table row and
-the device scalars ``start`` and ``n_real``) and the step's body over them.
-A step copies its host arrays into the buffers and calls the closure.  On
-the card at tp=1 the body is captured once per key in a
-``torch.cuda.CUDAGraph`` (every graph drawing on one shared memory pool) and
-each call is one replay, the counterpart of calling a ``jax.jit``
-executable; ``cuda_graphs=False`` runs the same bodies eagerly, as
-``jax.disable_jit()`` would.  A failed capture or replay raises; nothing
-gives way to the eager path.  On the CPU, and in a TP engine, the bodies run
-eagerly over the same buffers: a TP engine's collectives go through gloo on
-the host, which a graph cannot hold, and capturing NCCL collectives waits on
-ROADMAP queue A item 7.
+Prefix sharing (``prefix_sharing``, the default): at admission, and again
+when a fresh grant is prepared, a request maps the pages of a live donor's
+matching prompt prefix into its own table (``PrefixCache``,
+``PageAllocator.adopt``; refcounted, nothing copied) and prefills from the
+shared length on.  Before any write into a shared page the writer gets its
+own copy (``PageAllocator.cow`` and ``_copy_page``, which may evict for the
+copy target).  A fresh grant whose first page matches an earlier member of
+its pack is deferred to a follow-up pack, so it shares the tokens its
+packmate commits, as the batch-1 path would.  The port has no ``pos`` pool
+to roll back or scrub (serving/kvcache.py): KV past a request's length,
+from rejected verify positions or a donor's tail on an adopted page, is
+masked by the resident lengths the kernels take.
+
+Metrics (``metrics``) are the reference's keys for what the port runs:
+``prefill_calls`` (forward calls: packs or batch-1 grants),
+``prefill_grants``, ``resumed_grants``, ``prefill_pad_tokens``,
+``prefill_pad_rows`` (row-bucket pad rows), ``prefix_shared_tokens``,
+``cow_copies``, ``spec_calls`` (decode steps that verified a window),
+``spec_tokens`` (tokens they emitted), ``peak_used_pages`` and the timers.
+
+Compiled closures.  As the reference jits one closure per key, the port
+builds one ``StepClosure`` per key: static input buffers of the key's shape
+and the step's body over them.  Prefill keys are (bucket, fresh|resumed)
+batch-1, or (bucket, row bucket, all-fresh) packed; decode keys are (K, S);
+the page copy of copy-on-write is one closure for any (old, new) pair.  A
+step copies its host arrays into the buffers and calls the closure.  On the
+card at tp=1 the body is captured once per key in a ``torch.cuda.CUDAGraph``
+(every graph drawing on one shared memory pool) and each call is one
+replay, the counterpart of calling a ``jax.jit`` executable;
+``cuda_graphs=False`` runs the same bodies eagerly, as ``jax.disable_jit()``
+would.  Every host decision (the key: rows, all-fresh, K) picks a closure;
+every per-row value is a device buffer.  A failed capture or replay raises;
+nothing gives way to the eager path, to batch-1 or to K=1.  On the CPU, and
+in a TP engine, the bodies run eagerly over the same buffers: a TP engine's
+collectives go through gloo on the host, which a graph cannot hold, and
+capturing NCCL collectives waits on ROADMAP queue A item 7.
 
 Tensor parallelism: ``mesh=`` takes this rank's ``launch.mesh.TPGroup``;
 ``params`` are then the rank's shard (``bridge.shard_params`` or
@@ -46,8 +77,9 @@ a sequential step whenever fewer than 2 requests decode; ``sequential``,
 
 When the pool runs dry a victim is evicted (recompute preemption: its pages
 are freed and prompt + generated re-enter the waiting queue).  Settings
-outside the port's slice raise ``NotImplementedError`` naming their ROADMAP
-item rather than doing something else.
+outside the port's slice (the cost model, disaggregation) raise
+``NotImplementedError`` naming their ROADMAP item rather than doing
+something else.
 """
 from __future__ import annotations
 
@@ -58,7 +90,7 @@ import numpy as np
 import torch
 
 from repro_torch.config import Config, ServingConfig, padded_vocab
-from repro_torch.core.chunking import grant_buckets
+from repro_torch.core.chunking import grant_buckets, round_to_bucket
 from repro_torch.core.iso import DECODE_SCHEDULES
 from repro_torch.core.overlap import AxisCtx, all_gather_last
 from repro_torch.device import resolve_device, synchronize
@@ -67,12 +99,14 @@ from repro_torch.launch.mesh import TPGroup
 from repro_torch.layers import embeddings as emb_lib
 from repro_torch.models import api
 from repro_torch.models.decoder import check_supported
-from repro_torch.serving.kvcache import OutOfPages, pages_for, \
-    token_page_coords
+from repro_torch.serving.kvcache import OutOfPages, PrefixCache, pages_for, \
+    token_page_coords, window_page_coords
 from repro_torch.serving.kvstate import KVPool
 from repro_torch.serving.requests import Request, RequestState
 from repro_torch.serving.sampler import sample
-from repro_torch.serving.scheduler import TokenBudgetScheduler, plan_chunks
+from repro_torch.serving.scheduler import PrefillGrant, \
+    TokenBudgetScheduler, plan_chunks
+from repro_torch.serving.speculative import BigramDraft, accept_greedy
 
 # the reference engine's metric keys for the phases the port runs
 METRIC_KEYS = (
@@ -80,7 +114,8 @@ METRIC_KEYS = (
     "prefill_tokens", "decode_tokens", "completed", "decode_calls",
     "prefill_calls", "steps", "preemptions", "ttft_sum", "ttft_n",
     "peak_used_pages", "prefill_pad_tokens", "prefill_samples",
-    "prefill_grants", "resumed_grants")
+    "prefill_grants", "resumed_grants", "prefix_shared_tokens", "cow_copies",
+    "spec_calls", "spec_tokens", "prefill_pad_rows")
 
 
 class StepClosure:
@@ -90,12 +125,12 @@ class StepClosure:
 
     ``stage`` copies host arrays into the buffers (on the card through
     pinned staging buffers, without waiting: the engine fences every call
-    before it stages the next).  Calling the closure runs the body, or
-    replays the graph and returns its static output, which the next replay
-    of any graph of the shared pool may overwrite: callers copy out what
-    they keep first.  A replay adds to the kernels' launch counters the
-    launches its capture recorded, so the counts stay those of the kernels
-    that ran."""
+    of a closure with array inputs before it stages the next).  Calling the
+    closure runs the body, or replays the graph and returns its static
+    output, which the next replay of any graph of the shared pool may
+    overwrite: callers copy out what they keep first.  A replay adds to the
+    kernels' launch counters the launches its capture recorded, so the
+    counts stay those of the kernels that ran."""
 
     def __init__(self, buffers: Dict[str, torch.Tensor], body,
                  graphed: bool):
@@ -105,16 +140,23 @@ class StepClosure:
         on_card = next(iter(buffers.values())).device.type == "cuda"
         self._pinned = {k: torch.empty(v.shape, dtype=v.dtype,
                                        pin_memory=True)
-                        for k, v in buffers.items()} if on_card else None
+                        for k, v in buffers.items() if v.ndim} \
+            if on_card else None
         self.graph: Optional[torch.cuda.CUDAGraph] = None
         self._out = None
         self._launches: Dict[str, int] = {}
 
     def stage(self, **host) -> None:
-        """Copy host arrays (numpy or ints) into the input buffers."""
+        """Copy host arrays (numpy or ints) into the input buffers.  On the
+        card a 0-d buffer is filled with its int by a kernel argument, not
+        through a pinned buffer, so closures that run back to back without a
+        fence between them (the page copies of copy-on-write) never
+        overwrite a pinned buffer whose copy is still queued."""
         for name, value in host.items():
             if self._pinned is None:
                 self.inputs[name].numpy()[...] = value
+            elif name not in self._pinned:              # a 0-d buffer
+                self.inputs[name].fill_(int(value))
             else:
                 pin = self._pinned[name]
                 pin.numpy()[...] = value
@@ -164,14 +206,6 @@ def _check_slice(sv: ServingConfig) -> None:
         raise ValueError(f"decode_schedule={sv.decode_schedule!r}: one of "
                          f"auto, {', '.join(DECODE_SCHEDULES)}")
     todo = []
-    if sv.prefix_sharing:
-        todo.append("prefix_sharing=True (pass prefix_sharing=False): "
-                    "ROADMAP queue A item 8")
-    if sv.prefill_batching:
-        todo.append("prefill_batching=True (pass prefill_batching=False): "
-                    "ROADMAP queue A item 8")
-    if sv.spec_k:
-        todo.append("spec_k>0 (speculative decoding): ROADMAP queue A item 8")
     if sv.cost_table or sv.cost_model is not None:
         todo.append("cost_table/cost_model: ROADMAP queue A item 9")
     if sv.disagg:
@@ -251,6 +285,18 @@ class PagedEngine:
             policy=sv.scheduler_policy,
             prefill_token_budget=sv.prefill_token_budget,
             grant_buckets=self._buckets)
+        # batched prefill: same-padded-length grants packed into one call,
+        # the row count padded up a power-of-two ladder so closures stay
+        # keyed on (length bucket, row bucket, all-fresh)
+        self._batch_prefill = sv.prefill_batching
+        self._row_buckets = grant_buckets(sv.max_batch, min_bucket=1) \
+            if self._batch_prefill else (1,)
+        # copy-on-write prefix sharing
+        self.prefix_cache: Optional[PrefixCache] = \
+            PrefixCache(self.ps) if sv.prefix_sharing else None
+        # speculative decoding: greedy-only self-drafting
+        self.spec_k = sv.spec_k
+        self._drafts: List[Optional[BigramDraft]] = [None] * sv.max_batch
         self.slots: List[Optional[RequestState]] = [None] * sv.max_batch
         self.lengths = np.zeros(sv.max_batch, np.int64)   # tokens resident
         self.last_tokens = np.zeros(sv.max_batch, np.int64)
@@ -260,12 +306,13 @@ class PagedEngine:
         # decode steps run per split count S
         self.decode_splits: Dict[int, int] = {}
         # compiled closures, keyed as the reference's jit caches: prefill
-        # (bucket, resumed); decode (K, S); the batch-split engine's
-        # sequential fallback (K, S) apart, so the decode keys stay
-        # schedule-pure
-        self._prefill_fns: Dict[Tuple[int, bool], StepClosure] = {}
+        # (bucket, resumed) batch-1 or (bucket, rows, all_fresh) packed;
+        # decode (K, S); the batch-split engine's sequential fallback (K, S)
+        # apart, so the decode keys stay schedule-pure; one page copy
+        self._prefill_fns: Dict[Tuple, StepClosure] = {}
         self._decode_fns: Dict[Tuple[int, int], StepClosure] = {}
         self._decode_fallback_fns: Dict[Tuple[int, int], StepClosure] = {}
+        self._copy_page_fn: Optional[StepClosure] = None
         self._graphed = cuda_graphs and mesh is None \
             and self.device.type == "cuda"
         # one memory pool for every graph, and one side stream for every
@@ -313,6 +360,68 @@ class PagedEngine:
             st.prefilled = 0
             self.slots[st.slot] = st
             self.lengths[st.slot] = 0
+            self._try_share_prefix(st)
+
+    def _try_share_prefix(self, st: RequestState) -> None:
+        """Map a live donor's matching prompt-prefix pages into this request
+        (refcounted, nothing copied); prefill then resumes after the shared
+        part."""
+        if self.prefix_cache is None:
+            return
+        rid = st.request.rid
+        hit = self.prefix_cache.lookup(st.request.prompt, self.alloc,
+                                       exclude=rid)
+        if hit is not None:
+            _, t, pages = hit
+            self.alloc.adopt(rid, pages, t)
+            st.prefilled = t
+            self.lengths[st.slot] = t
+            self.metrics["prefix_shared_tokens"] += t
+        self.prefix_cache.register(rid, st.request.prompt)
+
+    def _copy_page(self, old: int, new: int) -> None:
+        """Copy page ``old`` into page ``new`` in every period's k and v
+        pool, in place, for copy-on-write: one closure for any (old, new)
+        pair (the reference's one jitted copy), so on the card one graph.
+        It runs on the engine's stream, before any later call writes the
+        page."""
+        fn = self._copy_page_fn
+        if fn is None:
+            i32 = dict(dtype=torch.int32, device=self.device)
+            bufs = {"old": torch.zeros((), **i32),
+                    "new": torch.zeros((), **i32)}
+            pools = self.kv.k + self.kv.v
+
+            def body():
+                src = bufs["old"].reshape(1).long()
+                dst = bufs["new"].reshape(1).long()
+                for pool in pools:
+                    pool.index_copy_(1, dst, pool.index_select(1, src))
+
+            fn = self._copy_page_fn = StepClosure(bufs, body, self._graphed)
+        host = dict(old=old, new=new)
+        self._compile(fn, host)
+        fn.stage(**host)
+        fn()
+        self.metrics["cow_copies"] += 1
+
+    def _cow_range(self, rid: int, start: int, end: int) -> bool:
+        """Copy-on-write every shared page the token range [start, end)
+        writes into (evicting for the copy target if the pool is dry)."""
+        table = self.alloc.tables.get(rid, [])
+        for blk in range(start // self.ps, (end - 1) // self.ps + 1):
+            if blk >= len(table):
+                break                         # beyond the table: fresh pages
+            while True:
+                try:
+                    pair = self.alloc.cow(rid, blk)
+                    break
+                except OutOfPages:
+                    if not self._preempt_one(protect=[rid]):
+                        return False
+            if pair is not None:
+                self._copy_page(*pair)
+        return True
 
     def _preempt_one(self, protect: List[int]) -> bool:
         """Evict one running request (recompute mode).  False if none left."""
@@ -325,6 +434,7 @@ class PagedEngine:
         self.slots[st.slot] = None
         self.lengths[st.slot] = 0
         self.last_tokens[st.slot] = 0
+        self._drafts[st.slot] = None
         st.slot = -1
         # recompute mode: everything generated so far becomes prompt; the
         # re-prefill's last-position logits yield the next token exactly where
@@ -384,6 +494,14 @@ class PagedEngine:
     # ------------------------------------------------------------------
     # compiled closures
     # ------------------------------------------------------------------
+    def _body_env(self) -> Tuple:
+        """What a closure's body reads of the engine: (params, cfg, ctx,
+        iso, kv, ps).  Bodies take these, never ``self``, so an engine and
+        its closures form no reference cycle and a dropped engine frees its
+        pools and graphs at once, without the cycle collector."""
+        return (self.params, self.cfg, self._ctx, self.config.iso, self.kv,
+                self.ps)
+
     def _compile(self, fn: StepClosure, host: Dict) -> None:
         """Capture ``fn`` on its first call, over the call's ``host`` inputs,
         outside the timed window of the call (which stages them again)."""
@@ -413,12 +531,13 @@ class PagedEngine:
                 "start": torch.zeros((), **i32),
                 "n_real": torch.zeros((), **i32)}
         prefix = self._paged_prefix() if resumed else None
-        scratch = self.kv.scratch_page
+        params, cfg, ctx, iso, kv, ps = self._body_env()
+        scratch = kv.scratch_page
 
         def body():
             start, n_real, bt = bufs["start"], bufs["n_real"], bufs["bt"]
             out = api.prefill(
-                self.params, self.cfg, self._ctx, self.config.iso,
+                params, cfg, ctx, iso,
                 {"tokens": bufs["tokens"]}, logits_mode="none",
                 prefix_caches=prefix, pos_offset=start,
                 block_tables=bt if resumed else None,
@@ -427,20 +546,78 @@ class PagedEngine:
             # logits of the last REAL token (the pad tail carries garbage)
             h_last = out["hidden"].index_select(
                 1, (n_real - 1).reshape(1).long())
-            logits_last = emb_lib.lm_head_local(self.params["embed"],
+            logits_last = emb_lib.lm_head_local(params["embed"],
                                                 h_last)[:, 0]
             t = torch.arange(T, device=dev)
-            page, off = token_page_coords(start + t, bt[0], self.ps, scratch)
+            page, off = token_page_coords(start + t, bt[0], ps, scratch)
             # pad-tail tokens must not scatter KV into live pages
             page = torch.where(t < n_real, page,
                                torch.full_like(page, scratch))
             # in-place scatter into every period's pool (the reference
             # rebuilds the pools with .at[].set)
-            for kv_i, i in enumerate(self.kv.kv_positions):
+            for kv_i, i in enumerate(kv.kv_positions):
                 ex = out["extras"][i]                 # (P, 1, T, Hkv, hd)
-                k_pool, v_pool = self.kv.k[kv_i], self.kv.v[kv_i]
+                k_pool, v_pool = kv.k[kv_i], kv.v[kv_i]
                 k_pool[:, page, off] = ex["kv_k"][:, 0].to(k_pool.dtype)
                 v_pool[:, page, off] = ex["kv_v"][:, 0].to(v_pool.dtype)
+            return logits_last
+
+        self._prefill_fns[key] = StepClosure(bufs, body, self._graphed)
+        return self._prefill_fns[key]
+
+    def _get_prefill_batched(self, n_text: int, rows: int,
+                             all_fresh: bool) -> StepClosure:
+        """Prefill closure of a PACK: ``rows`` grants (row-bucket-padded) of
+        one padded length ``n_text`` as one (rows, n_text) forward call, the
+        reference's ``(n_text, rows, all_fresh)`` key.  Inputs: ``tokens``
+        (rows, T), block tables ``bt`` (rows, MB), ``starts`` (rows,) and
+        ``n_reals`` (rows,).
+
+        Every row resumes at its own position: ``starts`` doubles as the
+        paged ``prefix_lens`` (a fresh row has prefix 0, which the paged
+        kernel returns as the neutral state) and ``n_reals`` masks each
+        row's pad tail.  Pad rows carry an all-(-1) block table, start 0
+        and n_real 0: every key masked, their KV routed to the scratch page.
+        An ``all_fresh`` pack takes the dense intra-call path with no block
+        tables, as the reference does.  Each row's last real position is
+        picked on the device.  Returns the local logits (rows, V_loc)."""
+        key = (n_text, rows, all_fresh)
+        if key in self._prefill_fns:
+            return self._prefill_fns[key]
+        dev, T = self.device, n_text
+        i32 = dict(dtype=torch.int32, device=dev)
+        bufs = {"tokens": torch.zeros((rows, T), **i32),
+                "bt": torch.full((rows, self.max_blocks), -1, **i32),
+                "starts": torch.zeros((rows,), **i32),
+                "n_reals": torch.zeros((rows,), **i32)}
+        prefix = None if all_fresh else self._paged_prefix()
+        params, cfg, ctx, iso, kv, ps = self._body_env()
+        scratch = kv.scratch_page
+
+        def body():
+            starts, n_reals, bt = bufs["starts"], bufs["n_reals"], bufs["bt"]
+            out = api.prefill(
+                params, cfg, ctx, iso,
+                {"tokens": bufs["tokens"]}, logits_mode="none",
+                prefix_caches=prefix, pos_offset=starts,
+                block_tables=None if all_fresh else bt,
+                prefix_lens=None if all_fresh else starts,
+                valid_len=n_reals, return_extras=True)
+            # logits of each row's last REAL token (pad tails carry garbage)
+            last = (n_reals - 1).clamp(0, T - 1).long()
+            h_last = out["hidden"][torch.arange(rows, device=dev), last]
+            logits_last = emb_lib.lm_head_local(params["embed"],
+                                                h_last[:, None])[:, 0]
+            page, off, _, _ = window_page_coords(starts, bt, T, ps, scratch)
+            # pad tails and whole pad rows must not scatter into live pages
+            page = torch.where(
+                torch.arange(T, device=dev)[None] < n_reals[:, None], page,
+                torch.full_like(page, scratch))
+            for kv_i, i in enumerate(kv.kv_positions):
+                ex = out["extras"][i]                 # (P, rows, T, Hkv, hd)
+                k_pool, v_pool = kv.k[kv_i], kv.v[kv_i]
+                k_pool[:, page, off] = ex["kv_k"].to(k_pool.dtype)
+                v_pool[:, page, off] = ex["kv_v"].to(v_pool.dtype)
             return logits_last
 
         self._prefill_fns[key] = StepClosure(bufs, body, self._graphed)
@@ -452,11 +629,14 @@ class PagedEngine:
         return len(self._prefill_fns)
 
     def max_prefill_compiles(self) -> Optional[int]:
-        """Bound on prefill closures under bucketing: one per (bucket,
-        fresh|resumed) pair, the reference's batch-1 bound.  None when
+        """Bound on prefill closures under bucketing: packed, one per
+        (length bucket, row bucket, all-fresh|has-resumed); batch-1, one per
+        (bucket, fresh|resumed), the reference's bounds.  None when
         bucketing is off (one closure per distinct grant length)."""
         if self._buckets is None:
             return None
+        if self._batch_prefill:
+            return 2 * len(self._buckets) * len(self._row_buckets)
         return 2 * len(self._buckets)
 
     def _get_decode(self, K: int = 1, S: int = 1) -> StepClosure:
@@ -490,10 +670,11 @@ class PagedEngine:
                 "bt": torch.full((B, self.max_blocks), -1, **i32),
                 "mask": torch.zeros((B,), dtype=torch.bool, device=dev)}
         caches = self._paged_prefix()
+        params, cfg, ctx = self._body_env()[:3]
 
         def body():
             logits, _ = api.decode_step(
-                self.params, self.cfg, self._ctx, bufs["toks"], caches,
+                params, cfg, ctx, bufs["toks"], caches,
                 bufs["lengths"], block_tables=bufs["bt"],
                 decode_mask=bufs["mask"], kv_splits=S, schedule=schedule)
             return logits
@@ -533,9 +714,10 @@ class PagedEngine:
 
     def _commit_grant_row(self, st: RequestState, start: int, n_tokens: int,
                           logits_row, last: bool) -> Optional[int]:
-        """Post-forward bookkeeping for one grant: commit tokens, advance
-        prefill progress and, for a prompt-finishing grant, sample the first
-        token and stamp TTFT."""
+        """Post-forward bookkeeping for one grant (batch-1 or a pack's row):
+        commit tokens, advance prefill progress and, for a prompt-finishing
+        grant, sample the first token, stamp TTFT and (re)build the
+        speculative self-draft."""
         req = st.request
         slot = st.slot
         self.alloc.commit(req.rid, n_tokens)
@@ -553,21 +735,108 @@ class PagedEngine:
             st.t_first = time.perf_counter()
             self.metrics["ttft_sum"] += st.t_first - st.t_submit
             self.metrics["ttft_n"] += 1
+        if self.spec_k:
+            # (re)build the self-draft over everything resident: after a
+            # recompute preemption that includes the generated tokens
+            d = BigramDraft()
+            d.observe([int(t) for t in self._resident_tokens(st)] + [int(tok)])
+            self._drafts[slot] = d
         st.generated.append(tok)
         self.last_tokens[slot] = tok
         st.finish_check()
         return tok
 
+    def _run_pack(self, group: List[Tuple], padded: int,
+                  events: List[Tuple[int, int]]) -> None:
+        """Execute prepped grants ``group`` [(st, start, n_tokens, padded,
+        last), ...] of one padded length as ONE forward call, the row count
+        padded up to a row bucket (pad rows: empty block table, n_real 0)."""
+        R = len(group)
+        rows = round_to_bucket(R, self._row_buckets)
+        T = padded
+        toks = np.zeros((rows, T), np.int32)
+        starts = np.zeros(rows, np.int32)
+        n_reals = np.zeros(rows, np.int32)
+        bts = np.full((rows, self.max_blocks), -1, np.int32)
+        for r, (st, start, n, _, _last) in enumerate(group):
+            toks[r, :n] = self._resident_tokens(st)[start:start + n]
+            starts[r] = start
+            n_reals[r] = n
+            bts[r] = self.alloc.block_table(st.request.rid, self.max_blocks)
+        fn = self._get_prefill_batched(T, rows,
+                                       all_fresh=bool(np.all(starts == 0)))
+        host = dict(tokens=toks, bt=bts, starts=starts, n_reals=n_reals)
+        self._compile(fn, host)
+        any_last = any(p[4] for p in group)
+        t0 = time.perf_counter()
+        fn.stage(**host)
+        logits_last = fn()
+        if any_last:                          # the full vocab rows to sample
+            logits_last = all_gather_last(logits_last, self._ctx)
+        self.metrics["prefill_dispatch_s"] += time.perf_counter() - t0
+        synchronize(self.device)
+        dur = time.perf_counter() - t0
+        n_total = int(n_reals.sum())
+        self.metrics["prefill_s"] += dur
+        self.metrics["prefill_tokens"] += n_total
+        self.metrics["prefill_pad_tokens"] += rows * T - n_total
+        self.metrics["prefill_pad_rows"] += rows - R
+        self.metrics["prefill_calls"] += 1
+        logits_np = logits_last.float().cpu().numpy() if any_last else None
+        for r, (st, start, n, _, last) in enumerate(group):
+            tok = self._commit_grant_row(
+                st, start, n, logits_np[r] if last else None, last)
+            if tok is not None:
+                events.append((st.request.rid, tok))
+                if st.done:
+                    self._finish(st)
+
     def _finish(self, st: RequestState) -> None:
         self.metrics["completed"] += 1
         self.alloc.free(st.request.rid)
+        if self.prefix_cache is not None:
+            self.prefix_cache.forget(st.request.rid)
         self.scheduler.forget(st.request.rid)
         self._finished.append(st)
         self._by_rid.pop(st.request.rid, None)
         self.slots[st.slot] = None
         self.lengths[st.slot] = 0
         self.last_tokens[st.slot] = 0
+        self._drafts[st.slot] = None
         st.slot = -1
+
+    def _prep_grant(self, g: PrefillGrant) -> Optional[Tuple]:
+        """Per-grant pre-work of the batch-1 and packed paths: the prefix
+        sharing retry, page growth and copy-on-write (both may evict).
+        Returns (st, start, n_tokens, padded, last), or None when the grant
+        dissolved (its request was evicted by an earlier grant, or sharing
+        this step covered it)."""
+        st = self._by_rid.get(g.rid)
+        if st is None or st.slot < 0:
+            return None                       # preempted by an earlier grant
+        start, end = g.start, g.start + g.n_tokens
+        if start == 0 and st.prefilled == 0:
+            # retry sharing: a donor granted earlier this step (batch-1: its
+            # call ran; packed: an earlier pack) has committed by now
+            self._try_share_prefix(st)
+            start = st.prefilled
+            if end <= start:                  # grant fully covered by sharing
+                return None
+        if not self._ensure_pages(g.rid, end) or \
+                not self._cow_range(g.rid, start, end):
+            raise RuntimeError(
+                f"page pool too small for request {g.rid}'s prefill chunk "
+                f"even after evicting; increase ServingConfig.num_pages")
+        # the scheduler rounded the grant; re-round only when sharing this
+        # step shrank it
+        n = end - start
+        if start == g.start and n == g.n_tokens:
+            padded = g.padded or n
+        elif self._buckets is None:
+            padded = n
+        else:
+            padded = round_to_bucket(n, self._buckets)
+        return st, start, n, padded, g.last
 
     def _prefill_phase(self, events: List[Tuple[int, int]]) -> None:
         # prefill target = sum(chunk_plan): the prompt at admission, or
@@ -575,22 +844,96 @@ class PagedEngine:
         pending = [(s.request.rid, s.prefilled, s.chunk_plan)
                    for s in self.slots
                    if s is not None and s.prefilled < sum(s.chunk_plan)]
-        for g in self.scheduler.grant_prefill(pending):
-            st = self._by_rid.get(g.rid)
-            if st is None or st.slot < 0:
-                continue                      # preempted by an earlier grant
-            end = g.start + g.n_tokens
-            if not self._ensure_pages(g.rid, end):
-                raise RuntimeError(
-                    f"page pool too small for request {g.rid}'s prefill "
-                    f"chunk even after evicting; increase "
-                    f"ServingConfig.num_pages")
-            tok = self._run_grant(st, g.start, g.n_tokens,
-                                  g.padded or g.n_tokens, g.last)
-            if tok is not None:
-                events.append((st.request.rid, tok))
-                if st.done:
-                    self._finish(st)
+        grants = self.scheduler.grant_prefill(pending)
+        if not self._batch_prefill:
+            for g in grants:
+                prep = self._prep_grant(g)
+                if prep is None:
+                    continue
+                st, start, n, padded, last = prep
+                tok = self._run_grant(st, start, n, padded, last)
+                if tok is not None:
+                    events.append((st.request.rid, tok))
+                    if st.done:
+                        self._finish(st)
+            return
+        # packed: prep runs pack by pack in policy order, so eviction and
+        # copy-on-write go as on the batch-1 path; a prep that evicts a
+        # packmate drops it (slot check in _run_groups), and sharing that
+        # shrank a grant moves it to a sub-pack of its new padded length.  A
+        # fresh grant that could share with a PACKMATE waits for a follow-up
+        # sub-pack: sharing adopts committed tokens only, and packmates
+        # commit together after their call.
+        for pack in self.scheduler.pack_grants(grants,
+                                               max_rows=self.max_batch):
+            ready, deferred = [], []
+            for g in pack:
+                if self._defer_for_packmate_sharing(g, ready):
+                    deferred.append(g)
+                    continue
+                prep = self._prep_grant(g)
+                if prep is not None:
+                    ready.append(prep)
+            self._run_groups(ready, events)
+            if deferred:
+                # the donors committed above; _prep_grant's sharing retry
+                # now engages for the sharees
+                self._run_groups(
+                    [p for g in deferred
+                     if (p := self._prep_grant(g)) is not None], events)
+
+    def _defer_for_packmate_sharing(self, g: PrefillGrant,
+                                    prepped: List[Tuple]) -> bool:
+        """True if fresh grant ``g`` shares its first page's worth of prompt
+        with an earlier member of the same pack: the one case where packing
+        would lose a share the batch-1 path gets."""
+        if self.prefix_cache is None or not prepped:
+            return False
+        st = self._by_rid.get(g.rid)
+        if st is None or st.slot < 0 or st.prefilled > 0 or g.start != 0:
+            return False
+        prompt = np.asarray(st.request.prompt, np.int32)
+        if len(prompt) < self.ps:
+            return False                  # sharing needs a full page match
+        head = prompt[:self.ps]
+        for p_st, _, _, _, _ in prepped:
+            donor = np.asarray(p_st.request.prompt, np.int32)
+            if len(donor) >= self.ps and np.array_equal(donor[:self.ps], head):
+                return True
+        return False
+
+    def _run_groups(self, ready: List[Tuple],
+                    events: List[Tuple[int, int]]) -> None:
+        """Run prepped grants as packs, sub-grouped by their final padded
+        length (sharing this step may have re-bucketed some)."""
+        ready = [p for p in ready if p[0].slot >= 0]
+        by_len: Dict[int, List[Tuple]] = {}
+        for p in ready:
+            by_len.setdefault(p[3], []).append(p)
+        for padded, group in by_len.items():
+            self._run_pack(group, padded, events)
+
+    def _spec_window(self, active: List[RequestState]) -> int:
+        """Verify-window width of this decode step: spec_k+1 when every
+        active request can speculate (greedy, drafted, the whole window
+        under max_len) and the window's pages fit without eviction, else 1.
+        (The reference's cost-model gate is ROADMAP queue A item 9.)"""
+        if not self.spec_k:
+            return 1
+        K = self.spec_k + 1
+        need = 0
+        for st in active:
+            L = int(self.lengths[st.slot])
+            if st.request.sampling.temperature > 0 or \
+                    self._drafts[st.slot] is None or L + K > self.max_len:
+                return 1
+            need += max(0, pages_for(L + K, self.ps)
+                        - len(self.alloc.tables.get(st.request.rid, ())))
+        # admission validated only the plain-decode watermark: evicting a
+        # request to speculate on another would trade progress for guesses
+        if need > self.alloc.free_pages:
+            return 1
+        return K
 
     def _decode_phase(self, events: List[Tuple[int, int]]) -> None:
         active = [s for s in self.slots
@@ -598,15 +941,19 @@ class PagedEngine:
                   and s.prefilled >= sum(s.chunk_plan)]
         if not active:
             return
-        # grow every decoder's capacity by one token (may evict; an evicted
-        # request drops out of `active` by its slot)
+        K = self._spec_window(active)
+        # grow every decoder's capacity by the window and copy the shared
+        # pages it writes (may evict; an evicted request drops out of
+        # `active` by its slot)
         for st in active:
             if st.slot < 0:
                 continue
-            if not self._ensure_pages(st.request.rid,
-                                      int(self.lengths[st.slot]) + 1):
-                raise RuntimeError("page pool too small for a decode step; "
-                                   "increase ServingConfig.num_pages")
+            L = int(self.lengths[st.slot])
+            if not self._ensure_pages(st.request.rid, L + K) or \
+                    not self._cow_range(st.request.rid, L, L + K):
+                raise RuntimeError(
+                    f"page pool too small for a {K}-token decode step; "
+                    f"increase ServingConfig.num_pages")
         active = [s for s in active if s.slot >= 0]
         if not active:
             return
@@ -618,17 +965,23 @@ class PagedEngine:
                        if s is not None and mask[i] else
                        np.full(self.max_blocks, -1, np.int32)
                        for i, s in enumerate(self.slots)])
-        S = self._kv_splits(1)
+        toks = np.zeros((B, K), np.int32)
+        toks[:, 0] = self.last_tokens
+        drafts: Dict[int, List[int]] = {}
+        if K > 1:
+            for st in active:
+                drafts[st.slot] = self._drafts[st.slot].draft(self.spec_k)
+                toks[st.slot, 1:] = drafts[st.slot]
+        S = self._kv_splits(K)
         self.decode_splits[S] = self.decode_splits.get(S, 0) + 1
         if self._decode_schedule == "batch_split" and len(active) < 2:
             # one decoding request has no second batch half to overlap with
-            schedule, fn = "sequential", self._get_fallback_decode(1, S)
+            schedule, fn = "sequential", self._get_fallback_decode(K, S)
         else:
-            schedule, fn = self._decode_schedule, self._get_decode(1, S)
+            schedule, fn = self._decode_schedule, self._get_decode(K, S)
         self.decode_schedule_steps[schedule] = \
             self.decode_schedule_steps.get(schedule, 0) + 1
-        host = dict(toks=self.last_tokens[:, None], lengths=self.lengths,
-                    bt=bt, mask=mask)
+        host = dict(toks=toks, lengths=self.lengths, bt=bt, mask=mask)
         self._compile(fn, host)
         t0 = time.perf_counter()
         fn.stage(**host)
@@ -639,17 +992,35 @@ class PagedEngine:
         logits = logits.float().cpu().numpy()
         self.metrics["decode_s"] += dur
         self.metrics["decode_calls"] += 1
+        if K > 1:
+            self.metrics["spec_calls"] += 1
 
         for st in active:
             i = st.slot
-            tok = sample(logits[i, 0][:self.cfg.vocab_size],
-                         st.request.sampling, len(st.generated))
-            self.alloc.commit(st.request.rid, 1)
-            self.metrics["decode_tokens"] += 1
-            st.generated.append(tok)
-            events.append((st.request.rid, tok))
-            self.lengths[i] += 1
-            self.last_tokens[i] = tok
+            if K == 1:
+                acc = [sample(logits[i, 0][:self.cfg.vocab_size],
+                              st.request.sampling, len(st.generated))]
+                if self._drafts[i] is not None:
+                    # keep the draft fresh across K=1 fallbacks, or the
+                    # next verify drafts from a stale anchor
+                    self._drafts[i].observe([int(acc[0])])
+            else:
+                # greedy accept: the longest matching prefix of the drafts,
+                # plus the model's bonus token when all of them hit; the
+                # rejected positions' KV stays past the length, unread
+                argmaxes = logits[i, :, :self.cfg.vocab_size].argmax(axis=-1)
+                budget = st.request.sampling.max_new_tokens \
+                    - len(st.generated)
+                acc = accept_greedy(drafts[i], argmaxes)[:max(budget, 1)]
+                self.metrics["spec_tokens"] += len(acc)
+                self._drafts[i].observe([int(t) for t in acc])
+            self.alloc.commit(st.request.rid, len(acc))
+            self.metrics["decode_tokens"] += len(acc)
+            for tok in acc:
+                st.generated.append(int(tok))
+                events.append((st.request.rid, int(tok)))
+            self.lengths[i] += len(acc)
+            self.last_tokens[i] = int(acc[-1])
             st.finish_check()
             if st.done:
                 self._finish(st)
@@ -675,3 +1046,16 @@ class PagedEngine:
                     all(s is None for s in self.slots):
                 break
         return {st.request.rid: st.generated for st in self._finished}
+
+    def accepted_per_call(self) -> float:
+        """Mean tokens emitted per speculative verify call (>= 1 once any
+        verify ran; 0.0 when speculation never triggered)."""
+        if not self.metrics["spec_calls"]:
+            return 0.0
+        return self.metrics["spec_tokens"] / self.metrics["spec_calls"]
+
+    def page_stats(self) -> Dict[str, object]:
+        s = self.alloc.stats()
+        s["kv_bytes_live"] = self.kv.kv_bytes(self.alloc)
+        s["kv_bytes_reserved"] = self.kv.total_bytes()
+        return s

@@ -5,10 +5,13 @@ Prompts are split at admission with ``core/chunking.split_chunks``: the ISO
 chunk is the scheduling quantum.  Each engine iteration the scheduler grants
 whole chunks in policy order under ``prefill_token_budget``; consecutive
 chunks of one request granted in the same step run as ONE forward call.
-Policies: ``fcfs`` and ``priority``.  Preemption-by-eviction picks the
-lowest-priority most-recently-arrived running request.  The reference's
-grant packing (batched prefill), cost-model caps, trace narration and phase
-routing (disaggregation) are not part of the slice.
+Policies: ``fcfs`` and ``priority``.  ``pack_grants`` groups a step's
+grants of one bucket-padded length into packs, each run as one forward
+call (batched prefill).  Preemption-by-eviction picks the lowest-priority
+most-recently-arrived running request.  The reference's cost-model caps
+(its grant cap and modeled pack widths), trace narration and phase routing
+(disaggregation) are ROADMAP queue A item 9: without a cost model the
+reference takes the static answers, and so does the port.
 """
 from __future__ import annotations
 
@@ -129,6 +132,35 @@ class TokenBudgetScheduler:
             if remaining == 0:
                 break
         return grants
+
+    def pack_grants(self, grants: Sequence[PrefillGrant], max_rows: int = 0
+                    ) -> List[List[PrefillGrant]]:
+        """Group compatible grants into packs, one forward call each.
+
+        Grants are sorted by the policy key (the order ``grant_prefill``
+        emits, re-applied so a caller's order cannot change the packs), then
+        grouped greedily by identical ``padded`` length; a pack closes at
+        ``max_rows``, and packs come out in the policy order of their first
+        member.  ``max_rows <= 1`` gives singletons (the batch-1 path)."""
+        if max_rows <= 1:
+            return [[g] for g in grants]
+        ordered = sorted(grants, key=lambda g: self._key(g.rid))
+        packs: List[List[PrefillGrant]] = []
+        open_by_len: Dict[int, int] = {}      # padded length -> pack index
+        for g in ordered:
+            limit = self._pack_limit(g.padded, max_rows)
+            idx = open_by_len.get(g.padded)
+            if idx is None or len(packs[idx]) >= limit:
+                open_by_len[g.padded] = len(packs)
+                packs.append([g])
+            else:
+                packs[idx].append(g)
+        return packs
+
+    def _pack_limit(self, padded: int, max_rows: int) -> int:
+        """Row cap for packs of ``padded``-token grants: ``max_rows`` (the
+        reference's answer without a cost model)."""
+        return max_rows
 
     def pick_victim(self, running: Sequence[int], protect: Sequence[int] = ()
                     ) -> Optional[int]:

@@ -1,6 +1,7 @@
 """The parameter bridge, the port's isolation from JAX and from the JAX
 package, its device rule (CUDA unless the CPU is asked for), the settings
-outside its slice, and the launcher end to end on the CPU."""
+outside its slice, the reference's default serving features, and the
+launcher end to end on the CPU."""
 import dataclasses
 import os
 import re
@@ -108,9 +109,6 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
 
 
 @pytest.mark.parametrize("setting,item", [
-    (dict(prefix_sharing=True), "item 8"),
-    (dict(prefill_batching=True), "item 8"),
-    (dict(spec_k=2), "item 8"),
     (dict(disagg=True), "item 9"),
     (dict(cost_table="auto"), "item 9"),
     (dict(cost_model=object()), "item 9"),
@@ -122,6 +120,34 @@ def test_settings_outside_the_slice_raise(setting, item):
     # tensor parallelism is in the slice: the mesh is a launch.mesh.TPGroup
     with pytest.raises(TypeError, match="TPGroup"):
         PagedEngine(_config(), params, device="cpu", mesh=object())
+
+
+@pytest.mark.parametrize("setting", [
+    dict(prefix_sharing=True), dict(prefill_batching=True), dict(spec_k=2),
+    dict(prefix_sharing=True, prefill_batching=True, spec_k=3)],
+    ids=["prefix_sharing", "prefill_batching", "spec_k", "all"])
+def test_serving_features_construct_and_serve(setting):
+    """The reference's default serving features run in the port: the engine
+    takes each and serves two greedy requests with a common prompt head."""
+    from repro_torch.serving import Request
+    from repro_torch.serving.requests import SamplingParams
+    params = api.init_params(0, TINY, dtype=torch.float32, device="cpu")
+    eng = PagedEngine(_config(max_len=80, **setting), params, device="cpu")
+    rng = np.random.default_rng(0)
+    head = rng.integers(2, 64, 20).astype(np.int32)
+    rids = [eng.add_request(Request(
+        prompt=np.concatenate([head, rng.integers(2, 64, n)]).astype(
+            np.int32), sampling=SamplingParams(max_new_tokens=6, eos_id=-1)))
+        for n in (3, 5)]
+    outs = eng.run_until_complete()
+    assert [len(outs[r]) for r in rids] == [6, 6]
+    assert eng.alloc.free_pages == eng.alloc.num_pages
+    m = eng.metrics
+    assert (m["prefix_shared_tokens"] > 0) == eng.sv.prefix_sharing
+    # packed closures are keyed (bucket, rows, all_fresh)
+    assert all(len(k) == (3 if eng.sv.prefill_batching else 2)
+               for k in eng._prefill_fns)
+    assert (m["spec_calls"] > 0) == bool(eng.sv.spec_k)
 
 
 def test_qwen3_8b_config_and_full_size_shapes():

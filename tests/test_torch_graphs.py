@@ -7,8 +7,9 @@ the CPU the same bodies run eagerly over the same static buffers, so these
 tests run the code the card replays:
 
   * on mixed traffic (resumed grants, forced and automatic split-KV, the
-    batch-split fallback, bucketing off) the closure keys, the compile count
-    and its bound equal the reference's ``_prefill_fns`` / ``_decode_fns`` /
+    batch-split fallback, bucketing off, packed grants with prefix sharing,
+    speculative verify windows) the closure keys, the compile count and its
+    bound equal the reference's ``_prefill_fns`` / ``_decode_fns`` /
     ``_decode_fallback_fns``, ``prefill_compile_count`` and
     ``max_prefill_compiles`` (tests/test_compile_guard.py), with equal
     greedy tokens;
@@ -16,7 +17,11 @@ tests run the code the card replays:
     steps at different lengths give logits and page pools EQUAL to direct
     ``api.prefill`` / ``api.decode_step`` calls with int offsets (live
     pages; the scratch page takes pad tails);
-  * the bodies read no tensor back to the host (no ``.item()``, ``int()``,
+  * a pack of grants through one (bucket, rows, all_fresh) closure, a pad
+    row among them, equals a direct ``api.prefill`` of the same rows, and
+    the copy-on-write page copy is one closure copying in place;
+  * the bodies (batch-1 and packed prefill, decode, a verify window, the
+    page copy) read no tensor back to the host (no ``.item()``, ``int()``,
     ``.cpu()``, ...), which a CUDA graph could not replay;
   * a second trace on the same engine reuses its closures and gives a fresh
     engine's tokens."""
@@ -74,7 +79,16 @@ TRACES = [
     # the batch drains to one request: the sequential fallback closure
     ("batch_split", (9, 33, 41), 4, dict(decode_schedule="batch_split")),
     ("unbucketed", (9, 17, 33), 3, dict(grant_bucketing=False)),
+    # the reference's defaults: packed grants (length bucket, row bucket,
+    # all-fresh) and prefix sharing, then with a verify window (K, S)
+    ("packed_shared", (7, 9, 17, 33, 41, 70), 3,
+     dict(prefill_batching=True, prefix_sharing=True)),
+    ("packed_spec", (9, 17, 33, 41), 6,
+     dict(prefill_batching=True, prefix_sharing=True, spec_k=2)),
+    ("spec_batch1", (9, 17, 33), 6, dict(spec_k=3)),
 ]
+# the packed_shared trace's last two prompts open with the first's 24 tokens
+SHARED = {"packed_shared": 24, "packed_spec": 16}
 
 
 @pytest.fixture(scope="module")
@@ -85,9 +99,16 @@ def weights():
     return ref, bridge.from_reference(host, device="cpu")
 
 
-def _prompts(lengths, seed=0):
+def _prompts(lengths, seed=0, shared=0):
+    """Random prompts; with ``shared``, the last two open with the first
+    ``shared`` tokens of the longest."""
     rng = np.random.default_rng(seed)
-    return [rng.integers(2, 64, n).astype(np.int32) for n in lengths]
+    prompts = [rng.integers(2, 64, n).astype(np.int32) for n in lengths]
+    if shared:
+        head = max(prompts, key=len)[:shared]
+        for p in prompts[-2:]:
+            p[:min(shared, len(p) - 1)] = head[:min(shared, len(p) - 1)]
+    return prompts
 
 
 def _port_engine(params, **sv):
@@ -108,7 +129,7 @@ def _serve(eng, prompts, new, request=Request, sampling=SamplingParams):
                          ids=[t[0] for t in TRACES])
 def test_closure_keys_equal_reference(weights, name, lengths, new, sv):
     ref_params, params = weights
-    prompts = _prompts(lengths)
+    prompts = _prompts(lengths, shared=SHARED.get(name, 0))
     ref = RPagedEngine(RConfig(model=REF_CFG,
                                parallel=RParallel(data=1, model=1),
                                iso=REF_ISO,
@@ -117,8 +138,14 @@ def test_closure_keys_equal_reference(weights, name, lengths, new, sv):
     want = _serve(ref, prompts, new, RRequest, RSampling)
     eng = _port_engine(params, **sv)
     assert _serve(eng, prompts, new) == want
-    # the reference keys prefill (n_text, n_patches, resumed); text only
-    assert set(eng._prefill_fns) == {(n, r) for n, p, r in ref._prefill_fns}
+    if sv.get("prefill_batching"):
+        # packed: (n_text, rows, all_fresh), the reference's own key
+        assert set(eng._prefill_fns) == set(ref._prefill_fns)
+        assert any(rows > 1 for _, rows, _ in eng._prefill_fns)
+    else:
+        # batch-1: the reference keys (n_text, n_patches, resumed)
+        assert set(eng._prefill_fns) == {(n, r)
+                                         for n, p, r in ref._prefill_fns}
     assert set(eng._decode_fns) == set(ref._decode_fns)
     assert set(eng._decode_fallback_fns) == set(ref._decode_fallback_fns)
     assert eng.prefill_compile_count() == ref.prefill_compile_count()
@@ -130,6 +157,14 @@ def test_closure_keys_equal_reference(weights, name, lengths, new, sv):
         assert eng.prefill_compile_count() <= bound
     assert sum(eng.decode_splits.values()) == eng.metrics["decode_calls"]
     assert eng.metrics["resumed_grants"] > 0 or name == "unbucketed"
+    for k in ("prefill_calls", "prefill_pad_rows", "prefix_shared_tokens",
+              "cow_copies", "spec_calls", "spec_tokens"):
+        assert eng.metrics[k] == ref.metrics[k], k
+    if name in SHARED:
+        assert eng.metrics["prefix_shared_tokens"] > 0
+    if sv.get("spec_k"):
+        assert eng.metrics["spec_calls"] > 0
+        assert (sv["spec_k"] + 1, 1) in eng._decode_fns
     if name == "splits2":
         assert set(eng.decode_splits) == {2}
     if name == "batch_split":
@@ -218,6 +253,79 @@ def test_prefill_closure_equals_direct_calls(weights, resumed):
     assert eng._get_prefill(16, resumed) is fn
 
 
+@pytest.mark.parametrize("all_fresh", [False, True],
+                         ids=["resumed", "all_fresh"])
+def test_packed_closure_equals_direct_call(weights, all_fresh):
+    """Two packs of one (16, 3, all_fresh) closure, each with a pad row,
+    against a direct ``api.prefill`` of the same rows with the KV scattered
+    row by row in Python: logits and every live page equal (the pad row
+    writes only to the scratch page)."""
+    _, params = weights
+    eng = _filled_engine(params, seed=3)
+    rng = np.random.default_rng(3)
+    fn = eng._get_prefill_batched(16, 3, all_fresh)
+    for rows in (GRANTS[:2], GRANTS[1:]):
+        toks = np.zeros((3, 16), np.int32)
+        bt = np.full((3, 8), -1, np.int32)
+        starts = np.zeros(3, np.int32)
+        n_reals = np.zeros(3, np.int32)
+        for r, (start, n_real, row) in enumerate(rows):
+            toks[r, :n_real] = rng.integers(2, 64, n_real)
+            bt[r] = row
+            starts[r] = 0 if all_fresh else start
+            n_reals[r] = n_real
+        saved = _pools(eng)
+        fn.stage(tokens=toks, bt=bt, starts=starts, n_reals=n_reals)
+        got = fn().clone()
+        got_pools = _pools(eng)
+        _restore(eng, saved)
+        st = torch.from_numpy(starts)
+        out = api.prefill(
+            params, PORT_CFG, AxisCtx(), PORT_ISO,
+            {"tokens": torch.from_numpy(toks)}, logits_mode="none",
+            prefix_caches=None if all_fresh else eng._paged_prefix(),
+            pos_offset=st,
+            block_tables=None if all_fresh else torch.from_numpy(bt),
+            prefix_lens=None if all_fresh else st,
+            valid_len=torch.from_numpy(n_reals), return_extras=True)
+        h = torch.stack([out["hidden"][r, max(int(n) - 1, 0)]
+                         for r, n in enumerate(n_reals)])
+        want = emb_lib.lm_head_local(params["embed"], h[:, None])[:, 0]
+        for kv_i, i in enumerate(eng.kv.kv_positions):
+            ex = out["extras"][i]
+            for r in range(2):
+                for t in range(int(n_reals[r])):
+                    pos = int(starts[r]) + t
+                    page, off = int(bt[r, pos // eng.ps]), pos % eng.ps
+                    eng.kv.k[kv_i][:, page, off] = ex["kv_k"][:, r, t]
+                    eng.kv.v[kv_i][:, page, off] = ex["kv_v"][:, r, t]
+        assert torch.equal(got, want)
+        for g, w in zip(_live(got_pools, eng), _live(_pools(eng), eng)):
+            assert torch.equal(g, w)
+    assert eng._get_prefill_batched(16, 3, all_fresh) is fn
+
+
+def test_copy_page_closure_copies_in_place(weights):
+    """Copy-on-write's page copy: one closure for every (old, new) pair,
+    each call copying one page in every period's k and v pool in place (the
+    pools keep their storage, which captured graphs point at)."""
+    _, params = weights
+    eng = _filled_engine(params, seed=5)
+    ptrs = [p.data_ptr() for p in eng.kv.k + eng.kv.v]
+    want = _pools(eng)
+    fn = None
+    for old, new in ((3, 7), (7, 11), (0, 2)):
+        eng._copy_page(old, new)
+        fn = fn or eng._copy_page_fn
+        assert eng._copy_page_fn is fn
+        for w in want:
+            w[:, new] = w[:, old]
+        for g, w in zip(_pools(eng), want):
+            assert torch.equal(g, w)
+    assert [p.data_ptr() for p in eng.kv.k + eng.kv.v] == ptrs
+    assert eng.metrics["cow_copies"] == 3
+
+
 # (tokens, lengths, decode mask) of decode steps at max_batch 3
 STEPS = [([[5], [9], [0]], [20, 9, 0], [True, True, False]),
          ([[17], [3], [44]], [33, 0, 47], [True, False, True])]
@@ -269,13 +377,34 @@ class _NoHostReads(TorchFunctionMode):
 
 
 @pytest.mark.parametrize("which", ["fresh", "resumed", "decode",
-                                   "decode_split", "batch_split"])
+                                   "decode_split", "batch_split", "packed",
+                                   "packed_fresh", "verify", "copy_page"])
 def test_closure_bodies_read_nothing_back(weights, which):
     _, params = weights
     sv = dict(decode_schedule="batch_split") if which == "batch_split" \
         else {}
     eng = _port_engine(params, max_len=64, max_batch=3, **sv)
-    if which in ("fresh", "resumed"):
+    if which == "copy_page":
+        eng._copy_page(3, 5)                  # builds the closure
+        fn = eng._copy_page_fn
+        fn.stage(old=5, new=9)
+        with _NoHostReads():
+            fn()
+        assert torch.equal(eng.kv.k[0][:, 9], eng.kv.k[0][:, 5])
+        return
+    if which in ("packed", "packed_fresh"):
+        fn = eng._get_prefill_batched(16, 3, which == "packed_fresh")
+        fn.stage(tokens=np.ones((3, 16), np.int32),
+                 bt=np.asarray([row for _, _, row in GRANTS], np.int32),
+                 starts=np.asarray([0 if which == "packed_fresh" else s
+                                    for s, _, _ in GRANTS], np.int32),
+                 n_reals=np.asarray([13, 0, 9], np.int32))
+    elif which == "verify":
+        fn = eng._get_decode(3, 2)
+        toks, lens, mask = STEPS[0]
+        fn.stage(toks=np.tile(np.asarray(toks), (1, 3)),
+                 lengths=np.asarray(lens), bt=TABLES, mask=np.asarray(mask))
+    elif which in ("fresh", "resumed"):
         start, n_real, row = GRANTS[0]
         fn = eng._get_prefill(16, which == "resumed")
         fn.stage(tokens=np.ones((1, 16), np.int32),
@@ -304,6 +433,36 @@ def test_second_trace_reuses_closures(weights):
     assert {**eng._prefill_fns, **{("d",) + k: f for k, f in
                                    eng._decode_fns.items()}} == fns
     assert eng.alloc.free_pages == eng.alloc.num_pages
+
+
+def test_dropped_engine_is_freed_without_the_cycle_collector(weights):
+    """Closure bodies hold the engine's params and pools, not the engine:
+    with every closure kind built (packed and batch-1 prefill, decode and
+    the page copy), dropping the last reference frees the engine, so its
+    pools and graphs go with it, with the cycle collector off."""
+    import gc
+    import weakref
+    _, params = weights
+    engines = [_port_engine(params, prefill_batching=True,
+                            prefix_sharing=True, spec_k=2,
+                            prefill_token_budget=64),
+               _port_engine(params)]
+    # two identical prompts share a partial last page: a copy on write
+    prompts = _prompts((37,), seed=5)
+    prompts.append(prompts[0].copy())
+    for eng in engines:
+        _serve(eng, prompts, 4)
+    assert engines[0]._copy_page_fn is not None
+    assert any(len(k) == 3 for k in engines[0]._prefill_fns)
+    assert any(len(k) == 2 for k in engines[1]._prefill_fns)
+    refs = [weakref.ref(e) for e in engines]
+    pools = [weakref.ref(e.kv.k[0]) for e in engines]
+    gc.disable()
+    try:
+        del eng, engines
+        assert [r() for r in refs + pools] == [None] * 4
+    finally:
+        gc.enable()
 
 
 def test_uncaptured_graphed_closure_raises():

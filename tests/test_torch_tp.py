@@ -12,7 +12,9 @@ ranks on the CPU (``launch/mesh.spawn``), at the ``tiny_dense`` size in fp32.
     the sequential, batch-split and cross-block decode schedules, with
     resumed grants, split-KV decode and a batch draining to one request:
     greedy tokens EQUAL to the reference ``PagedEngine(mesh=None)`` on the
-    same (tp=1) model, and equal on every rank.
+    same (tp=1) model, and equal on every rank;
+  * at tp=2, packed grants, prefix sharing and a spec_k=2 verify window
+    together give the tp=1 port engine's tokens and counters.
 
 One spawn per tp degree runs every rank-side case: the parent writes the
 reference's tp=N params to ``tmp_path`` as ``.npz``; the ranks load and
@@ -80,9 +82,30 @@ def _prompts(lengths, seed):
     return [rng.integers(2, 64, n).astype(np.int32) for n in lengths]
 
 
-def _variants():
+# the reference's default serving features together at tp=2: packed
+# grants, prefix sharing (two prompts open with a 24-token head) and a
+# spec_k=2 verify window, under the default batch-split schedule
+FEATURES = dict(prefill_token_budget=64, page_size=8, max_len=160,
+                max_batch=4, prefix_sharing=True, prefill_batching=True,
+                spec_k=2)
+
+
+def _feature_prompts():
+    rng = np.random.default_rng(5)
+    head = rng.integers(2, 64, 24).astype(np.int32)
+    rep = np.tile(rng.integers(2, 64, 6).astype(np.int32), 6)[:33]
+    return [rep, np.concatenate([head, rng.integers(2, 64, 9)]).astype(
+        np.int32), np.concatenate([head, rng.integers(2, 64, 4)]).astype(
+        np.int32), rng.integers(2, 64, 17).astype(np.int32)]
+
+
+def _variants(tp):
     """Rank-side engine runs, keyed by (case, schedule, quantized)."""
     keys, variants = [], []
+    if tp == 2:
+        keys.append(("features", "auto", False))
+        variants.append(dict(prompts=_feature_prompts(), max_new=8,
+                             serving=dict(FEATURES)))
     for name, lengths, seed, new, sv in CASES:
         for sched in SCHEDULES:
             keys.append((name, sched, False))
@@ -121,7 +144,7 @@ def tp_runs(tmp_path_factory):
                                     dtype=jnp.float32)
             path = tmp_path_factory.mktemp(f"tp{tp}") / "params.npz"
             bridge.save_npz(path, jax.tree_util.tree_map(np.asarray, ref))
-            keys, variants = _variants()
+            keys, variants = _variants(tp)
             config = Config(model=PORT_CFG,
                             parallel=ParallelConfig(data=1, model=tp),
                             iso=PORT_ISO,
@@ -423,6 +446,49 @@ def test_tp_engine_quantized_comm_runs_on_every_rank(tp_runs, tp):
     assert all(len(t) == CASES[0][3] for t in runs[0]["tokens"])
     assert all(run["tokens"] == runs[0]["tokens"] for run in runs)
     assert runs[0]["rows_checked"] == len(CASES[0][1]) * CASES[0][3]
+
+
+def test_tp2_serving_features_equal_tp1(tp_runs):
+    """Packed grants, prefix sharing and speculation together at tp=2 give
+    the tp=1 port engine's tokens and counters on every rank, and that tp=1
+    run gives the reference engine's."""
+    from repro_torch.serving import PagedEngine, Request
+    from repro_torch.serving.requests import SamplingParams
+    results, keys = tp_runs(2)
+    idx = keys.index(("features", "auto", False))
+    runs = [results[r]["serve"][idx] for r in range(2)]
+    ref = r_api.init_params(jax.random.PRNGKey(0), REF_CFG, tp=1,
+                            dtype=jnp.float32)
+    r_eng = RPagedEngine(RConfig(model=REF_CFG,
+                                 parallel=RParallel(data=1, model=1),
+                                 iso=REF_ISO, serving=RServing(**FEATURES)),
+                         ref)
+    r_rids = [r_eng.add_request(RRequest(prompt=p.copy(), sampling=RSampling(
+        max_new_tokens=8, eos_id=-1))) for p in _feature_prompts()]
+    r_out = r_eng.run_until_complete()
+    eng = PagedEngine(Config(model=PORT_CFG,
+                             parallel=ParallelConfig(data=1, model=1),
+                             iso=PORT_ISO, serving=ServingConfig(**FEATURES)),
+                      bridge.from_reference(
+                          jax.tree_util.tree_map(np.asarray, ref),
+                          device="cpu"), device="cpu")
+    rids = [eng.add_request(Request(prompt=p.copy(), sampling=SamplingParams(
+        max_new_tokens=8, eos_id=-1))) for p in _feature_prompts()]
+    out = eng.run_until_complete()
+    want = [out[r] for r in rids]
+    assert want == [r_out[r] for r in r_rids]
+    for k in ("prefill_calls", "prefill_pad_rows", "prefix_shared_tokens",
+              "cow_copies", "spec_calls", "spec_tokens", "decode_calls"):
+        assert eng.metrics[k] == r_eng.metrics[k], k
+    for run in runs:
+        assert run["tokens"] == want
+        assert run["decode_schedule"] == "batch_split"
+    m = runs[0]["metrics"]
+    for k in ("prefill_calls", "prefill_pad_rows", "prefix_shared_tokens",
+              "cow_copies", "spec_calls", "spec_tokens", "decode_calls"):
+        assert m[k] == eng.metrics[k], k
+    assert m["prefix_shared_tokens"] > 0 and m["spec_calls"] > 0
+    assert m["prefill_calls"] < m["prefill_grants"]
 
 
 def test_serve_launcher_tp2_on_cpu(capsys):
