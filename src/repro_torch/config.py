@@ -218,7 +218,11 @@ def register(name: str):
 
 
 def get_model_config(name: str) -> ModelConfig:
-    import repro_torch.configs  # noqa: F401  (populates the registry)
+    from repro_torch.configs import UNPORTED  # populates the registry
+    if name in UNPORTED:
+        raise NotImplementedError(
+            f"arch {name!r} is registered by the reference but not served by "
+            f"the port yet: ROADMAP queue A item {UNPORTED[name]}")
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[name]()

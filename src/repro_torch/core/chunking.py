@@ -1,15 +1,19 @@
 """Sequence-split policies (copy of ``repro/core/chunking.py``).
 
-All splits are static Python ints.  Policies: ``even`` (the paper's default
-and the port's slice), ``asymmetric``, ``adaptive`` and, not yet ported,
-``auto``.  Multi-chunk splits generalise any policy to num_chunks > 2.
+All splits are static Python ints.  Policies: ``even`` (the paper's
+default), ``asymmetric``, ``adaptive`` and ``auto``, which picks the split
+that minimises the simulated ISO pipeline time under ``perf/model.py`` on a
+hardware profile (default ``"h100"``).  Multi-chunk splits generalise any
+policy to num_chunks > 2.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Sequence, Tuple
 
 from repro_torch.config import ISOConfig, ModelConfig
+from repro_torch.perf.model import DEFAULT_HW, simulate_iso_fractions
 
 
 def _round_to(x: int, m: int) -> int:
@@ -60,6 +64,32 @@ def adaptive_split(seq_len: int, n: int, cfg: ModelConfig, align: int = 128
     return _normalize(lengths, seq_len, align)
 
 
+@functools.lru_cache(maxsize=1024)
+def auto_split(seq_len: int, n: int, cfg: ModelConfig,
+               hw_name: str = DEFAULT_HW, tp: int = 1, align: int = 128
+               ) -> Tuple[int, ...]:
+    """Search fractions minimising the simulated ISO pipeline time.  The
+    first candidate of least time wins: at tp=1 the pipeline has no
+    communication and every candidate costs the same in exact arithmetic,
+    so floating-point rounding decides, as in the reference.  Cached: one
+    search simulates every layer of the model for each of nine candidates
+    (0.1-0.6 s for the dense configs on a CPU), and the engine asks at every
+    admission and eager prefill call, where the reference's jit asks once
+    per shape."""
+    best, best_t = even_split(seq_len, n, align), float("inf")
+    if n != 2:
+        cands = [even_split(seq_len, n, align), adaptive_split(seq_len, n, cfg, align)]
+    else:
+        cands = [fraction_split(seq_len, (f, 1 - f), align)
+                 for f in (0.35, 0.4, 0.45, 0.5, 0.55, 0.6, 0.65, 0.7)]
+        cands.append(adaptive_split(seq_len, 2, cfg, align))
+    for c in cands:
+        t = simulate_iso_fractions(cfg, c, hw_name=hw_name, tp=tp)
+        if t < best_t:
+            best, best_t = c, t
+    return best
+
+
 def grant_buckets(max_tokens: int, min_bucket: int = 16,
                   explicit: Sequence[int] = ()) -> Tuple[int, ...]:
     """Grant-size buckets: powers of two from ``min_bucket``, the top bucket
@@ -90,13 +120,15 @@ def round_to_bucket(n: int, buckets: Sequence[int]) -> int:
 
 
 def split_chunks(seq_len: int, iso: ISOConfig, cfg: ModelConfig, *,
-                 align: int = 0, tp: int = 1, hw_name: str = "v5e"
+                 align: int = 0, tp: int = 1, hw_name: str = DEFAULT_HW
                  ) -> Tuple[int, ...]:
     """Main entry: chunk lengths for a prefill of ``seq_len`` tokens.
 
-    ``hw_name`` defaults to the reference's ``"v5e"``, a TPU profile of its
-    performance model; the ``auto`` policy that reads it is not ported
-    (ROADMAP queue A item 11 gives the port an H100 profile first)."""
+    ``tp`` and ``hw_name`` reach only the ``auto`` policy: the tensor-
+    parallel degree and the ``perf/model.HW_PROFILES`` entry it simulates.
+    The reference defaults to tp=16 on its TPU profile; the port to tp=1 on
+    ``"h100"``, and the engine passes its own tp to both its scheduler and
+    its decoder, so under ``auto`` they cut the same chunks."""
     if (not iso.enabled or iso.num_chunks <= 1
             or seq_len < iso.min_chunk_tokens * iso.num_chunks):
         return (seq_len,)
@@ -112,7 +144,5 @@ def split_chunks(seq_len: int, iso: ISOConfig, cfg: ModelConfig, *,
     if iso.split_policy == "adaptive":
         return adaptive_split(seq_len, n, cfg, align)
     if iso.split_policy == "auto":
-        raise NotImplementedError(
-            "split_policy='auto' needs the performance model with an H100 "
-            "profile: ROADMAP queue A item 11")
+        return auto_split(seq_len, n, cfg, hw_name=hw_name, tp=tp, align=align)
     raise ValueError(f"unknown split policy {iso.split_policy!r}")

@@ -1,6 +1,9 @@
 """Serving launcher of the port:
 ``python -m repro_torch.launch.serve --arch qwen3-8b --preset full --paged
-[--tp N]``.
+[--tp N]``.  ``--arch`` takes every dense config the port registers
+(``configs.DENSE``: qwen3-4b/8b/32b, codeqwen1.5-7b, paper-30b, paper-70b);
+``--preset full`` serves it at its published widths (paper-30b fits one
+H100; paper-70b needs several cards), ``--preset tiny`` a reduced twin.
 
 Builds random weights from a seed on the device, submits a batch of
 synthetic greedy requests to the paged engine and reports prefill and decode

@@ -346,7 +346,8 @@ class PagedEngine:
                              f"ServingConfig.num_pages)")
         st = RequestState(request=req, slot=-1, t_submit=time.perf_counter())
         st.prompt_len = eff
-        st.chunk_plan = plan_chunks(eff, self.config.iso, self.cfg)
+        st.chunk_plan = plan_chunks(eff, self.config.iso, self.cfg,
+                                    tp=self.tp)
         self._by_rid[req.rid] = st
         self.scheduler.add(req.rid, priority=req.priority)
         return req.rid
@@ -441,7 +442,7 @@ class PagedEngine:
         # decode left off
         st.prefilled = 0
         st.chunk_plan = plan_chunks(st.prompt_len + len(st.generated),
-                                    self.config.iso, self.cfg)
+                                    self.config.iso, self.cfg, tp=self.tp)
         self.scheduler.requeue_front(victim)
         self.metrics["preemptions"] += 1
         return True

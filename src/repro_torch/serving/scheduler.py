@@ -34,11 +34,16 @@ class PrefillGrant:
 
 
 def plan_chunks(prompt_len: int, iso: ISOConfig, cfg: ModelConfig,
-                whole: bool = False) -> Tuple[int, ...]:
-    """ISO chunk boundaries for a prompt: the scheduling quanta."""
+                whole: bool = False, *, tp: int = 1) -> Tuple[int, ...]:
+    """ISO chunk boundaries for a prompt: the scheduling quanta.  ``tp`` is
+    the engine's, the one its decoder splits each grant with (both on the
+    default profile), so under ``split_policy="auto"`` the quanta are the
+    chunks the decoder would cut the same length into.  (The reference
+    calls ``split_chunks`` here with its defaults, tp=16 on a TPU profile,
+    while its decoder passes the mesh's tp.)"""
     if whole:
         return (prompt_len,)
-    return split_chunks(prompt_len, iso, cfg)
+    return split_chunks(prompt_len, iso, cfg, tp=tp)
 
 
 class TokenBudgetScheduler:

@@ -501,3 +501,133 @@ def test_serve_launcher_tp2_on_cpu(capsys):
     out = capsys.readouterr().out
     assert "tp=2" in out and "decode_schedule=batch_split" in out
     assert "completed=3" in out and "resumed=" in out
+
+
+# ---------------------------------------------------------------------------
+# an MHA twin at tp=4: 6 kv heads in 8 slots, two of them zero pad
+# ---------------------------------------------------------------------------
+
+MHA_CFG = tiny_dense(d_model=96, num_heads=6, num_kv_heads=6, qk_norm=False,
+                     rope_theta=1e4, vocab_size=64)
+MHA_PORT_CFG = ModelConfig(**{f: getattr(MHA_CFG, f) for f in (
+    "name", "family", "num_layers", "d_model", "num_heads", "num_kv_heads",
+    "d_ff", "vocab_size", "qk_norm", "rope_theta")})
+
+
+def _mha_rank_job(group, params_npz, config, variants):
+    """Serve each variant, recording every ISO split the scheduler and the
+    decoder ask for in it: (site, length, tp, chunks)."""
+    from repro_torch.models import decoder as dec
+    from repro_torch.serving import scheduler
+    calls = []
+
+    def recorder(site, fn):
+        def split(S, iso_c, cfg, **kw):
+            out = fn(S, iso_c, cfg, **kw)
+            calls[-1].append((site, S, kw.get("tp"), out))
+            return out
+        return split
+
+    sched_split, dec_split = scheduler.split_chunks, dec.split_chunks
+    scheduler.split_chunks = recorder("scheduler", sched_split)
+    dec.split_chunks = recorder("decoder", dec_split)
+    serve = []
+    try:
+        for v in variants:
+            calls.append([])
+            serve += serve_rank(group, config, [v], params_npz=params_npz)
+    finally:
+        scheduler.split_chunks, dec.split_chunks = sched_split, dec_split
+    return dict(serve=serve, calls=calls)
+
+
+@pytest.fixture(scope="module")
+def mha_tp4(tmp_path_factory):
+    """Rank results of the MHA twin at tp=4: the mixed traffic under the
+    default (batch-split) schedule with the even split and with the
+    ``auto`` split, then two prompts each granted whole at a length that is
+    its own bucket (64 and 32 tokens, budget 64) under ``auto``."""
+    from repro_torch.layers.heads import head_layout
+    layout = head_layout(6, 6, 4)
+    assert (layout.hkv_eff, sum(h < 0 for h in layout.kv_map)) == (8, 2)
+    ref = r_api.init_params(jax.random.PRNGKey(0), MHA_CFG, tp=4,
+                            dtype=jnp.float32)
+    path = tmp_path_factory.mktemp("mha_tp4") / "params.npz"
+    bridge.save_npz(path, jax.tree_util.tree_map(np.asarray, ref))
+    name, lengths, seed, new, sv = CASES[0]
+    auto = dict(split_policy="auto")
+    variants = [dict(prompts=_prompts(lengths, seed), max_new=new,
+                     serving=dict(sv)),
+                dict(prompts=_prompts(lengths, seed), max_new=new,
+                     serving=dict(sv), iso=auto),
+                dict(prompts=_prompts((64, 32), 4), max_new=3,
+                     serving=dict(sv, prefill_token_budget=64), iso=auto)]
+    config = Config(model=MHA_PORT_CFG,
+                    parallel=ParallelConfig(data=1, model=4), iso=PORT_ISO,
+                    serving=ServingConfig(prefix_sharing=False,
+                                          prefill_batching=False))
+    return mesh.spawn(_mha_rank_job, 4, args=(str(path), config, variants),
+                      device="cpu", timeout_s=300)
+
+
+def test_mha_tp4_padded_kv_slots_tokens_equal(mha_tp4):
+    """6 kv heads over 4 ranks (two zero pad slots): the tp=4 ranks, the
+    tp=1 port engine and the JAX engine give the same greedy tokens, under
+    the even split and under ``auto`` (ISO invariance)."""
+    from repro_torch.serving import PagedEngine, Request
+    from repro_torch.serving.requests import SamplingParams
+    name, lengths, seed, new, sv = CASES[0]
+    prompts = _prompts(lengths, seed)
+    ref = r_api.init_params(jax.random.PRNGKey(0), MHA_CFG, tp=1,
+                            dtype=jnp.float32)
+    r_eng = RPagedEngine(RConfig(model=MHA_CFG,
+                                 parallel=RParallel(data=1, model=1),
+                                 iso=REF_ISO,
+                                 serving=RServing(prefix_sharing=False,
+                                                  prefill_batching=False,
+                                                  **sv)), ref)
+    r_rids = [r_eng.add_request(RRequest(prompt=p.copy(), sampling=RSampling(
+        max_new_tokens=new, eos_id=-1))) for p in prompts]
+    r_out = r_eng.run_until_complete()
+    want = [r_out[r] for r in r_rids]
+    eng = PagedEngine(Config(model=MHA_PORT_CFG,
+                             parallel=ParallelConfig(data=1, model=1),
+                             iso=PORT_ISO,
+                             serving=ServingConfig(prefix_sharing=False,
+                                                   prefill_batching=False,
+                                                   **sv)),
+                      bridge.from_reference(
+                          jax.tree_util.tree_map(np.asarray, ref),
+                          device="cpu"), device="cpu")
+    rids = [eng.add_request(Request(prompt=p.copy(), sampling=SamplingParams(
+        max_new_tokens=new, eos_id=-1))) for p in prompts]
+    out = eng.run_until_complete()
+    assert [out[r] for r in rids] == want
+    for rank in mha_tp4:
+        for run in rank["serve"][:2]:
+            assert run["tokens"] == want
+            assert run["decode_schedule"] == "batch_split"
+        assert rank["serve"][2]["tokens"] == mha_tp4[0]["serve"][2]["tokens"]
+    even = mha_tp4[0]["serve"][0]["metrics"]
+    for k in ("prefill_calls", "prefill_grants", "resumed_grants",
+              "decode_calls", "prefill_pad_tokens"):
+        assert even[k] == r_eng.metrics[k], k
+
+
+def test_auto_split_plans_at_the_engines_tp(mha_tp4):
+    """Under ``auto`` the scheduler's quanta and the decoder's chunks both
+    come from the engine's tp (4): a prompt granted whole at a length that
+    is its own bucket is cut into the same chunks at both sites, and those
+    are ``split_chunks`` at tp=4 (the reference's scheduler splits at its
+    default tp=16)."""
+    from repro_torch.core.chunking import split_chunks
+    iso_auto = ISOConfig(**{**PORT_ISO.__dict__, "split_policy": "auto"})
+    for rank in mha_tp4:
+        for calls in rank["calls"]:
+            assert all(tp == 4 for _, _, tp, _ in calls), calls
+        calls = rank["calls"][2]
+        plans = {(site, S): chunks for site, S, _, chunks in calls}
+        for S in (64, 32):
+            want = split_chunks(S, iso_auto, MHA_PORT_CFG, tp=4)
+            assert len(want) == 2
+            assert plans[("scheduler", S)] == plans[("decoder", S)] == want
