@@ -168,6 +168,32 @@ Phases, each fatal on failure:
                and one rank's (2048, 6144); ``quantize_int8`` at (2048,
                4096).  Each call is held against its plain version; the four
                kernels must have launched.
+  8. obs       observability and the measured cost model on qwen3-8b at
+               full width and depth, bf16, tp=1, graphed, at the defaults
+               pass's settings, run last in phase 3 (its profiler window
+               leaves a host cost on later replays): (a)
+               ``autotune(smoke=True)``, its table valid, its seconds and
+               points printed; (b) the defaults pass with
+               ``cost_table="auto"``, which must load the bundled
+               ``perf/tables/h100_tp1.json`` with no warning, beside a
+               static defaults engine made in this phase: decisions by
+               point, verify calls, steps by S, decode ms/step and prefill
+               tok/s, the bf16 tokens against the static pass's printed
+               (the gate is phase 3's fp32 2-layer pass, where the modeled
+               engine must give the static defaults engine's tokens); (c)
+               on each graphed timed pass, replaying the trace must give
+               the registry's counters and conserve the pool; the auto
+               pass's Chrome trace is written under ``build/`` and must
+               validate; the host time inside the ring's emit, and decode
+               ms/step with the ring on and off in turns, tokens unchanged;
+               (d) a short ``obs.torchprof``
+               window: one host range named as the reference names it for
+               each closure call, and device kernels under every decode
+               range.  Phase 5 also holds the two ranks' traces equal once
+               timings are removed.
+
+Every pass resets its engine's registry and trace ring together
+(``reset_observability``), so a pass's trace replays into its registry.
 
 Each launch count in the kernel line is read from the run of the path that
 launches it, with the counts set to 0 just before: the attention kernels
@@ -1215,16 +1241,34 @@ def int8_reduce_cases(gen, hint):
 # phase 3: the main path at full width
 # ---------------------------------------------------------------------------
 
+def reset_observability(eng) -> None:
+    """Zero ``eng``'s registry (every counter, every gauge and its peak,
+    every histogram) and clear its trace ring, together, so that a pass's
+    trace and registry cover that pass alone and the one replays into the
+    other.  The package has no reset (nor has the reference's): this sets
+    the instruments themselves."""
+    snap = eng.registry.snapshot()
+    for name in list(eng.metrics):
+        eng.metrics[name] = 0
+        if name + "_peak" in snap:
+            eng.registry.gauge(name).peak = 0
+    for h in eng.registry.histograms.values():
+        h.counts = [0] * len(h.counts)
+        h.n, h.sum, h.min, h.max = 0, 0.0, math.inf, -math.inf
+    eng.trace.clear()
+
+
 def serve_pass(eng, prompts, label: str, card: str) -> dict:
-    """Serve ``prompts`` (32 greedy tokens each) on ``eng`` from zeroed
-    metrics and launch counts; check that every request completed, every
-    page came back and the attention kernels launched; print the pass."""
+    """Serve ``prompts`` (32 greedy tokens each) on ``eng`` from a zeroed
+    registry, an empty trace ring and zeroed launch counts; check that
+    every request completed, every page came back and the attention
+    kernels launched; print the pass."""
     import torch
     from repro_torch.kernels import native
-    from repro_torch.serving import Request, paged_engine
+    from repro_torch.serving import Request
     from repro_torch.serving.requests import SamplingParams
 
-    eng.metrics = dict.fromkeys(paged_engine.METRIC_KEYS, 0)
+    reset_observability(eng)
     eng.decode_splits = {}
     rids = [eng.add_request(Request(
         prompt=p.copy(), sampling=SamplingParams(max_new_tokens=32,
@@ -1568,7 +1612,12 @@ def serve_full(report, card: str):
     report["serve"] = dict(prefill_tok_s=m["prefill_tokens"] / m["prefill_s"],
                            decode_ms_step=1e3 * m["decode_s"]
                            / m["decode_calls"], peak_gib=peak[0])
-    del eng, params
+    del eng
+    free_cuda()
+    # phase 8 last: its torch.profiler window, like the idle share's, leaves
+    # a host cost on later replays
+    serve_observability(report, card, cfg, params, lengths)
+    del params
     free_cuda()
 
 
@@ -2022,7 +2071,11 @@ def serve_defaults_fp32(report, card: str, lengths,
     plain_sv = dataclasses.replace(sv, prefix_sharing=False,
                                    prefill_batching=False, spec_k=0)
     res = {}
-    for name, s in (("defaults", sv), ("plain", plain_sv)):
+    engines = [("defaults", sv), ("plain", plain_sv)]
+    if arch == "qwen3-8b":
+        # phase 8's gate: the measured cost model changes no token
+        engines.append(("auto", dataclasses.replace(sv, cost_table="auto")))
+    for name, s in engines:
         eng = PagedEngine(Config(model=cfg,
                                  parallel=ParallelConfig(data=1, model=1),
                                  iso=ISOConfig(), serving=s),
@@ -2031,8 +2084,17 @@ def serve_defaults_fp32(report, card: str, lengths,
             res[name] = serve_pass(eng, prompts, f"{tag} 2-layer {name} "
                                    f"eager", card)
         res[name]["rec"] = rec
+        res[name]["decisions"] = sorted(
+            {e.payload["point"] for e in eng.trace.events()
+             if e.kind == "decision"})
         if not rec.finite:
             raise AssertionError(f"[{tag}] {name}: non-finite logits")
+        if name == "auto" and (eng.cost_model is None or
+                               res[name]["tokens"] !=
+                               res["defaults"]["tokens"]):
+            raise AssertionError(f"[{tag}] cost_table='auto' (model "
+                                 f"{eng.cost_model}): tokens differ from "
+                                 f"the static defaults pass's")
         del eng
     del params
     free_cuda()
@@ -2049,10 +2111,259 @@ def serve_defaults_fp32(report, card: str, lengths,
         f"spec_calls {m['spec_calls']}, spec_tokens {m['spec_tokens']}, "
         f"B3 on packs {variants['paged_prefill/packed']} times, B1 on the "
         f"verify window {variants['paged_decode/verify']} times [{card}]")
+    if "auto" in res:
+        am = res["auto"]["m"]
+        log(f"[obs] (b) {tag} 2-layer with cost_table='auto': tokens == the "
+            f"static defaults pass's on {len(prompts)} of {len(prompts)} "
+            f"requests (decision points {res['auto']['decisions']}, verify "
+            f"calls {am['spec_calls']} against {m['spec_calls']})")
     report[f"{tag}_vs_plain"] = check_against_plain(
         tag, TOL["float32"], res["plain"], res["defaults"],
         res["plain"]["rec"], res["defaults"]["rec"], card,
         every_position=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 8: observability and the measured cost model
+# ---------------------------------------------------------------------------
+
+def trace_stream(events) -> list:
+    """A trace as (kind, rid, slot, payload) with its timings removed (the
+    ts and dur fields, and the ``us`` of a payload)."""
+    return [(e.kind, e.rid, e.slot,
+             {k: v for k, v in e.payload.items() if k != "us"})
+            for e in events]
+
+
+def check_replay(eng, label: str) -> dict:
+    """Gate: replaying ``eng``'s trace (nothing dropped) gives its
+    registry's replayable counters, and the allocator's narration conserves
+    the pool.  Returns the replayed counters."""
+    from repro_torch.obs import replay_counters
+    from repro_torch.obs.replay import REPLAYABLE
+    rc = replay_counters(eng.trace.events())
+    diff = {k: (rc[k], eng.metrics[k]) for k in REPLAYABLE
+            if rc[k] != eng.metrics[k]}
+    if eng.trace.dropped or diff or \
+            rc["pages_allocated"] - rc["pages_freed"] != eng.alloc.used_pages:
+        raise AssertionError(f"[obs] {label}: replay != registry {diff}, "
+                             f"dropped {eng.trace.dropped}, pages "
+                             f"{rc['pages_allocated']} - {rc['pages_freed']} "
+                             f"!= {eng.alloc.used_pages}")
+    return rc
+
+
+def profile_window(eng, prompts, card: str) -> None:
+    """Phase 8 (d): a short ``obs.torchprof`` window over ``eng`` serving
+    two requests for 4 tokens.  Gates: one host range a closure call, named
+    as the reference names them, and device kernels under every decode
+    range (a replay's kernels carry the correlation id of the graph launch
+    made inside the range)."""
+    import torch
+    from repro_torch.obs import torchprof
+    from repro_torch.serving import Request
+    from repro_torch.serving.requests import SamplingParams
+
+    reset_observability(eng)
+    rids = [eng.add_request(Request(prompt=p.copy(), sampling=SamplingParams(
+        max_new_tokens=4, eos_id=-1))) for p in prompts[:2]]
+    torch.cuda.synchronize()
+    torchprof.start(str(ROOT / "build" / "torchprof"))
+    try:
+        outs = eng.run_until_complete()
+    finally:
+        path = torchprof.stop()
+    if any(len(outs.get(r, ())) != 4 for r in rids):
+        raise AssertionError("[obs] profile window: requests incomplete")
+    with open(path) as f:
+        evs = json.load(f)["traceEvents"]
+    ranges = [e for e in evs if e.get("cat") == "user_annotation"]
+    calls = eng.metrics["prefill_calls"] + eng.metrics["decode_calls"]
+    names = {}
+    for e in ranges:
+        names[e["name"]] = names.get(e["name"], 0) + 1
+    if len(ranges) != calls or not any(n.startswith("decode/K=")
+                                       for n in names) \
+            or not all(n.startswith(("decode/K=", "prefill/T="))
+                       for n in names):
+        raise AssertionError(f"[obs] profile window: ranges {names} for "
+                             f"{calls} closure calls")
+    launch = {e["args"]["correlation"]: e for e in evs
+              if e.get("cat") in ("cuda_runtime", "cuda_driver")
+              and "correlation" in e.get("args", {})}
+    under = dict.fromkeys(range(len(ranges)), 0)
+    for k in evs:
+        if k.get("cat") != "kernel":
+            continue
+        r = launch.get(k["args"].get("correlation"))
+        if r is None:
+            continue
+        for i, a in enumerate(ranges):
+            if a["tid"] == r["tid"] and a["ts"] <= r["ts"] <= a["ts"] + a["dur"]:
+                under[i] += 1
+                break
+    by_name = {}
+    for i, a in enumerate(ranges):
+        by_name.setdefault(a["name"], []).append(under[i])
+    empty = [a["name"] for i, a in enumerate(ranges)
+             if a["name"].startswith("decode/") and not under[i]]
+    if empty:
+        raise AssertionError(f"[obs] profile window: no kernels under "
+                             f"{empty}")
+    gpu = sum(1 for e in evs if e.get("cat") == "gpu_user_annotation")
+    log(f"[obs] (d) torch.profiler window ({len(evs)} trace events): "
+        f"{len(ranges)} ranges for {calls} closure calls, kernels under "
+        f"each range by name {by_name}; {gpu} device-side copies of the "
+        f"ranges (gpu_user_annotation) [{card}]")
+
+
+def serve_observability(report, card: str, cfg, params, lengths) -> None:
+    """Phase 8 on qwen3-8b at full width and depth, bf16, tp=1, graphed, at
+    the defaults pass's settings: (a) ``autotune(smoke=True)`` and its
+    table; (b) the defaults pass with ``cost_table="auto"`` (the bundled
+    ``h100_tp1.json``) beside a static defaults engine in this phase,
+    decisions by point, verify calls, decode ms/step and prefill tok/s (the
+    tokens printed against the static pass's, not enforced: the fp32
+    2-layer modeled pass is the gate); (c) on the graphed timed pass, trace
+    replay == registry, the Chrome trace written under ``build/`` and
+    validated, the host time inside the ring's emit, decode ms/step with
+    the ring on and off in turns; (d) a ``torch.profiler`` window through
+    ``obs.torchprof``."""
+    import dataclasses
+    from collections import Counter
+    import torch
+    from repro_torch.config import Config, ISOConfig, ParallelConfig, \
+        ServingConfig
+    from repro_torch.obs import validate_chrome_trace, write_chrome_trace
+    from repro_torch.perf.costmodel import autotune, validate_table
+    from repro_torch.serving import PagedEngine
+
+    sv = ServingConfig(page_size=16, max_batch=4, max_len=2048,
+                       prefill_token_budget=1024, spec_k=4)
+
+    def config(s):
+        return Config(model=cfg, parallel=ParallelConfig(data=1, model=1),
+                      iso=ISOConfig(), serving=s)
+
+    t0 = time.perf_counter()
+    table = autotune(config(sv), params, smoke=True, device="cuda")
+    tune_s = time.perf_counter() - t0
+    problems = validate_table(table)
+    free_cuda()
+    if problems:
+        raise AssertionError(f"[obs] (a) autotune table invalid: {problems}")
+    log(f"[obs] (a) autotune(smoke=True), qwen3-8b {cfg.num_layers}L bf16 "
+        f"at the defaults pass's settings: {tune_s:.2f}s, "
+        f"{len(table['prefill_us'])} prefill + {len(table['decode_us'])} "
+        f"decode points, alpha {table['alpha_beta']['alpha_s']:.3e} s, "
+        f"beta {table['alpha_beta']['beta_s_per_byte']:.3e} s/B "
+        f"({table['alpha_beta']['collective']}); prefill us "
+        f"{ {k: round(v) for k, v in table['prefill_us'].items()} }; "
+        f"decode us {  {k: round(v) for k, v in table['decode_us'].items()} }"
+        f" [{card}]")
+
+    prompts = defaults_prompts(cfg, lengths)
+    passes = {}
+    for name, s in (("static", sv),
+                    ("auto", dataclasses.replace(sv, cost_table="auto"))):
+        eng = PagedEngine(config(s), params, device="cuda")
+        warns = [e.payload for e in eng.trace.events() if e.kind == "warning"
+                 and e.payload["what"] == "cost_table"]
+        if warns or (name == "auto") != (eng.cost_model is not None):
+            raise AssertionError(f"[obs] (b) {name}: cost table warnings "
+                                 f"{warns}, model {eng.cost_model}")
+        serve_pass(eng, prompts, f"obs {name} graphed, capture pass", card)
+        res = serve_pass(eng, prompts, f"obs {name} graphed, timed pass",
+                         card)
+        res["decisions"] = Counter(e.payload["point"]
+                                   for e in eng.trace.events()
+                                   if e.kind == "decision")
+        res["events"] = len(eng.trace)
+        res["rc"] = check_replay(eng, f"{name} timed pass")
+        passes[name] = res
+        if name == "static":
+            del eng
+            free_cuda()
+    cm = eng.cost_model
+    log(f"[obs] (b) cost_table='auto' loaded {cm.platform}/tp{cm.tp} "
+        f"({len(cm.table['prefill_us'])} prefill + "
+        f"{len(cm.table['decode_us'])} decode points, measured on "
+        f"{cm.table.get('device')}, {cm.table.get('power_limit')}), no "
+        f"warning")
+    for name, r in passes.items():
+        m = r["m"]
+        log(f"[obs] (b) {name} defaults pass, timed: decisions by point "
+            f"{dict(sorted(r['decisions'].items()))}; verify calls "
+            f"{m['spec_calls']} of {m['decode_calls']} decode steps, steps "
+            f"by S {r['splits']}; decode "
+            f"{1e3 * m['decode_s'] / m['decode_calls']:.3f} ms/step, prefill "
+            f"{m['prefill_tokens'] / m['prefill_s']:.2f} tok/s, "
+            f"prefill_calls {m['prefill_calls']}, {r['events']} trace events "
+            f"({r['events'] / m['decode_calls']:.2f} a decode step) [{card}]")
+    same = [a == b for a, b in zip(passes["auto"]["tokens"],
+                                   passes["static"]["tokens"])]
+    log(f"[obs] (b) bf16 auto vs static tokens (printed, not enforced: "
+        f"bf16 near-ties, the fp32 2-layer pass is the gate): "
+        f"{sum(same)} of {len(same)} requests equal")
+
+    # (c) the Chrome trace of the auto timed pass, then the ring off and on
+    trace_path = ROOT / "build" / "phase8_trace.json"
+    trace_path.parent.mkdir(parents=True, exist_ok=True)
+    n = write_chrome_trace(eng.trace.events(), str(trace_path))
+    with open(trace_path) as f:
+        problems = validate_chrome_trace(json.load(f))
+    if problems:
+        raise AssertionError(f"[obs] (c) Chrome trace invalid: "
+                             f"{problems[:3]}")
+    # the host time inside the ring's emit (every emitter shares the ring)
+    emit, spent = eng.trace.emit, [0.0, 0]
+
+    def timed_emit(*args, **kw):
+        t = time.perf_counter()
+        emit(*args, **kw)
+        spent[0] += time.perf_counter() - t
+        spent[1] += 1
+
+    eng.trace.emit = timed_emit
+    try:
+        r = serve_pass(eng, prompts, "obs auto, emits timed", card)
+    finally:
+        del eng.trace.emit
+    steps = r["m"]["decode_calls"] + r["m"]["prefill_calls"]
+    emit_us = 1e6 * spent[0] / steps
+    # the ring off and on in turns (the timed pass above was the first on)
+    ms = {True: [1e3 * passes["auto"]["m"]["decode_s"]
+                 / passes["auto"]["m"]["decode_calls"]], False: []}
+    for on in (False, True, False, True):
+        eng.trace.enabled = on
+        label = "on" if on else "off"
+        r = serve_pass(eng, prompts, f"obs auto, ring {label}", card)
+        if r["tokens"] != passes["auto"]["tokens"]:
+            raise AssertionError(f"[obs] (c) ring {label}: tokens changed")
+        ms[on].append(1e3 * r["m"]["decode_s"] / r["m"]["decode_calls"])
+        if on:
+            check_replay(eng, "ring on again")
+        elif len(eng.trace):
+            raise AssertionError("[obs] (c) the disabled ring recorded")
+    log(f"[obs] (c) replay == registry on every timed pass "
+        f"({ {k: v for k, v in passes['auto']['rc'].items() if v} }); Chrome "
+        f"trace of {n} events -> {trace_path.relative_to(ROOT)}, valid; "
+        f"host time inside emit {emit_us:.2f} us a closure call "
+        f"({spent[1]} events in {1e6 * spent[0]:.0f} us, "
+        f"{1e6 * spent[0] / spent[1]:.3f} us an event); decode ms/step "
+        f"with the ring on {[round(x, 3) for x in ms[True]]}, off "
+        f"{[round(x, 3) for x in ms[False]]} (in turns: on, off, on, off, "
+        f"on) [{card}]")
+    profile_window(eng, prompts, card)
+    pm, sm = passes["auto"]["m"], passes["static"]["m"]
+    report["obs"] = dict(
+        autotune_s=tune_s, decisions=dict(passes["auto"]["decisions"]),
+        spec_calls=pm["spec_calls"], static_spec_calls=sm["spec_calls"],
+        decode_ms_step=1e3 * pm["decode_s"] / pm["decode_calls"],
+        static_decode_ms_step=1e3 * sm["decode_s"] / sm["decode_calls"],
+        ring_on_ms=ms[True], ring_off_ms=ms[False], emit_us=emit_us)
+    del eng
+    free_cuda()
 
 
 # ---------------------------------------------------------------------------
@@ -2386,6 +2697,10 @@ def serve_tp(report, card: str):
         if any(r["tokens"] != run["tokens"] for r in runs):
             raise AssertionError(f"[tp] {name}: ranks emitted different "
                                  f"tokens")
+        if any(trace_stream(r["trace"]) != trace_stream(run["trace"])
+               for r in runs) or not run["trace"]:
+            raise AssertionError(f"[tp] {name}: the ranks' traces differ "
+                                 f"once timings are removed")
         if len(run["tokens"]) != len(prompts) or \
                 any(len(t) != TP_NEW_TOKENS for t in run["tokens"]):
             raise AssertionError(f"[tp] {name}: not every request "
@@ -2455,8 +2770,14 @@ def serve_tp(report, card: str):
             if got != want[case]:
                 raise AssertionError(f"[tp] tiny {case}/{sched} rank {r}: "
                                      f"tp=2 {got} != tp=1 {want[case]}")
+            if trace_stream(rank["tiny"][i]["trace"]) != \
+                    trace_stream(ranks[0]["tiny"][i]["trace"]):
+                raise AssertionError(f"[tp] tiny {case}/{sched}: the ranks' "
+                                     f"traces differ")
+    n_ev = [len(r["trace"]) for r in ranks[0]["big"] + ranks[0]["tiny"]]
     log(f"[tp] tiny fp32 model: tp=2 on cuda:0 == tp=1 on the card, greedy "
-        f"tokens on every rank, cases {tiny_keys}")
+        f"tokens on every rank, cases {tiny_keys}; every run's trace equal "
+        f"on both ranks once timings are removed ({n_ev} events)")
 
 
 # ---------------------------------------------------------------------------

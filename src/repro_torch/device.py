@@ -28,3 +28,25 @@ def synchronize(device: torch.device) -> None:
     """Wait for the device's queued work (no-op on the CPU)."""
     if device.type == "cuda":
         torch.cuda.synchronize(device)
+
+
+# words of a card's name that say no more than "an NVIDIA card"
+_BRAND_WORDS = ("nvidia", "geforce", "rtx", "tesla", "quadro")
+
+
+def platform_name(device: Union[str, torch.device]) -> str:
+    """The platform key of cost tables (``perf/tables/<platform>_tp<tp>``):
+    ``"cpu"`` on the host; on a card, the first word of its lower-cased
+    name, split at spaces and dashes, that is not a brand word (``"h100"`` for
+    "NVIDIA H100 80GB HBM3", ``"a800"`` for "NVIDIA A800-SXM4-80GB",
+    ``"4090"`` for "NVIDIA GeForce RTX 4090"), the names the performance
+    model's profiles use."""
+    dev = torch.device(device)
+    if dev.type == "cpu":
+        return "cpu"
+    name = torch.cuda.get_device_name(dev).lower()
+    words = [w for w in name.replace("-", " ").split()
+             if w not in _BRAND_WORDS]
+    if not words:
+        raise ValueError(f"no platform word in the card's name {name!r}")
+    return words[0]

@@ -12,6 +12,16 @@ spawns N ranks (``launch/mesh.spawn``): one per card over NCCL, or on the
 host over gloo under ``--device cpu``; each rank makes only its shard of the
 weights, and rank 0's run is reported.
 
+Observability and the cost model, as the reference's launcher:
+``--cost-table auto|PATH`` serves with a measured cost model (``auto``: the
+bundled table of this platform and tp; a failed load warns once and serves
+on the static defaults), ``--autotune`` measures one first (the small
+sweeps, on a throwaway engine) and serves with it, ``--trace-out T.json``
+writes the engine's trace as Chrome-trace JSON (Perfetto), ``--metrics-every
+N`` prints a metrics line every N engine steps, and ``--profile DIR``
+records a ``torch.profiler`` trace of the run into DIR (``obs.torchprof``;
+one subdirectory a rank under ``--tp``).
+
 ``serve_rank`` is the per-rank body, also used by ``chip_smoke.py`` and the
 tests: it serves a list of request batches ("variants") on one set of
 weights.
@@ -19,7 +29,9 @@ weights.
 from __future__ import annotations
 
 import argparse
+import collections
 import dataclasses
+import os
 import time
 from typing import Any, Dict, List, Optional, Sequence
 
@@ -33,6 +45,7 @@ from repro_torch.device import resolve_device, synchronize
 from repro_torch.kernels import native
 from repro_torch.launch.mesh import TPGroup, spawn
 from repro_torch.models import api
+from repro_torch.obs import torchprof, write_chrome_trace
 from repro_torch.serving import PagedEngine, Request, paged_engine
 from repro_torch.serving.requests import SamplingParams
 
@@ -59,15 +72,54 @@ def reduce_cfg(cfg: ModelConfig, preset: str) -> ModelConfig:
     return dataclasses.replace(cfg, **kw)
 
 
+def _drive(eng: PagedEngine, metrics_every: int) -> Dict[int, List[int]]:
+    """Step ``eng`` to completion, printing a one-line metrics summary every
+    ``metrics_every`` steps (0: none)."""
+    if not metrics_every:
+        return eng.run_until_complete()
+    t_last, toks_last = time.perf_counter(), 0
+    for _ in range(10_000):
+        eng.step()
+        done = not eng.scheduler.waiting and \
+            all(s is None for s in eng.slots)
+        m = eng.metrics
+        if m["steps"] % metrics_every == 0 or done:
+            now = time.perf_counter()
+            toks = m["decode_tokens"] + m["prefill_samples"]
+            rate = (toks - toks_last) / max(now - t_last, 1e-9)
+            t_last, toks_last = now, toks
+            line = (f"[metrics] step={m['steps']} "
+                    f"active={sum(s is not None for s in eng.slots)} "
+                    f"waiting={len(eng.scheduler.waiting)} tok/s={rate:.1f} "
+                    f"pool={eng.alloc.used_pages}/{eng.alloc.num_pages} "
+                    f"frag={eng.alloc.fragmentation()}")
+            if eng.spec_k:
+                line += f" accept/call={eng.accepted_per_call():.2f}"
+            print(line, flush=True)
+        if done:
+            break
+    return {st.request.rid: st.generated for st in eng._finished}
+
+
 def serve_rank(group: Optional[TPGroup], config: Config,
                variants: Sequence[Dict[str, Any]],
                params_npz: Optional[str] = None, seed: int = 0,
-               dtype: str = "bfloat16", device=None) -> List[Dict[str, Any]]:
+               dtype: str = "bfloat16", device=None, autotune: bool = False,
+               metrics_every: int = 0, profile_dir: Optional[str] = None
+               ) -> List[Dict[str, Any]]:
     """Serve each variant on one rank of ``group`` (or in this process at
     tp=1 when ``group`` is None) and return, per variant, the greedy tokens
     of its requests in submission order, the engine metrics, the kernel
-    launch counts of that run alone, the decode steps per schedule and the
-    wall time.
+    launch counts of that run alone, the decode steps per schedule, the
+    wall time, the engine's trace events (``trace``, ``dropped``) and its
+    cost model's identity (``cost_model``: platform, tp, alpha, beta, or
+    None).
+
+    ``autotune`` first measures a cost table with the small sweeps on a
+    throwaway engine and serves every variant with it; ``metrics_every``
+    prints a metrics line every that many steps on rank 0; ``profile_dir``
+    records each variant's run with ``obs.torchprof`` (under ``rank<r>``
+    there at tp > 1).
 
     A variant is ``{"prompts": [int arrays], "max_new": int}`` plus optional
     ``"serving"`` / ``"iso"`` dicts of field overrides on ``config``.  The
@@ -94,6 +146,18 @@ def serve_rank(group: Optional[TPGroup], config: Config,
         rows[0] += 1
         return real_sample(logits, sp, step)
 
+    if autotune:
+        from repro_torch.perf.costmodel import CostModel
+        from repro_torch.perf.costmodel import autotune as measure
+        table = measure(config, params, mesh=group,
+                        device=None if group is not None else dev, smoke=True,
+                        log=(lambda msg: print(f"[autotune] {msg}",
+                                               flush=True))
+                        if rank == 0 else (lambda msg: None))
+        config = dataclasses.replace(config, serving=dataclasses.replace(
+            config.serving, cost_model=CostModel(table)))
+    if profile_dir is not None and group is not None:
+        profile_dir = os.path.join(profile_dir, f"rank{rank}")
     results = []
     paged_engine.sample = finite_sample
     try:
@@ -113,18 +177,28 @@ def serve_rank(group: Optional[TPGroup], config: Config,
             synchronize(dev)
             native.reset_launches()
             rows[0] = 0
+            if profile_dir is not None:
+                torchprof.start(profile_dir)
             t0 = time.perf_counter()
-            outs = eng.run_until_complete()
-            wall = time.perf_counter() - t0
+            try:
+                outs = _drive(eng, metrics_every if rank == 0 else 0)
+            finally:
+                wall = time.perf_counter() - t0
+                profile = torchprof.stop()
             if eng.alloc.free_pages != eng.alloc.num_pages:
                 raise AssertionError(f"rank {rank}: pages leaked")
+            cm = eng.cost_model
             results.append(dict(
                 tokens=[outs[r] for r in rids], metrics=dict(eng.metrics),
                 launches=dict(native.LAUNCHES),
                 schedule_steps=dict(eng.decode_schedule_steps),
                 accepted_per_call=eng.accepted_per_call(),
                 decode_schedule=eng._decode_schedule, rows_checked=rows[0],
-                wall=wall))
+                wall=wall, trace=eng.trace.events(),
+                dropped=eng.trace.dropped, profile=profile,
+                cost_model=None if cm is None else dict(
+                    platform=cm.platform, tp=cm.tp, alpha_s=cm.alpha_s,
+                    beta_s_per_byte=cm.beta_s_per_byte)))
             del eng
     finally:
         paged_engine.sample = real_sample
@@ -162,6 +236,31 @@ def main(argv=None) -> int:
                     help="speculative decoding: verify a (k+1)-token "
                          "self-drafted window per decode step (greedy only, "
                          "as every request here is)")
+    ap.add_argument("--cost-table", default="", metavar="PATH|auto",
+                    help="measured cost model (perf/costmodel.py): 'auto' "
+                         "loads the bundled table of this platform and tp "
+                         "under src/repro_torch/perf/tables/, a path that "
+                         "table; the engine and scheduler then choose split "
+                         "counts, grant caps, pack widths and the spec gate "
+                         "from measurements (a failed load falls back to "
+                         "the static defaults with one warning event)")
+    ap.add_argument("--autotune", action="store_true",
+                    help="before serving, measure a cost table (the small "
+                         "sweeps) and serve with it (ignores --cost-table); "
+                         "write a table with python -m "
+                         "repro_torch.perf.costmodel --autotune instead")
+    ap.add_argument("--trace-out", default=None, metavar="trace.json",
+                    help="write the engine's trace (rank 0's under --tp) "
+                         "as Chrome-trace JSON (open at "
+                         "https://ui.perfetto.dev)")
+    ap.add_argument("--metrics-every", type=int, default=0, metavar="N",
+                    help="print a one-line metrics summary every N engine "
+                         "steps (active slots, pool occupancy, tok/s, "
+                         "accept rate)")
+    ap.add_argument("--profile", default=None, metavar="DIR",
+                    help="record a torch.profiler trace of the run into DIR "
+                         "(the engine's closure calls are record_function "
+                         "ranges; one subdirectory a rank under --tp)")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if not args.paged:
@@ -171,6 +270,8 @@ def main(argv=None) -> int:
         ap.error("--tp must be >= 1")
     if args.spec_k < 0:
         ap.error("--spec-k must be >= 0")
+    if args.metrics_every < 0:
+        ap.error("--metrics-every must be >= 0")
     device = resolve_device(args.device)
 
     cfg = reduce_cfg(get_model_config(args.arch), args.preset)
@@ -184,7 +285,9 @@ def main(argv=None) -> int:
                             scheduler_policy=args.policy,
                             prefix_sharing=not args.no_prefix_sharing,
                             prefill_batching=not args.no_batched_prefill,
-                            spec_k=args.spec_k)
+                            spec_k=args.spec_k,
+                            cost_table="" if args.autotune
+                            else args.cost_table)
     config = Config(model=cfg, parallel=ParallelConfig(data=1, model=args.tp),
                     iso=iso, runtime=RuntimeConfig(mode="serve"),
                     serving=serving)
@@ -194,12 +297,17 @@ def main(argv=None) -> int:
         plen = int(rng.integers(args.prompt_len // 2, args.prompt_len))
         prompts.append(rng.integers(2, cfg.vocab_size, plen).astype(np.int32))
     variants = [dict(prompts=prompts, max_new=args.max_new)]
-    run_args = (config, variants, None, args.seed, args.dtype)
+    opts = (args.autotune, args.metrics_every, args.profile)
+    if args.autotune:
+        print("[autotune] measuring (the small sweeps)...", flush=True)
     if args.tp == 1:
-        res = serve_rank(None, *run_args, device=device)[0]
+        res = serve_rank(None, config, variants, None, args.seed, args.dtype,
+                         device, *opts)[0]
     else:
-        per_rank = [r[0] for r in spawn(serve_rank, args.tp, args=run_args,
-                                        device=device.type)]
+        per_rank = [r[0] for r in spawn(
+            serve_rank, args.tp, args=(config, variants, None, args.seed,
+                                       args.dtype, None) + opts,
+            device=device.type)]
         if any(r["tokens"] != per_rank[0]["tokens"] for r in per_rank):
             raise AssertionError("ranks emitted different tokens")
         res = per_rank[0]
@@ -207,6 +315,11 @@ def main(argv=None) -> int:
     m = res["metrics"]
     dev_name = torch.cuda.get_device_name(0) if device.type == "cuda" \
         else "cpu"
+    cm = res["cost_model"]
+    if cm is not None:
+        print(f"[costmodel] active: platform={cm['platform']} tp={cm['tp']} "
+              f"alpha={cm['alpha_s']:.3e}s "
+              f"beta={cm['beta_s_per_byte']:.3e}s/B")
     outs = res["tokens"]
     print(f"arch={cfg.name} device={dev_name} tp={args.tp} iso="
           f"{'off' if args.iso_off else 'on'} decode_schedule="
@@ -227,6 +340,19 @@ def main(argv=None) -> int:
         print(f"spec: spec_calls={m['spec_calls']} spec_tokens="
               f"{m['spec_tokens']} accepted_per_call="
               f"{res['accepted_per_call']:.3f}")
+    if args.autotune or args.cost_table:
+        points = collections.Counter(e.payload["point"] for e in res["trace"]
+                                     if e.kind == "decision")
+        warns = [e.payload for e in res["trace"] if e.kind == "warning"]
+        print(f"costmodel: decisions={sum(points.values())} "
+              f"{dict(sorted(points.items()))} warnings={len(warns)}"
+              + "".join(f" [{w['reason']}: {w['path']}]" for w in warns))
+    if args.trace_out:
+        n = write_chrome_trace(res["trace"], args.trace_out)
+        print(f"trace: {n} events -> {args.trace_out} "
+              f"(dropped={res['dropped']}; open at https://ui.perfetto.dev)")
+    if args.profile:
+        print(f"profile: {res['profile']}")
     for rid, toks in enumerate(outs[:3]):
         print(f"  rid {rid}: {toks[:10]}{'...' if len(toks) > 10 else ''}")
     return 0

@@ -5,8 +5,9 @@
     tables, committed token counts, page refcounts for prefix sharing:
     ``adopt`` maps a donor's prefix pages into a fresh request, ``cow``
     gives a writer its own copy of a shared page), copied from the
-    reference without its snapshot/restore and ``import_tables`` (page
-    migration, ROADMAP queue A item 9).
+    reference with its trace narration (alloc, free, rc_drop, cow, adopt),
+    without its snapshot/restore and ``import_tables`` (page migration,
+    the second half of ROADMAP queue A item 9).
   * ``PrefixCache``: the hash index over registered prompt prefixes that
     finds a live donor for a new request.
   * ``PagedKVCache``: torch page pools, one (k, v) pair per attention
@@ -59,7 +60,7 @@ class PageAllocator:
     list, never from a page another request still holds; a request's
     capacity ``len(table) * page_size`` covers its committed token count."""
 
-    def __init__(self, num_pages: int, page_size: int):
+    def __init__(self, num_pages: int, page_size: int, trace=None):
         assert num_pages > 0 and page_size > 0
         self.num_pages = num_pages
         self.page_size = page_size
@@ -68,6 +69,15 @@ class PageAllocator:
         self.tables: Dict[int, List[int]] = {}
         self.lengths: Dict[int, int] = {}
         self.refcount: Dict[int, int] = {}        # page -> #tables holding it
+        # optional obs.TraceRing: every pool mutation narrates itself, each
+        # event carrying free= and used=, so a trace replay can prove
+        # conservation (pages_allocated - pages_freed == used_pages)
+        self.trace = trace
+
+    def _emit(self, kind: str, rid: int, **payload) -> None:
+        if self.trace is not None:
+            self.trace.emit(kind, rid=rid, free=len(self._free),
+                            used=self.used_pages, **payload)
 
     # ---- queries ----------------------------------------------------------
     @property
@@ -132,6 +142,7 @@ class PageAllocator:
             raise OutOfPages(f"need {need} pages, {len(self._free)} free")
         for _ in range(need):
             table.append(self._take_free())
+        self._emit("alloc", rid, n=need)
 
     def commit(self, rid: int, n_tokens: int) -> None:
         """Record ``n_tokens`` more live tokens for ``rid``."""
@@ -151,6 +162,7 @@ class PageAllocator:
             self.refcount[pg] += 1
         self.tables[rid] = list(pages)
         self.lengths[rid] = n_tokens
+        self._emit("adopt", rid, n_pages=len(pages), tokens=n_tokens)
 
     def cow(self, rid: int, block_idx: int) -> Optional[Tuple[int, int]]:
         """Copy-on-write: give ``rid`` a private copy of a shared page before
@@ -166,6 +178,10 @@ class PageAllocator:
         new = self._take_free()
         self.refcount[old] -= 1
         table[block_idx] = new
+        # the copy target counts as an allocation for conservation (the old
+        # page stays live with the other sharers)
+        self._emit("alloc", rid, n=1)
+        self._emit("cow", rid, old=old, new=new)
         return old, new
 
     def free(self, rid: int) -> List[int]:
@@ -174,6 +190,7 @@ class PageAllocator:
         table = self.tables.pop(rid, [])
         self.lengths.pop(rid, None)
         released = []
+        rc_drops = 0
         for pg in table:
             assert pg not in self._free_set, f"double free of page {pg}"
             rc = self.refcount.get(pg, 0)
@@ -185,6 +202,13 @@ class PageAllocator:
                 released.append(pg)
             else:
                 self.refcount[pg] = rc - 1
+                rc_drops += 1
+        if released:
+            self._emit("free", rid, n=len(released))
+        if rc_drops:
+            # a sharer dropping its refcount releases nothing: its own
+            # (replay-neutral) event
+            self._emit("rc_drop", rid, n=rc_drops)
         return released
 
     def check(self) -> None:

@@ -1,6 +1,6 @@
 """Engine-external KV state: the page pools + allocator as one object (port
-of ``KVPool.create`` from ``repro/serving/kvstate.py``; export/import for
-page migration is ROADMAP queue A item 9)."""
+of ``KVPool.create`` from ``repro/serving/kvstate.py``; its export/import
+for page migration is the second half of ROADMAP queue A item 9)."""
 from __future__ import annotations
 
 import torch
@@ -21,7 +21,9 @@ class KVPool:
 
     @classmethod
     def create(cls, cfg: ModelConfig, num_pages: int, page_size: int, *,
-               tp: int = 1, dtype=torch.bfloat16, device=None) -> "KVPool":
-        return cls(PageAllocator(num_pages, page_size),
+               tp: int = 1, dtype=torch.bfloat16, device=None,
+               trace=None) -> "KVPool":
+        """``trace``: the ``obs.TraceRing`` the allocator narrates into."""
+        return cls(PageAllocator(num_pages, page_size, trace=trace),
                    PagedKVCache(cfg, num_pages, page_size, tp=tp, dtype=dtype,
                                 device=device))

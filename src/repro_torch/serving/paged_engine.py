@@ -40,12 +40,31 @@ to roll back or scrub (serving/kvcache.py): KV past a request's length,
 from rejected verify positions or a donor's tail on an adopted page, is
 masked by the resident lengths the kernels take.
 
-Metrics (``metrics``) are the reference's keys for what the port runs:
-``prefill_calls`` (forward calls: packs or batch-1 grants),
-``prefill_grants``, ``resumed_grants``, ``prefill_pad_tokens``,
-``prefill_pad_rows`` (row-bucket pad rows), ``prefix_shared_tokens``,
-``cow_copies``, ``spec_calls`` (decode steps that verified a window),
-``spec_tokens`` (tokens they emitted), ``peak_used_pages`` and the timers.
+Observability, as in the reference (``src/repro_torch/obs``): ``registry``
+is an always-on ``MetricsRegistry`` and ``metrics`` its dict view over the
+reference's whole counter set (``prefill_calls``: forward calls, packs or
+batch-1 grants; ``spec_calls``: decode steps that verified a window;
+``migrations`` and its pair stay 0 until disaggregation is ported), with
+the ``ttft``, ``tpot``, ``grant_size`` and ``accept_len`` histograms and
+the ``pool_occupancy`` and ``free_list_fragmentation`` gauges.  ``trace``
+is a bounded ``TraceRing`` the scheduler, the allocator and every phase of
+the host loop narrate into at the reference's points with its payloads
+(admit, grant, pack, defer, grant_commit, prefill_call, sample,
+decode_call, accept, spec_rollback, evict, finish, pool, decision, the
+allocator's alloc/free/cow/adopt/rc_drop); ``observability=False``
+silences the ring and leaves the registry.  Every emit and every
+histogram observation runs on the host between closure calls, never in a
+captured body.  Each closure call runs under ``obs.torchprof.annotate``
+with the reference's names (``prefill/T=…``, ``prefill/T=…x…``,
+``decode/K=…/S=…``).
+
+Measured cost model (``perf/costmodel.py``): ``ServingConfig.cost_model``,
+or a table loaded from ``cost_table`` (``"auto"``: the bundled
+``perf/tables/<platform>_tp<tp>.json``, the platform from
+``device.platform_name``; a failed load emits one ``warning`` and serves on
+the static defaults).  With one, the split count S (``_kv_splits``), the
+spec gate (``_spec_window``), the grant cap and the pack width
+(scheduler) come from its measurements, each logged as a ``decision``.
 
 Compiled closures.  As the reference jits one closure per key, the port
 builds one ``StepClosure`` per key: static input buffers of the key's shape
@@ -76,10 +95,9 @@ a sequential step whenever fewer than 2 requests decode; ``sequential``,
 ``batch_split`` and ``cross_block`` can be forced.
 
 When the pool runs dry a victim is evicted (recompute preemption: its pages
-are freed and prompt + generated re-enter the waiting queue).  Settings
-outside the port's slice (the cost model, disaggregation) raise
-``NotImplementedError`` naming their ROADMAP item rather than doing
-something else.
+are freed and prompt + generated re-enter the waiting queue).  The setting
+outside the port's slice (disaggregation) raises ``NotImplementedError``
+naming its ROADMAP item rather than doing something else.
 """
 from __future__ import annotations
 
@@ -93,12 +111,17 @@ from repro_torch.config import Config, ServingConfig, padded_vocab
 from repro_torch.core.chunking import grant_buckets, round_to_bucket
 from repro_torch.core.iso import DECODE_SCHEDULES
 from repro_torch.core.overlap import AxisCtx, all_gather_last
-from repro_torch.device import resolve_device, synchronize
+from repro_torch.device import platform_name, resolve_device, synchronize
 from repro_torch.kernels import native
 from repro_torch.launch.mesh import TPGroup
 from repro_torch.layers import embeddings as emb_lib
 from repro_torch.models import api
 from repro_torch.models.decoder import check_supported
+from repro_torch.obs import torchprof
+from repro_torch.obs.registry import ACCEPT_LEN_BUCKETS, GRANT_SIZE_BUCKETS, \
+    MetricsRegistry, TPOT_BUCKETS_S, TTFT_BUCKETS_S
+from repro_torch.obs.trace import TraceRing
+from repro_torch.perf.costmodel import load_cost_model
 from repro_torch.serving.kvcache import OutOfPages, PrefixCache, pages_for, \
     token_page_coords, window_page_coords
 from repro_torch.serving.kvstate import KVPool
@@ -107,16 +130,6 @@ from repro_torch.serving.sampler import sample
 from repro_torch.serving.scheduler import PrefillGrant, \
     TokenBudgetScheduler, plan_chunks
 from repro_torch.serving.speculative import BigramDraft, accept_greedy
-
-# the reference engine's metric keys for the phases the port runs
-METRIC_KEYS = (
-    "prefill_s", "decode_s", "prefill_dispatch_s", "decode_dispatch_s",
-    "prefill_tokens", "decode_tokens", "completed", "decode_calls",
-    "prefill_calls", "steps", "preemptions", "ttft_sum", "ttft_n",
-    "peak_used_pages", "prefill_pad_tokens", "prefill_samples",
-    "prefill_grants", "resumed_grants", "prefix_shared_tokens", "cow_copies",
-    "spec_calls", "spec_tokens", "prefill_pad_rows")
-
 
 class StepClosure:
     """One compiled step: static input buffers of a fixed shape, the step's
@@ -205,14 +218,10 @@ def _check_slice(sv: ServingConfig) -> None:
     if sv.decode_schedule not in ("auto",) + DECODE_SCHEDULES:
         raise ValueError(f"decode_schedule={sv.decode_schedule!r}: one of "
                          f"auto, {', '.join(DECODE_SCHEDULES)}")
-    todo = []
-    if sv.cost_table or sv.cost_model is not None:
-        todo.append("cost_table/cost_model: ROADMAP queue A item 9")
     if sv.disagg:
-        todo.append("disagg (disaggregated serving): ROADMAP queue A item 9")
-    if todo:
-        raise NotImplementedError("not in the port's slice yet: "
-                                  + "; ".join(todo))
+        raise NotImplementedError("not in the port's slice yet: disagg "
+                                  "(disaggregated serving): ROADMAP queue A "
+                                  "item 9")
 
 
 class PagedEngine:
@@ -274,8 +283,29 @@ class PagedEngine:
         # decode steps run per schedule (batch_split falls back to
         # sequential on steps with fewer than 2 decoding requests)
         self.decode_schedule_steps: Dict[str, int] = {}
+        # observability: the registry is always on (host-side counter
+        # bumps); ``observability=False`` silences the trace ring
+        self.registry = MetricsRegistry()
+        self.trace = TraceRing(capacity=sv.trace_events,
+                               enabled=sv.observability)
+        self.registry.histogram("ttft", TTFT_BUCKETS_S)
+        self.registry.histogram("tpot", TPOT_BUCKETS_S)
+        self.registry.histogram("grant_size", GRANT_SIZE_BUCKETS)
+        self.registry.histogram("accept_len", ACCEPT_LEN_BUCKETS)
+        self.registry.gauge("pool_occupancy")
+        self.registry.gauge("free_list_fragmentation")
+        # measured cost model: an injected CostModel, or one loaded from
+        # ``cost_table`` ("" off, "auto" the bundled per-platform table,
+        # else a path); a failed load emits one warning and leaves None, so
+        # every decision takes the static path
+        self.cost_model = sv.cost_model
+        if self.cost_model is None and sv.cost_table:
+            self.cost_model = load_cost_model(
+                sv.cost_table, platform=platform_name(self.device),
+                tp=self.tp, trace=self.trace)
         self.pool = KVPool.create(self.cfg, num_pages, self.ps, tp=self.tp,
-                                  dtype=table.dtype, device=self.device)
+                                  dtype=table.dtype, device=self.device,
+                                  trace=self.trace)
         self.alloc = self.pool.alloc
         self.kv = self.pool.kv
         self._buckets = grant_buckets(sv.max_len, sv.min_grant_bucket,
@@ -284,7 +314,8 @@ class PagedEngine:
         self.scheduler = TokenBudgetScheduler(
             policy=sv.scheduler_policy,
             prefill_token_budget=sv.prefill_token_budget,
-            grant_buckets=self._buckets)
+            grant_buckets=self._buckets, trace=self.trace,
+            cost_model=self.cost_model)
         # batched prefill: same-padded-length grants packed into one call,
         # the row count padded up a power-of-two ladder so closures stay
         # keyed on (length bucket, row bucket, all-fresh)
@@ -302,7 +333,19 @@ class PagedEngine:
         self.last_tokens = np.zeros(sv.max_batch, np.int64)
         self._by_rid: Dict[int, RequestState] = {}        # waiting + running
         self._finished: List[RequestState] = []
-        self.metrics: Dict[str, float] = dict.fromkeys(METRIC_KEYS, 0)
+        # the reference's counter set, pre-registered so ``metrics[k] == 0``
+        # holds before first use; timed sums are fenced execution time, the
+        # *_dispatch_s pair the host time until the calls return
+        self.registry.counters((
+            "prefill_s", "decode_s", "prefill_dispatch_s",
+            "decode_dispatch_s", "prefill_tokens", "decode_tokens",
+            "completed", "decode_calls", "prefill_calls", "steps",
+            "preemptions", "ttft_sum", "ttft_n", "prefix_shared_tokens",
+            "cow_copies", "peak_used_pages", "prefill_pad_tokens",
+            "prefill_samples", "spec_calls", "spec_tokens", "prefill_grants",
+            "resumed_grants", "prefill_pad_rows", "migrations",
+            "migrated_pages", "migration_us"))
+        self.metrics = self.registry.view()
         # decode steps run per split count S
         self.decode_splits: Dict[int, int] = {}
         # compiled closures, keyed as the reference's jit caches: prefill
@@ -361,6 +404,7 @@ class PagedEngine:
             st.prefilled = 0
             self.slots[st.slot] = st
             self.lengths[st.slot] = 0
+            self.trace.emit("admit", rid=rid, slot=st.slot)
             self._try_share_prefix(st)
 
     def _try_share_prefix(self, st: RequestState) -> None:
@@ -431,6 +475,7 @@ class PagedEngine:
         if victim is None:
             return False
         st = self._by_rid[victim]
+        self.trace.emit("evict", rid=victim, slot=st.slot)
         self.alloc.free(victim)
         self.slots[st.slot] = None
         self.lengths[st.slot] = 0
@@ -479,17 +524,28 @@ class PagedEngine:
     def _kv_splits(self, K: int = 1) -> int:
         """Split count S of this decode step's page walk.
 
-        ``decode_kv_splits`` 0 = auto: split by ``decode_split_factor`` only
-        when the deepest resident request spans at least
-        ``decode_split_min_pages`` pages; 1 = sequential; >1 forced.
-        Clamped to the block-table width.  (The reference's cost-model
-        choice is not ported.)"""
+        ``decode_kv_splits`` 0 = auto: with a cost model, the S of the best
+        measured decode time at the deepest resident request's page depth
+        (a ``decision`` event with the static answer it replaced); without
+        one, split by ``decode_split_factor`` only when that depth is at
+        least ``decode_split_min_pages`` pages.  1 = sequential; >1 forced,
+        which beats the model.  Clamped to the block-table width.  S never
+        changes tokens, so a modeled S may differ from the static one."""
         sv = self.sv
         s = sv.decode_kv_splits
         if s == 0:
             deepest = pages_for(int(self.lengths.max()) + K, self.ps)
-            s = sv.decode_split_factor \
+            static = sv.decode_split_factor \
                 if deepest >= sv.decode_split_min_pages else 1
+            s = static
+            if self.cost_model is not None:
+                chosen = self.cost_model.decode_splits(
+                    deepest, K, max_splits=self.max_blocks)
+                if chosen is not None:
+                    s = chosen
+                    self.trace.emit("decision", point="kv_splits",
+                                    chosen=int(chosen), static=int(static),
+                                    depth=int(deepest), k=int(K))
         return max(1, min(int(s), self.max_blocks))
 
     # ------------------------------------------------------------------
@@ -699,10 +755,11 @@ class PagedEngine:
                     start=start, n_real=n_tokens)
         self._compile(fn, host)
         t0 = time.perf_counter()
-        fn.stage(**host)
-        logits_last = fn()
-        if last:                              # the full vocab row to sample
-            logits_last = all_gather_last(logits_last, self._ctx)
+        with torchprof.annotate(f"prefill/T={padded}"):
+            fn.stage(**host)
+            logits_last = fn()
+            if last:                          # the full vocab row to sample
+                logits_last = all_gather_last(logits_last, self._ctx)
         self.metrics["prefill_dispatch_s"] += time.perf_counter() - t0
         synchronize(self.device)
         dur = time.perf_counter() - t0
@@ -710,6 +767,9 @@ class PagedEngine:
         self.metrics["prefill_tokens"] += n_tokens
         self.metrics["prefill_pad_tokens"] += padded - n_tokens
         self.metrics["prefill_calls"] += 1
+        self.trace.emit("prefill_call", rid=st.request.rid, slot=st.slot,
+                        dur=dur, ts=t0, tokens=n_tokens,
+                        pad=padded - n_tokens, rows=1)
         logits_row = logits_last[0].float().cpu().numpy() if last else None
         return self._commit_grant_row(st, start, n_tokens, logits_row, last)
 
@@ -725,17 +785,26 @@ class PagedEngine:
         st.prefilled = start + n_tokens
         self.lengths[slot] = st.prefilled
         self.metrics["prefill_grants"] += 1
+        self.registry.histogram("grant_size").observe(n_tokens)
         if start > 0:
             self.metrics["resumed_grants"] += 1
+        # a scheduler grant can be dropped and re-issued (packmate eviction,
+        # deferred sharing): the commit is the countable event
+        self.trace.emit("grant_commit", rid=req.rid, slot=slot, start=start,
+                        n=n_tokens, last=last)
         if not last:
             return None
         tok = sample(logits_row[:self.cfg.vocab_size], req.sampling,
                      step=len(st.generated))
         self.metrics["prefill_samples"] += 1
-        if st.t_first < 0:
+        first = st.t_first < 0
+        if first:
             st.t_first = time.perf_counter()
-            self.metrics["ttft_sum"] += st.t_first - st.t_submit
+            ttft = st.t_first - st.t_submit
+            self.metrics["ttft_sum"] += ttft
             self.metrics["ttft_n"] += 1
+            self.registry.histogram("ttft").observe(ttft)
+        self.trace.emit("sample", rid=req.rid, slot=slot, first=first)
         if self.spec_k:
             # (re)build the self-draft over everything resident: after a
             # recompute preemption that includes the generated tokens
@@ -770,10 +839,11 @@ class PagedEngine:
         self._compile(fn, host)
         any_last = any(p[4] for p in group)
         t0 = time.perf_counter()
-        fn.stage(**host)
-        logits_last = fn()
-        if any_last:                          # the full vocab rows to sample
-            logits_last = all_gather_last(logits_last, self._ctx)
+        with torchprof.annotate(f"prefill/T={T}x{rows}"):
+            fn.stage(**host)
+            logits_last = fn()
+            if any_last:                      # the full vocab rows to sample
+                logits_last = all_gather_last(logits_last, self._ctx)
         self.metrics["prefill_dispatch_s"] += time.perf_counter() - t0
         synchronize(self.device)
         dur = time.perf_counter() - t0
@@ -783,6 +853,8 @@ class PagedEngine:
         self.metrics["prefill_pad_tokens"] += rows * T - n_total
         self.metrics["prefill_pad_rows"] += rows - R
         self.metrics["prefill_calls"] += 1
+        self.trace.emit("prefill_call", dur=dur, ts=t0, tokens=n_total,
+                        pad=rows * T - n_total, rows=R)
         logits_np = logits_last.float().cpu().numpy() if any_last else None
         for r, (st, start, n, _, last) in enumerate(group):
             tok = self._commit_grant_row(
@@ -794,6 +866,7 @@ class PagedEngine:
 
     def _finish(self, st: RequestState) -> None:
         self.metrics["completed"] += 1
+        self.trace.emit("finish", rid=st.request.rid, slot=st.slot)
         self.alloc.free(st.request.rid)
         if self.prefix_cache is not None:
             self.prefix_cache.forget(st.request.rid)
@@ -870,6 +943,7 @@ class PagedEngine:
             ready, deferred = [], []
             for g in pack:
                 if self._defer_for_packmate_sharing(g, ready):
+                    self.trace.emit("defer", rid=g.rid)
                     deferred.append(g)
                     continue
                 prep = self._prep_grant(g)
@@ -914,14 +988,34 @@ class PagedEngine:
         for padded, group in by_len.items():
             self._run_pack(group, padded, events)
 
+    # accept-length samples the spec gate needs before it trusts the
+    # histogram's mean (tests monkeypatch this)
+    SPEC_GATE_MIN_SAMPLES = 8
+
     def _spec_window(self, active: List[RequestState]) -> int:
         """Verify-window width of this decode step: spec_k+1 when every
         active request can speculate (greedy, drafted, the whole window
         under max_len) and the window's pages fit without eviction, else 1.
-        (The reference's cost-model gate is ROADMAP queue A item 9.)"""
+
+        With a cost model, once the ``accept_len`` histogram holds
+        ``SPEC_GATE_MIN_SAMPLES`` samples, the window is skipped (K=1, a
+        ``spec_gate`` decision) whenever the measured K-token verify costs
+        at least the plain steps its mean accept length replaces
+        (``CostModel.spec_worth``).  Skipping is token-neutral: greedy
+        verify equals plain decode."""
         if not self.spec_k:
             return 1
         K = self.spec_k + 1
+        if self.cost_model is not None:
+            hist = self.registry.histogram("accept_len")
+            if hist.n >= self.SPEC_GATE_MIN_SAMPLES:
+                deepest = pages_for(int(self.lengths.max()) + K, self.ps)
+                worth = self.cost_model.spec_worth(K, deepest, hist.mean)
+                if worth is False:
+                    self.trace.emit("decision", point="spec_gate", chosen=1,
+                                    static=K,
+                                    expected_accept=float(hist.mean))
+                    return 1
         need = 0
         for st in active:
             L = int(self.lengths[st.slot])
@@ -978,6 +1072,8 @@ class PagedEngine:
         if self._decode_schedule == "batch_split" and len(active) < 2:
             # one decoding request has no second batch half to overlap with
             schedule, fn = "sequential", self._get_fallback_decode(K, S)
+            self.trace.emit("decision", point="decode_schedule",
+                            fallback=1, active=len(active), k=int(K))
         else:
             schedule, fn = self._decode_schedule, self._get_decode(K, S)
         self.decode_schedule_steps[schedule] = \
@@ -985,17 +1081,23 @@ class PagedEngine:
         host = dict(toks=toks, lengths=self.lengths, bt=bt, mask=mask)
         self._compile(fn, host)
         t0 = time.perf_counter()
-        fn.stage(**host)
-        logits = all_gather_last(fn(), self._ctx)
+        with torchprof.annotate(f"decode/K={K}/S={S}"):
+            fn.stage(**host)
+            logits = all_gather_last(fn(), self._ctx)
         self.metrics["decode_dispatch_s"] += time.perf_counter() - t0
         synchronize(self.device)
         dur = time.perf_counter() - t0
         logits = logits.float().cpu().numpy()
         self.metrics["decode_s"] += dur
         self.metrics["decode_calls"] += 1
+        self.trace.emit("decode_call", dur=dur, ts=t0, k=K, active=len(active))
         if K > 1:
             self.metrics["spec_calls"] += 1
 
+        # rejected window positions: the reference invalidates their pos
+        # entries; the port has no pos pool (its KV past a length is never
+        # read) and narrates the same count
+        rejected = 0
         for st in active:
             i = st.slot
             if K == 1:
@@ -1014,9 +1116,14 @@ class PagedEngine:
                     - len(st.generated)
                 acc = accept_greedy(drafts[i], argmaxes)[:max(budget, 1)]
                 self.metrics["spec_tokens"] += len(acc)
+                self.registry.histogram("accept_len").observe(len(acc))
                 self._drafts[i].observe([int(t) for t in acc])
+                rejected += K - len(acc)
             self.alloc.commit(st.request.rid, len(acc))
             self.metrics["decode_tokens"] += len(acc)
+            self.trace.emit("accept", rid=st.request.rid, slot=i, n=len(acc),
+                            spec=K > 1)
+            self.registry.histogram("tpot").observe(dur / len(acc))
             for tok in acc:
                 st.generated.append(int(tok))
                 events.append((st.request.rid, int(tok)))
@@ -1025,6 +1132,8 @@ class PagedEngine:
             st.finish_check()
             if st.done:
                 self._finish(st)
+        if rejected:
+            self.trace.emit("spec_rollback", n=rejected)
 
     # ------------------------------------------------------------------
     def step(self) -> List[Tuple[int, int]]:
@@ -1035,8 +1144,14 @@ class PagedEngine:
         self._admit()
         self._prefill_phase(events)
         self._decode_phase(events)
+        used = self.alloc.used_pages
+        frag = self.alloc.fragmentation()
+        self.registry.gauge("pool_occupancy").set(used)
+        self.registry.gauge("free_list_fragmentation").set(frag)
         self.metrics["peak_used_pages"] = max(self.metrics["peak_used_pages"],
-                                              self.alloc.used_pages)
+                                              used)
+        self.trace.emit("pool", used=used, free=self.alloc.free_pages,
+                        frag=frag)
         return events
 
     def run_until_complete(self, max_steps: int = 10_000

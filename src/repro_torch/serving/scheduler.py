@@ -8,10 +8,12 @@ chunks of one request granted in the same step run as ONE forward call.
 Policies: ``fcfs`` and ``priority``.  ``pack_grants`` groups a step's
 grants of one bucket-padded length into packs, each run as one forward
 call (batched prefill).  Preemption-by-eviction picks the lowest-priority
-most-recently-arrived running request.  The reference's cost-model caps
-(its grant cap and modeled pack widths), trace narration and phase routing
-(disaggregation) are ROADMAP queue A item 9: without a cost model the
-reference takes the static answers, and so does the port.
+most-recently-arrived running request.  As in the reference, grants and
+packs narrate themselves into an optional trace ring, and a measured cost
+model (perf/costmodel.py) caps grant sizes and pack widths, each modeled
+cap that binds logged as a ``decision`` event.  The reference's phase
+routing (``phase=``) belongs with disaggregation, the second half of
+ROADMAP queue A item 9.
 """
 from __future__ import annotations
 
@@ -50,12 +52,27 @@ class TokenBudgetScheduler:
     """Pure bookkeeping: ordering, budget accounting and victim selection."""
 
     def __init__(self, policy: str = "fcfs", prefill_token_budget: int = 512,
-                 grant_buckets: Optional[Tuple[int, ...]] = None):
+                 grant_buckets: Optional[Tuple[int, ...]] = None, trace=None,
+                 cost_model=None):
         if policy not in ("fcfs", "priority"):
             raise ValueError(f"unknown scheduler policy {policy!r}")
         self.policy = policy
         self.budget = max(1, prefill_token_budget)
+        # optional obs.TraceRing: grant/pack decisions narrate themselves
+        self.trace = trace
         self.grant_buckets = tuple(grant_buckets) if grant_buckets else None
+        # measured cost model: the chunk cap is the bucket with the best
+        # measured time per token (the remainder resumes next step, an exact
+        # split), and pack widths are capped at the best measured time per
+        # grant; both from the table alone, so the decision sequence is a
+        # pure function of traffic
+        self.cost_model = cost_model
+        self._grant_cap: Optional[int] = None
+        if cost_model is not None:
+            cap = cost_model.grant_cap(self.grant_buckets)
+            if cap is not None:
+                self._grant_cap = max(1, int(cap))
+        self._pack_caps: Dict[int, int] = {}  # padded len -> modeled rows
         self._arrival: Dict[int, int] = {}
         self._priority: Dict[int, int] = {}
         self._clock = 0
@@ -128,12 +145,21 @@ class TokenBudgetScheduler:
                 prev = e
             if take == 0:
                 continue                      # budget exhausted for non-head
+            if self._grant_cap is not None and take > self._grant_cap:
+                # modeled chunk cap: the grant's tail resumes next step
+                if self.trace is not None:
+                    self.trace.emit("decision", rid=rid, point="grant_cap",
+                                    chosen=self._grant_cap, static=take)
+                take = self._grant_cap
             remaining = max(0, remaining - take)
             padded = take if self.grant_buckets is None else \
                 round_to_bucket(take, self.grant_buckets)
-            grants.append(PrefillGrant(rid=rid, start=done, n_tokens=take,
-                                       last=done + take >= ends[-1],
-                                       padded=padded))
+            g = PrefillGrant(rid=rid, start=done, n_tokens=take,
+                             last=done + take >= ends[-1], padded=padded)
+            grants.append(g)
+            if self.trace is not None:
+                self.trace.emit("grant", rid=rid, start=g.start, n=g.n_tokens,
+                                padded=g.padded, last=g.last)
             if remaining == 0:
                 break
         return grants
@@ -160,12 +186,30 @@ class TokenBudgetScheduler:
                 packs.append([g])
             else:
                 packs[idx].append(g)
+        if self.trace is not None:
+            for pack in packs:
+                if len(pack) > 1:
+                    self.trace.emit("pack", rid=pack[0].rid,
+                                    rows=len(pack), padded=pack[0].padded)
         return packs
 
     def _pack_limit(self, padded: int, max_rows: int) -> int:
-        """Row cap for packs of ``padded``-token grants: ``max_rows`` (the
-        reference's answer without a cost model)."""
-        return max_rows
+        """Row cap for packs of ``padded``-token grants: the measured row
+        bucket with the best time per grant when a cost model is loaded
+        (memoised per padded length, logged once as a ``decision`` when it
+        binds), else ``max_rows``.  Packing changes call grouping only, so
+        a modeled cap can move speed, never tokens."""
+        if self.cost_model is None:
+            return max_rows
+        cap = self._pack_caps.get(padded)
+        if cap is None:
+            modeled = self.cost_model.pack_rows(padded)
+            cap = max_rows if modeled is None else max(1, int(modeled))
+            self._pack_caps[padded] = cap
+            if self.trace is not None and cap < max_rows:
+                self.trace.emit("decision", point="pack_rows", chosen=cap,
+                                static=max_rows, padded=padded)
+        return min(cap, max_rows)
 
     def pick_victim(self, running: Sequence[int], protect: Sequence[int] = ()
                     ) -> Optional[int]:

@@ -108,15 +108,20 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
     PagedEngine(_config(), params, device="cpu")           # asked: fine
 
 
-@pytest.mark.parametrize("setting,item", [
-    (dict(disagg=True), "item 9"),
-    (dict(cost_table="auto"), "item 9"),
-    (dict(cost_model=object()), "item 9"),
+@pytest.mark.parametrize("setting,model,item", [
+    (dict(disagg=True), {}, "item 9"),
+    # the cost model is in the slice: it no longer shields disagg
+    (dict(disagg=True, cost_table="auto"), {}, "item 9"),
+    # ladder residual wiring (the ladder twins: the rest of item 9)
+    ({}, dict(residual_wiring="ladder"), "item 9"),
 ])
-def test_settings_outside_the_slice_raise(setting, item):
+def test_settings_outside_the_slice_raise(setting, model, item):
     params = api.init_params(0, TINY, dtype=torch.float32, device="cpu")
+    config = _config(**setting)
+    config = dataclasses.replace(
+        config, model=dataclasses.replace(config.model, **model))
     with pytest.raises(NotImplementedError, match=item):
-        PagedEngine(_config(**setting), params, device="cpu")
+        PagedEngine(config, params, device="cpu")
     # tensor parallelism is in the slice: the mesh is a launch.mesh.TPGroup
     with pytest.raises(TypeError, match="TPGroup"):
         PagedEngine(_config(), params, device="cpu", mesh=object())

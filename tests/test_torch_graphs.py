@@ -24,7 +24,11 @@ tests run the code the card replays:
     page copy) read no tensor back to the host (no ``.item()``, ``int()``,
     ``.cpu()``, ...), which a CUDA graph could not replay;
   * a second trace on the same engine reuses its closures and gives a fresh
-    engine's tokens."""
+    engine's tokens;
+  * with a measured cost model (the forcing table of the reference's
+    model-vs-static differential, which caps grants and splits the decode
+    walk), the closure keys, the compile count and its bound equal the
+    reference engine's."""
 import numpy as np
 import pytest
 
@@ -38,6 +42,7 @@ from repro.config import Config as RConfig  # noqa: E402
 from repro.config import ParallelConfig as RParallel  # noqa: E402
 from repro.config import ServingConfig as RServing  # noqa: E402
 from repro.models import api as r_api  # noqa: E402
+from repro.perf.costmodel import CostModel as RCostModel  # noqa: E402
 from repro.serving import PagedEngine as RPagedEngine  # noqa: E402
 from repro.serving import Request as RRequest  # noqa: E402
 from repro.serving.requests import SamplingParams as RSampling  # noqa: E402
@@ -49,6 +54,7 @@ from repro_torch.core.overlap import AxisCtx  # noqa: E402
 from repro_torch.kernels import native  # noqa: E402
 from repro_torch.layers import embeddings as emb_lib  # noqa: E402
 from repro_torch.models import api  # noqa: E402
+from repro_torch.perf.costmodel import CostModel  # noqa: E402
 from repro_torch.serving import PagedEngine, Request  # noqa: E402
 from repro_torch.serving.paged_engine import StepClosure  # noqa: E402
 from repro_torch.serving.requests import SamplingParams  # noqa: E402
@@ -170,6 +176,49 @@ def test_closure_keys_equal_reference(weights, name, lengths, new, sv):
     if name == "batch_split":
         assert eng._decode_fallback_fns and eng._decode_fns
     assert eng.graphs == 0                 # the CPU captures nothing
+
+
+# the forcing table of tests/test_costmodel.py's model-vs-static differential
+FORCING = {
+    "schema": "costmodel-v1", "version": 1, "platform": "cpu",
+    "mesh": {"tp": 1}, "model": "t-dense", "page_size": 8,
+    "alpha_beta": {"alpha_s": 1e-6, "beta_s_per_byte": 1e-10, "r2": 1.0},
+    "prefill_us": {"16x1": 100.0, "16x2": 150.0, "32x1": 400.0,
+                   "32x2": 500.0, "64x1": 900.0, "64x2": 1100.0},
+    "decode_us": {"1/1/2": 100.0, "1/2/2": 40.0, "3/1/2": 5000.0,
+                  "3/2/2": 5000.0, "1/1/16": 400.0, "1/2/16": 150.0,
+                  "3/1/16": 5000.0, "3/2/16": 5000.0}}
+
+
+@pytest.mark.parametrize("batched", [False, True], ids=["batch1", "packed"])
+def test_closure_keys_equal_reference_with_cost_model(weights, batched):
+    ref_params, params = weights
+    sv = dict(prefill_batching=batched, prefix_sharing=batched, spec_k=2)
+    prompts = _prompts((7, 9, 17, 33, 41, 70), shared=24 if batched else 0)
+    ref = RPagedEngine(RConfig(model=REF_CFG,
+                               parallel=RParallel(data=1, model=1),
+                               iso=REF_ISO,
+                               serving=RServing(**{**BASE_SV, **sv},
+                                                cost_model=RCostModel(
+                                                    FORCING))),
+                       ref_params)
+    want = _serve(ref, prompts, 6, RRequest, RSampling)
+    eng = _port_engine(params, cost_model=CostModel(FORCING), **sv)
+    assert _serve(eng, prompts, 6) == want
+    if batched:
+        assert set(eng._prefill_fns) == set(ref._prefill_fns)
+    else:
+        assert set(eng._prefill_fns) == {(n, r)
+                                         for n, p, r in ref._prefill_fns}
+    assert set(eng._decode_fns) == set(ref._decode_fns)
+    assert any(s > 1 for _, s in eng._decode_fns)
+    assert eng.prefill_compile_count() == ref.prefill_compile_count()
+    assert eng.max_prefill_compiles() == ref.max_prefill_compiles()
+    assert eng.prefill_compile_count() <= eng.max_prefill_compiles()
+    # the grant cap held every grant to the best bucket, 16 tokens
+    assert {n for n, *_ in eng._prefill_fns} == {16}
+    assert [e.payload for e in eng.trace.events() if e.kind == "decision"] \
+        == [e.payload for e in ref.trace.events() if e.kind == "decision"]
 
 
 def _filled_engine(params, seed):
