@@ -191,6 +191,34 @@ Phases, each fatal on failure:
                each closure call, and device kernels under every decode
                range.  Phase 5 also holds the two ranks' traces equal once
                timings are removed.
+  9. disagg    disaggregated serving, the ladder twin and the overlap probe,
+               inside phases 3 and 5 (before the profilers): (a) a
+               ``DisaggRouter`` serving the defaults pass's traffic,
+               qwen3-8b at full width and depth, bf16, its prefill and
+               decode engines sharing the one set of weights (data_ptr
+               equal) and both graphed, a capture pass and a timed pass,
+               the decode pool 1.5x the largest request so the router
+               defers (printed with the deferrals): both pools pass
+               ``check()`` and come back whole, B3 launches on the prefill
+               engine and B1 on the decode engine (through the replays),
+               tokens against the single engine's defaults pass under the
+               bf16 near-tie rule, and the same decisions in fp32 at 2
+               layers token-EQUAL to the single engine (the gate); printed:
+               ``migration_stats()``, the KV bytes moved, the host
+               migration_us a transfer and its GB/s, peak memory beside the
+               single engine's, decode ms/step and prefill tok/s.  (b)
+               ladder-qwen3-8b at full width and depth, bf16, tp=1, on the
+               baseline traffic (the qwen3-8b weights, the twin's layout):
+               eager, graphed ``ladder`` (capture, timed) and graphed
+               ``ladder_seq``; graphed == eager tokens, ``ladder`` ==
+               ``ladder_seq`` exactly, every prefill call one chunk, B1 and
+               B3 launched; decode ms/step and prefill tok/s beside the
+               standard baseline.  (c) ``measure_overlap_efficiency`` on the
+               baseline's graphed engine at tp=1 and on phase 5's tp=2
+               batch-split gloo engine: its dict printed, then the same
+               requests served again with the same tokens and no graph
+               captured.  No overlap claim (no collective at tp=1; gloo
+               through host memory at tp=2).
 
 Every pass resets its engine's registry and trace ring together
 (``reset_observability``), so a pass's trace replays into its registry.
@@ -1493,9 +1521,12 @@ def serve_full(report, card: str):
     report["lengths"] = lengths
 
     # the defaults pass first: the idle share's torch.profiler, below,
-    # leaves a host cost on every later graph replay
+    # leaves a host cost on every later graph replay; then phase 9 (a),
+    # held against it
     serve_defaults(report, card, cfg, params, lengths)
     serve_defaults_fp32(report, card, lengths)
+    serve_disagg(report, card, cfg, params, lengths)
+    serve_disagg_fp32(report, card, lengths)
     checked = {"rows": 0}
     real_sample = paged_engine.sample
 
@@ -1534,6 +1565,15 @@ def serve_full(report, card: str):
         graphs, capture_s = eng.graphs, eng.capture_s
         res = serve_pass(eng, prompts, "graphed, timed pass", card)
         peak = peaks()
+        m = res["m"]
+        report["serve"] = dict(
+            prefill_tok_s=m["prefill_tokens"] / m["prefill_s"],
+            decode_ms_step=1e3 * m["decode_s"] / m["decode_calls"],
+            peak_gib=peak[0])
+        # phase 9 (c) and (b), before the idle share's profiler
+        report["probe_tp1"] = probe_engine(eng, prompts, res,
+                                           "qwen3-8b graphed tp=1", card)
+        serve_ladder(report, card, params, prompts)
         decode_idle_share(eng, prompts, card)
     finally:
         paged_engine.sample = real_sample
@@ -1546,7 +1586,8 @@ def serve_full(report, card: str):
         f"keys {sorted(eng._prefill_fns)}, decode keys "
         f"{sorted(eng._decode_fns)}; bound {bound}); the timed pass captured "
         f"{eng.graphs - graphs}; reserved memory {before:.3f} GiB before the "
-        f"engine, after each capture {[round(r, 3) for r in reserved]} GiB "
+        f"engine, after each capture "
+        f"{[round(r, 3) for r in reserved[:graphs]]} GiB "
         f"[{card}]")
     if graphs != closures or graphs > bound or eng.graphs != graphs:
         raise AssertionError(f"{graphs} graphs for {closures} closures "
@@ -1609,9 +1650,6 @@ def serve_full(report, card: str):
             f"allocated {pk[0]:.3f} GiB, reserved {pk[1]:.3f} GiB [{card}]")
     # the kernel line counts the defaults pass (serve_defaults), the
     # reference's default serving; this baseline's counts are logged above
-    report["serve"] = dict(prefill_tok_s=m["prefill_tokens"] / m["prefill_s"],
-                           decode_ms_step=1e3 * m["decode_s"]
-                           / m["decode_calls"], peak_gib=peak[0])
     del eng
     free_cuda()
     # phase 8 last: its torch.profiler window, like the idle share's, leaves
@@ -2029,6 +2067,8 @@ def serve_defaults(report, card: str, cfg, params, lengths,
             f"near-tie of the plain path; graphed == eager tokens (both "
             f"passes)")
     if tag == "defaults":
+        # phase 9 (a) holds the disaggregated pass against this eager pass
+        report["defaults_eager"] = (eager, rec_new)
         report["launches"].update(launches)
         # B2's kernel-line count: the launches in which its fold ran
         report["launches"]["decode_reduce"] = variants["paged_decode/fold"]
@@ -2121,6 +2161,322 @@ def serve_defaults_fp32(report, card: str, lengths,
         tag, TOL["float32"], res["plain"], res["defaults"],
         res["plain"]["rec"], res["defaults"]["rec"], card,
         every_position=True)
+
+
+# ---------------------------------------------------------------------------
+# phase 9: disaggregated serving, the ladder twin, the overlap probe
+# ---------------------------------------------------------------------------
+
+def router_pass(router, prompts, label: str, card: str) -> dict:
+    """Serve ``prompts`` (32 greedy tokens each) through a ``DisaggRouter``
+    from zeroed registries, trace rings, router counters and launch counts;
+    check that every request completed, both pools pass ``check()`` and
+    came back whole, no transfer is left pending, each engine kept to its
+    phase (no decode closure on the prefill engine, no prefill closure on
+    the decode engine, so B3's launches are the prefill engine's and B1's
+    the decode engine's), and both attention kernels launched; print the
+    pass."""
+    import torch
+    from repro_torch.kernels import native
+    from repro_torch.serving import Request
+    from repro_torch.serving.requests import SamplingParams
+
+    engines = (router.prefill, router.decode)
+    for eng in engines:
+        reset_observability(eng)
+    for k in router.stats:
+        router.stats[k] = 0
+    rids = [router.add_request(Request(
+        prompt=p.copy(), sampling=SamplingParams(max_new_tokens=32,
+                                                 eos_id=-1)))
+        for p in prompts]
+    torch.cuda.synchronize()
+    native.reset_launches()
+    t0 = time.perf_counter()
+    outs = router.run_until_complete()
+    wall = time.perf_counter() - t0
+    pm, dm = dict(router.prefill.metrics), dict(router.decode.metrics)
+    res = dict(tokens=[outs.get(r) for r in rids], rids=rids, pm=pm, dm=dm,
+               stats=router.migration_stats(), wall=wall,
+               launches=dict(native.LAUNCHES),
+               variants=dict(native.VARIANTS),
+               detach_us=[e.payload["us"] for e in
+                          router.prefill.trace.events()
+                          if e.kind == "migrate"])
+    if any(t is None or len(t) != 32 for t in res["tokens"]):
+        raise AssertionError(f"{label}: not every request completed")
+    for eng in engines:
+        eng.alloc.check()
+        if eng.alloc.free_pages != eng.alloc.num_pages:
+            raise AssertionError(f"{label}: {eng.phase} pages leaked")
+    if router._pending or router.prefill._decode_fns or \
+            router.decode._prefill_fns:
+        raise AssertionError(f"{label}: a transfer pending, or an engine "
+                             f"ran the other phase")
+    for name in ATTENTION_KERNELS:
+        if res["launches"][name] <= 0:
+            raise AssertionError(f"{label}: kernel {name} never launched: "
+                                 f"{res['launches']}")
+    log(f"[disagg] {label}: prefill engine {pm['prefill_tokens']} tok in "
+        f"{pm['prefill_s']:.3f}s = {pm['prefill_tokens'] / pm['prefill_s']:.2f}"
+        f" tok/s ({pm['prefill_calls']} calls); decode engine "
+        f"{1e3 * dm['decode_s'] / dm['decode_calls']:.3f} ms/step over "
+        f"{dm['decode_calls']} steps ({dm['spec_calls']} verify); "
+        f"migration {res['stats']}; wall {wall:.1f}s [{card}]")
+    return res
+
+
+def disagg_config(cfg, prompts):
+    """The defaults pass's settings (page 16, max_batch 4, budget 1024,
+    sharing, packing, spec_k 4) under ``disagg``, the decode pool one and a
+    half times the largest request's pages (its prompt, 32 new tokens and a
+    verify window): two of the long requests never fit it together, so the
+    router defers."""
+    from repro_torch.config import Config, ISOConfig, ParallelConfig, \
+        ServingConfig
+    from repro_torch.serving.kvcache import pages_for
+    need = max(pages_for(len(p) + 32 + 5, 16) for p in prompts)
+    sv = ServingConfig(page_size=16, max_batch=4, max_len=2048,
+                       prefill_token_budget=1024, spec_k=4, disagg=True,
+                       decode_pool_pages=need + need // 2)
+    return Config(model=cfg, parallel=ParallelConfig(data=1, model=1),
+                  iso=ISOConfig(), serving=sv)
+
+
+def serve_disagg(report, card: str, cfg, params, lengths) -> None:
+    """Phase 9 (a): disaggregated serving of the defaults pass's traffic,
+    qwen3-8b at full width and depth, bf16: a ``DisaggRouter`` whose two
+    engines share the one set of weights on the card and are both graphed,
+    a capture pass (logits recorded), then a timed pass.  Both pools pass
+    ``check()`` and come back whole after each pass, the router defers at
+    least once, graphed passes agree, no graph is captured in the timed
+    pass, and the tokens hold against the single engine's defaults pass
+    (eager, phase 3) under the bf16 near-tie rule; the gate is
+    ``serve_disagg_fp32``."""
+    import torch
+    from repro_torch.serving.disagg import DisaggRouter
+
+    prompts = defaults_prompts(cfg, lengths)
+    config = disagg_config(cfg, prompts)
+    torch.cuda.reset_peak_memory_stats()
+    router = DisaggRouter(config, params, prefill_device="cuda",
+                          decode_device="cuda")
+    leaves = [(router.prefill.params["embed"]["table"],
+               router.decode.params["embed"]["table"]),
+              (router.prefill.params["periods"][0][-1]["mlp"]["w_down"],
+               router.decode.params["periods"][0][-1]["mlp"]["w_down"])]
+    if any(a.data_ptr() != b.data_ptr() for a, b in leaves):
+        raise AssertionError("[disagg] the two engines hold two copies of "
+                             "the weights")
+    with LogitsRecorder(cfg.vocab_size) as rec:
+        first = router_pass(router, prompts, "graphed, capture pass", card)
+    graphs = (router.prefill.graphs, router.decode.graphs)
+    capture_s = router.prefill.capture_s + router.decode.capture_s
+    res = router_pass(router, prompts, "graphed, timed pass", card)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if (router.prefill.graphs, router.decode.graphs) != graphs:
+        raise AssertionError("[disagg] the timed pass captured graphs")
+    if res["tokens"] != first["tokens"] or not rec.finite:
+        raise AssertionError("[disagg] graphed passes differ, or non-finite "
+                             "logits")
+    st = res["stats"]
+    if st["deferrals"] < 1 or st["migrated_requests"] < len(prompts):
+        raise AssertionError(f"[disagg] no deferral, or not every request "
+                             f"migrated: {st}")
+    page_bytes = router.prefill.kv.page_bytes()
+    moved = st["migrated_pages"] * page_bytes
+    us = st["migration_us"]
+    pm, dm = res["pm"], res["dm"]
+    n_pf = len(router.prefill._prefill_fns)
+    bound = router.prefill.max_prefill_compiles()
+    log(f"[disagg] qwen3-8b {cfg.num_layers}L bf16, prompts "
+        f"{[len(p) for p in prompts]}, 32 new tokens each, the defaults "
+        f"pass's settings; decode_pool_pages "
+        f"{config.serving.decode_pool_pages} (prefill pool "
+        f"{router.prefill.alloc.num_pages}); one set of weights under both "
+        f"engines (data_ptr equal); graphs prefill {graphs[0]} ({n_pf} "
+        f"prefill keys, bound {bound}) and decode {graphs[1]} (keys "
+        f"{sorted(router.decode._decode_fns)}) captured in {capture_s:.2f}s; "
+        f"deferrals {st['deferrals']}, bounce_backs {st['bounce_backs']} "
+        f"[{card}]")
+    log(f"[disagg] timed pass: migration_stats {st}; KV moved "
+        f"{moved} B ({st['migrated_pages']} pages of {page_bytes} B) to the "
+        f"host and back; host migration_us {us:.1f} in all, "
+        f"{us / st['migrations']:.1f} a transfer over {st['migrations']} "
+        f"transfers (detach side {[round(x, 1) for x in res['detach_us']]}), "
+        f"{moved / (us * 1e-6) / 1e9:.3f} GB/s of KV (bytes one way over the "
+        f"export and import time); launches {res['launches']} (B3 on the "
+        f"prefill engine, B1 on the decode engine, through the replays) "
+        f"[{card}]")
+    single = report["defaults"]
+    log(f"[disagg] timed pass: prefill engine "
+        f"{pm['prefill_tokens'] / pm['prefill_s']:.2f} tok/s, decode engine "
+        f"{1e3 * dm['decode_s'] / dm['decode_calls']:.3f} ms/step "
+        f"({dm['decode_tokens'] / dm['decode_calls']:.3f} tokens a step); "
+        f"peak allocated {peak:.3f} GiB; the single engine's graphed "
+        f"defaults pass: {single['prefill_tok_s']:.2f} tok/s, "
+        f"{single['decode_ms_step']:.3f} ms/step, peak "
+        f"{single['peak_gib']:.3f} GiB [{card}]")
+    eager, rec_single = report.pop("defaults_eager")
+    report["disagg_vs_single"] = check_against_plain(
+        "disagg", TOL["bfloat16"], eager, first, rec_single, rec, card)
+    report["disagg"] = dict(
+        prefill_tok_s=pm["prefill_tokens"] / pm["prefill_s"],
+        decode_ms_step=1e3 * dm["decode_s"] / dm["decode_calls"],
+        peak_gib=peak, stats=st, moved=moved, launches=res["launches"])
+    del router
+    free_cuda()
+
+
+def serve_disagg_fp32(report, card: str, lengths) -> None:
+    """Phase 9 (a)'s gate: the same decisions in fp32, qwen3-8b at full
+    width cut to 2 layers, eager: the router's tokens must EQUAL the single
+    defaults engine's, the logits at its top-2 tokens within the fp32
+    tolerance at every position, with at least one deferral."""
+    import dataclasses
+    import torch
+    from repro_torch.config import get_model_config
+    from repro_torch.models import api
+    from repro_torch.serving import PagedEngine
+    from repro_torch.serving.disagg import DisaggRouter
+
+    cfg = dataclasses.replace(get_model_config("qwen3-8b"), num_layers=2)
+    params = api.init_params(0, cfg, tp=1, dtype=torch.float32,
+                             device="cuda")
+    prompts = defaults_prompts(cfg, lengths)
+    config = disagg_config(cfg, prompts)
+    eng = PagedEngine(config, params, device="cuda", cuda_graphs=False)
+    with LogitsRecorder(cfg.vocab_size) as rec_single:
+        single = serve_pass(eng, prompts, "disagg fp32 2-layer single "
+                            "engine eager", card)
+    del eng
+    router = DisaggRouter(config, params, prefill_device="cuda",
+                          decode_device="cuda", cuda_graphs=False)
+    with LogitsRecorder(cfg.vocab_size) as rec:
+        res = router_pass(router, prompts, "fp32 2-layer eager", card)
+    del router, params
+    free_cuda()
+    st = res["stats"]
+    if res["tokens"] != single["tokens"] or st["deferrals"] < 1:
+        raise AssertionError(f"[disagg fp32] tokens differ from the single "
+                             f"engine's, or no deferral: {st}")
+    report["disagg fp32_vs_single"] = check_against_plain(
+        "disagg fp32", TOL["float32"], single, res, rec_single, rec, card,
+        every_position=True)
+    log(f"[disagg fp32] 2 layers: tokens == the single engine's on "
+        f"{len(prompts)} of {len(prompts)} requests; deferrals "
+        f"{st['deferrals']}, transfers {st['migrations']}")
+
+
+def serve_ladder(report, card: str, params, prompts) -> None:
+    """Phase 9 (b): ladder-qwen3-8b at full width and depth, bf16, tp=1, on
+    phase 3's baseline traffic and settings, with the qwen3-8b weights (the
+    twin's layout): an eager engine, a graphed one (capture pass, timed
+    pass) on the deferred ``ladder`` schedule, and a graphed ``ladder_seq``
+    one.  Graphed tokens must equal eager tokens, ``ladder`` tokens must
+    equal ``ladder_seq`` tokens exactly (at tp=1 the same operations), and
+    every prefill call must run as one chunk; B1 and B3 launch
+    (``serve_pass``).  Prints decode ms/step and prefill tok/s beside phase
+    3's standard-wired baseline: the twins do the same FLOPs, so the gap is
+    what the wiring costs with no communication to hide."""
+    import dataclasses
+    from repro_torch.config import Config, ISOConfig, ParallelConfig, \
+        ServingConfig, get_model_config
+    from repro_torch.models import decoder
+    from repro_torch.serving import PagedEngine
+
+    cfg = get_model_config("ladder-qwen3-8b")
+    sv = ServingConfig(page_size=16, max_batch=4, max_len=2048,
+                       prefill_token_budget=512, prefix_sharing=False,
+                       prefill_batching=False)
+
+    def config(s):
+        return Config(model=cfg, parallel=ParallelConfig(data=1, model=1),
+                      iso=ISOConfig(), serving=s)
+
+    chunks = []
+    stack = decoder.run_stack_prefill
+
+    def counted(params_periods, pattern, x_chunks, *args, **kw):
+        chunks.append(len(x_chunks))
+        return stack(params_periods, pattern, x_chunks, *args, **kw)
+
+    decoder.run_stack_prefill = counted
+    runs = {}
+    try:
+        for label, s, graphed in (
+                ("eager", sv, False), ("ladder", sv, True),
+                ("ladder_seq", dataclasses.replace(
+                    sv, decode_schedule="ladder_seq"), True)):
+            eng = PagedEngine(config(s), params, device="cuda",
+                              cuda_graphs=graphed)
+            want = "ladder_seq" if label == "ladder_seq" else "ladder"
+            if eng._decode_schedule != want:
+                raise AssertionError(f"[ladder] {label}: schedule "
+                                     f"{eng._decode_schedule}")
+            passes = [serve_pass(eng, prompts, f"ladder-qwen3-8b {label}"
+                                 + (", capture pass" if graphed else ""),
+                                 card)]
+            if graphed:
+                graphs = eng.graphs
+                passes.append(serve_pass(eng, prompts, f"ladder-qwen3-8b "
+                                         f"{label}, timed pass", card))
+                if eng.graphs != graphs:
+                    raise AssertionError(f"[ladder] {label}: the timed pass "
+                                         f"captured graphs")
+            runs[label] = passes
+            del eng
+            free_cuda()
+    finally:
+        decoder.run_stack_prefill = stack
+    eager = runs["eager"][0]["tokens"]
+    for label in ("ladder", "ladder_seq"):
+        if any(r["tokens"] != eager for r in runs[label]):
+            raise AssertionError(f"[ladder] graphed {label} tokens differ "
+                                 f"from the eager tokens")
+    if not chunks or set(chunks) != {1}:
+        raise AssertionError(f"[ladder] prefill calls by chunk count "
+                             f"{sorted(set(chunks))}: want one chunk each")
+    base = report["serve"]
+    lines = []
+    for label in ("ladder", "ladder_seq"):
+        m = runs[label][1]["m"]
+        lines.append(f"{label} {1e3 * m['decode_s'] / m['decode_calls']:.3f}"
+                     f" ms/step, {m['prefill_tokens'] / m['prefill_s']:.2f} "
+                     f"tok/s")
+        report.setdefault("ladder", {})[label] = dict(
+            decode_ms_step=1e3 * m["decode_s"] / m["decode_calls"],
+            prefill_tok_s=m["prefill_tokens"] / m["prefill_s"],
+            launches=runs[label][1]["launches"])
+    log(f"[ladder] ladder-qwen3-8b {cfg.num_layers}L bf16 tp=1, the baseline "
+        f"traffic: graphed tokens == eager tokens, ladder == ladder_seq "
+        f"tokens exactly; {len(chunks)} prefill calls, each one chunk; timed "
+        f"passes: {'; '.join(lines)}; standard-wired qwen3-8b baseline "
+        f"(phase 3): {base['decode_ms_step']:.3f} ms/step, "
+        f"{base['prefill_tok_s']:.2f} tok/s; launches (ladder, timed) "
+        f"{runs['ladder'][1]['launches']} [{card}]")
+
+
+def probe_engine(eng, prompts, res, label: str, card: str) -> dict:
+    """Phase 9 (c): the overlap probe on a served engine, then the same
+    prompts again: the tokens of ``res`` and no graph captured."""
+    graphs = eng.graphs
+    t0 = time.perf_counter()
+    probe = eng.measure_overlap_efficiency(iters=10, warmup=3)
+    took = time.perf_counter() - t0
+    again = serve_pass(eng, prompts, f"{label}, after the probe", card)
+    if again["tokens"] != res["tokens"] or eng.graphs != graphs:
+        raise AssertionError(f"[probe] {label}: the engine served other "
+                             f"tokens, or captured {eng.graphs - graphs} "
+                             f"graphs, after the probe")
+    finite = [v for k, v in probe.items() if isinstance(v, float)] + \
+        list(probe["schedules"].values())
+    if not all(math.isfinite(v) for v in finite):
+        raise AssertionError(f"[probe] {label}: {probe}")
+    log(f"[probe] {label} ({took:.1f}s; tp={probe['tp']}, no collective to "
+        f"hide: no overlap claim): {json.dumps(probe)}; graph count and next "
+        f"tokens unchanged [{card}]")
+    return probe
 
 
 # ---------------------------------------------------------------------------
@@ -2617,6 +2973,16 @@ def tp_rank(group, big, tiny):
     out["profile"] = prof.key_averages().table(
         sort_by="self_cpu_time_total", row_limit=12, max_name_column_width=48)
     free_cuda()
+    # phase 9 (c): the overlap probe on the tp=2 engine of the default
+    # batch-split run; serve_rank serves the requests again after it and
+    # requires the same tokens
+    t0 = time.perf_counter()
+    probed = serve_rank(group, config, [dict(
+        variants[0], max_new=PROFILE_NEW, probe=dict(iters=3, warmup=1))],
+        npz, seed, dtype)[0]
+    out["probe"] = dict(probe=probed["probe"], tokens=probed["tokens"],
+                        s=time.perf_counter() - t0)
+    free_cuda()
     out["tiny"] = serve_rank(group, *tiny)
     return out
 
@@ -2756,6 +3122,18 @@ def serve_tp(report, card: str):
             prefill_tok_s=m["prefill_tokens"] / m["prefill_s"],
             decode_ms_step=step_ms, launches=launches,
             schedule_steps=run["schedule_steps"], psum_host=inside)
+    for r, rank in enumerate(ranks):
+        pr = rank["probe"]["probe"]
+        if pr["tp"] != 2 or set(pr["schedules"]) != {
+                "sequential", "batch_split", "ladder", "cross_block"} or \
+                rank["probe"]["tokens"] != ranks[0]["probe"]["tokens"] or \
+                not all(math.isfinite(t) for t in pr["schedules"].values()):
+            raise AssertionError(f"[probe] tp=2 rank {r}: {pr}")
+    log(f"[probe] qwen3-8b tp=2 batch_split ({TP_LABEL}; "
+        f"{ranks[0]['probe']['s']:.1f}s with its serving runs; the engine "
+        f"served the same tokens after it on both ranks) rank 0: "
+        f"{json.dumps(ranks[0]['probe']['probe'])} [{card}]")
+    report["probe_tp2"] = ranks[0]["probe"]["probe"]
     log(f"[tp] rank 0 host profile of a quantized_comm/batch_split run "
         f"({PROFILE_NEW} new tokens, {TP_LABEL}), by self CPU time:")
     for line in ranks[0]["profile"].splitlines():
@@ -2900,6 +3278,8 @@ def main() -> int:
     time_kernels(report)
     serve_ops(report, card)
 
+    log(f"[done] every phase passed in {time.perf_counter() - t0:.1f}s "
+        f"(the build included) [{card}]")
     kernels = []
     for name, (source, replaces) in SOURCES.items():
         t = report["timing"][name]

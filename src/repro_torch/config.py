@@ -3,7 +3,7 @@
 Frozen dataclasses, so configs are hashable, and a string registry so the
 launcher can select ``--arch <id>``.  The fields and defaults are the
 reference's; only the parts the port's slice reaches are kept (no input-shape
-table, no ladder twins).
+table).  ``ladder_variant`` builds the ladder-residual twin of a config.
 """
 from __future__ import annotations
 
@@ -201,6 +201,22 @@ def effective_kv_heads(n_kv: int, shards: int) -> int:
 
 def padded_ff(d_ff: int, shards: int) -> int:
     return pad_to_multiple(d_ff, shards * 128) if d_ff else 0
+
+
+def ladder_variant(cfg: ModelConfig, name: str = "") -> ModelConfig:
+    """Ladder-residual twin of a standard-wired config: the same shapes and
+    parameter layout, the residual stream rewired
+    (``residual_wiring="ladder"``) so each stage's TP all-reduce completes
+    behind the next stage's compute.  Attention stacks only: every stage
+    must end in a reduce (models/blocks.pattern_all_reduces)."""
+    from repro_torch.models.blocks import pattern_all_reduces
+    assert cfg.residual_wiring == "standard", cfg.name
+    assert all(k in (BLOCK_ATTN_MLP, BLOCK_ATTN_MOE)
+               for k in cfg.block_pattern) and \
+        pattern_all_reduces(cfg.block_pattern), \
+        f"ladder wiring needs an all-reducing attention stack: {cfg.name}"
+    return dataclasses.replace(cfg, name=name or f"ladder-{cfg.name}",
+                               residual_wiring="ladder")
 
 
 # ---------------------------------------------------------------------------

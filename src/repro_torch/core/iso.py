@@ -15,6 +15,12 @@ pending collective crosses layer boundaries.  The KV prefix is threaded
 chunk to chunk within each layer.  At tp=1 the collectives are identities,
 so every schedule is numerically the plain stack.  ``lax.scan`` over periods
 becomes a Python loop; the decode drivers update the page pools in place.
+
+The ladder-residual wiring (``ladder=True`` in prefill,
+``run_stack_decode_ladder`` in decode; PAPERS.md, arXiv 2501.06589) is the
+other way to hide a reduce: stage k computes on the residual stream as of
+stage k-2, so stage k-1's reduce completes behind stage k's compute.  It is
+a different model function, chosen by ``ModelConfig.residual_wiring``.
 """
 from __future__ import annotations
 
@@ -27,7 +33,8 @@ from repro_torch.core.overlap import AxisCtx, Pending, psum_now, psum_start, \
     psum_wait
 from repro_torch.models.blocks import BLOCK_STAGES, StageCtx
 
-DECODE_SCHEDULES = ("sequential", "batch_split", "cross_block")
+DECODE_SCHEDULES = ("sequential", "batch_split", "cross_block", "ladder",
+                    "ladder_seq")
 
 
 @dataclass
@@ -45,11 +52,21 @@ def _period(tree, p: int):
 
 def run_layer(p_layer, kind: str, state: PipeState, sctx: StageCtx,
               ctx: AxisCtx, layer_cache=None,
-              starts: Sequence[int] = (0,)) -> Tuple[PipeState, Dict]:
+              starts: Sequence[int] = (0,),
+              ladder: bool = False) -> Tuple[PipeState, Dict]:
     """Run one layer over all chunks in ISO order; returns extras for the
-    KV scatter (``kv_k``/``kv_v`` of the call's tokens)."""
+    KV scatter (``kv_k``/``kv_v`` of the call's tokens).
+
+    ``ladder=True``: the ladder-residual wiring.  The pre-resolve branch is
+    skipped, so every stage computes on the residual as of two stages ago
+    and the pending reduce resolves after this stage's compute.  Ladder
+    runs single-chunk: an ISO interleave would resolve each chunk's pending
+    during the other chunk's unit and restore the standard wiring."""
     stages = BLOCK_STAGES[kind]
     n_chunks = len(state.xs)
+    assert not ladder or n_chunks == 1, "ladder wiring runs single-chunk"
+    assert not ladder or all(r for _, r in stages), \
+        "ladder wiring needs every stage reducing (attention-style blocks)"
     xs = list(state.xs)
     pend, pend_base = state.pend, state.pend_base
     pend_chunk = n_chunks - 1                 # invariant at layer entry
@@ -60,8 +77,9 @@ def run_layer(p_layer, kind: str, state: PipeState, sctx: StageCtx,
         for c in range(n_chunks):
             # a unit whose own chunk still owes a residual resolves it first
             # (the serial schedule of Figure 1(a)); with >= 2 chunks the
-            # interleave resolves (s-1, c) during unit (s-1, c+1) instead
-            if pend is not None and pend_chunk == c:
+            # interleave resolves (s-1, c) during unit (s-1, c+1) instead.
+            # Ladder skips it: the stage computes on the lagged residual
+            if not ladder and pend is not None and pend_chunk == c:
                 reduced, _ = psum_wait(pend)
                 xs[c] = pend_base + reduced
                 pend = pend_base = None
@@ -103,7 +121,7 @@ def flush_pending(state: PipeState) -> Tuple[torch.Tensor, ...]:
 
 def run_stack_prefill(params_periods, pattern: Sequence[str], x_chunks,
                       starts: Sequence[int], sctx: StageCtx, ctx: AxisCtx,
-                      layer_caches=None):
+                      layer_caches=None, ladder: bool = False):
     """Loop over pattern periods (the reference's ``lax.scan``).
 
     params_periods: per position of ``pattern``, a list of per-period layer
@@ -114,7 +132,8 @@ def run_stack_prefill(params_periods, pattern: Sequence[str], x_chunks,
     position extras with ``kv_k``/``kv_v`` stacked over periods).
 
     The reference starts from a zero pending reduce (``x += psum(0)``); the
-    port starts with none, which is the same numbers without a collective."""
+    port starts with none, which is the same numbers without a collective.
+    ``ladder``: the ladder-residual wiring (``run_layer``), single-chunk."""
     n_periods = len(params_periods[0])
     state = PipeState(tuple(x_chunks), None, None)
     per_pos: List[List[Dict]] = [[] for _ in pattern]
@@ -122,7 +141,8 @@ def run_stack_prefill(params_periods, pattern: Sequence[str], x_chunks,
         for i, kind in enumerate(pattern):
             cache_i = _period(layer_caches[i], p) if layer_caches else None
             state, extras = run_layer(params_periods[i][p], kind, state, sctx,
-                                      ctx, layer_cache=cache_i, starts=starts)
+                                      ctx, layer_cache=cache_i, starts=starts,
+                                      ladder=ladder)
             per_pos[i].append(extras)
     extras = []
     for exs in per_pos:
@@ -174,7 +194,12 @@ def run_stack_decode(params_periods, pattern: Sequence[str], x, caches,
       boundaries, so the stage's KV page scatter runs inside the window.
       Same reduces and residual adds in the same order as sequential.
     * ``"batch_split"``: ``run_stack_decode_overlap``.
+    * ``"ladder"`` / ``"ladder_seq"``: ``run_stack_decode_ladder``, deferred
+      / immediate (the ladder-rewired function).
     """
+    if schedule in ("ladder", "ladder_seq"):
+        return run_stack_decode_ladder(params_periods, pattern, x, caches,
+                                       sctx, ctx, defer=schedule == "ladder")
     if schedule == "batch_split":
         return run_stack_decode_overlap(params_periods, pattern, x, caches,
                                         sctx, ctx)
@@ -201,6 +226,53 @@ def run_stack_decode(params_periods, pattern: Sequence[str], x, caches,
                 _apply_decode_cache_update(cache_i, extras, sctx)
     if pend is not None:
         x = x + psum_wait(pend)[0]
+    return x, caches
+
+
+def run_stack_decode_ladder(params_periods, pattern: Sequence[str], x,
+                            caches, sctx: StageCtx, ctx: AxisCtx,
+                            defer: bool = True):
+    """Ladder-residual decode (PAPERS.md, arXiv 2501.06589): stage k
+    consumes the residual stream as of stage k-2,
+
+        input_k = x_emb + sum_{j <= k-2} AR(out_j),
+
+    so ``AR(out_{k-1})`` is independent of stage k's compute and completes
+    behind it, across block and period boundaries.  It needs no second
+    batch half (B = 1 works) and no sequence chunk: the lag is the overlap
+    window.  The pending partial is carried by the Python loop over periods
+    (the reference's ``lax.scan`` carry).
+
+    ``defer=True`` issues each stage's reduce as soon as its partial exists
+    and completes it after the next stage's compute; ``defer=False`` is the
+    schedule twin of the SAME ladder function, each reduce run immediately
+    (``psum_now``) after the next stage's compute.  Both do the same
+    reduces and residual adds in the same order, so they are bit-equal.
+    The reference starts from a zero pending (``x += psum(0)``); the port
+    starts with none, the same numbers without a collective."""
+    for kind in pattern:
+        assert all(r for _, r in BLOCK_STAGES[kind]), \
+            "ladder wiring needs every stage reducing (attention-style blocks)"
+    pend = None          # deferred: the issued reduce; else the raw partial
+    for p in range(len(params_periods[0])):
+        for i, kind in enumerate(pattern):
+            cache_i = _period(caches[i], p)
+            for fn, _ in BLOCK_STAGES[kind]:
+                # compute on the LAGGED residual (the pending not yet added)
+                out, _, extras = fn(params_periods[i][p], x, 0, None, sctx,
+                                    cache_i)
+                if defer:
+                    started = psum_start(out, ctx)
+                    if pend is not None:    # ran beside this stage's compute
+                        x = x + psum_wait(pend)[0]
+                    pend = started
+                else:
+                    if pend is not None:
+                        x = x + psum_now(pend, ctx)
+                    pend = out
+                _apply_decode_cache_update(cache_i, extras, sctx)
+    if pend is not None:                    # trailing flush
+        x = x + (psum_wait(pend)[0] if defer else psum_now(pend, ctx))
     return x, caches
 
 

@@ -19,6 +19,9 @@ Device and backend follow each other:
 
 Ranks meet through a ``file://`` rendezvous in a fresh temporary directory,
 so concurrent runs never contend for a port.
+
+``disagg_devices`` places the two engines of disaggregated serving at tp=1
+(the counterpart of the reference's ``disagg_meshes``).
 """
 from __future__ import annotations
 
@@ -28,7 +31,7 @@ import tempfile
 import time
 from dataclasses import dataclass
 from datetime import timedelta
-from typing import Any, Callable, List, Optional, Sequence
+from typing import Any, Callable, List, Optional, Sequence, Tuple
 
 import torch
 import torch.distributed as dist
@@ -136,3 +139,19 @@ def spawn(fn: Callable, tp: int, *, args: Sequence = (), device=None,
             with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
                 results.append(pickle.load(f))
     return results
+
+
+def disagg_devices(device=None) -> Tuple[torch.device, torch.device, bool]:
+    """(prefill device, decode device, shared) for disaggregated serving at
+    tp=1: two disjoint cards where two are visible (``shared`` False), else
+    the one card twice (True, both engines then use one set of weights);
+    on the host, the CPU twice.  ``device`` as ``resolve_device`` takes it;
+    a card named with an index is used for both engines."""
+    asked = torch.device("cuda" if device is None else device)
+    dev = resolve_device(asked)
+    if dev.type == "cpu":
+        return dev, dev, True
+    if asked.index is None and torch.cuda.device_count() >= 2:
+        return torch.device("cuda", 0), torch.device("cuda", 1), False
+    dev = torch.device("cuda", 0 if asked.index is None else asked.index)
+    return dev, dev, True

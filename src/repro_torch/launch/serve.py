@@ -22,6 +22,17 @@ N`` prints a metrics line every N engine steps, and ``--profile DIR``
 records a ``torch.profiler`` trace of the run into DIR (``obs.torchprof``;
 one subdirectory a rank under ``--tp``).
 
+Serving modes and traffic, as the reference's launcher: ``--disagg`` serves
+through a prefill engine and a decode engine with KV pages migrating
+between them (``serving/disagg.py``; ``--decode-pool-pages`` sizes the
+decode pool, ``--migrate-batch`` caps the requests a transfer; tp=1 only
+so far), ``--decode-schedule`` forces a decode collective schedule
+(``ladder``/``ladder_seq`` with a ladder arch, ``--arch ladder-qwen3-8b``),
+``--probe-overlap`` times the decode schedules after the run
+(``obs/overlap_probe.py``), ``--temperature`` samples instead of greedy
+decoding, and ``--shared-prefix N`` opens every prompt with one N-token
+system prompt.
+
 ``serve_rank`` is the per-rank body, also used by ``chip_smoke.py`` and the
 tests: it serves a list of request batches ("variants") on one set of
 weights.
@@ -43,10 +54,12 @@ from repro_torch.config import Config, ISOConfig, ModelConfig, \
     ParallelConfig, RuntimeConfig, ServingConfig, get_model_config
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.kernels import native
-from repro_torch.launch.mesh import TPGroup, spawn
+from repro_torch.core.iso import DECODE_SCHEDULES
+from repro_torch.launch.mesh import TPGroup, disagg_devices, spawn
 from repro_torch.models import api
 from repro_torch.obs import torchprof, write_chrome_trace
 from repro_torch.serving import PagedEngine, Request, paged_engine
+from repro_torch.serving.disagg import DisaggRouter
 from repro_torch.serving.requests import SamplingParams
 
 
@@ -72,33 +85,72 @@ def reduce_cfg(cfg: ModelConfig, preset: str) -> ModelConfig:
     return dataclasses.replace(cfg, **kw)
 
 
-def _drive(eng: PagedEngine, metrics_every: int) -> Dict[int, List[int]]:
-    """Step ``eng`` to completion, printing a one-line metrics summary every
-    ``metrics_every`` steps (0: none)."""
+def _engines(eng) -> tuple:
+    """The ``PagedEngine``s behind ``eng``: itself, or a router's two."""
+    return (eng.prefill, eng.decode) if isinstance(eng, DisaggRouter) \
+        else (eng,)
+
+
+def _drive(eng, metrics_every: int) -> Dict[int, List[int]]:
+    """Step ``eng`` (an engine or a ``DisaggRouter``) to completion,
+    printing a one-line metrics summary every ``metrics_every`` steps (0:
+    none)."""
     if not metrics_every:
         return eng.run_until_complete()
+    engines = _engines(eng)
     t_last, toks_last = time.perf_counter(), 0
-    for _ in range(10_000):
+    for step in range(1, 10_001):
         eng.step()
-        done = not eng.scheduler.waiting and \
-            all(s is None for s in eng.slots)
-        m = eng.metrics
-        if m["steps"] % metrics_every == 0 or done:
+        done = eng.done() if isinstance(eng, DisaggRouter) else \
+            not eng.scheduler.waiting and all(s is None for s in eng.slots)
+        if step % metrics_every == 0 or done:
             now = time.perf_counter()
-            toks = m["decode_tokens"] + m["prefill_samples"]
+            toks = sum(e.metrics["decode_tokens"] + e.metrics["prefill_samples"]
+                       for e in engines)
             rate = (toks - toks_last) / max(now - t_last, 1e-9)
             t_last, toks_last = now, toks
-            line = (f"[metrics] step={m['steps']} "
-                    f"active={sum(s is not None for s in eng.slots)} "
-                    f"waiting={len(eng.scheduler.waiting)} tok/s={rate:.1f} "
-                    f"pool={eng.alloc.used_pages}/{eng.alloc.num_pages} "
-                    f"frag={eng.alloc.fragmentation()}")
-            if eng.spec_k:
-                line += f" accept/call={eng.accepted_per_call():.2f}"
+            active = ",".join(str(sum(s is not None for s in e.slots))
+                              for e in engines)
+            line = (f"[metrics] step={step} active={active} "
+                    f"waiting={len(engines[0].scheduler.waiting)} "
+                    f"tok/s={rate:.1f} pool="
+                    + ",".join(f"{e.alloc.used_pages}/{e.alloc.num_pages}"
+                               for e in engines)
+                    + f" frag={engines[-1].alloc.fragmentation()}")
+            if engines[-1].spec_k:
+                line += (f" accept/call="
+                         f"{engines[-1].accepted_per_call():.2f}")
+            if isinstance(eng, DisaggRouter):
+                ms = eng.migration_stats()
+                line += (f" migrated={ms['migrated_requests']} "
+                         f"deferrals={ms['deferrals']}")
             print(line, flush=True)
         if done:
             break
-    return {st.request.rid: st.generated for st in eng._finished}
+    return {st.request.rid: st.generated
+            for e in engines for st in e._finished}
+
+
+def _make_engine(config: Config, params, group: Optional[TPGroup], dev):
+    """The variant's engine: a ``DisaggRouter`` under ``serving.disagg``
+    (tp=1 only), else a ``PagedEngine``."""
+    if not config.serving.disagg:
+        return PagedEngine(config, params, mesh=group,
+                           device=None if group is not None else dev)
+    if group is not None:
+        raise NotImplementedError(paged_engine.DISAGG_TP_ITEM)
+    pdev, ddev, _ = disagg_devices(dev)
+    return DisaggRouter(config, params, prefill_device=pdev,
+                        decode_device=ddev)
+
+
+def _submit(eng, v: Dict[str, Any]) -> List[int]:
+    return [eng.add_request(Request(
+        prompt=np.asarray(p, np.int32).copy(),
+        sampling=SamplingParams(max_new_tokens=v["max_new"], eos_id=-1,
+                                temperature=v.get("temperature", 0.0),
+                                seed=i)))
+        for i, p in enumerate(v["prompts"])]
 
 
 def serve_rank(group: Optional[TPGroup], config: Config,
@@ -113,7 +165,9 @@ def serve_rank(group: Optional[TPGroup], config: Config,
     launch counts of that run alone, the decode steps per schedule, the
     wall time, the engine's trace events (``trace``, ``dropped``) and its
     cost model's identity (``cost_model``: platform, tp, alpha, beta, or
-    None).
+    None).  Under ``serving.disagg`` the variant runs on a ``DisaggRouter``
+    (tp=1): ``metrics`` then sums both engines' counters, and
+    ``migration`` holds ``migration_stats()``.
 
     ``autotune`` first measures a cost table with the small sweeps on a
     throwaway engine and serves every variant with it; ``metrics_every``
@@ -122,7 +176,13 @@ def serve_rank(group: Optional[TPGroup], config: Config,
     there at tp > 1).
 
     A variant is ``{"prompts": [int arrays], "max_new": int}`` plus optional
-    ``"serving"`` / ``"iso"`` dicts of field overrides on ``config``.  The
+    ``"serving"`` / ``"iso"`` dicts of field overrides on ``config``, a
+    ``"temperature"`` (request i samples with seed i), and ``"probe"``:
+    keyword arguments of ``measure_overlap_efficiency``, run after the
+    serving run; its dict comes back as ``probe``, and the variant's
+    requests are then served again on the same engine, which must give the
+    same tokens with no graph captured (the probe leaves the engine as it
+    found it).  The
     weights are made once: from ``params_npz`` (a reference-layout pytree
     built at this tp, ``bridge.save_npz``), else from ``seed`` with only
     this rank's shard made.  Every sampled logits row is checked finite, and
@@ -167,13 +227,9 @@ def serve_rank(group: Optional[TPGroup], config: Config,
                 serving=dataclasses.replace(config.serving,
                                             **v.get("serving", {})),
                 iso=dataclasses.replace(config.iso, **v.get("iso", {})))
-            eng = PagedEngine(cfg_v, params, mesh=group,
-                              device=None if group is not None else dev)
-            rids = [eng.add_request(Request(
-                prompt=np.asarray(p, np.int32).copy(),
-                sampling=SamplingParams(max_new_tokens=v["max_new"],
-                                        eos_id=-1)))
-                for p in v["prompts"]]
+            eng = _make_engine(cfg_v, params, group, dev)
+            engines = _engines(eng)
+            rids = _submit(eng, v)
             synchronize(dev)
             native.reset_launches()
             rows[0] = 0
@@ -185,20 +241,39 @@ def serve_rank(group: Optional[TPGroup], config: Config,
             finally:
                 wall = time.perf_counter() - t0
                 profile = torchprof.stop()
-            if eng.alloc.free_pages != eng.alloc.num_pages:
+            if any(e.alloc.free_pages != e.alloc.num_pages for e in engines):
                 raise AssertionError(f"rank {rank}: pages leaked")
-            cm = eng.cost_model
-            results.append(dict(
-                tokens=[outs[r] for r in rids], metrics=dict(eng.metrics),
+            last = engines[-1]
+            cm = last.cost_model
+            res = dict(
+                tokens=[outs[r] for r in rids],
+                metrics={k: sum(e.metrics[k] for e in engines)
+                         for k in last.metrics},
                 launches=dict(native.LAUNCHES),
-                schedule_steps=dict(eng.decode_schedule_steps),
-                accepted_per_call=eng.accepted_per_call(),
-                decode_schedule=eng._decode_schedule, rows_checked=rows[0],
-                wall=wall, trace=eng.trace.events(),
-                dropped=eng.trace.dropped, profile=profile,
+                schedule_steps=dict(last.decode_schedule_steps),
+                accepted_per_call=last.accepted_per_call(),
+                decode_schedule=last._decode_schedule, rows_checked=rows[0],
+                wall=wall,
+                trace=[ev for e in engines for ev in e.trace.events()],
+                dropped=sum(e.trace.dropped for e in engines),
+                profile=profile,
+                migration=eng.migration_stats()
+                if isinstance(eng, DisaggRouter) else None,
                 cost_model=None if cm is None else dict(
                     platform=cm.platform, tp=cm.tp, alpha_s=cm.alpha_s,
-                    beta_s_per_byte=cm.beta_s_per_byte)))
+                    beta_s_per_byte=cm.beta_s_per_byte))
+            if "probe" in v:
+                graphs = eng.graphs
+                res["probe"] = eng.measure_overlap_efficiency(**v["probe"])
+                rids_again = _submit(eng, v)
+                outs_again = eng.run_until_complete()
+                again = [outs_again[r] for r in rids_again]
+                if again != res["tokens"] or eng.graphs != graphs:
+                    raise AssertionError(
+                        f"rank {rank}: after the overlap probe the engine "
+                        f"served {again} (before: {res['tokens']}) and "
+                        f"captured {eng.graphs - graphs} graphs")
+            results.append(res)
             del eng
     finally:
         paged_engine.sample = real_sample
@@ -261,6 +336,41 @@ def main(argv=None) -> int:
                     help="record a torch.profiler trace of the run into DIR "
                          "(the engine's closure calls are record_function "
                          "ranges; one subdirectory a rank under --tp)")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature (0: greedy); request i "
+                         "samples with seed i")
+    ap.add_argument("--shared-prefix", type=int, default=0, metavar="N",
+                    help="open every prompt with one N-token system prompt "
+                         "(exercises copy-on-write prefix sharing)")
+    ap.add_argument("--decode-schedule", default="auto",
+                    choices=("auto",) + DECODE_SCHEDULES,
+                    help="decode collective schedule (core/iso.py): auto "
+                         "is batch_split under --tp when the batch allows "
+                         "it, sequential otherwise; cross_block defers each "
+                         "reduce to the next stage's top; ladder / "
+                         "ladder_seq (deferred / immediate collectives) "
+                         "need a ladder arch (--arch ladder-qwen3-8b ...), "
+                         "which runs ladder by default")
+    ap.add_argument("--disagg", action="store_true",
+                    help="disaggregated serving: a prefill engine and a "
+                         "decode engine, each request migrating by a "
+                         "KV-page transfer once its prompt is resident "
+                         "(serving/disagg.py; tp=1: one card twice with "
+                         "one set of weights, or two cards)")
+    ap.add_argument("--decode-pool-pages", type=int, default=0,
+                    help="the decode engine's page pool under --disagg (0: "
+                         "the prefill pool's size); a full decode pool "
+                         "defers migration, it never drops a request")
+    ap.add_argument("--migrate-batch", type=int, default=0,
+                    help="requests migrated a router step at most under "
+                         "--disagg (0: all that fit); a batched transfer "
+                         "keeps copy-on-write sharing across the move")
+    ap.add_argument("--probe-overlap", action="store_true",
+                    help="after the run, time the decode collective "
+                         "schedules on identical synthetic batches "
+                         "(obs/overlap_probe.py); at tp=1 every efficiency "
+                         "is ~0, and over gloo it times the host's "
+                         "collectives: no overlap claim on one card")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if not args.paged:
@@ -272,12 +382,26 @@ def main(argv=None) -> int:
         ap.error("--spec-k must be >= 0")
     if args.metrics_every < 0:
         ap.error("--metrics-every must be >= 0")
+    if args.spec_k and args.temperature > 0:
+        ap.error("--spec-k is greedy-only (needs --temperature 0)")
+    if args.disagg and (args.probe_overlap or args.autotune):
+        ap.error("--disagg does not combine with --probe-overlap/--autotune")
+    if (args.decode_pool_pages or args.migrate_batch) and not args.disagg:
+        ap.error("--decode-pool-pages/--migrate-batch require --disagg")
+    if args.shared_prefix < 0:
+        ap.error("--shared-prefix must be >= 0")
+    if args.disagg and args.tp > 1:
+        raise NotImplementedError(paged_engine.DISAGG_TP_ITEM)
     device = resolve_device(args.device)
 
     cfg = reduce_cfg(get_model_config(args.arch), args.preset)
+    if args.decode_schedule in ("ladder", "ladder_seq") and \
+            cfg.residual_wiring != "ladder":
+        ap.error(f"--decode-schedule {args.decode_schedule} needs a ladder "
+                 f"arch (--arch ladder-...), not {args.arch}")
     iso = ISOConfig(enabled=not args.iso_off, num_chunks=args.chunks,
                     min_chunk_tokens=16, chunk_align=16)
-    max_len = args.prompt_len + args.max_new + 8
+    max_len = args.shared_prefix + args.prompt_len + args.max_new + 8
     max_len += args.spec_k + 1 if args.spec_k else 0
     serving = ServingConfig(page_size=args.page_size, max_batch=args.max_batch,
                             max_len=max_len,
@@ -287,16 +411,27 @@ def main(argv=None) -> int:
                             prefill_batching=not args.no_batched_prefill,
                             spec_k=args.spec_k,
                             cost_table="" if args.autotune
-                            else args.cost_table)
+                            else args.cost_table,
+                            decode_schedule=args.decode_schedule,
+                            disagg=args.disagg,
+                            decode_pool_pages=args.decode_pool_pages,
+                            migrate_batch=args.migrate_batch)
     config = Config(model=cfg, parallel=ParallelConfig(data=1, model=args.tp),
                     iso=iso, runtime=RuntimeConfig(mode="serve"),
                     serving=serving)
     rng = np.random.default_rng(args.seed)
+    system = rng.integers(2, cfg.vocab_size,
+                          args.shared_prefix).astype(np.int32)
     prompts = []
     for _ in range(args.requests):
         plen = int(rng.integers(args.prompt_len // 2, args.prompt_len))
-        prompts.append(rng.integers(2, cfg.vocab_size, plen).astype(np.int32))
-    variants = [dict(prompts=prompts, max_new=args.max_new)]
+        prompts.append(np.concatenate(
+            [system, rng.integers(2, cfg.vocab_size, plen)]).astype(np.int32))
+    variant = dict(prompts=prompts, max_new=args.max_new,
+                   temperature=args.temperature)
+    if args.probe_overlap:
+        variant["probe"] = {}
+    variants = [variant]
     opts = (args.autotune, args.metrics_every, args.profile)
     if args.autotune:
         print("[autotune] measuring (the small sweeps)...", flush=True)
@@ -321,7 +456,8 @@ def main(argv=None) -> int:
               f"alpha={cm['alpha_s']:.3e}s "
               f"beta={cm['beta_s_per_byte']:.3e}s/B")
     outs = res["tokens"]
-    print(f"arch={cfg.name} device={dev_name} tp={args.tp} iso="
+    print(f"arch={cfg.name}{' disagg' if args.disagg else ''} "
+          f"device={dev_name} tp={args.tp} iso="
           f"{'off' if args.iso_off else 'on'} decode_schedule="
           f"{res['decode_schedule']} {res['schedule_steps']} requests="
           f"{len(outs)} new_tokens={sum(len(t) for t in outs)} "
@@ -340,6 +476,24 @@ def main(argv=None) -> int:
         print(f"spec: spec_calls={m['spec_calls']} spec_tokens="
               f"{m['spec_tokens']} accepted_per_call="
               f"{res['accepted_per_call']:.3f}")
+    ms = res["migration"]
+    if ms is not None:
+        print(f"migration: transfers={ms['migrations']} "
+              f"requests={ms['migrated_requests']} "
+              f"pages={ms['migrated_pages']} us={ms['migration_us']:.0f} "
+              f"deferrals={ms['deferrals']} "
+              f"bounce_backs={ms['bounce_backs']}")
+    if args.probe_overlap:
+        pr = res["probe"]
+        exp = pr["exposed_comm_s"]
+        print(f"overlap probe: efficiency={pr['overlap_efficiency']:.3f} "
+              f"ladder_speedup={pr['ladder_speedup']:.3f}"
+              f"{' (proxy)' if pr['ladder_proxy'] else ''} exposed_comm="
+              f"{'n/a' if exp is None else f'{exp * 1e3:.2f}ms'} "
+              f"(tp={pr['tp']}, B={pr['batch']}; the engine served the same "
+              f"tokens after it)")
+        for name, t in sorted(pr["schedules"].items()):
+            print(f"  schedule {name:<12} {t * 1e3:.2f} ms/step")
     if args.autotune or args.cost_table:
         points = collections.Counter(e.payload["point"] for e in res["trace"]
                                      if e.kind == "decision")

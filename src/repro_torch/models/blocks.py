@@ -118,3 +118,11 @@ def mlp_stage(p, x, start_pos, seq_state, sctx: StageCtx, cache=None):
 BLOCK_STAGES = {
     BLOCK_ATTN_MLP: ((attn_stage, True), (mlp_stage, True)),
 }
+
+
+def pattern_all_reduces(pattern) -> bool:
+    """True when every stage of every block kind in ``pattern`` ends in a TP
+    all-reduce: the precondition of the ladder-residual wiring
+    (core/iso.run_stack_decode_ladder), since a stage without a collective
+    has nothing to lag behind the next stage's compute."""
+    return all(r for kind in pattern for _, r in BLOCK_STAGES[kind])

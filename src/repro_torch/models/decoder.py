@@ -27,17 +27,16 @@ from repro_torch.models.blocks import StageCtx
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves dense ``attn_mlp`` stacks with the standard residual
-    wiring; anything else raises, naming its ROADMAP item."""
+    """The port serves dense ``attn_mlp`` stacks, standard- or
+    ladder-wired; anything else raises, naming its ROADMAP item."""
     if cfg.family not in ("dense",) or \
             any(k != BLOCK_ATTN_MLP for k in cfg.block_pattern):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} / blocks {cfg.block_pattern}"
             f" are not ported (ROADMAP queue A item 10)")
-    if cfg.residual_wiring != "standard":
-        raise NotImplementedError(
-            f"{cfg.name}: ladder residual wiring is not ported (ROADMAP "
-            f"queue A item 9)")
+    if cfg.residual_wiring not in ("standard", "ladder"):
+        raise ValueError(f"{cfg.name}: unknown residual wiring "
+                         f"{cfg.residual_wiring!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -200,11 +199,14 @@ def prefill(params, cfg: ModelConfig, ctx: AxisCtx, iso: ISOConfig, *,
     ``valid_len`` marks how many of the call's tokens are real: the
     bucket-padded tail beyond it is masked out of attention.  The call's own
     ISO chunking happens here, so overlap applies within a resumed slice as in
-    a monolithic prefill."""
+    a monolithic prefill.  A ladder-wired config runs single-chunk, always:
+    the lagged residual supplies the overlap, and an ISO interleave would
+    restore the standard wiring per chunk."""
     check_supported(cfg)
     embeds = embed_tokens(params, tokens, cfg, ctx)
     B, S, D = embeds.shape
-    lengths = split_chunks(S, iso, cfg, tp=ctx.tp)
+    ladder = cfg.residual_wiring == "ladder"
+    lengths = [S] if ladder else split_chunks(S, iso, cfg, tp=ctx.tp)
     starts, acc = [], 0
     for l in lengths:
         starts.append(acc)
@@ -217,7 +219,7 @@ def prefill(params, cfg: ModelConfig, ctx: AxisCtx, iso: ISOConfig, *,
     sctx.valid_len = valid_len
     xs_final, extras = run_stack_prefill(
         params["periods"], cfg.block_pattern, x_chunks, tuple(starts), sctx,
-        ctx, layer_caches=prefix_caches)
+        ctx, layer_caches=prefix_caches, ladder=ladder)
     x = torch.cat(xs_final, dim=1) if len(xs_final) > 1 else xs_final[0]
     x = _final(params, x, cfg)
 
@@ -248,16 +250,24 @@ def decode_step(params, cfg: ModelConfig, ctx: AxisCtx, tokens, caches,
     the scratch page).  The window's KV is scattered into the pools IN PLACE.
     ``kv_splits`` runs each paged attention's page walk as that many split-KV
     spans.  ``schedule`` is the collective schedule of core/iso.py
-    (``sequential``, ``batch_split`` or ``cross_block``; default
-    sequential).  Returns (logits_local (B, K, V_loc), caches)."""
+    (``sequential``, ``batch_split``, ``cross_block``, ``ladder`` or
+    ``ladder_seq``; default sequential).  A ladder-wired config always runs
+    the ladder decode stack (the wiring is part of the model function),
+    deferred unless the schedule is ``sequential`` or ``ladder_seq``; forcing
+    ``ladder`` on a standard-wired config runs the REWIRED function (the
+    overlap probe's timing proxy, never for serving).  Returns
+    (logits_local (B, K, V_loc), caches)."""
     check_supported(cfg)
+    schedule = schedule or "sequential"
+    if cfg.residual_wiring == "ladder" and \
+            schedule not in ("ladder", "ladder_seq"):
+        schedule = "ladder_seq" if schedule == "sequential" else "ladder"
     x = embed_tokens(params, tokens, cfg, ctx)
     sctx = _stage_ctx(cfg, ctx, "decode", lengths=lengths)
     sctx.block_tables = block_tables
     sctx.decode_mask = decode_mask
     sctx.kv_splits = kv_splits
     x, caches = run_stack_decode(params["periods"], cfg.block_pattern, x,
-                                 caches, sctx, ctx,
-                                 schedule=schedule or "sequential")
+                                 caches, sctx, ctx, schedule=schedule)
     x = _final(params, x, cfg)
     return emb_lib.lm_head_local(params["embed"], x), caches

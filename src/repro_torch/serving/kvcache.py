@@ -6,10 +6,11 @@
     ``adopt`` maps a donor's prefix pages into a fresh request, ``cow``
     gives a writer its own copy of a shared page), copied from the
     reference with its trace narration (alloc, free, rc_drop, cow, adopt),
-    without its snapshot/restore and ``import_tables`` (page migration,
-    the second half of ROADMAP queue A item 9).
+    its JSON-able ``snapshot``/``restore`` and ``import_tables``, which
+    adopts a migrated request group's block tables at fresh page ids
+    (``serving/kvstate.KVPool.import_pages``).
   * ``PrefixCache``: the hash index over registered prompt prefixes that
-    finds a live donor for a new request.
+    finds a live donor for a new request, with ``snapshot``/``restore``.
   * ``PagedKVCache``: torch page pools, one (k, v) pair per attention
     position of ``cfg.block_pattern``, each ``(P, N+1, page_size, Hkv, hd)``
     with the period dim leading.  Page N is a reserved scratch page: decode
@@ -211,6 +212,66 @@ class PageAllocator:
             self._emit("rc_drop", rid, n=rc_drops)
         return released
 
+    def import_tables(self, tables: Dict[int, List[int]],
+                      lengths: Dict[int, int]) -> Dict[int, int]:
+        """Adopt exported block tables into THIS pool: ``tables`` reference
+        export-local page ids, and every distinct id gets one fresh page
+        from the free list, so sharing among the imported requests is kept
+        (refcounts equal to the number of importing tables).  Returns the
+        local-id -> new-page mapping for the payload scatter.  Raises
+        OutOfPages, mutating nothing, when the free list cannot cover the
+        distinct pages (the disagg router's defer-and-retry path)."""
+        local_ids = sorted({pg for t in tables.values() for pg in t})
+        for rid in tables:
+            assert rid not in self.tables, f"import into live request {rid}"
+            assert rid in lengths, rid
+        if len(local_ids) > len(self._free):
+            raise OutOfPages(f"import needs {len(local_ids)} pages, "
+                             f"{len(self._free)} free")
+        mapping: Dict[int, int] = {}
+        for lid in local_ids:
+            pg = self._free.pop()
+            self._free_set.discard(pg)
+            assert self.refcount.get(pg, 0) == 0, \
+                f"free list handed out live page {pg}"
+            mapping[lid] = pg
+        for rid, t in tables.items():
+            new_t = [mapping[lid] for lid in t]
+            for pg in new_t:
+                self.refcount[pg] = self.refcount.get(pg, 0) + 1
+            self.tables[rid] = new_t
+            self.lengths[rid] = lengths[rid]
+            assert self.lengths[rid] <= len(new_t) * self.page_size
+        self._emit("alloc", next(iter(tables), -1), n=len(local_ids))
+        return mapping
+
+    # ---- serialization ----------------------------------------------------
+    def snapshot(self) -> Dict[str, Any]:
+        """The whole allocator state as a JSON-able dict (keys become
+        strings; ``restore`` converts back).  The free list's ORDER is kept,
+        so a restored allocator hands out pages in the same sequence."""
+        return {"num_pages": self.num_pages, "page_size": self.page_size,
+                "free": list(self._free),
+                "tables": {str(r): list(t) for r, t in self.tables.items()},
+                "lengths": {str(r): n for r, n in self.lengths.items()},
+                "refcount": {str(p): rc for p, rc in self.refcount.items()}}
+
+    def restore(self, snap: Dict[str, Any]) -> None:
+        """Overwrite this allocator's state from a ``snapshot()`` dict (the
+        geometry must match) and re-check the invariants."""
+        assert snap["num_pages"] == self.num_pages, \
+            (snap["num_pages"], self.num_pages)
+        assert snap["page_size"] == self.page_size, \
+            (snap["page_size"], self.page_size)
+        self._free = [int(p) for p in snap["free"]]
+        self._free_set = set(self._free)
+        self.tables = {int(r): [int(p) for p in t]
+                       for r, t in snap["tables"].items()}
+        self.lengths = {int(r): int(n) for r, n in snap["lengths"].items()}
+        self.refcount = {int(p): int(rc)
+                         for p, rc in snap["refcount"].items()}
+        self.check()
+
     def check(self) -> None:
         """Structural invariants: free + unique-allocated == num_pages, a
         page's refcount equals the number of tables referencing it, no page
@@ -289,6 +350,21 @@ class PrefixCache:
                 rids.remove(rid)
             if not rids:
                 self._by_hash.pop(h, None)
+
+    def snapshot(self) -> Dict[str, Any]:
+        """The registered prompts as a JSON-able dict.  The hash index is
+        not kept: ``hash(bytes)`` is salted per process, so ``restore``
+        rebuilds it from the prompts."""
+        return {"page_size": self.ps,
+                "prompts": {str(r): [int(t) for t in p]
+                            for r, p in self._prompts.items()}}
+
+    def restore(self, snap: Dict[str, Any]) -> None:
+        assert snap["page_size"] == self.ps, (snap["page_size"], self.ps)
+        self._prompts = {}
+        self._by_hash = {}
+        for r, toks in snap["prompts"].items():
+            self.register(int(r), np.asarray(toks, np.int32))
 
     def lookup(self, prompt: np.ndarray, alloc: PageAllocator,
                exclude: int = -1):

@@ -44,14 +44,15 @@ Observability, as in the reference (``src/repro_torch/obs``): ``registry``
 is an always-on ``MetricsRegistry`` and ``metrics`` its dict view over the
 reference's whole counter set (``prefill_calls``: forward calls, packs or
 batch-1 grants; ``spec_calls``: decode steps that verified a window;
-``migrations`` and its pair stay 0 until disaggregation is ported), with
+``migrations``, ``migrated_pages`` and ``migration_us``: page transfers), with
 the ``ttft``, ``tpot``, ``grant_size`` and ``accept_len`` histograms and
 the ``pool_occupancy`` and ``free_list_fragmentation`` gauges.  ``trace``
 is a bounded ``TraceRing`` the scheduler, the allocator and every phase of
 the host loop narrate into at the reference's points with its payloads
 (admit, grant, pack, defer, grant_commit, prefill_call, sample,
 decode_call, accept, spec_rollback, evict, finish, pool, decision, the
-allocator's alloc/free/cow/adopt/rc_drop); ``observability=False``
+allocator's alloc/free/cow/adopt/rc_drop, and detach, attach and migrate
+of a page transfer); ``observability=False``
 silences the ring and leaves the registry.  Every emit and every
 histogram observation runs on the host between closure calls, never in a
 captured body.  Each closure call runs under ``obs.torchprof.annotate``
@@ -92,12 +93,24 @@ sampling, so every rank samples the same token.  The decode collective
 schedule follows the reference: ``auto`` is ``batch_split`` under TP when
 ``decode_overlap`` and ``max_batch >= 2`` (``sequential`` otherwise), with
 a sequential step whenever fewer than 2 requests decode; ``sequential``,
-``batch_split`` and ``cross_block`` can be forced.
+``batch_split`` and ``cross_block`` can be forced.  A ladder-wired config
+(``residual_wiring="ladder"``) always runs the ladder decode stack: deferred
+collectives (``ladder``) when ``decode_overlap``, immediate ones
+(``ladder_seq``) otherwise, or the one ``decode_schedule`` names.
 
 When the pool runs dry a victim is evicted (recompute preemption: its pages
-are freed and prompt + generated re-enter the waiting queue).  The setting
-outside the port's slice (disaggregation) raises ``NotImplementedError``
-naming its ROADMAP item rather than doing something else.
+are freed and prompt + generated re-enter the waiting queue).
+
+Disaggregated serving (``serving/disagg.py``): ``phase="prefill"`` admits
+and prefills only (a request's first token comes from its prefill's last
+logits), ``phase="decode"`` decodes only, its requests arriving by
+``attach_requests``; ``detach_requests`` exports requests with their pages
+(``kv_pool``: the engine-external ``KVPool``).  Detach and attach run
+between steps, never inside a capture or a replay: an attach writes the
+pages in place and sets the host ``lengths``/``last_tokens`` that the next
+decode step stages into its static buffers.  Not under TP yet (ROADMAP
+queue A item 15).  ``measure_overlap_efficiency`` times the decode
+collective schedules against each other (``obs/overlap_probe.py``).
 """
 from __future__ import annotations
 
@@ -213,26 +226,55 @@ class StepClosure:
         return self._out
 
 
-def _check_slice(sv: ServingConfig) -> None:
-    """Raise for every setting the port's slice does not run."""
+# the ROADMAP item that ports disaggregated serving under TP
+DISAGG_TP_ITEM = ("disaggregated serving under tp > 1 (prefill and decode "
+                  "as two rank groups, the transfer between them): ROADMAP "
+                  "queue A item 15")
+
+
+def _decode_schedule_for(cfg, sv: ServingConfig, tp_mesh: bool) -> str:
+    """The engine's decode collective schedule, as the reference picks it:
+    a ladder-wired config always runs the ladder decode stack, deferred
+    (``ladder``) when ``decode_overlap`` and immediate (``ladder_seq``)
+    otherwise, unless ``decode_schedule`` names one of the two; a
+    standard-wired one runs ``decode_schedule``, where ``auto`` is
+    ``batch_split`` under TP with ``decode_overlap`` and ``max_batch >= 2``
+    and ``sequential`` otherwise.  A ladder schedule on a standard-wired
+    config would serve the rewired function, and raises."""
     if sv.decode_schedule not in ("auto",) + DECODE_SCHEDULES:
         raise ValueError(f"decode_schedule={sv.decode_schedule!r}: one of "
                          f"auto, {', '.join(DECODE_SCHEDULES)}")
-    if sv.disagg:
-        raise NotImplementedError("not in the port's slice yet: disagg "
-                                  "(disaggregated serving): ROADMAP queue A "
-                                  "item 9")
+    ladder = sv.decode_schedule in ("ladder", "ladder_seq")
+    if cfg.residual_wiring == "ladder":
+        if ladder:
+            return sv.decode_schedule
+        return "ladder" if sv.decode_overlap else "ladder_seq"
+    if ladder:
+        raise ValueError(f"decode_schedule={sv.decode_schedule!r} on the "
+                         f"standard-wired {cfg.name}: the ladder schedules "
+                         f"serve a ladder-wired arch (configs.LADDER)")
+    if sv.decode_schedule == "auto":
+        return "batch_split" if (tp_mesh and sv.decode_overlap
+                                 and sv.max_batch >= 2) else "sequential"
+    return sv.decode_schedule
 
 
 class PagedEngine:
     """``cuda_graphs`` (default True) captures each step closure in a CUDA
     graph on the card at tp=1; False runs the closures eagerly (A/B runs,
     the eager-vs-graphed check).  CPU and TP engines always run them
-    eagerly (module doc)."""
+    eagerly (module doc).  ``phase`` (``mixed``, ``prefill`` or
+    ``decode``) and ``kv_pool`` (an engine-external ``KVPool``) serve
+    disaggregation (``serving/disagg.py``)."""
 
     def __init__(self, config: Config, params, *,
                  serving: ServingConfig = None, mesh: TPGroup = None,
-                 device=None, cuda_graphs: bool = True):
+                 device=None, cuda_graphs: bool = True, phase: str = "mixed",
+                 kv_pool: KVPool = None):
+        if phase not in ("mixed", "prefill", "decode"):
+            raise ValueError(f"unknown engine phase {phase!r}")
+        if mesh is not None and phase != "mixed":
+            raise NotImplementedError(DISAGG_TP_ITEM)
         if mesh is not None and not isinstance(mesh, TPGroup):
             raise TypeError(f"mesh must be a launch.mesh.TPGroup, got "
                             f"{type(mesh).__name__}")
@@ -243,7 +285,6 @@ class PagedEngine:
         self.device = mesh.device if mesh is not None \
             else resolve_device(device)
         sv = serving or config.serving
-        _check_slice(sv)
         check_supported(config.model)
         table = params["embed"]["table"]
         if table.device.type != self.device.type:
@@ -274,12 +315,8 @@ class PagedEngine:
                              f"not 1/{self.tp} of the tp={self.tp} padded "
                              f"vocab; pass this rank's shard of params built "
                              f"at tp={self.tp}")
-        if sv.decode_schedule == "auto":
-            self._decode_schedule = "batch_split" \
-                if (mesh is not None and sv.decode_overlap
-                    and sv.max_batch >= 2) else "sequential"
-        else:
-            self._decode_schedule = sv.decode_schedule
+        self._decode_schedule = _decode_schedule_for(self.cfg, sv,
+                                                    mesh is not None)
         # decode steps run per schedule (batch_split falls back to
         # sequential on steps with fewer than 2 decoding requests)
         self.decode_schedule_steps: Dict[str, int] = {}
@@ -303,11 +340,27 @@ class PagedEngine:
             self.cost_model = load_cost_model(
                 sv.cost_table, platform=platform_name(self.device),
                 tp=self.tp, trace=self.trace)
-        self.pool = KVPool.create(self.cfg, num_pages, self.ps, tp=self.tp,
-                                  dtype=table.dtype, device=self.device,
-                                  trace=self.trace)
-        self.alloc = self.pool.alloc
-        self.kv = self.pool.kv
+        # KV ownership lives outside the engine (serving/kvstate.KVPool), so
+        # pages can move between engines; an injected pool narrates into
+        # this engine's ring, keeping the replay oracle per engine
+        if kv_pool is None:
+            kv_pool = KVPool.create(self.cfg, num_pages, self.ps, tp=self.tp,
+                                    dtype=table.dtype, device=self.device,
+                                    trace=self.trace)
+        else:
+            if kv_pool.page_size != self.ps or kv_pool.dtype != table.dtype \
+                    or kv_pool.kv.k[0].device.type != self.device.type:
+                raise ValueError(
+                    f"kv_pool (page {kv_pool.page_size}, {kv_pool.dtype}, "
+                    f"{kv_pool.kv.k[0].device}) does not fit this engine "
+                    f"(page {self.ps}, {table.dtype}, {self.device})")
+            kv_pool.alloc.trace = self.trace
+        self.pool = kv_pool
+        self.alloc = kv_pool.alloc
+        self.kv = kv_pool.kv
+        # phase routing (disagg): "prefill" never runs the decode phase,
+        # "decode" never admits or prefills; "mixed" is the single engine
+        self.phase = phase
         self._buckets = grant_buckets(sv.max_len, sv.min_grant_bucket,
                                       sv.grant_buckets) \
             if sv.grant_bucketing else None
@@ -315,7 +368,7 @@ class PagedEngine:
             policy=sv.scheduler_policy,
             prefill_token_budget=sv.prefill_token_budget,
             grant_buckets=self._buckets, trace=self.trace,
-            cost_model=self.cost_model)
+            cost_model=self.cost_model, phase=phase)
         # batched prefill: same-padded-length grants packed into one call,
         # the row count padded up a power-of-two ladder so closures stay
         # keyed on (length bucket, row bucket, all-fresh)
@@ -355,6 +408,10 @@ class PagedEngine:
         self._prefill_fns: Dict[Tuple, StepClosure] = {}
         self._decode_fns: Dict[Tuple[int, int], StepClosure] = {}
         self._decode_fallback_fns: Dict[Tuple[int, int], StepClosure] = {}
+        # overlap-probe closures (schedule, comm), apart from _decode_fns,
+        # whose key set is real traffic's; their captures are not counted
+        # in ``graphs``
+        self._probe_decode_fns: Dict[Tuple[str, bool], StepClosure] = {}
         self._copy_page_fn: Optional[StepClosure] = None
         self._graphed = cuda_graphs and mesh is None \
             and self.device.type == "cuda"
@@ -373,6 +430,9 @@ class PagedEngine:
     # request lifecycle
     # ------------------------------------------------------------------
     def add_request(self, req: Request) -> int:
+        if self.phase == "decode":
+            raise RuntimeError("a decode-phase engine admits nothing: its "
+                               "requests arrive by attach_requests")
         if req.frames is not None or req.patches is not None:
             raise NotImplementedError("audio/vision requests: ROADMAP queue "
                                       "A item 10")
@@ -715,11 +775,35 @@ class PagedEngine:
                 K, S, "sequential")
         return self._decode_fallback_fns[key]
 
-    def _build_decode_fn(self, K: int, S: int, schedule: str) -> StepClosure:
+    def _get_probe_decode(self, schedule: str, comm: bool = True
+                          ) -> StepClosure:
+        """Decode closure variants of the overlap probe
+        (obs/overlap_probe.py): one per collective schedule (sequential,
+        batch_split, cross_block, ladder, ladder_seq), plus the
+        collectives-off compute floor (``comm=False`` swaps in a bare
+        ``AxisCtx``, every reduce the identity).  K = 1 and S = 1: the probe
+        measures schedules, not split-KV.  Cached in ``_probe_decode_fns``,
+        never ``_decode_fns``."""
+        key = (schedule, comm)
+        if key not in self._probe_decode_fns:
+            self._probe_decode_fns[key] = self._build_decode_fn(
+                1, 1, schedule, ctx=None if comm else AxisCtx())
+        return self._probe_decode_fns[key]
+
+    def measure_overlap_efficiency(self, iters: int = 10, warmup: int = 3):
+        """Time the decode collective schedules (sequential, batch-split,
+        ladder, cross-block) on identical synthetic batches; see
+        obs/overlap_probe.decode_overlap_probe."""
+        from repro_torch.obs.overlap_probe import decode_overlap_probe
+        return decode_overlap_probe(self, iters=iters, warmup=warmup)
+
+    def _build_decode_fn(self, K: int, S: int, schedule: str,
+                         ctx: AxisCtx = None) -> StepClosure:
         """Inputs at B = max_batch: ``toks`` (B, K), ``lengths`` (B,), the
         block tables ``bt`` (B, MB) and the decode ``mask`` (B,).  The body
         reads the pools in place, scatters the window's KV into them and
-        returns the local logits (B, K, V_loc)."""
+        returns the local logits (B, K, V_loc).  ``ctx``: the collectives'
+        context, the engine's by default."""
         B, dev = self.max_batch, self.device
         i32 = dict(dtype=torch.int32, device=dev)
         bufs = {"toks": torch.zeros((B, K), **i32),
@@ -727,7 +811,8 @@ class PagedEngine:
                 "bt": torch.full((B, self.max_blocks), -1, **i32),
                 "mask": torch.zeros((B,), dtype=torch.bool, device=dev)}
         caches = self._paged_prefix()
-        params, cfg, ctx = self._body_env()[:3]
+        params, cfg, engine_ctx = self._body_env()[:3]
+        ctx = engine_ctx if ctx is None else ctx
 
         def body():
             logits, _ = api.decode_step(
@@ -1141,9 +1226,11 @@ class PagedEngine:
         batched decode.  Returns (rid, token) events."""
         events: List[Tuple[int, int]] = []
         self.metrics["steps"] += 1
-        self._admit()
-        self._prefill_phase(events)
-        self._decode_phase(events)
+        if self.scheduler.runs_prefill:
+            self._admit()
+            self._prefill_phase(events)
+        if self.scheduler.runs_decode:
+            self._decode_phase(events)
         used = self.alloc.used_pages
         frag = self.alloc.fragmentation()
         self.registry.gauge("pool_occupancy").set(used)
@@ -1163,6 +1250,100 @@ class PagedEngine:
                 break
         return {st.request.rid: st.generated for st in self._finished}
 
+    # ------------------------------------------------------------------
+    # disaggregated serving: detach / attach (serving/disagg.py)
+    # ------------------------------------------------------------------
+    def detach_requests(self, rids: List[int]):
+        """Export ``rids``' KV pages and lifecycle state as a
+        ``PageTransfer`` and REMOVE the requests from this engine (slots
+        cleared, pages freed, scheduler and prefix-cache entries dropped).
+
+        The requests must be resident with their prompts fully committed,
+        the set the router migrates.  Pages shared within the detached
+        group are exported once; pages shared with a request that stays are
+        copied by the export and stay with it.  The transfer is host state
+        only (numpy payloads, plain records).  Runs between steps."""
+        from repro_torch.serving.disagg import PageTransfer, RequestRecord
+        t0 = time.perf_counter()
+        blob = self.pool.export_pages(rids)
+        records = []
+        for rid in rids:
+            st = self._by_rid[rid]
+            slot = st.slot
+            assert slot >= 0, f"detach of non-resident request {rid}"
+            assert st.prefilled >= sum(st.chunk_plan), \
+                f"detach of mid-prefill request {rid}"
+            d = self._drafts[slot]
+            records.append(RequestRecord(
+                request=st.request, generated=list(st.generated),
+                prompt_len=st.prompt_len, prefilled=st.prefilled,
+                chunk_plan=tuple(st.chunk_plan), t_submit=st.t_submit,
+                t_first=st.t_first, last_token=int(self.last_tokens[slot]),
+                draft_table=dict(d.table) if d is not None else None,
+                draft_last=d.last if d is not None else -1))
+            self.trace.emit("detach", rid=rid, slot=slot)
+            self.alloc.free(rid)
+            if self.prefix_cache is not None:
+                self.prefix_cache.forget(rid)
+            self.scheduler.forget(rid)
+            self._by_rid.pop(rid, None)
+            self.slots[slot] = None
+            self.lengths[slot] = 0
+            self.last_tokens[slot] = 0
+            self._drafts[slot] = None
+            st.slot = -1
+        us = (time.perf_counter() - t0) * 1e6
+        # one span a transfer, n = DISTINCT pages moved: replay rebuilds
+        # migrations and migrated_pages from these events
+        self.trace.emit("migrate", n=blob["n_pages"], rids=len(rids), us=us)
+        self.metrics["migrations"] += 1
+        self.metrics["migrated_pages"] += blob["n_pages"]
+        self.metrics["migration_us"] += us
+        return PageTransfer(records=records, blob=blob)
+
+    def attach_requests(self, transfer) -> None:
+        """Adopt a ``PageTransfer``: import its pages into this pool (in
+        place) and install the requests into free slots, decode-ready.
+
+        Raises ``OutOfPages``, atomically (nothing mutated), when the free
+        list cannot host the transfer's distinct pages; the router keeps the
+        transfer and retries (an attach never evicts a resident request).
+        Free slots must cover the records (the router checks first).  The
+        next decode step stages the attached ``lengths`` and
+        ``last_tokens`` into its static buffers."""
+        free = [i for i, s in enumerate(self.slots) if s is None]
+        assert len(free) >= len(transfer.records), \
+            (len(free), len(transfer.records))
+        t0 = time.perf_counter()
+        self.pool.import_pages(transfer.blob)   # may raise OutOfPages: atomic
+        synchronize(self.device)
+        for rec in transfer.records:
+            rid = rec.request.rid
+            slot = free.pop(0)
+            st = RequestState(request=rec.request, slot=slot,
+                              generated=list(rec.generated),
+                              prompt_len=rec.prompt_len,
+                              t_submit=rec.t_submit)
+            st.prefilled = rec.prefilled
+            st.chunk_plan = tuple(rec.chunk_plan)
+            st.t_first = rec.t_first
+            self.slots[slot] = st
+            self._by_rid[rid] = st
+            # the committed tokens came over in the blob's lengths; the last
+            # sampled token is not in KV yet (it is the next decode input)
+            self.lengths[slot] = self.alloc.tokens(rid)
+            self.last_tokens[slot] = rec.last_token
+            if self.spec_k and rec.draft_table is not None:
+                d = BigramDraft()
+                d.table = dict(rec.draft_table)
+                d.last = rec.draft_last
+                self._drafts[slot] = d
+            # arrival bookkeeping without queueing: pick_victim and order
+            # need a key for migrated-in requests
+            self.scheduler.register(rid, priority=rec.request.priority)
+            self.trace.emit("attach", rid=rid, slot=slot)
+        self.metrics["migration_us"] += (time.perf_counter() - t0) * 1e6
+
     def accepted_per_call(self) -> float:
         """Mean tokens emitted per speculative verify call (>= 1 once any
         verify ran; 0.0 when speculation never triggered)."""
@@ -1171,7 +1352,4 @@ class PagedEngine:
         return self.metrics["spec_tokens"] / self.metrics["spec_calls"]
 
     def page_stats(self) -> Dict[str, object]:
-        s = self.alloc.stats()
-        s["kv_bytes_live"] = self.kv.kv_bytes(self.alloc)
-        s["kv_bytes_reserved"] = self.kv.total_bytes()
-        return s
+        return self.pool.stats()

@@ -11,9 +11,10 @@ call (batched prefill).  Preemption-by-eviction picks the lowest-priority
 most-recently-arrived running request.  As in the reference, grants and
 packs narrate themselves into an optional trace ring, and a measured cost
 model (perf/costmodel.py) caps grant sizes and pack widths, each modeled
-cap that binds logged as a ``decision`` event.  The reference's phase
-routing (``phase=``) belongs with disaggregation, the second half of
-ROADMAP queue A item 9.
+cap that binds logged as a ``decision`` event.  Phase routing
+(``phase=``) serves disaggregation (serving/disagg.py): a ``prefill``
+scheduler's engine runs no decode step, a ``decode`` scheduler grants no
+prefill.
 """
 from __future__ import annotations
 
@@ -53,10 +54,18 @@ class TokenBudgetScheduler:
 
     def __init__(self, policy: str = "fcfs", prefill_token_budget: int = 512,
                  grant_buckets: Optional[Tuple[int, ...]] = None, trace=None,
-                 cost_model=None):
+                 cost_model=None, phase: str = "mixed"):
         if policy not in ("fcfs", "priority"):
             raise ValueError(f"unknown scheduler policy {policy!r}")
+        if phase not in ("mixed", "prefill", "decode"):
+            raise ValueError(f"unknown scheduler phase {phase!r}")
         self.policy = policy
+        # phase routing (disaggregated serving): a "prefill" scheduler
+        # grants prefill chunks but its engine never decodes (finished
+        # prefills are detached and migrated out); a "decode" scheduler
+        # grants nothing and its engine never admits (requests arrive by
+        # attach); "mixed" is the single engine
+        self.phase = phase
         self.budget = max(1, prefill_token_budget)
         # optional obs.TraceRing: grant/pack decisions narrate themselves
         self.trace = trace
@@ -78,6 +87,15 @@ class TokenBudgetScheduler:
         self._clock = 0
         self.waiting: List[int] = []          # rids, un-ordered; sorted on use
 
+    # ---- phase routing ----------------------------------------------------
+    @property
+    def runs_prefill(self) -> bool:
+        return self.phase != "decode"
+
+    @property
+    def runs_decode(self) -> bool:
+        return self.phase != "prefill"
+
     # ---- queue ------------------------------------------------------------
     def add(self, rid: int, priority: int = 0) -> None:
         if rid not in self._arrival:          # preserve arrival on re-queue
@@ -85,6 +103,16 @@ class TokenBudgetScheduler:
             self._clock += 1
         self._priority[rid] = priority
         self.waiting.append(rid)
+
+    def register(self, rid: int, priority: int = 0) -> None:
+        """Arrival and priority bookkeeping without queueing: an attached
+        (migrated-in) request is already resident, but ``pick_victim`` and
+        ``order`` need its key; registration order is the migration order,
+        which the router keeps in policy order."""
+        if rid not in self._arrival:
+            self._arrival[rid] = self._clock
+            self._clock += 1
+        self._priority[rid] = priority
 
     def forget(self, rid: int) -> None:
         """Drop every trace of ``rid``, its waiting-queue entry included."""
@@ -122,7 +150,9 @@ class TokenBudgetScheduler:
         request with prompt tokens remaining.  Grants whole chunks in policy
         order; the head-of-line request always gets at least its next chunk
         even past the budget, so a chunk bigger than the budget cannot
-        starve."""
+        starve.  A decode-phase scheduler grants nothing."""
+        if not self.runs_prefill:
+            return []
         by_rid = {rid: (done, plan) for rid, done, plan in prefill_states}
         grants: List[PrefillGrant] = []
         remaining = self.budget

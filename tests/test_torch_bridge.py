@@ -109,19 +109,33 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
 
 
 @pytest.mark.parametrize("setting,model,item", [
-    (dict(disagg=True), {}, "item 9"),
-    # the cost model is in the slice: it no longer shields disagg
-    (dict(disagg=True, cost_table="auto"), {}, "item 9"),
-    # ladder residual wiring (the ladder twins: the rest of item 9)
-    ({}, dict(residual_wiring="ladder"), "item 9"),
+    # disaggregated serving is in the slice at tp=1; under TP (a prefill or
+    # decode engine on a TP group, a router over TP groups) it raises
+    (dict(disagg=True), {}, "item 15"),
+    # the cost model is in the slice: it does not shield disagg under TP
+    (dict(disagg=True, cost_table="auto"), {}, "item 15"),
+    # ladder wiring is in the slice; the other families are not
+    ({}, dict(family="moe"), "item 10"),
 ])
 def test_settings_outside_the_slice_raise(setting, model, item):
+    from repro_torch.launch.mesh import TPGroup
+    from repro_torch.serving.disagg import DisaggRouter
     params = api.init_params(0, TINY, dtype=torch.float32, device="cpu")
     config = _config(**setting)
     config = dataclasses.replace(
         config, model=dataclasses.replace(config.model, **model))
-    with pytest.raises(NotImplementedError, match=item):
-        PagedEngine(config, params, device="cpu")
+    if setting.get("disagg"):
+        PagedEngine(config, params, device="cpu")       # tp=1: fine
+        group = TPGroup(rank=0, tp=2, device=torch.device("cpu"),
+                        backend="gloo")
+        for phase in ("prefill", "decode"):
+            with pytest.raises(NotImplementedError, match=item):
+                PagedEngine(config, params, mesh=group, phase=phase)
+        with pytest.raises(NotImplementedError, match=item):
+            DisaggRouter(config, params, decode_mesh=group)
+    else:
+        with pytest.raises(NotImplementedError, match=item):
+            PagedEngine(config, params, device="cpu")
     # tensor parallelism is in the slice: the mesh is a launch.mesh.TPGroup
     with pytest.raises(TypeError, match="TPGroup"):
         PagedEngine(_config(), params, device="cpu", mesh=object())
