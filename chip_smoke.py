@@ -219,6 +219,25 @@ Phases, each fatal on failure:
                requests served again with the same tokens and no graph
                captured.  No overlap claim (no collective at tp=1; gloo
                through host memory at tp=2).
+ 10. dense     the dense-cache ``Engine`` (``serving/engine.py``), last,
+               eager, bf16, full width and depth: (a) qwen3-8b (max_batch 4,
+               max_len 2048, bucket 64) on phase 3's six prompts, 32 greedy
+               tokens each; prints prefill tok/s, decode ms/step, the
+               dispatch shares, TTFT and peak memory; (b) whisper-medium (24 +
+               24 layers; max_len 448, the decoder's ``n_text_ctx``) on 4
+               requests with seeded float32 frames of (1500, 1024) x 0.1 and
+               prompts of 4-64 tokens; prints the encoder's ms a request,
+               prefill tok/s, decode ms/step and peak memory.  Every logits
+               row finite, every request complete, and no hand-written
+               kernel launched (dense caches attend in plain PyTorch, as
+               the reference's in XLA).  The gates, in fp32 at 2 (2 + 2)
+               layers: the dense engine's tokens equal a plain
+               ``PagedEngine``'s and a spec_k=4 dense engine's; whisper's
+               equal the argmax of a teacher-forced prefill over prompt +
+               generated.  (c) last of all, a ``torch.profiler`` window on
+               each model: one step that prefills four requests, then four
+               decode steps; wall, device busy time, idle share and the
+               kernels that took the most device time.
 
 Every pass resets its engine's registry and trace ring together
 (``reset_observability``), so a pass's trace replays into its registry.
@@ -231,7 +250,8 @@ are printed; ``decode_reduce``: the decode launches that ran its fold,
 kernel's, which runs the same fold code), the int8 reduce's three kernels
 from rank 0 of phase 5's quantized batch-split run, the flash-prefill,
 RMSNorm, SwiGLU and int8 quantize kernels from phase 7 (the serving path
-does not launch them).  It
+does not launch them); phase 10's dense path launches none of them (its
+passes check that every count stays 0).  It
 imports nothing of JAX or of the JAX package.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and
 power limit from nvidia-smi, and before that a JSON line with each kernel's
@@ -1081,6 +1101,16 @@ def time_kernels(report):
     for name, t in timing.items():
         log(f"[time] {name}: ms - bound {t['ms'] - t['bound_ms']:.5f}, ms - "
             f"max(bound, floor) {t['ms'] - max(t['bound_ms'], floor_ms):.5f}")
+    # B5's plain version and F.rms_norm, each timed on its own again, to
+    # more digits, and F.rms_norm once more with gamma in x's dtype (bf16)
+    t = timing["rms_norm"]
+    bf16_gamma = gr.to(dt)
+    lib_bf16_ms = time_ms(lambda: F.rms_norm(xr, (4096,), bf16_gamma, 1e-6),
+                          reps=5)
+    log(f"[time] rms_norm, the plain and library columns apart: plain "
+        f"{t['plain_ms']:.6f} ms, F.rms_norm (fp32 gamma) "
+        f"{t['library_ms']:.6f} ms, F.rms_norm with a bf16 gamma "
+        f"{lib_bf16_ms:.6f} ms; B5 {t['ms']:.6f} ms")
     fold_ms = timing["paged_decode"]["ms"] - timing["paged_decode/spans"]["ms"]
     log(f"[time] the fold inside the decode launch costs {fold_ms:.5f} ms "
         f"(paged_decode - paged_decode/spans); the two launches it replaces "
@@ -1485,6 +1515,17 @@ def decode_idle_share(eng, prompts, card: str) -> None:
     log_top("ten graphed decode steps", act, 10, card)
 
 
+def baseline_prompts(cfg):
+    """Phase 3's six greedy prompts of 300-2000 tokens (seed 0), the first
+    at least 1500 tokens long (a resumed grant): (lengths, prompts)."""
+    import numpy as np
+    rng = np.random.default_rng(0)
+    lengths = [int(n) for n in rng.integers(300, 2001, 6)]
+    lengths[0] = max(lengths[0], 1500)           # at least one resumed grant
+    return lengths, [rng.integers(2, cfg.vocab_size, n).astype(np.int32)
+                     for n in lengths]
+
+
 def serve_full(report, card: str):
     """Phase 3: the six requests on an eager engine (``cuda_graphs=False``),
     then on a graphed one, a capture pass and a timed pass; the graphed
@@ -1513,11 +1554,7 @@ def serve_full(report, card: str):
                        prefill_batching=False)
     config = Config(model=cfg, parallel=ParallelConfig(data=1, model=1),
                     iso=ISOConfig(), serving=sv)
-    rng = np.random.default_rng(0)
-    lengths = [int(n) for n in rng.integers(300, 2001, 6)]
-    lengths[0] = max(lengths[0], 1500)           # at least one resumed grant
-    prompts = [rng.integers(2, cfg.vocab_size, n).astype(np.int32)
-               for n in lengths]
+    lengths, prompts = baseline_prompts(cfg)
     report["lengths"] = lengths
 
     # the defaults pass first: the idle share's torch.profiler, below,
@@ -2723,6 +2760,326 @@ def serve_observability(report, card: str, cfg, params, lengths) -> None:
 
 
 # ---------------------------------------------------------------------------
+# phase 10: the dense-cache Engine, qwen3-8b and whisper-medium
+# ---------------------------------------------------------------------------
+
+def dense_pass(eng, prompts, label: str, card: str, frames=None,
+               max_new: int = 32) -> dict:
+    """Serve ``prompts`` (greedy, ``max_new`` tokens each; with ``frames``
+    for whisper) on a dense ``Engine`` from a zeroed registry and launch
+    counts; check that every request completed, every sampled logits row was
+    finite and no hand-written kernel launched (dense caches attend in plain
+    PyTorch, as the reference's in XLA); print the pass."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import native
+    from repro_torch.serving import Request, engine
+    from repro_torch.serving.requests import SamplingParams
+
+    reset_observability(eng)
+    rids = [eng.add_request(Request(
+        prompt=p.copy(), frames=None if frames is None else frames[i],
+        sampling=SamplingParams(max_new_tokens=max_new, eos_id=-1)))
+        for i, p in enumerate(prompts)]
+    real_sample = engine.sample
+    rows = [0]
+
+    def finite_sample(logits, sp, step):
+        if not np.isfinite(logits).all():
+            raise AssertionError(f"{label}: non-finite logits")
+        rows[0] += 1
+        return real_sample(logits, sp, step)
+
+    real_decode = eng._decode
+
+    def finite_decode(toks, name):            # verify windows' rows too
+        logits, dur, t0 = real_decode(toks, name)
+        if not np.isfinite(logits).all():
+            raise AssertionError(f"{label}: non-finite decode logits")
+        return logits, dur, t0
+
+    torch.cuda.synchronize()
+    native.reset_launches()
+    engine.sample = finite_sample
+    eng._decode = finite_decode
+    t0 = time.perf_counter()
+    try:
+        outs = eng.run_until_complete()
+    finally:
+        engine.sample = real_sample
+        del eng._decode
+    wall = time.perf_counter() - t0
+    launches = dict(native.LAUNCHES)
+    m = dict(eng.metrics)
+    tokens = [outs.get(r) for r in rids]
+    if any(t is None or len(t) != max_new for t in tokens) or \
+            m["completed"] != len(prompts):
+        raise AssertionError(f"{label}: not every request completed: {m}")
+    if any(launches.values()):
+        raise AssertionError(f"{label}: the dense path launched "
+                             f"hand-written kernels: {launches}")
+    log(f"[dense] {label}: prefill {m['prefill_tokens']} tok in "
+        f"{m['prefill_s']:.3f}s = {m['prefill_tokens'] / m['prefill_s']:.1f} "
+        f"tok/s ({m['prefill_calls']} calls); decode "
+        f"{1e3 * m['decode_s'] / m['decode_calls']:.3f} ms/step over "
+        f"{m['decode_calls']} steps ({m['spec_calls']} verify); host "
+        f"dispatch share prefill "
+        f"{m['prefill_dispatch_s'] / m['prefill_s']:.3f}, decode "
+        f"{m['decode_dispatch_s'] / m['decode_s']:.3f}; TTFT mean "
+        f"{1e3 * m['ttft_sum'] / m['ttft_n']:.1f} ms, max "
+        f"{1e3 * eng.registry.histogram('ttft').max:.1f} ms; {rows[0]} "
+        f"sampled logits rows finite (and every decode call's); wall {wall:.1f}s; launches of the hand-written "
+        f"kernels 0 [{card}]")
+    return dict(tokens=tokens, m=m, wall=wall, launches=launches)
+
+
+def serve_dense(report, card: str):
+    """Phase 10 (a): qwen3-8b at full width and depth, bf16, through the
+    dense ``Engine`` (max_batch 4, max_len 2048, bucket 64) on phase 3's six
+    prompts; then the gate in fp32 at full width cut to 2 layers: the dense
+    engine's tokens equal a plain ``PagedEngine``'s (batch-1, no sharing,
+    K=1, eager) and a spec_k=4 dense engine's."""
+    import dataclasses
+    import torch
+    from repro_torch.config import Config, ISOConfig, ParallelConfig, \
+        ServingConfig, get_model_config
+    from repro_torch.models import api
+    from repro_torch.serving import Engine, PagedEngine
+
+    cfg = get_model_config("qwen3-8b")
+    lengths, prompts = baseline_prompts(cfg)
+    config = Config(model=cfg, parallel=ParallelConfig(data=1, model=1),
+                    iso=ISOConfig())
+    params = api.init_params(0, cfg, tp=1, dtype=torch.bfloat16,
+                             device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(config, params, max_batch=4, max_len=2048, bucket=64,
+                 device="cuda")
+    res = dense_pass(eng, prompts, "qwen3-8b bf16", card)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    m = res["m"]
+    report["dense_qwen3_8b"] = dict(
+        prefill_tok_s=m["prefill_tokens"] / m["prefill_s"],
+        decode_ms_step=1e3 * m["decode_s"] / m["decode_calls"],
+        peak_gib=peak)
+    log(f"[dense] qwen3-8b bf16 {cfg.num_layers}L, prompts {lengths}: peak "
+        f"allocated {peak:.3f} GiB (dense caches "
+        f"{sum(t.numel() * t.element_size() for c in eng.caches for t in c.values()) / 2**30:.3f}"
+        f" GiB) [{card}]")
+    del eng, params
+    free_cuda()
+
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    config2 = dataclasses.replace(config, model=cfg2)
+    params = api.init_params(0, cfg2, tp=1, dtype=torch.float32,
+                             device="cuda")
+    out = {}
+    for name, spec_k in (("dense", 0), ("dense spec_k=4", 4)):
+        eng = Engine(config2, params, max_batch=4, max_len=2048, bucket=64,
+                     spec_k=spec_k, device="cuda")
+        out[name] = dense_pass(eng, prompts, f"qwen3-8b fp32 2-layer {name}",
+                               card)
+        del eng
+    if out["dense spec_k=4"]["m"]["spec_calls"] <= 0:
+        raise AssertionError("the spec_k=4 dense engine ran no verify step")
+    sv = ServingConfig(page_size=16, max_batch=4, max_len=2048,
+                       prefill_token_budget=512, prefix_sharing=False,
+                       prefill_batching=False)
+    paged = PagedEngine(dataclasses.replace(config2, serving=sv), params,
+                        device="cuda", cuda_graphs=False)
+    out["paged"] = serve_pass(paged, prompts, "qwen3-8b fp32 2-layer paged "
+                              "eager (the gate's reference)", card)
+    del paged, params
+    free_cuda()
+    want = out["paged"]["tokens"]
+    for name in ("dense", "dense spec_k=4"):
+        got = out[name]["tokens"]
+        if got != want:
+            diff = [i for i, (a, b) in enumerate(zip(got, want)) if a != b]
+            raise AssertionError(f"[dense] fp32 gate: the {name} engine's "
+                                 f"tokens differ from PagedEngine's in "
+                                 f"requests {diff}")
+    log(f"[dense] gate: qwen3-8b fp32 2-layer, the dense Engine's tokens == "
+        f"PagedEngine's == the spec_k=4 dense Engine's on {len(prompts)} of "
+        f"{len(prompts)} requests ({out['dense spec_k=4']['m']['spec_calls']}"
+        f" verify steps, {out['dense spec_k=4']['m']['spec_accepted']} "
+        f"drafts accepted) [{card}]")
+
+
+def serve_whisper(report, card: str):
+    """Phase 10 (b): whisper-medium at full width and depth (24 + 24 layers),
+    bf16, through the dense ``Engine`` (max_batch 4, max_len ``N_TEXT_CTX``
+    448, bucket 64): 4 requests with seeded frames of (1500, 1024) x 0.1
+    (float32, as the reference's launcher makes them) and prompts of 4-64
+    tokens, 32 new tokens each; the encoder timed alone on one request.
+    Then the gate in fp32 at 2 + 2 layers: the engine's tokens equal the
+    argmax of a teacher-forced prefill over prompt + generated tokens."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.config import Config, ISOConfig, ParallelConfig, \
+        get_model_config
+    from repro_torch.configs.whisper_medium import N_TEXT_CTX
+    from repro_torch.core.overlap import AxisCtx
+    from repro_torch.models import api, whisper
+    from repro_torch.serving import Engine
+
+    cfg = get_model_config("whisper-medium")
+    prompts, frames = whisper_traffic(cfg)
+    config = Config(model=cfg, parallel=ParallelConfig(data=1, model=1),
+                    iso=ISOConfig())
+    params = api.init_params(0, cfg, tp=1, dtype=torch.bfloat16,
+                             device="cuda")
+    n_params = sum(t.numel() for t in _leaves(params))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    f0 = torch.from_numpy(frames[0]).to("cuda")[None]
+    enc_ms = []
+    for _ in range(4):
+        t0 = time.perf_counter()
+        enc = whisper.encode(params, cfg, AxisCtx(), config.iso, f0)
+        torch.cuda.synchronize()
+        enc_ms.append(1e3 * (time.perf_counter() - t0))
+    if not torch.isfinite(enc).all():
+        raise AssertionError("[whisper] non-finite encoder output")
+    del enc
+    eng = Engine(config, params, max_batch=4, max_len=N_TEXT_CTX, bucket=64,
+                 device="cuda")
+    res = dense_pass(eng, prompts, "whisper-medium bf16", card, frames=frames)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    m = res["m"]
+    report["dense_whisper"] = dict(
+        encoder_ms=sorted(enc_ms[1:])[1],
+        prefill_tok_s=m["prefill_tokens"] / m["prefill_s"],
+        decode_ms_step=1e3 * m["decode_s"] / m["decode_calls"],
+        peak_gib=peak)
+    log(f"[whisper] whisper-medium {cfg.encoder_layers}+{cfg.num_layers}L "
+        f"d={cfg.d_model}: {n_params / 1e9:.4f}B parameters (reference "
+        f"count {cfg.param_count() / 1e9:.4f}B), prompts "
+        f"{[len(p) for p in prompts]}: encoder ({cfg.encoder_frames} frames, "
+        f"float32 "
+        f"activations on bf16 weights) {[round(t, 2) for t in enc_ms]} ms a "
+        f"request (the first with warm-up); peak allocated {peak:.3f} GiB "
+        f"(caches "
+        f"{sum(t.numel() * t.element_size() for c in eng.caches for t in c.values()) / 2**30:.3f}"
+        f" GiB) [{card}]")
+    del eng, params, f0
+    free_cuda()
+
+    cfg2 = dataclasses.replace(cfg, num_layers=2, encoder_layers=2)
+    config2 = dataclasses.replace(config, model=cfg2)
+    params = api.init_params(0, cfg2, tp=1, dtype=torch.float32,
+                             device="cuda")
+    eng = Engine(config2, params, max_batch=4, max_len=N_TEXT_CTX, bucket=64,
+                 device="cuda")
+    got = dense_pass(eng, prompts, "whisper-medium fp32 2+2-layer", card,
+                     frames=frames)["tokens"]
+    del eng
+    for i, (p, f) in enumerate(zip(prompts, frames)):
+        seq = torch.from_numpy(np.concatenate([p, got[i]]).astype(
+            np.int32)).to("cuda")[None]
+        out = api.prefill(params, cfg2, AxisCtx(), config2.iso,
+                          {"frames": torch.from_numpy(f).to("cuda")[None],
+                           "tokens": seq})
+        forced = out["logits_local"][0, len(p) - 1:-1, :cfg.vocab_size]
+        if not torch.isfinite(forced).all() or \
+                forced.argmax(-1).tolist() != got[i]:
+            raise AssertionError(
+                f"[whisper] fp32 gate: request {i}'s tokens differ from the "
+                f"teacher-forced argmax {forced.argmax(-1).tolist()} vs "
+                f"{got[i]}")
+    del params
+    free_cuda()
+    log(f"[whisper] gate: whisper-medium fp32 2+2-layer, the engine's tokens "
+        f"== the argmax of a teacher-forced prefill over prompt + generated "
+        f"on {len(prompts)} of {len(prompts)} requests [{card}]")
+
+
+def dense_profiles(report, card: str):
+    """Phase 10 (c), last in the script (a ``torch.profiler`` window leaves
+    a host cost on later work): where the dense path's time goes.  For
+    qwen3-8b (phase 3's first four prompts) and whisper-medium (phase 10
+    (b)'s traffic), bf16, full width and depth: one engine step that
+    prefills four requests (and decodes once), then four decode steps, each
+    window under ``torch.profiler`` with CUDA activities; printed: the wall
+    time, the device's busy time (the union of its intervals) and idle
+    share, and the names that took the most device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.config import Config, ISOConfig, ParallelConfig, \
+        get_model_config
+    from repro_torch.configs.whisper_medium import N_TEXT_CTX
+    from repro_torch.models import api
+    from repro_torch.serving import Engine, Request
+    from repro_torch.serving.requests import SamplingParams
+
+    for arch in ("qwen3-8b", "whisper-medium"):
+        cfg = get_model_config(arch)
+        if arch == "qwen3-8b":
+            prompts = baseline_prompts(cfg)[1][:4]
+            frames, max_len = [None] * 4, 2048
+        else:
+            prompts, frames = whisper_traffic(cfg)
+            max_len = N_TEXT_CTX
+        params = api.init_params(0, cfg, tp=1, dtype=torch.bfloat16,
+                                 device="cuda")
+        eng = Engine(Config(model=cfg, parallel=ParallelConfig(data=1,
+                                                               model=1),
+                            iso=ISOConfig()), params, max_batch=4,
+                     max_len=max_len, bucket=64, device="cuda")
+        for p, f in zip(prompts, frames):
+            eng.add_request(Request(prompt=p.copy(), frames=f,
+                                    sampling=SamplingParams(
+                                        max_new_tokens=8, eos_id=-1)))
+        torch.cuda.synchronize()
+        out = {}
+        for window, steps in (("prefill step", 1), ("decode steps", 4)):
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for _ in range(steps):
+                    eng.step()
+                torch.cuda.synchronize()
+                wall = 1e3 * (time.perf_counter() - t0) / steps
+            act = device_activity(prof)
+            busy = act["busy_ms"] / steps
+            out[window] = dict(wall_ms=wall, busy_ms=busy,
+                               idle_share=1 - busy / wall)
+            log(f"[dense] {arch} bf16 profile, {window} ({steps} step(s), "
+                f"4 requests): {wall:.3f} ms of wall a step, device busy "
+                f"{busy:.3f} ms, idle share {1 - busy / wall:.3f} [{card}]")
+            log_top(f"{arch} dense {window}", act, steps, card)
+        report[f"dense_profile_{arch}"] = out
+        eng.run_until_complete()
+        del eng, params
+        free_cuda()
+
+
+def whisper_traffic(cfg):
+    """Phase 10 (b)'s four requests: prompts of 4-64 tokens and seeded
+    frames of (encoder_frames, d_model) x 0.1, float32 (seed 10)."""
+    import numpy as np
+    rng = np.random.default_rng(10)
+    prompts = [rng.integers(2, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in rng.integers(4, 65, 4)]
+    frames = [(rng.standard_normal((cfg.encoder_frames, cfg.d_model)) * 0.1
+               ).astype(np.float32) for _ in prompts]
+    return prompts, frames
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (tuple, list)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
+# ---------------------------------------------------------------------------
 # phase 4: kernel path against plain path
 # ---------------------------------------------------------------------------
 
@@ -3277,6 +3634,9 @@ def main() -> int:
     serve_tp(report, card)
     time_kernels(report)
     serve_ops(report, card)
+    serve_dense(report, card)
+    serve_whisper(report, card)
+    dense_profiles(report, card)
 
     log(f"[done] every phase passed in {time.perf_counter() - t0:.1f}s "
         f"(the build included) [{card}]")

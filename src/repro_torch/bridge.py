@@ -6,7 +6,9 @@ for ``lax.scan``; the port keeps one dict per layer, so ``from_reference``
 unstacks ``params["periods"][i]`` into a list of P layer dicts.  The padded
 head-slot layout of ``layers/heads.expand_heads`` is kept as it is.  bf16
 leaves arrive as ``ml_dtypes.bfloat16`` arrays, which ``torch.from_numpy``
-rejects, so they are bit-cast through int16.  ``shard_params`` cuts params
+rejects, so they are bit-cast through int16.  Whisper's ``{"encoder",
+"decoder"}`` tree converts half by half (the encoder has no ``embed``;
+LayerNorms carry a ``bias``; decoder layers ``cross`` and ``norm_cross``).  ``shard_params`` cuts params
 built at tp=N into one rank's local view, and ``save_npz``/``load_npz``
 carry a reference-layout pytree between processes.
 """
@@ -50,8 +52,19 @@ def _first_leaf(tree):
     return tree
 
 
+ENCDEC_KEYS = ("encoder", "decoder")
+
+
+def _is_encdec(tree) -> bool:
+    return set(tree) == set(ENCDEC_KEYS)
+
+
 def from_reference(ref: Dict[str, Any], device=None) -> Dict[str, Any]:
-    """Reference params (numpy leaves) -> port params on ``device``."""
+    """Reference params (numpy leaves) -> port params on ``device``.  An
+    encoder-decoder tree (``{"encoder", "decoder"}``, whisper) converts
+    each half."""
+    if _is_encdec(ref):
+        return {k: from_reference(ref[k], device) for k in ENCDEC_KEYS}
     out = {k: _map(ref[k], lambda a: to_torch(a, device))
            for k in ref if k != "periods"}
     periods = []
@@ -97,8 +110,9 @@ def _flatten(tree, prefix: str, out: Dict[str, np.ndarray]) -> None:
 
 def save_npz(path, ref: Dict[str, Any]) -> None:
     """Write a reference-layout pytree of numpy leaves (dicts and the
-    ``periods`` tuple) to ``path``; bf16 leaves are stored bit-cast as
-    int16 under a ``bf16:`` key prefix."""
+    ``periods`` tuples, an encoder-decoder's two halves included) to
+    ``path``; bf16 leaves are stored bit-cast as int16 under a ``bf16:``
+    key prefix."""
     flat: Dict[str, np.ndarray] = {}
     _flatten(ref, "", flat)
     arrays = {}
@@ -125,14 +139,20 @@ def load_npz(path) -> Dict[str, Any]:
             for part in parents:
                 node = node.setdefault(part, {})
             node[leaf] = a
-    periods = tree["periods"]
-    tree["periods"] = tuple(periods[str(i)] for i in range(len(periods)))
+    for half in (tree[k] for k in ENCDEC_KEYS) if _is_encdec(tree) \
+            else (tree,):
+        periods = half["periods"]
+        half["periods"] = tuple(periods[str(i)]
+                                for i in range(len(periods)))
     return tree
 
 
 def to_reference(params: Dict[str, Any]) -> Dict[str, Any]:
     """Port params -> the reference's pytree layout with numpy leaves
-    (layer dicts restacked over periods)."""
+    (layer dicts restacked over periods; each half of an encoder-decoder
+    tree)."""
+    if _is_encdec(params):
+        return {k: to_reference(params[k]) for k in ENCDEC_KEYS}
     out = {k: _map(params[k], to_numpy) for k in params if k != "periods"}
 
     def stack(layers):

@@ -18,6 +18,7 @@ BLOCK_ATTN_MOE = "attn_moe"          # attention + MoE FFN
 BLOCK_HYBRID = "hybrid"              # parallel attention + mamba heads (hymba)
 BLOCK_MLSTM = "mlstm"                # xLSTM matrix-memory block
 BLOCK_SLSTM = "slstm"                # xLSTM scalar-memory block
+BLOCK_DEC = "dec_block"              # whisper decoder: self-, cross-attn, MLP
 
 
 @dataclass(frozen=True)
@@ -78,12 +79,18 @@ class ModelConfig:
         return self.block_pattern[layer_idx % len(self.block_pattern)]
 
     def param_count(self) -> int:
-        """Parameters of a dense (``attn_mlp``) stack, norms included."""
+        """Parameters of an ``attn_mlp`` or whisper (``dec_block`` +
+        encoder) stack, norms included, counted as the reference counts
+        them (its LayerNorm biases and whisper's norm_cross apart)."""
         d, hd = self.d_model, self.resolved_head_dim
         total = self.vocab_size * d * (1 if self.tie_embeddings else 2)
         mlp_mats = 3 if self.mlp_type == "swiglu" else 2
         attn = 2 * d * self.num_heads * hd + 2 * d * self.num_kv_heads * hd
-        total += self.num_layers * (attn + mlp_mats * d * self.d_ff + 2 * d)
+        for layer in range(self.num_layers):
+            total += attn + mlp_mats * d * self.d_ff + 2 * d
+            if self.block_kind(layer) == BLOCK_DEC:      # cross-attention
+                total += attn
+        total += self.encoder_layers * (4 * d * d + 2 * d * self.d_ff + 2 * d)
         return int(total)
 
 

@@ -3,7 +3,9 @@ config the port serves.
 
 The six dense ``attn_mlp`` configs of the reference's registry, copied field
 for field: four public ones and the paper's own two evaluation models (Table
-1), and the three ladder-residual twins (``configs/ladder.py``, ``LADDER``).
+1), the three ladder-residual twins (``configs/ladder.py``, ``LADDER``) and
+the encoder-decoder whisper-medium (``ENCDEC``), which the dense ``Engine``
+serves.
 The reference's other names raise ``NotImplementedError`` from
 ``config.get_model_config``, naming the ROADMAP queue A item that ports them
 (``UNPORTED``).
@@ -16,15 +18,16 @@ from repro_torch.configs import (  # noqa: F401
     qwen3_32b,
     qwen3_4b,
     qwen3_8b,
+    whisper_medium,
 )
 
 DENSE = ["qwen3-4b", "qwen3-8b", "qwen3-32b", "codeqwen1.5-7b", "paper-30b",
          "paper-70b"]
 PAPER = ["paper-30b", "paper-70b"]
 LADDER = ["ladder-qwen3-4b", "ladder-qwen3-8b", "ladder-paper-30b"]
+ENCDEC = ["whisper-medium"]
 
 # the reference's registered names the port does not serve yet -> the
 # ROADMAP queue A item that ports them
 UNPORTED = dict.fromkeys(["granite-moe-3b-a800m", "kimi-k2-1t-a32b",
-                          "hymba-1.5b", "xlstm-350m", "internvl2-2b",
-                          "whisper-medium"], 10)
+                          "hymba-1.5b", "xlstm-350m", "internvl2-2b"], 10)

@@ -1,5 +1,6 @@
 """The ISO scheduler: interleaved per-chunk execution of a transformer stack
-(port of ``repro/core/iso.py``, dense subset).
+(port of ``repro/core/iso.py`` for attention stacks: ``attn_mlp`` and
+whisper's ``dec_block`` and bidirectional encoder).
 
 ISO splits the sequence into chunks and walks the (stage x chunk) grid in the
 order of the paper's Figure 1(d):
@@ -14,7 +15,8 @@ order IS the schedule (the reference leaves the placement to XLA).  The
 pending collective crosses layer boundaries.  The KV prefix is threaded
 chunk to chunk within each layer.  At tp=1 the collectives are identities,
 so every schedule is numerically the plain stack.  ``lax.scan`` over periods
-becomes a Python loop; the decode drivers update the page pools in place.
+becomes a Python loop; the decode drivers update the caches in place (page
+pools, or dense ring caches).
 
 The ladder-residual wiring (``ladder=True`` in prefill,
 ``run_stack_decode_ladder`` in decode; PAPERS.md, arXiv 2501.06589) is the
@@ -31,6 +33,8 @@ import torch
 
 from repro_torch.core.overlap import AxisCtx, Pending, psum_now, psum_start, \
     psum_wait
+from repro_torch.layers import attention as attn_lib
+from repro_torch.layers.norms import norm
 from repro_torch.models.blocks import BLOCK_STAGES, StageCtx
 
 DECODE_SCHEDULES = ("sequential", "batch_split", "cross_block", "ladder",
@@ -72,6 +76,14 @@ def run_layer(p_layer, kind: str, state: PipeState, sctx: StageCtx,
     pend_chunk = n_chunks - 1                 # invariant at layer entry
     kv_chunks: List = [None] * n_chunks
     seq_state = None
+    if sctx.mode == "encode":
+        # bidirectional attention: every chunk attends the FULL sequence,
+        # so K/V are projected once per layer from all chunks, before the
+        # unit loop, from the chunks as they stand at layer entry (the last
+        # chunk's pending reduce not yet applied, as in the reference)
+        seq_state = attn_lib.cross_kv(p_layer["attn"], torch.cat(
+            [norm(p_layer["norm1"], xc, sctx.cfg.norm_type, sctx.cfg.rms_eps)
+             for xc in xs], dim=1), sctx.cfg)
 
     for fn, reduces in stages:
         for c in range(n_chunks):
@@ -126,7 +138,9 @@ def run_stack_prefill(params_periods, pattern: Sequence[str], x_chunks,
 
     params_periods: per position of ``pattern``, a list of per-period layer
     params.  layer_caches: optional per-position dicts of period-stacked
-    leaves (the paged prefix: ``k_pages``/``v_pages`` (P, N+1, ps, Hkv, hd)).
+    leaves, sliced per period (the reference's scanned ``layer_statics``):
+    the paged prefix (``k_pages``/``v_pages`` (P, N+1, ps, Hkv, hd)), or
+    whisper's cross K/V (``cross_k``/``cross_v`` (P, B, F, Hkv, hd)).
     ``starts`` are call-relative chunk offsets; a row's absolute position is
     ``sctx.pos_offset + starts[c] + t``.  Returns (x_chunks_final, per
     position extras with ``kv_k``/``kv_v`` stacked over periods).
@@ -173,11 +187,37 @@ def _scatter_token_to_pages(cache, kv_new, lengths, block_tables,
     vp.index_put_((page, off), v_new.to(vp.dtype))
 
 
+def _insert_ring(cache, kv_new, lengths) -> None:
+    """Insert the window's K new tokens into a dense ring cache IN PLACE, at
+    slot ``lengths % ring`` (the reference's ``dynamic_update_slice``, whose
+    start clamps to ``ring - K``: a multi-token insert never straddles the
+    ring boundary, and the engine keeps it from needing to), and record
+    their positions in ``pos``."""
+    k_new, v_new = kv_new
+    B, K = k_new.shape[:2]
+    ring = cache["k"].shape[1]
+    dev = k_new.device
+    lengths = lengths.to(device=dev, dtype=torch.int64)
+    start = torch.clamp(lengths % ring, max=ring - K)
+    rows = torch.arange(B, device=dev)[:, None].expand(B, K)
+    cols = start[:, None] + torch.arange(K, device=dev)[None]
+    cache["k"].index_put_((rows, cols), k_new.to(cache["k"].dtype))
+    cache["v"].index_put_((rows, cols), v_new.to(cache["v"].dtype))
+    cache["pos"].index_put_((rows, cols), (lengths[:, None] + torch.arange(
+        K, device=dev)[None]).to(cache["pos"].dtype))
+
+
 def _apply_decode_cache_update(cache, extras, sctx: StageCtx) -> None:
-    """Fold one stage's decode extras into its cache (in place)."""
-    if cache is not None and "kv" in extras and "k_pages" in cache:
+    """Fold one stage's decode extras into its cache (in place): page pools
+    take the window's KV through the block tables, dense ring caches insert
+    it at ``lengths % ring``."""
+    if cache is None or "kv" not in extras:
+        return
+    if "k_pages" in cache:
         _scatter_token_to_pages(cache, extras["kv"], sctx.lengths,
                                 sctx.block_tables, sctx.decode_mask)
+    elif "k" in cache:
+        _insert_ring(cache, extras["kv"], sctx.lengths)
 
 
 def run_stack_decode(params_periods, pattern: Sequence[str], x, caches,

@@ -1,13 +1,17 @@
 """Serving launcher of the port:
-``python -m repro_torch.launch.serve --arch qwen3-8b --preset full --paged
-[--tp N]``.  ``--arch`` takes every dense config the port registers
-(``configs.DENSE``: qwen3-4b/8b/32b, codeqwen1.5-7b, paper-30b, paper-70b);
-``--preset full`` serves it at its published widths (paper-30b fits one
-H100; paper-70b needs several cards), ``--preset tiny`` a reduced twin.
+``python -m repro_torch.launch.serve --arch qwen3-8b --preset full [--paged
+[--tp N]]``.  ``--arch`` takes every config the port registers
+(``configs.DENSE``: qwen3-4b/8b/32b, codeqwen1.5-7b, paper-30b, paper-70b;
+the ladder twins; ``configs.ENCDEC``: whisper-medium); ``--preset full``
+serves it at its published widths (paper-30b fits one H100; paper-70b needs
+several cards), ``--preset tiny`` a reduced twin.
 
 Builds random weights from a seed on the device, submits a batch of
-synthetic greedy requests to the paged engine and reports prefill and decode
-throughput.  Runs on ``cuda`` unless ``--device cpu`` is given.  ``--tp N``
+synthetic greedy requests and reports prefill and decode throughput: with
+``--paged`` to the paged engine, without it to the dense-cache ``Engine``
+(tp=1, bucket 32, the only engine for an audio arch, whose
+requests carry seeded frames, N(0, 1) x 0.1, as the stub frontend's
+output).  Runs on ``cuda`` unless ``--device cpu`` is given.  ``--tp N``
 spawns N ranks (``launch/mesh.spawn``): one per card over NCCL, or on the
 host over gloo under ``--device cpu``; each rank makes only its shard of the
 weights, and rank 0's run is reported.
@@ -58,7 +62,8 @@ from repro_torch.core.iso import DECODE_SCHEDULES
 from repro_torch.launch.mesh import TPGroup, disagg_devices, spawn
 from repro_torch.models import api
 from repro_torch.obs import torchprof, write_chrome_trace
-from repro_torch.serving import PagedEngine, Request, paged_engine
+from repro_torch.serving import Engine, PagedEngine, Request, engine, \
+    paged_engine
 from repro_torch.serving.disagg import DisaggRouter
 from repro_torch.serving.requests import SamplingParams
 
@@ -98,11 +103,13 @@ def _drive(eng, metrics_every: int) -> Dict[int, List[int]]:
     if not metrics_every:
         return eng.run_until_complete()
     engines = _engines(eng)
+    paged = not isinstance(eng, Engine)
     t_last, toks_last = time.perf_counter(), 0
     for step in range(1, 10_001):
         eng.step()
+        waiting = engines[0].scheduler.waiting if paged else eng.pending
         done = eng.done() if isinstance(eng, DisaggRouter) else \
-            not eng.scheduler.waiting and all(s is None for s in eng.slots)
+            not waiting and all(s is None for s in eng.slots)
         if step % metrics_every == 0 or done:
             now = time.perf_counter()
             toks = sum(e.metrics["decode_tokens"] + e.metrics["prefill_samples"]
@@ -112,12 +119,13 @@ def _drive(eng, metrics_every: int) -> Dict[int, List[int]]:
             active = ",".join(str(sum(s is not None for s in e.slots))
                               for e in engines)
             line = (f"[metrics] step={step} active={active} "
-                    f"waiting={len(engines[0].scheduler.waiting)} "
-                    f"tok/s={rate:.1f} pool="
-                    + ",".join(f"{e.alloc.used_pages}/{e.alloc.num_pages}"
-                               for e in engines)
+                    f"waiting={len(waiting)} tok/s={rate:.1f}")
+            if paged:
+                line += (" pool=" + ",".join(
+                    f"{e.alloc.used_pages}/{e.alloc.num_pages}"
+                    for e in engines)
                     + f" frag={engines[-1].alloc.fragmentation()}")
-            if engines[-1].spec_k:
+            if paged and engines[-1].spec_k:
                 line += (f" accept/call="
                          f"{engines[-1].accepted_per_call():.2f}")
             if isinstance(eng, DisaggRouter):
@@ -288,8 +296,9 @@ def main(argv=None) -> int:
     ap.add_argument("--dtype", default="bfloat16",
                     choices=["bfloat16", "float32"])
     ap.add_argument("--paged", action="store_true",
-                    help="paged KV cache + chunked-prefill scheduler (the "
-                         "only engine the port has; required)")
+                    help="paged KV cache + chunked-prefill scheduler "
+                         "(PagedEngine); without it the dense-cache Engine "
+                         "serves (tp=1; the only engine for audio archs)")
     ap.add_argument("--tp", type=int, default=1,
                     help="tensor-parallel ranks: one per card over NCCL, or "
                          "on the host over gloo with --device cpu")
@@ -373,9 +382,16 @@ def main(argv=None) -> int:
                          "collectives: no overlap claim on one card")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    if not args.paged:
-        ap.error("the port serves through the paged engine only: pass "
-                 "--paged (the dense Engine is ROADMAP queue A item 6)")
+    if args.probe_overlap and not args.paged:
+        ap.error("--probe-overlap requires --paged")
+    if (args.autotune or args.cost_table) and not args.paged:
+        ap.error("--autotune/--cost-table require --paged (the dense Engine "
+                 "has no cost-model decision points)")
+    if args.disagg and not args.paged:
+        ap.error("--disagg requires --paged (migration moves KV pages)")
+    if args.decode_schedule != "auto" and not args.paged:
+        ap.error("--decode-schedule requires --paged (the dense Engine "
+                 "decodes on the default schedule)")
     if args.tp < 1:
         ap.error("--tp must be >= 1")
     if args.spec_k < 0:
@@ -395,6 +411,12 @@ def main(argv=None) -> int:
     device = resolve_device(args.device)
 
     cfg = reduce_cfg(get_model_config(args.arch), args.preset)
+    if args.paged and cfg.family == "audio":
+        ap.error("--paged does not support enc-dec (audio) archs: the dense "
+                 "Engine serves them (drop --paged)")
+    if args.tp > 1 and not args.paged:
+        ap.error("--tp requires --paged (the dense Engine stays "
+                 "single-device)")
     if args.decode_schedule in ("ladder", "ladder_seq") and \
             cfg.residual_wiring != "ladder":
         ap.error(f"--decode-schedule {args.decode_schedule} needs a ladder "
@@ -422,11 +444,16 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(args.seed)
     system = rng.integers(2, cfg.vocab_size,
                           args.shared_prefix).astype(np.int32)
-    prompts = []
+    prompts, frames = [], []
     for _ in range(args.requests):
         plen = int(rng.integers(args.prompt_len // 2, args.prompt_len))
         prompts.append(np.concatenate(
             [system, rng.integers(2, cfg.vocab_size, plen)]).astype(np.int32))
+        if cfg.family == "audio":           # the stub frontend's output
+            frames.append((rng.standard_normal(
+                (cfg.encoder_frames, cfg.d_model)) * 0.1).astype(np.float32))
+    if not args.paged:
+        return _serve_dense(args, config, prompts, frames or None, device)
     variant = dict(prompts=prompts, max_new=args.max_new,
                    temperature=args.temperature)
     if args.probe_overlap:
@@ -507,6 +534,69 @@ def main(argv=None) -> int:
               f"(dropped={res['dropped']}; open at https://ui.perfetto.dev)")
     if args.profile:
         print(f"profile: {res['profile']}")
+    for rid, toks in enumerate(outs[:3]):
+        print(f"  rid {rid}: {toks[:10]}{'...' if len(toks) > 10 else ''}")
+    return 0
+
+
+def _serve_dense(args, config: Config, prompts, frames, device) -> int:
+    """``main`` without ``--paged``: serve ``prompts`` (with ``frames`` for
+    an audio arch) on the dense ``Engine`` at tp=1, bucket 32, weights from
+    ``--seed``; request i samples with seed i, and every sampled logits row
+    is checked finite."""
+    cfg = config.model
+    params = api.init_params(args.seed, cfg, dtype=getattr(torch, args.dtype),
+                             device=device)
+    eng = Engine(config, params, max_batch=args.max_batch,
+                 max_len=config.serving.max_len, bucket=32,
+                 spec_k=args.spec_k, device=device)
+    rids = [eng.add_request(Request(
+        prompt=p, frames=None if frames is None else frames[i],
+        sampling=SamplingParams(max_new_tokens=args.max_new, eos_id=-1,
+                                temperature=args.temperature, seed=i)))
+        for i, p in enumerate(prompts)]
+    real_sample = engine.sample
+
+    def finite_sample(logits, sp, step):
+        if not np.isfinite(logits).all():
+            raise FloatingPointError("non-finite logits row")
+        return real_sample(logits, sp, step)
+
+    engine.sample = finite_sample
+    if args.profile:
+        torchprof.start(args.profile)
+    t0 = time.perf_counter()
+    try:
+        done = _drive(eng, args.metrics_every)
+    finally:
+        wall = time.perf_counter() - t0
+        profile = torchprof.stop()
+        engine.sample = real_sample
+    outs = [done[r] for r in rids]
+    m = eng.metrics
+    dev_name = torch.cuda.get_device_name(0) if device.type == "cuda" \
+        else "cpu"
+    print(f"arch={cfg.name} engine=dense device={dev_name} tp=1 iso="
+          f"{'off' if args.iso_off else 'on'} requests={len(outs)} "
+          f"new_tokens={sum(len(t) for t in outs)} wall={wall:.2f}s")
+    print(f"prefill: {m['prefill_tokens']} tok in {m['prefill_s']:.3f}s "
+          f"({m['prefill_tokens'] / max(m['prefill_s'], 1e-9):.1f} tok/s) "
+          f"calls={m['prefill_calls']} ttft="
+          f"{1e3 * m['ttft_sum'] / max(m['ttft_n'], 1):.1f}ms | decode: "
+          f"{m['decode_calls']} steps in {m['decode_s']:.3f}s "
+          f"({1e3 * m['decode_s'] / max(m['decode_calls'], 1):.2f} ms/step) "
+          f"| completed={m['completed']}")
+    if args.spec_k:
+        print(f"spec: spec_calls={m['spec_calls']} spec_tokens="
+              f"{m['spec_tokens']} spec_accepted={m['spec_accepted']} "
+              f"decode_calls={m['decode_calls']}")
+    if args.trace_out:
+        n = write_chrome_trace(eng.trace.events(), args.trace_out)
+        print(f"trace: {n} events -> {args.trace_out} "
+              f"(dropped={eng.trace.dropped}; open at "
+              f"https://ui.perfetto.dev)")
+    if args.profile:
+        print(f"profile: {profile}")
     for rid, toks in enumerate(outs[:3]):
         print(f"  rid {rid}: {toks[:10]}{'...' if len(toks) > 10 else ''}")
     return 0

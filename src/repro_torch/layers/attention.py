@@ -1,5 +1,7 @@
-"""GQA attention, local-shard view (port of the dense subset of
-``repro/layers/attention.py``).
+"""GQA attention, local-shard view (port of ``repro/layers/attention.py``
+without ``sdpa_blockwise``): chunked prefill over a dense or paged prefix,
+decode over the page pool or a dense padded cache, and whisper's
+bidirectional encoder attention and cross-attention.
 
 Forward functions take the local slice of the padded weights and return an
 UNREDUCED partial output: the TP all-reduce after ``o_proj`` is the caller's
@@ -16,6 +18,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.config import ModelConfig
+from repro_torch.layers.mlp import matmul
 from repro_torch.layers.rope import apply_rope
 
 NEG_INF = -1e30
@@ -35,7 +38,7 @@ def project_qkv(p: dict, x: torch.Tensor, cfg: ModelConfig,
     B, S, D = x.shape
 
     def proj(w):                                       # "bsd,dhk->bshk"
-        return torch.matmul(x, w.reshape(D, -1)).reshape(
+        return matmul(x, w.reshape(D, -1)).reshape(
             B, S, w.shape[1], w.shape[2])
 
     q, k, v = proj(p["wq"]), proj(p["wk"]), proj(p["wv"])
@@ -250,3 +253,78 @@ def attn_decode_paged_partial(p: dict, x, cfg: ModelConfig, layout_group: int,
                                    group_eff=layout_group)
     out = merge_softmax_states(out_p, m_p, l_p, out_i, m_i, l_i)
     return o_proj_partial(p, out), (k_new, v_new)
+
+
+def attn_decode_partial(p: dict, x, cfg: ModelConfig, layout_group: int, *,
+                        cache_k, cache_v, lengths, window: int = 0,
+                        cache_pos=None):
+    """Decode against a dense padded cache (the dense ``Engine``).
+
+    x: (B,K,D), K=1 plain decode or a K-token verify window whose token qi
+    sits at position ``lengths[b] + qi``; cache_k/v: (B,Smax,Hkv_loc,hd);
+    lengths: (B,) tokens already cached.  ``cache_pos``: optional (B,Smax)
+    absolute position of each slot (-1 = empty), needed for ring caches
+    where slot != position.  The window's tokens attend the cache and,
+    causally, each other.  Returns (partial_out, (k_new, v_new)); the cache
+    insert is the stack driver's job."""
+    B, K = x.shape[0], x.shape[1]
+    dev = x.device
+    lengths = lengths.to(torch.int32)
+    q_pos = lengths[:, None] + torch.arange(K, dtype=torch.int32,
+                                            device=dev)[None]
+    q, k_new, v_new = project_qkv(p, x, cfg, q_pos)
+    Smax = cache_k.shape[1]
+    if cache_pos is not None:
+        k_pos = cache_pos.to(torch.int32)
+        k_valid = cache_pos >= 0
+    else:
+        k_pos = torch.arange(Smax, dtype=torch.int32,
+                             device=dev)[None, :].expand(B, -1)
+        k_valid = k_pos < lengths[:, None]
+    k_all = torch.cat([cache_k, k_new], dim=1)
+    v_all = torch.cat([cache_v, v_new], dim=1)
+    k_pos = torch.cat([k_pos, q_pos], dim=1)
+    k_valid = torch.cat([k_valid, torch.ones((B, K), dtype=torch.bool,
+                                             device=dev)], dim=1)
+    out = sdpa(q, k_all, v_all, q_pos=q_pos, k_pos=k_pos, causal=True,
+               window=window, k_valid=k_valid, group_eff=layout_group)
+    return o_proj_partial(p, out), (k_new, v_new)
+
+
+def _zero_pos(B: int, S: int, device) -> torch.Tensor:
+    return torch.zeros((B, S), dtype=torch.int32, device=device)
+
+
+def attn_encode_partial(p: dict, x, cfg: ModelConfig, layout_group: int, *,
+                        kv_full):
+    """Bidirectional (encoder) attention: this chunk's queries attend the
+    FULL sequence's (k, v), projected once per layer by the scheduler
+    (core/iso.run_layer); position 0 everywhere, no RoPE."""
+    B, S, _ = x.shape
+    pos = _zero_pos(B, S, x.device)
+    q, _, _ = project_qkv(p, x, cfg, pos, use_rope=False)
+    k, v = kv_full
+    out = sdpa(q, k, v, q_pos=pos, k_pos=_zero_pos(B, k.shape[1], x.device),
+               causal=False, group_eff=layout_group)
+    return o_proj_partial(p, out)
+
+
+def attn_cross_partial(p: dict, x, cfg: ModelConfig, layout_group: int, *,
+                       enc_k, enc_v, enc_valid=None):
+    """Cross-attention (whisper decoder): queries from x, keys and values
+    precomputed from the encoder output (``cross_kv``)."""
+    B, S, _ = x.shape
+    pos = _zero_pos(B, S, x.device)
+    q, _, _ = project_qkv(p, x, cfg, pos, use_rope=False)
+    out = sdpa(q, enc_k, enc_v, q_pos=pos,
+               k_pos=_zero_pos(B, enc_k.shape[1], x.device), causal=False,
+               k_valid=enc_valid, group_eff=layout_group)
+    return o_proj_partial(p, out)
+
+
+def cross_kv(p: dict, enc_out, cfg: ModelConfig):
+    """Cross-attention K/V of the encoder output (no RoPE)."""
+    B, S, _ = enc_out.shape
+    _, k, v = project_qkv(p, enc_out, cfg, _zero_pos(B, S, enc_out.device),
+                          use_rope=False)
+    return k, v

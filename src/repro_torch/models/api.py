@@ -1,12 +1,16 @@
-"""Model API used by launch/ and serving/ (port of the dense subset of
-``repro/models/api.py``).
+"""Model API used by launch/ and serving/ (port of ``repro/models/api.py``
+for the dense and audio families).
 
   init_params(seed, cfg, tp, dtype, device, rank) -> params
   prefill(params, cfg, ctx, iso, batch, ...)  -> dict (logits_local, ...)
   decode_step(params, cfg, ctx, tokens, caches, lengths, ...)
                                               -> (logits_local, caches)
+  init_caches(cfg, batch, cache_len, tp, dtype, device) -> dense caches
+  make_inputs(cfg, seq_len, batch, seed, dtype, device) -> batch
 
-``batch`` is ``{"tokens": (B, S) integer}`` for the dense family.
+``batch`` is ``{"tokens": (B, S) integer}`` for the dense family and
+``{"frames": (B, F, D), "tokens": (B, S)}`` for audio (whisper; the frames
+are the stub frontend's output).
 """
 from __future__ import annotations
 
@@ -18,20 +22,31 @@ from repro_torch.config import ISOConfig, ModelConfig
 from repro_torch.core.overlap import AxisCtx
 from repro_torch.device import resolve_device
 from repro_torch.models import decoder as dec_lib
+from repro_torch.models import whisper as whisper_lib
 
 
 def init_params(seed: int, cfg: ModelConfig, tp: int = 1,
                 dtype=torch.bfloat16, device=None, rank: int = None):
     """Random weights made on ``device`` (default ``cuda``; raises when CUDA
     is absent unless ``device="cpu"``).  ``rank`` given: only that rank's
-    shard of the tp=``tp`` model (see decoder.init_decoder_params)."""
-    return dec_lib.init_decoder_params(seed, cfg, tp, dtype,
-                                       device=resolve_device(device),
+    shard of the tp=``tp`` model (see decoder.init_decoder_params; not for
+    audio)."""
+    device = resolve_device(device)
+    if cfg.family == "audio":
+        if rank is not None:
+            raise NotImplementedError("sharded whisper weights: the dense "
+                                      "Engine serves audio at tp=1")
+        return whisper_lib.init_whisper_params(seed, cfg, tp, dtype, device)
+    return dec_lib.init_decoder_params(seed, cfg, tp, dtype, device=device,
                                        rank=rank)
 
 
 def prefill(params, cfg: ModelConfig, ctx: AxisCtx, iso: ISOConfig,
             batch: Dict[str, Any], **kw):
+    if cfg.family == "audio":
+        return whisper_lib.whisper_prefill(
+            params, cfg, ctx, iso, frames=batch["frames"],
+            tokens=batch["tokens"], **kw)
     return dec_lib.prefill(params, cfg, ctx, iso, tokens=batch["tokens"],
                            **kw)
 
@@ -39,8 +54,42 @@ def prefill(params, cfg: ModelConfig, ctx: AxisCtx, iso: ISOConfig,
 def decode_step(params, cfg: ModelConfig, ctx: AxisCtx, tokens, caches,
                 lengths, block_tables=None, decode_mask=None,
                 kv_splits: int = 1, schedule: str = None):
-    """See models/decoder.decode_step."""
+    """See models/decoder.decode_step; audio decodes its dense caches."""
+    if cfg.family == "audio":
+        if block_tables is not None:
+            raise NotImplementedError("paged decode of an encoder-decoder: "
+                                      "the dense Engine serves audio")
+        return whisper_lib.whisper_decode_step(params, cfg, ctx, tokens,
+                                               caches, lengths)
     return dec_lib.decode_step(params, cfg, ctx, tokens, caches, lengths,
                                block_tables=block_tables,
                                decode_mask=decode_mask, kv_splits=kv_splits,
                                schedule=schedule)
+
+
+def init_caches(cfg: ModelConfig, batch: int, cache_len: int, tp: int = 1,
+                dtype=torch.bfloat16, device=None):
+    """Empty dense decode caches (the dense ``Engine``'s), made on
+    ``device`` (default ``cuda``, as ``init_params``)."""
+    device = resolve_device(device)
+    if cfg.family == "audio":
+        return whisper_lib.init_whisper_caches(cfg, batch, cache_len, tp,
+                                               dtype=dtype, device=device)
+    return dec_lib.init_caches(cfg, batch, cache_len, tp, dtype, device)
+
+
+def make_inputs(cfg: ModelConfig, seq_len: int, global_batch: int,
+                seed: int = 0, dtype=torch.bfloat16, device=None
+                ) -> Dict[str, torch.Tensor]:
+    """Random model inputs from ``seed``: tokens in [0, vocab), and for
+    audio frames ~ N(0, 1) x 0.1 of (B, encoder_frames, D)."""
+    device = resolve_device(device)
+    gen = torch.Generator(device=device).manual_seed(seed)
+    B, S = global_batch, seq_len
+    out = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                                   dtype=torch.int32, device=device)}
+    if cfg.family == "audio":
+        out["frames"] = (torch.randn(
+            (B, cfg.encoder_frames, cfg.d_model), generator=gen,
+            dtype=torch.float32, device=device) * 0.1).to(dtype)
+    return out

@@ -1,11 +1,13 @@
-"""Block stage functions, the unit the ISO scheduler drives (port of the dense
-subset of ``repro/models/blocks.py``).
+"""Block stage functions, the unit the ISO scheduler drives (port of the
+attention subset of ``repro/models/blocks.py``: ``attn_mlp`` and whisper's
+``dec_block``).
 
 A layer is a list of stages; each maps a chunk of the residual stream to an
 output that NEEDS the TP all-reduce (``reduces=True``).  The scheduler
 (core/iso.py) owns residual adds and collective timing, so blocks never
 reduce.  Sequential per-stage state: attention carries the growing (k, v)
-prefix of the call; the MLP carries none.
+prefix of the call (in ``encode`` mode, the whole sequence's); cross-
+attention and the MLP carry none.
 """
 from __future__ import annotations
 
@@ -14,7 +16,7 @@ from typing import Any, Optional
 
 import torch
 
-from repro_torch.config import BLOCK_ATTN_MLP, ModelConfig
+from repro_torch.config import BLOCK_ATTN_MLP, BLOCK_DEC, ModelConfig
 from repro_torch.layers import attention as attn_lib
 from repro_torch.layers import mlp as mlp_lib
 from repro_torch.layers.norms import norm
@@ -24,7 +26,7 @@ from repro_torch.layers.norms import norm
 class StageCtx:
     cfg: ModelConfig
     group_eff: int                     # local GQA group (q slots per kv slot)
-    mode: str = "prefill"              # prefill | decode
+    mode: str = "prefill"              # prefill | decode | encode
     window: int = 0
     # decode: (B,) cached token counts; paged prefill: (B,) prefix lengths
     lengths: Optional[torch.Tensor] = None
@@ -89,16 +91,24 @@ def attn_stage(p, x, start_pos, seq_state, sctx: StageCtx, cache=None):
     cfg = sctx.cfg
     xn = _n1(p, x, cfg)
     if sctx.mode == "decode":
-        if cache is None or "k_pages" not in cache:
-            raise NotImplementedError(
-                "dense-cache decode: the port decodes through the page pool "
-                "only (ROADMAP queue A item 6)")
-        partial, kv_new = attn_lib.attn_decode_paged_partial(
-            p["attn"], xn, cfg, sctx.group_eff,
-            k_pages=cache["k_pages"], v_pages=cache["v_pages"],
-            block_tables=sctx.block_tables, lengths=sctx.lengths,
-            window=sctx.window, kv_splits=sctx.kv_splits)
+        if "k_pages" in cache:
+            partial, kv_new = attn_lib.attn_decode_paged_partial(
+                p["attn"], xn, cfg, sctx.group_eff,
+                k_pages=cache["k_pages"], v_pages=cache["v_pages"],
+                block_tables=sctx.block_tables, lengths=sctx.lengths,
+                window=sctx.window, kv_splits=sctx.kv_splits)
+        else:
+            partial, kv_new = attn_lib.attn_decode_partial(
+                p["attn"], xn, cfg, sctx.group_eff,
+                cache_k=cache["k"], cache_v=cache["v"], lengths=sctx.lengths,
+                window=sctx.window, cache_pos=cache.get("pos"))
         return partial, seq_state, {"kv": kv_new}
+    if sctx.mode == "encode":
+        # seq_state holds the full sequence's (k, v), projected by the
+        # scheduler before the unit loop (core/iso.run_layer)
+        partial = attn_lib.attn_encode_partial(
+            p["attn"], xn, cfg, sctx.group_eff, kv_full=seq_state)
+        return partial, seq_state, {}
     partial, kv_new = _prefill_attn(p["attn"], xn, seq_state, cache, sctx,
                                     start_pos, x.shape[0])
     if seq_state is None:
@@ -109,14 +119,29 @@ def attn_stage(p, x, start_pos, seq_state, sctx: StageCtx, cache=None):
     return partial, new_state, {"kv": kv_new}
 
 
+def cross_attn_stage(p, x, start_pos, seq_state, sctx: StageCtx,
+                     cache=None):
+    """Whisper decoder cross-attention over the encoder's K/V, which ride in
+    ``cache`` (``cross_k``/``cross_v``): the prefill's layer statics, or the
+    decode caches."""
+    cfg = sctx.cfg
+    xn = norm(p["norm_cross"], x, cfg.norm_type, cfg.rms_eps)
+    partial = attn_lib.attn_cross_partial(
+        p["cross"], xn, cfg, sctx.group_eff,
+        enc_k=cache["cross_k"], enc_v=cache["cross_v"])
+    return partial, seq_state, {}
+
+
 def mlp_stage(p, x, start_pos, seq_state, sctx: StageCtx, cache=None):
     xn = _n2(p, x, sctx.cfg)
     return mlp_lib.mlp_partial(p["mlp"], xn, sctx.cfg.mlp_type), seq_state, {}
 
 
-# kind -> ((stage_fn, reduces), ...)
+# kind -> ((stage_fn, reduces), ...); every stage ends in a TP all-reduce
 BLOCK_STAGES = {
     BLOCK_ATTN_MLP: ((attn_stage, True), (mlp_stage, True)),
+    BLOCK_DEC: ((attn_stage, True), (cross_attn_stage, True),
+                (mlp_stage, True)),
 }
 
 

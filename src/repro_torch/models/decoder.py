@@ -1,5 +1,6 @@
-"""Decoder-stack model driver, dense family (port of the dense subset of
-``repro/models/decoder.py``).
+"""Decoder-stack model driver (port of ``repro/models/decoder.py`` for the
+dense family and for whisper's encoder and decoder stacks,
+``models/whisper.py``).
 
 Forward code is written in the local-shard view: under tensor parallelism
 each rank holds its shard of every sharded leaf (``SHARD_AXIS``) and the
@@ -7,7 +8,9 @@ collectives of ``AxisCtx`` join the ranks; at tp=1 that is the whole model.
 Parameters are plain dicts of tensors: ``{"embed": {"table", "head"},
 "final_norm": {"scale"}, "periods": (per pattern position, a list of
 per-period layer dicts)}`` — the reference's ``(P, ...)``-stacked leaves
-unstacked into one dict per layer.
+unstacked into one dict per layer.  LayerNorm configs add a ``bias`` to
+every norm; a ``dec_block`` layer adds ``cross`` (the cross-attention's
+projections) and ``norm_cross``.
 """
 from __future__ import annotations
 
@@ -15,22 +18,27 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from repro_torch.config import BLOCK_ATTN_MLP, ISOConfig, ModelConfig, \
-    padded_vocab
+from repro_torch.config import BLOCK_ATTN_MLP, BLOCK_DEC, ISOConfig, \
+    ModelConfig, padded_vocab
 from repro_torch.core.chunking import split_chunks
 from repro_torch.core.iso import run_stack_decode, run_stack_prefill
 from repro_torch.core.overlap import AxisCtx, psum_now
 from repro_torch.layers import embeddings as emb_lib
 from repro_torch.layers.heads import expand_heads, head_layout
 from repro_torch.layers.norms import init_norm, norm
+from repro_torch.layers.rope import sinusoid_angles, sinusoidal_embedding
 from repro_torch.models.blocks import StageCtx
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """The port serves dense ``attn_mlp`` stacks, standard- or
-    ladder-wired; anything else raises, naming its ROADMAP item."""
-    if cfg.family not in ("dense",) or \
-            any(k != BLOCK_ATTN_MLP for k in cfg.block_pattern):
+    ladder-wired, and whisper's encoder (``attn_mlp``) and decoder
+    (``dec_block``) stacks; anything else raises, naming its ROADMAP
+    item."""
+    kinds = (BLOCK_ATTN_MLP, BLOCK_DEC) if cfg.family == "audio" \
+        else (BLOCK_ATTN_MLP,)
+    if cfg.family not in ("dense", "audio") or \
+            any(k not in kinds for k in cfg.block_pattern):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} / blocks {cfg.block_pattern}"
             f" are not ported (ROADMAP queue A item 10)")
@@ -101,8 +109,9 @@ def _normal(gen, shape, std, dtype, device):
     return (w * std).to(dtype)
 
 
-def _init_layer(gen, cfg: ModelConfig, layout, dtype, device) -> Dict:
-    d, hd, ff = cfg.d_model, cfg.resolved_head_dim, cfg.d_ff
+def _init_attention(gen, cfg: ModelConfig, layout, dtype, device,
+                    cross: bool = False) -> Dict:
+    d, hd = cfg.d_model, cfg.resolved_head_dim
     s = 0.02
     so = s / (2 * cfg.num_layers) ** 0.5
 
@@ -117,23 +126,39 @@ def _init_layer(gen, cfg: ModelConfig, layout, dtype, device) -> Dict:
         "wv": heads((d, layout.hkv, hd), s, layout.kv_map, 1),
         "wo": heads((layout.hq, hd, d), so, layout.q_map, 0),
     }
-    if cfg.qk_norm:
+    if cfg.qk_norm and not cross:
         attn["q_norm"] = torch.ones((hd,), dtype=torch.float32, device=device)
         attn["k_norm"] = torch.ones((hd,), dtype=torch.float32, device=device)
-    mlp = {"w_up": _normal(gen, (d, ff), s, dtype, device),
-           "w_gate": _normal(gen, (d, ff), s, dtype, device),
-           "w_down": _normal(gen, (ff, d), so, dtype, device)}
-    return {"norm1": init_norm(d, device), "attn": attn,
-            "norm2": init_norm(d, device), "mlp": mlp}
+    return attn
+
+
+def _init_layer(gen, cfg: ModelConfig, kind: str, layout, dtype,
+                device) -> Dict:
+    d, ff = cfg.d_model, cfg.d_ff
+    s = 0.02
+    so = s / (2 * cfg.num_layers) ** 0.5
+    attn = _init_attention(gen, cfg, layout, dtype, device)
+    mlp = {"w_up": _normal(gen, (d, ff), s, dtype, device)}
+    if cfg.mlp_type == "swiglu":
+        mlp["w_gate"] = _normal(gen, (d, ff), s, dtype, device)
+    mlp["w_down"] = _normal(gen, (ff, d), so, dtype, device)
+    p = {"norm1": init_norm(d, device, cfg.norm_type), "attn": attn,
+         "norm2": init_norm(d, device, cfg.norm_type), "mlp": mlp}
+    if kind == BLOCK_DEC:
+        p["cross"] = _init_attention(gen, cfg, layout, dtype, device,
+                                     cross=True)
+        p["norm_cross"] = init_norm(d, device, cfg.norm_type)
+    return p
 
 
 def init_decoder_params(seed: int, cfg: ModelConfig, tp: int = 1,
                         dtype=torch.bfloat16, device: torch.device = None,
                         rank: Optional[int] = None) -> Dict:
     """Random weights from ``seed`` with the reference's distributions
-    (normal x 0.02; ``wo`` and ``w_down`` x 0.02/sqrt(2L); norms at one), made
-    on ``device``.  The bits differ from the reference's: JAX's PRNG is not
-    re-implemented (``bridge.py`` imports the reference's own weights).
+    (normal x 0.02; ``wo`` and ``w_down`` x 0.02/sqrt(2L); norms at one,
+    LayerNorm biases at zero), made on ``device``.  The bits differ from the
+    reference's: JAX's PRNG is not re-implemented (``bridge.py`` imports the
+    reference's own weights).
 
     With ``rank`` given, returns that rank's shard of the tp=``tp`` model,
     equal to ``shard_params`` of the whole: every leaf is drawn in full from
@@ -149,10 +174,11 @@ def init_decoder_params(seed: int, cfg: ModelConfig, tp: int = 1,
     if not cfg.tie_embeddings:
         embed["head"] = _normal(gen, (v, cfg.d_model), 0.02, dtype, device)
     embed = cut(embed)
-    periods = tuple([cut(_init_layer(gen, cfg, layout, dtype, device))
+    periods = tuple([cut(_init_layer(gen, cfg, kind, layout, dtype, device))
                      for _ in range(pattern_periods(cfg))]
-                    for _ in cfg.block_pattern)
-    return {"embed": embed, "final_norm": init_norm(cfg.d_model, device),
+                    for kind in cfg.block_pattern)
+    return {"embed": embed,
+            "final_norm": init_norm(cfg.d_model, device, cfg.norm_type),
             "periods": periods}
 
 
@@ -169,10 +195,16 @@ def _stage_ctx(cfg: ModelConfig, ctx: AxisCtx, mode: str,
 
 def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig,
                  ctx: AxisCtx) -> torch.Tensor:
+    """Token embeddings, plus the sinusoid table's rows 0..S-1 (cast to the
+    embedding dtype) for a sinusoidal-position config."""
     v_loc = params["embed"]["table"].shape[0]
     e = emb_lib.embed_partial(params["embed"], tokens,
                               ctx.axis_index() * v_loc)
-    return psum_now(e, ctx)
+    e = psum_now(e, ctx)
+    if cfg.pos_type == "sinusoidal":
+        e = e + sinusoidal_embedding(tokens.shape[1], cfg.d_model,
+                                     device=e.device).to(e.dtype)[None]
+    return e
 
 
 def _final(params, x, cfg):
@@ -184,12 +216,23 @@ def _final(params, x, cfg):
 # ---------------------------------------------------------------------------
 
 def prefill(params, cfg: ModelConfig, ctx: AxisCtx, iso: ISOConfig, *,
-            tokens: torch.Tensor, logits_mode: str = "all",
+            tokens: torch.Tensor = None, embeds: torch.Tensor = None,
+            logits_mode: str = "all", return_cache: bool = False,
+            cache_len: int = 0, layer_statics=None, mode: str = "prefill",
             prefix_caches=None, pos_offset=0, block_tables=None,
             prefix_lens=None, valid_len=None,
             return_extras: bool = False) -> Dict[str, Any]:
     """Run the stack over a prompt, or one resumed slice of it, with the ISO
-    schedule.  tokens: (B, S) integer.
+    schedule.  tokens: (B, S) integer, or embeds: (B, S, D) precomputed (the
+    whisper encoder's frames).  ``mode="encode"`` runs bidirectional
+    attention (the whisper encoder).  ``logits_mode``: ``all`` rows,
+    the ``last`` row, or ``none``.
+
+    ``layer_statics``: per-position dicts of period-stacked leaves every
+    chunk reads (whisper's cross K/V, ``cross_k``/``cross_v`` (P, B, F, Hkv,
+    hd)).  ``return_cache``: the call's KV as dense decode caches of
+    ``cache_len`` slots (default S), ``{k, v, pos}`` per attention position
+    (``_build_caches``).
 
     Paged resumed prefill: ``prefix_caches`` is a per-position tuple of
     dicts with the page pools (``k_pages``/``v_pages``, (P, N+1, ps, Hkv,
@@ -203,7 +246,14 @@ def prefill(params, cfg: ModelConfig, ctx: AxisCtx, iso: ISOConfig, *,
     the lagged residual supplies the overlap, and an ISO interleave would
     restore the standard wiring per chunk."""
     check_supported(cfg)
-    embeds = embed_tokens(params, tokens, cfg, ctx)
+    if embeds is None:
+        embeds = embed_tokens(params, tokens, cfg, ctx)
+        if cfg.pos_type == "sinusoidal" and not (
+                isinstance(pos_offset, int) and pos_offset == 0):
+            raise NotImplementedError(
+                "resumed prefill with sinusoidal positions (traced offset)")
+    if layer_statics is not None and prefix_caches is not None:
+        raise ValueError("layer_statics and prefix_caches both given")
     B, S, D = embeds.shape
     ladder = cfg.residual_wiring == "ladder"
     lengths = [S] if ladder else split_chunks(S, iso, cfg, tp=ctx.tp)
@@ -213,13 +263,14 @@ def prefill(params, cfg: ModelConfig, ctx: AxisCtx, iso: ISOConfig, *,
         acc += l
     x_chunks = [embeds[:, s0:s0 + l] for s0, l in zip(starts, lengths)]
 
-    sctx = _stage_ctx(cfg, ctx, "prefill", lengths=prefix_lens)
+    sctx = _stage_ctx(cfg, ctx, mode, lengths=prefix_lens)
     sctx.pos_offset = pos_offset
     sctx.block_tables = block_tables
     sctx.valid_len = valid_len
     xs_final, extras = run_stack_prefill(
         params["periods"], cfg.block_pattern, x_chunks, tuple(starts), sctx,
-        ctx, layer_caches=prefix_caches, ladder=ladder)
+        ctx, layer_caches=layer_statics if prefix_caches is None
+        else prefix_caches, ladder=ladder)
     x = torch.cat(xs_final, dim=1) if len(xs_final) > 1 else xs_final[0]
     x = _final(params, x, cfg)
 
@@ -227,11 +278,65 @@ def prefill(params, cfg: ModelConfig, ctx: AxisCtx, iso: ISOConfig, *,
                            "chunk_lengths": lengths}
     if logits_mode == "all":
         out["logits_local"] = emb_lib.lm_head_local(params["embed"], x)
+    elif logits_mode == "last":
+        out["logits_local"] = emb_lib.lm_head_local(params["embed"],
+                                                    x[:, -1:, :])
+    elif logits_mode != "none":
+        raise ValueError(f"unknown logits_mode {logits_mode!r}")
+    if return_cache:
+        out["caches"] = _build_caches(extras, cfg, B, S, cache_len or S)
     if return_extras:
         # per position, kv_k/kv_v of the S new tokens stacked over periods
         # (P, B, S, Hkv, hd): the paged engine scatters these into pages
         out["extras"] = extras
     return out
+
+
+def _build_caches(extras, cfg: ModelConfig, B: int, S: int, cache_len: int):
+    """Per-position prefill extras -> dense decode caches: ``k``/``v`` (P,
+    B, L, Hkv, hd) and ``pos`` (P, B, L) int32 (-1 = empty), L the cache
+    length (the window for a sliding-window config); the last L tokens land
+    at slot ``position % L``."""
+    caches = []
+    for ex in extras:
+        c: Dict[str, Any] = {}
+        if "kv_k" in ex:
+            k, v = ex["kv_k"], ex["kv_v"]              # (P, B, S, H, hd)
+            eff_len = min(cache_len, cfg.sliding_window) \
+                if cfg.sliding_window else cache_len
+            ck = torch.zeros((k.shape[0], B, eff_len) + k.shape[3:],
+                             dtype=k.dtype, device=k.device)
+            cv = torch.zeros_like(ck)
+            cpos = torch.full((k.shape[0], B, eff_len), -1,
+                              dtype=torch.int32, device=k.device)
+            n_keep = min(S, eff_len)
+            pos_vals = torch.arange(S - n_keep, S, dtype=torch.int32,
+                                    device=k.device)
+            slots = (pos_vals % eff_len).long()
+            ck[:, :, slots] = k[:, :, S - n_keep:]
+            cv[:, :, slots] = v[:, :, S - n_keep:]
+            cpos[:, :, slots] = pos_vals
+            c.update(k=ck, v=cv, pos=cpos)
+        caches.append(c)
+    return tuple(caches)
+
+
+def init_caches(cfg: ModelConfig, batch: int, cache_len: int, tp: int = 1,
+                dtype=torch.bfloat16, device=None):
+    """Empty dense decode caches at the GLOBAL padded kv head count: per
+    pattern position ``k``/``v`` (P, batch, L, Hkv, hd) zeros and ``pos``
+    (P, batch, L) int32 at -1, L = ``cache_len`` (the window for a
+    sliding-window config)."""
+    periods = pattern_periods(cfg)
+    hkv = head_layout(cfg.num_heads, max(cfg.num_kv_heads, 1), tp).hkv_eff
+    eff_len = min(cache_len, cfg.sliding_window) if cfg.sliding_window \
+        else cache_len
+    shape = (periods, batch, eff_len, hkv, cfg.resolved_head_dim)
+    return tuple(
+        dict(k=torch.zeros(shape, dtype=dtype, device=device),
+             v=torch.zeros(shape, dtype=dtype, device=device),
+             pos=torch.full(shape[:3], -1, dtype=torch.int32, device=device))
+        for _ in cfg.block_pattern)
 
 
 # ---------------------------------------------------------------------------
@@ -241,8 +346,14 @@ def prefill(params, cfg: ModelConfig, ctx: AxisCtx, iso: ISOConfig, *,
 def decode_step(params, cfg: ModelConfig, ctx: AxisCtx, tokens, caches,
                 lengths, block_tables=None, decode_mask=None,
                 kv_splits: int = 1, schedule: Optional[str] = None):
-    """tokens: (B, K) integer, K=1 plain decode (token qi at position
-    ``lengths[b] + qi``); lengths: (B,) tokens already processed.
+    """tokens: (B, K) integer, K=1 plain decode or a K-token verify window
+    (token qi at position ``lengths[b] + qi``); lengths: (B,) tokens already
+    processed.
+
+    Dense decode (the dense ``Engine``): ``caches`` carry ``k``/``v``/``pos``
+    (``init_caches``) per attention position, and whisper's decoder also
+    ``cross_k``/``cross_v``; the window's KV is inserted at ``lengths %
+    ring`` IN PLACE.
 
     Paged decode: ``caches`` carry ``k_pages``/``v_pages`` per attention
     position and ``block_tables`` (B, MB) maps positions to pages;
@@ -263,6 +374,14 @@ def decode_step(params, cfg: ModelConfig, ctx: AxisCtx, tokens, caches,
             schedule not in ("ladder", "ladder_seq"):
         schedule = "ladder_seq" if schedule == "sequential" else "ladder"
     x = embed_tokens(params, tokens, cfg, ctx)
+    if cfg.pos_type == "sinusoidal":
+        # embed_tokens added the sinusoids of positions 0..K-1: trade them
+        # for each request's own, in fp32
+        K = tokens.shape[1]
+        base = sinusoidal_embedding(K, cfg.d_model, device=x.device)[None]
+        pos = lengths.to(device=x.device, dtype=torch.int32)[:, None] + \
+            torch.arange(K, dtype=torch.int32, device=x.device)[None]
+        x = (x.float() - base + sinusoid_angles(pos, cfg.d_model)).to(x.dtype)
     sctx = _stage_ctx(cfg, ctx, "decode", lengths=lengths)
     sctx.block_tables = block_tables
     sctx.decode_mask = decode_mask

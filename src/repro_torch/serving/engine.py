@@ -1,0 +1,359 @@
+"""Dense-cache serving engine: continuous batching with ISO prefill (port of
+``repro/serving/engine.py``).
+
+The paper's serving shape: prefill runs per request (batch 1, Table 1's
+setting) under the ISO schedule; decode runs batched over all slots with the
+plain schedule.  Each slot owns a dense padded cache row of ``max_len``
+positions (``models/api.init_caches``): ``k``/``v`` and a ``pos`` array of
+each slot's absolute position (-1 = empty), which decode masks by.  Prompt
+lengths are bucketed (``bucket``); the padded tail's cache positions are
+scrubbed to -1 when the prefill's caches are written into the slot
+(``_write_slot``).  It is the only engine that serves the encoder-decoder
+family (whisper): a request's ``frames`` ride into its prefill, and its
+cross K/V into the slot's ``cross_k``/``cross_v``.
+
+Speculative decoding (``spec_k``): greedy-only self-drafting on attention
+stacks, as the reference; a verify step runs a (spec_k+1)-token window
+through the same dense decode and scrubs the rejected positions
+(``pos >= confirmed length`` -> -1).  Whisper gets ``spec_k`` 0.
+
+Observability as the reference's (and ``PagedEngine``'s): the same counter
+names (plus the dense-only ``spec_accepted``), the ``ttft``/``tpot``/
+``accept_len`` histograms, the trace events admit, prefill_call, sample,
+decode_call, accept and finish, and ``obs.torchprof`` ranges named
+``prefill/T=…`` and ``decode/K=…``.  ``prefill_s``/``decode_s`` are fenced
+(the card has finished the step, caches included); the ``*_dispatch_s``
+pair is the host time until the calls return.
+
+Eager: each step runs the model's ops as they come, where the reference
+jits them.  The caches are written in place (``index_put_``/``copy_``), and
+the decode body reads nothing back to the host but the logits, so a CUDA
+graph can capture it later.  A prefill copies one logits row to the host,
+the row it samples (the reference copies them all).
+
+tp = 1: the reference's mesh path goes through ``launch/runner`` (ROADMAP
+queue A item 11), and its launcher keeps this engine on one device.
+"""
+from __future__ import annotations
+
+import time
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.bridge import to_torch
+from repro_torch.config import BLOCK_ATTN_MLP, Config
+from repro_torch.core.overlap import AxisCtx
+from repro_torch.device import resolve_device, synchronize
+from repro_torch.models import api
+from repro_torch.models.decoder import check_supported
+from repro_torch.obs import torchprof
+from repro_torch.obs.registry import ACCEPT_LEN_BUCKETS, MetricsRegistry, \
+    TPOT_BUCKETS_S, TTFT_BUCKETS_S
+from repro_torch.obs.trace import TraceRing
+from repro_torch.serving.requests import Request, RequestState
+from repro_torch.serving.sampler import sample
+from repro_torch.serving.speculative import BigramDraft, accept_greedy
+
+MESH_ITEM = ("the dense Engine under tensor parallelism comes with "
+             "launch/runner (ROADMAP queue A item 11); it serves at tp=1")
+
+
+def _bucket(n: int, b: int) -> int:
+    return max(b, ((n + b - 1) // b) * b)
+
+
+def _first_leaf(tree) -> torch.Tensor:
+    """The reference's ``tree_leaves(params)[0]``: keys in sorted order."""
+    while isinstance(tree, dict):
+        tree = tree[sorted(tree)[0]]
+    return tree
+
+
+class Engine:
+    """``device`` defaults to ``cuda`` (raises without it); the params must
+    live there (``api.init_params(..., device=)``)."""
+
+    def __init__(self, config: Config, params, mesh=None, *,
+                 max_batch: int = 4, max_len: int = 512, bucket: int = 64,
+                 spec_k: int = 0, observability: bool = True, device=None):
+        if mesh is not None:
+            raise NotImplementedError(MESH_ITEM)
+        check_supported(config.model)
+        self.device = resolve_device(device)
+        leaf = _first_leaf(params)
+        if leaf.device.type != self.device.type:
+            raise ValueError(f"params live on {leaf.device}, the engine on "
+                             f"{self.device}; make them with "
+                             f"api.init_params(..., device=...)")
+        self.config = config
+        self.cfg = config.model
+        self.params = params
+        self.max_batch = max_batch
+        self.max_len = max_len
+        self.bucket = bucket
+        self.tp = 1
+        self._ctx = AxisCtx()
+        # the cache dtype follows the params
+        self.caches = api.init_caches(self.cfg, max_batch, max_len,
+                                      dtype=leaf.dtype, device=self.device)
+        self.slots: List[Optional[RequestState]] = [None] * max_batch
+        self.lengths = np.zeros(max_batch, np.int64)
+        self.last_tokens = np.zeros(max_batch, np.int64)
+        self.pending: List[Request] = []
+        self._finished: List[RequestState] = []
+        # speculative decoding: attention stacks only, as the paged engine;
+        # whisper's decode (and a recurrent stack) falls back to plain
+        self.spec_k = spec_k if all(k == BLOCK_ATTN_MLP
+                                    for k in self.cfg.block_pattern) else 0
+        self._drafts: List[Optional[BigramDraft]] = [None] * max_batch
+        # observability: the paged engine's counter names (plus the
+        # dense-only spec_accepted) so the two engines diff key for key;
+        # preemptions stays 0, the dense engine never evicts
+        self.registry = MetricsRegistry()
+        self.trace = TraceRing(enabled=observability)
+        self.registry.histogram("ttft", TTFT_BUCKETS_S)
+        self.registry.histogram("tpot", TPOT_BUCKETS_S)
+        self.registry.histogram("accept_len", ACCEPT_LEN_BUCKETS)
+        self.registry.counters((
+            "prefill_s", "decode_s", "prefill_dispatch_s",
+            "decode_dispatch_s", "prefill_tokens", "decode_tokens",
+            "completed", "decode_calls", "prefill_calls", "steps",
+            "preemptions", "ttft_sum", "ttft_n", "spec_accepted",
+            "spec_calls", "spec_tokens", "prefill_samples"))
+        self.metrics = self.registry.view()
+        self._t_submit: Dict[int, float] = {}
+
+    # ------------------------------------------------------------------
+    def add_request(self, req: Request) -> int:
+        if req.patches is not None:
+            raise NotImplementedError("vision requests (patches): ROADMAP "
+                                      "queue A item 10")
+        if (req.frames is not None) != (self.cfg.family == "audio"):
+            raise ValueError(f"request {req.rid}: frames "
+                             f"{'missing' if req.frames is None else 'given'}"
+                             f" for a {self.cfg.family} model")
+        want = (self.cfg.encoder_frames, self.cfg.d_model)
+        if req.frames is not None and tuple(req.frames.shape) != want:
+            raise ValueError(f"request {req.rid}: frames of shape "
+                             f"{tuple(req.frames.shape)}, want {want}")
+        if len(req.prompt) + req.sampling.max_new_tokens > self.max_len:
+            raise ValueError(f"request {req.rid}: {len(req.prompt)} prompt + "
+                             f"{req.sampling.max_new_tokens} new tokens "
+                             f"exceeds max_len={self.max_len}")
+        self._t_submit[req.rid] = time.perf_counter()
+        self.pending.append(req)
+        return req.rid
+
+    def _start_request(self, req: Request, slot: int) -> None:
+        plen = len(req.prompt)
+        blen = min(_bucket(plen, self.bucket), self.max_len)
+        toks = np.zeros((1, blen), np.int32)
+        toks[0, :plen] = req.prompt
+        batch = {"tokens": torch.from_numpy(toks).to(self.device)}
+        if req.frames is not None:
+            frames = np.asarray(req.frames)
+            if frames.dtype == np.float64:      # jnp.asarray's precision
+                frames = frames.astype(np.float32)
+            batch["frames"] = to_torch(frames, self.device)[None]
+
+        t0 = time.perf_counter()
+        with torchprof.annotate(f"prefill/T={blen}"):
+            out = api.prefill(self.params, self.cfg, self._ctx,
+                              self.config.iso, batch, logits_mode="all",
+                              return_cache=True, cache_len=self.max_len)
+            self._write_slot(out["caches"], slot, plen)
+            # the one row to sample, taken on the device
+            row = out["logits_local"][0, plen - 1]
+        self.metrics["prefill_dispatch_s"] += time.perf_counter() - t0
+        # fence the whole step, the caches' write included
+        synchronize(self.device)
+        dur = time.perf_counter() - t0
+        self.metrics["prefill_s"] += dur
+        self.metrics["prefill_tokens"] += plen
+        self.metrics["prefill_calls"] += 1
+        self.trace.emit("prefill_call", rid=req.rid, slot=slot, dur=dur,
+                        ts=t0, tokens=plen, pad=blen - plen, rows=1)
+        del out
+        logits = row.float().cpu().numpy()
+        # sample over the REAL vocab only (the table is padded for TP)
+        first = sample(logits[:self.cfg.vocab_size], req.sampling, step=0)
+        self.metrics["prefill_samples"] += 1
+        ttft = time.perf_counter() - self._t_submit.pop(req.rid,
+                                                        time.perf_counter())
+        self.metrics["ttft_sum"] += ttft
+        self.metrics["ttft_n"] += 1
+        self.registry.histogram("ttft").observe(ttft)
+        self.trace.emit("sample", rid=req.rid, slot=slot, first=True)
+
+        st = RequestState(request=req, slot=slot, prompt_len=plen)
+        st.generated.append(first)
+        st.finish_check()
+        self.lengths[slot] = plen
+        self.last_tokens[slot] = first
+        if self.spec_k:
+            d = BigramDraft()
+            d.observe([int(t) for t in req.prompt] + [first])
+            self._drafts[slot] = d
+        if st.done:
+            self.metrics["completed"] += 1
+            self.trace.emit("finish", rid=req.rid, slot=slot)
+            self._finished.append(st)
+            self._clear_slot(slot)
+        else:
+            self.slots[slot] = st
+
+    def _clear_slot(self, slot: int) -> None:
+        """Drop ALL per-slot state when a request leaves: a stale length
+        would hold the speculative gate (``max(lengths)``) shut for the
+        rest of the batch's lifetime."""
+        self.slots[slot] = None
+        self.lengths[slot] = 0
+        self.last_tokens[slot] = 0
+        self._drafts[slot] = None
+
+    def _write_slot(self, new_caches, slot: int, real_len: int) -> None:
+        """Copy a batch-1 prefill's caches into the engine's slot IN PLACE
+        (every leaf with a batch dim of 1; cross K/V cast to the cache
+        dtype), scrubbing the padded positions (``pos >= real_len`` -> -1)."""
+        for big, small in zip(self.caches, new_caches):
+            for name, t in small.items():
+                if t.ndim >= 2 and t.shape[1] == 1:
+                    big[name][:, slot].copy_(t[:, 0])
+            if "pos" in big:
+                pos = big["pos"][:, slot]
+                pos.masked_fill_(pos >= real_len, -1)
+
+    # ------------------------------------------------------------------
+    def _decode(self, toks: np.ndarray, label: str):
+        """One decode call over every slot: stage the tokens and lengths,
+        run the stack (caches updated in place), fence, and return the
+        logits (B, K, V) on the host and the fenced seconds."""
+        t0 = time.perf_counter()
+        with torchprof.annotate(label):
+            tt = torch.from_numpy(toks).to(self.device)
+            lens = torch.from_numpy(self.lengths.astype(np.int32)).to(
+                self.device)
+            logits, _ = api.decode_step(self.params, self.cfg, self._ctx, tt,
+                                        self.caches, lens)
+        self.metrics["decode_dispatch_s"] += time.perf_counter() - t0
+        synchronize(self.device)
+        dur = time.perf_counter() - t0
+        self.metrics["decode_s"] += dur
+        self.metrics["decode_calls"] += 1
+        return logits[..., :self.cfg.vocab_size].float().cpu().numpy(), dur, \
+            t0
+
+    def step(self) -> List[Tuple[int, int]]:
+        """One engine iteration; returns (rid, token) events."""
+        events: List[Tuple[int, int]] = []
+        self.metrics["steps"] += 1
+        # admission: start pending requests on free slots (prefill, batch 1)
+        for i in range(self.max_batch):
+            if self.slots[i] is None and self.pending:
+                req = self.pending.pop(0)
+                self.trace.emit("admit", rid=req.rid, slot=i)
+                self._start_request(req, i)
+                st = [s for s in ([self.slots[i]] + self._finished)
+                      if s and s.request.rid == req.rid]
+                if st:
+                    events.append((req.rid, st[0].generated[-1]))
+
+        active = [s for s in self.slots if s is not None]
+        if not active:
+            return events
+        if self.spec_k and all(s.request.sampling.temperature <= 0
+                               for s in active) and \
+                max(self.lengths) + self.spec_k + 1 <= self.max_len:
+            return events + self._step_speculative(active)
+
+        logits, dur, t0 = self._decode(
+            self.last_tokens[:, None].astype(np.int32), "decode/K=1")
+        self.trace.emit("decode_call", dur=dur, ts=t0, k=1,
+                        active=len(active))
+        for st in active:
+            i = st.slot
+            tok = sample(logits[i, 0], st.request.sampling,
+                         len(st.generated))
+            st.generated.append(tok)
+            self.lengths[i] += 1
+            self.last_tokens[i] = tok
+            if self._drafts[i] is not None:
+                # plain steps (gate closed) still feed the draft, or it
+                # re-engages with a stale anchor
+                self._drafts[i].observe([tok])
+            self.metrics["decode_tokens"] += 1
+            self.trace.emit("accept", rid=st.request.rid, slot=i, n=1,
+                            spec=False)
+            self.registry.histogram("tpot").observe(dur)
+            events.append((st.request.rid, tok))
+            st.finish_check()
+            if st.done:
+                self.metrics["completed"] += 1
+                self.trace.emit("finish", rid=st.request.rid, slot=i)
+                self._finished.append(st)
+                self._clear_slot(i)
+        return events
+
+    # ------------------------------------------------------------------
+    def _step_speculative(self, active) -> List[Tuple[int, int]]:
+        """Verify a K-token window [last, d1..d_{K-1}] per slot; accept the
+        longest greedy-matching prefix, then scrub the rejected positions
+        from every slot's cache."""
+        K = self.spec_k + 1
+        toks = np.zeros((self.max_batch, K), np.int32)
+        drafts: Dict[int, List[int]] = {}
+        for st in active:
+            i = st.slot
+            d = self._drafts[i].draft(self.spec_k)
+            drafts[i] = d
+            toks[i] = [self.last_tokens[i]] + d
+        logits, dur, t0 = self._decode(toks, f"decode/K={K}")
+        self.metrics["spec_calls"] += 1
+        self.trace.emit("decode_call", dur=dur, ts=t0, k=K,
+                        active=len(active))
+
+        events: List[Tuple[int, int]] = []
+        new_lens = self.lengths.copy()
+        for st in active:
+            i = st.slot
+            argmaxes = logits[i].argmax(axis=-1)
+            budget = st.request.sampling.max_new_tokens - len(st.generated)
+            acc = accept_greedy(drafts[i], argmaxes)[:max(budget, 1)]
+            self.metrics["spec_accepted"] += len(acc) - 1
+            self.metrics["spec_tokens"] += len(acc)
+            self.metrics["decode_tokens"] += len(acc)
+            self.registry.histogram("accept_len").observe(len(acc))
+            self.registry.histogram("tpot").observe(dur / len(acc))
+            self.trace.emit("accept", rid=st.request.rid, slot=i, n=len(acc),
+                            spec=True)
+            for tok in acc:
+                st.generated.append(int(tok))
+                events.append((st.request.rid, int(tok)))
+            self._drafts[i].observe(acc)
+            new_lens[i] = self.lengths[i] + len(acc)
+            self.last_tokens[i] = acc[-1]
+            st.finish_check()
+            if st.done:
+                self.metrics["completed"] += 1
+                self.trace.emit("finish", rid=st.request.rid, slot=i)
+                self._finished.append(st)
+                self._clear_slot(i)
+                # the slot's whole pos is scrubbed below, and the gate
+                # stops reading its length
+                new_lens[i] = 0
+        # scrub the cache slots of rejected draft tokens
+        nl = torch.from_numpy(new_lens.astype(np.int32)).to(self.device)
+        for c in self.caches:
+            c["pos"].masked_fill_(c["pos"] >= nl[None, :, None], -1)
+        self.lengths = new_lens
+        return events
+
+    def run_until_complete(self, max_steps: int = 10_000
+                           ) -> Dict[int, List[int]]:
+        for _ in range(max_steps):
+            self.step()
+            if not self.pending and all(s is None for s in self.slots):
+                break
+        return {st.request.rid: st.generated for st in self._finished}

@@ -230,6 +230,9 @@ class StepClosure:
 DISAGG_TP_ITEM = ("disaggregated serving under tp > 1 (prefill and decode "
                   "as two rank groups, the transfer between them): ROADMAP "
                   "queue A item 15")
+# the paged engine serves decoder-only stacks, as the reference's
+AUDIO_MSG = ("encoder-decoder (audio) models are served by the dense Engine "
+             "(serving/engine.py), not the paged one")
 
 
 def _decode_schedule_for(cfg, sv: ServingConfig, tp_mesh: bool) -> str:
@@ -286,6 +289,8 @@ class PagedEngine:
             else resolve_device(device)
         sv = serving or config.serving
         check_supported(config.model)
+        if config.model.family == "audio":
+            raise NotImplementedError(AUDIO_MSG)
         table = params["embed"]["table"]
         if table.device.type != self.device.type:
             raise ValueError(f"params live on {table.device}, the engine on "
@@ -433,9 +438,11 @@ class PagedEngine:
         if self.phase == "decode":
             raise RuntimeError("a decode-phase engine admits nothing: its "
                                "requests arrive by attach_requests")
-        if req.frames is not None or req.patches is not None:
-            raise NotImplementedError("audio/vision requests: ROADMAP queue "
-                                      "A item 10")
+        if req.frames is not None:
+            raise NotImplementedError(AUDIO_MSG)
+        if req.patches is not None:
+            raise NotImplementedError("vision requests (patches): ROADMAP "
+                                      "queue A item 10")
         eff = len(req.prompt)
         if eff + req.sampling.max_new_tokens > self.max_len:
             raise ValueError(f"request {req.rid}: {eff} prompt + "

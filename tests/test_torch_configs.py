@@ -1,5 +1,6 @@
 """The port's model registry against the reference's: the six dense configs
-equal field for field, the names the port does not serve yet raising
+and whisper-medium equal field for field, the names the port does not serve
+yet raising
 ``NotImplementedError`` with their ROADMAP item, unknown names ``KeyError``;
 and the widths of the registry through the port's layout helpers
 (``padded_vocab``, ``head_layout`` at tp 1/2/4/8, the int8 reduce's
@@ -17,7 +18,7 @@ from repro.configs import PAPER as R_PAPER
 from repro.layers.heads import head_layout as r_head_layout
 
 from repro_torch.config import ModelConfig, get_model_config, padded_vocab
-from repro_torch.configs import DENSE, PAPER, UNPORTED
+from repro_torch.configs import DENSE, ENCDEC, PAPER, UNPORTED
 from repro_torch.kernels import int8_quant as q8
 from repro_torch.layers.heads import head_layout
 
@@ -34,6 +35,23 @@ def test_dense_config_equals_reference(name):
         assert getattr(got, f.name) == getattr(want, f.name), f.name
     assert got.param_count() == want.param_count()
     assert got.resolved_head_dim == want.resolved_head_dim == 128
+
+
+@pytest.mark.parametrize("name", ENCDEC)
+def test_encdec_config_equals_reference(name):
+    """whisper-medium is served (by the dense Engine): its fields and
+    parameter count are the reference's, and no longer in ``UNPORTED``."""
+    got, want = get_model_config(name), r_get(name)
+    for f in dataclasses.fields(ModelConfig):
+        assert getattr(got, f.name) == getattr(want, f.name), f.name
+    assert got.param_count() == want.param_count()
+    assert (got.d_model, got.num_heads, got.num_kv_heads,
+            got.resolved_head_dim, got.d_ff, got.vocab_size,
+            got.num_layers, got.encoder_layers, got.encoder_frames) == \
+        (1024, 16, 16, 64, 4096, 51865, 24, 24, 1500)
+    assert got.source == "arXiv:2212.04356"
+    assert name not in UNPORTED
+    assert padded_vocab(got, 1) == r_padded_vocab(want, 1) == 53248
 
 
 def test_paper_list_matches_reference():

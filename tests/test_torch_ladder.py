@@ -20,8 +20,9 @@ JAX, never ladder == standard:
     and immediate ladder decode with sharing, spec_k = 2 and a pool tight
     enough to preempt give the JAX tp=1 ladder engine's tokens.
 
-The reference's ``test_ladder_paged_equals_dense_engine`` waits on the
-port's dense ``Engine`` (ROADMAP queue A item 6)."""
+  * the dense ``Engine`` on a ladder config (immediate collectives on its
+    default schedule) gives the paged ladder engine's tokens, and the JAX
+    dense engine's (the reference's ``test_ladder_paged_equals_dense_engine``)."""
 import dataclasses
 
 import numpy as np
@@ -40,6 +41,7 @@ from repro.config import get_model_config as r_get  # noqa: E402
 from repro.config import ladder_variant as r_ladder_variant  # noqa: E402
 from repro.core.overlap import AxisCtx as RAxisCtx  # noqa: E402
 from repro.models import api as r_api  # noqa: E402
+from repro.serving import Engine as REngine  # noqa: E402
 from repro.serving import PagedEngine as RPagedEngine  # noqa: E402
 from repro.serving import Request as RRequest  # noqa: E402
 from repro.serving.requests import SamplingParams as RSampling  # noqa: E402
@@ -53,7 +55,7 @@ from repro_torch.core.overlap import AxisCtx  # noqa: E402
 from repro_torch.launch import mesh  # noqa: E402
 from repro_torch.launch.serve import serve_rank  # noqa: E402
 from repro_torch.models import api  # noqa: E402
-from repro_torch.serving import PagedEngine, Request  # noqa: E402
+from repro_torch.serving import Engine, PagedEngine, Request  # noqa: E402
 from repro_torch.serving.kvcache import PagedKVCache  # noqa: E402
 from repro_torch.serving.requests import SamplingParams  # noqa: E402
 
@@ -270,6 +272,33 @@ def test_ladder_engine_schedule_choice(weights):
                            iso=PORT_ISO,
                            serving=ServingConfig(decode_schedule="ladder")),
                     params, device="cpu")
+
+
+def test_ladder_paged_equals_dense_engine(weights):
+    """Paged ladder serving (deferred) vs the dense Engine on the same
+    ladder config (immediate collectives through the default sequential
+    schedule): the same tokens at fp32, the JAX dense engine's."""
+    ref_params, params = weights
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(2, 64, n).astype(np.int32) for n in (18, 7, 25)]
+    dense = Engine(Config(model=PORT_CFG,
+                          parallel=ParallelConfig(data=1, model=1),
+                          iso=PORT_ISO), params, max_batch=2, max_len=96,
+                   bucket=16, device="cpu")
+    r_dense = REngine(RConfig(model=REF_CFG,
+                              parallel=RParallel(data=1, model=1),
+                              iso=REF_ISO), ref_params, mesh=None,
+                      max_batch=2, max_len=96, bucket=16)
+    toks = []
+    for eng, request, sampling in ((dense, Request, SamplingParams),
+                                   (r_dense, RRequest, RSampling)):
+        rids = [eng.add_request(request(prompt=p.copy(), sampling=sampling(
+            max_new_tokens=6, eos_id=-1))) for p in prompts]
+        outs = eng.run_until_complete()
+        toks.append([outs[r] for r in rids])
+    paged, e_paged = _port(params, prompts, max_new=6, max_batch=2)
+    assert e_paged._decode_schedule == "ladder"
+    assert toks[0] == paged == toks[1]
 
 
 def test_ladder_engine_single_request_b1(weights):

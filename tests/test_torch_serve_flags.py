@@ -12,7 +12,11 @@ tests/test_torch_configs.py tests ``--arch``:
   * the reference's argument errors: ``--spec-k`` with ``--temperature >
     0``, ``--disagg`` with ``--probe-overlap`` or ``--autotune``, the
     disagg sizes without ``--disagg``, and a ladder schedule on a
-    standard-wired arch."""
+    standard-wired arch;
+  * without ``--paged`` the dense Engine serves (``--spec-k`` included),
+    and the flags it has no use for (``--probe-overlap``, ``--autotune``,
+    ``--cost-table``, ``--disagg``, ``--tp > 1``, ``--decode-schedule``)
+    are errors."""
 import re
 
 import pytest
@@ -74,6 +78,35 @@ def test_shared_prefix_and_temperature(capsys):
     sampled = _tokens(_run(capsys, "--arch", "qwen3-8b", "--temperature",
                            "5.0"))
     assert sampled != greedy and len(sampled) == len(greedy)
+
+
+def test_dense_engine_without_paged(capsys):
+    """Without ``--paged`` the dense Engine serves, a verify window
+    included, with the greedy tokens of the plain run."""
+    dense = BASE[:2] + BASE[3:]
+    assert serve.main(["--arch", "qwen3-8b"] + dense) == 0
+    plain = capsys.readouterr().out
+    assert "arch=qwen3-8b engine=dense" in plain and "completed=3" in plain
+    assert serve.main(["--arch", "qwen3-8b", "--spec-k", "3"] + dense) == 0
+    spec = capsys.readouterr().out
+    assert re.search(r"spec: spec_calls=[1-9]", spec)
+    assert _tokens(spec) == _tokens(plain)
+
+
+@pytest.mark.parametrize("args,msg", [
+    # the dense Engine's rules, as the reference's launcher
+    (["--probe-overlap"], "--probe-overlap requires --paged"),
+    (["--autotune"], "require --paged"),
+    (["--cost-table", "auto"], "require --paged"),
+    (["--disagg"], "--disagg requires --paged"),
+    (["--tp", "2"], "--tp requires --paged"),
+    (["--decode-schedule", "sequential"], "requires --paged")])
+def test_dense_engine_argument_errors(capsys, args, msg):
+    with pytest.raises(SystemExit) as exc:
+        serve.main(["--arch", "qwen3-8b", "--preset", "tiny", "--device",
+                    "cpu"] + args)
+    assert exc.value.code == 2
+    assert msg in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("args,msg", [
