@@ -19,8 +19,10 @@ Phases, each fatal on failure:
                {1, 4}, window 0 and > 0, 512- and 256-query chunks with
                fresh rows beside resumed rows), at the dense registry's
                other head layouts (52/52 paper-30b, 13/13 its tp=4 rank,
-               32/32 codeqwen1.5-7b, 64/8 qwen3-32b and paper-70b: B1 at K
-               1 and 5, S 1 and 4; B3 on the 256-query ISO chunk) and at
+               32/32 codeqwen1.5-7b, 64/8 qwen3-32b and paper-70b, and the
+               MoE configs' 24/8 at hd 64 (granite) and 64/8 at hd 112
+               (kimi): B1 at K 1 and 5, S 1 and 4; B3 on the 256-query ISO
+               chunk) and at
                the CPU tests' shapes
                (hd 16, ps 8), fp32 and bf16, dead-page skip bit-identical;
                the bf16 paged-prefill tile loop's edges (hd 64/80/256 x ps
@@ -135,7 +137,9 @@ Phases, each fatal on failure:
                the reduces is recorded, and one reduce is timed alone in the
                sequential and the batch-split issue order; then a tiny fp32
                model at tp=2 must give the tokens of tp=1 on the card under
-               all three decode schedules.
+               all three decode schedules, and granite-moe-3b-a800m at full
+               width, 2 layers, fp32, 20 experts a rank, the tokens of the
+               tp=1 engine on the same weights on both ranks.
   6. time      each kernel and its plain version at the main path's shapes
                (the decode kernel with its fold, and the walk alone, the
                fold's cost being the difference; also at one tp=2 rank's
@@ -238,6 +242,30 @@ Phases, each fatal on failure:
                each model: one step that prefills four requests, then four
                decode steps; wall, device busy time, idle share and the
                kernels that took the most device time.
+ 11. moe       the MoE family, before phase 10 (c): (a) granite-moe-3b-a800m
+               (hf:ibm-granite/granite-3.0-1b-a400m-base, 32 layers, 40
+               experts top-8, capacity 1.25) at full width and depth, bf16,
+               ``PagedEngine`` tp=1: the reference's defaults (packs,
+               prefix sharing, spec_k 4) on the defaults pass's prompts,
+               then phase 3's baseline on its six prompts, each on an eager
+               engine and a graphed one (capture pass, timed pass), graphed
+               tokens equal to eager; the timed passes must launch B1 and
+               B3 (the defaults one B3 on a pack and B1 on the verify window
+               once a layer), no page may leak; prints decode ms/step,
+               prefill tok/s, the dispatch shares, peak memory and the
+               launch counts.  (b) the same at 2 layers in fp32: graphed ==
+               eager on both settings; the defaults pass against the plain
+               engine under the fp32 rule on the no-drop twin (capacity
+               factor E/k, so no expert overflows: the gate) and, printed
+               beside it with the assignments dropped, at 1.25, where the
+               capacity makes the function depend on batching.  (c)
+               kimi-k2-1t-a32b at full width (64/8 heads at hd 112, 384
+               experts and a shared one), 1 of its 61 layers (reduced:
+               ~2 TB of bf16 in all), bf16: four prompts of 300-1000
+               tokens, 16 new, eager then graphed, equal tokens; peak
+               memory printed.  Last in the script, a ``torch.profiler``
+               window over three graphed granite decode steps: wall,
+               device busy time, idle share and the kernels by name.
 
 Every pass resets its engine's registry and trace ring together
 (``reset_observability``), so a pass's trace replays into its registry.
@@ -251,7 +279,8 @@ kernel's, which runs the same fold code), the int8 reduce's three kernels
 from rank 0 of phase 5's quantized batch-split run, the flash-prefill,
 RMSNorm, SwiGLU and int8 quantize kernels from phase 7 (the serving path
 does not launch them); phase 10's dense path launches none of them (its
-passes check that every count stays 0).  It
+passes check that every count stays 0).  Each kernel's ``launches_moe`` is
+read the same way from phase 11's granite defaults timed pass.  It
 imports nothing of JAX or of the JAX package.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and
 power limit from nvidia-smi, and before that a JSON line with each kernel's
@@ -317,11 +346,15 @@ INT8_REDUCE_KERNELS = ("quantize_int8_shards", "dequant_sum_quantize_int8",
 # the serving path's attention kernels (B2 runs inside paged_decode's
 # launches: the paged_decode/fold variant)
 ATTENTION_KERNELS = ("paged_decode", "paged_prefill")
-# (Hq, Hkv) of the dense registry that qwen3-8b's 32/8 does not cover:
-# group 1 (MHA) and group 8
-REGISTRY_LAYOUTS = {"paper-30b": (52, 52), "paper-30b tp=4 rank": (13, 13),
-                    "codeqwen1.5-7b": (32, 32),
-                    "qwen3-32b, paper-70b": (64, 8)}
+# (Hq, Hkv, hd) of the registry that qwen3-8b's 32/8 at hd 128 does not
+# cover: group 1 (MHA), group 8, and the MoE configs' group 3 at hd 64 and
+# group 8 at hd 112
+REGISTRY_LAYOUTS = {"paper-30b": (52, 52, 128),
+                    "paper-30b tp=4 rank": (13, 13, 128),
+                    "codeqwen1.5-7b": (32, 32, 128),
+                    "qwen3-32b, paper-70b": (64, 8, 128),
+                    "granite-moe-3b-a800m": (24, 8, 64),
+                    "kimi-k2-1t-a32b": (64, 8, 112)}
 # paper-30b's ISO-chunk MLP GEMM, (512, 6656) @ (6656, 17920): the shape
 # that sets the h100 profile's matmul rate in perf/model.py
 PROFILE_GEMM = (512, 6656, 17920)
@@ -620,13 +653,13 @@ def check_kernels(report):
     # B3 on the 256-query ISO chunk beside fresh and resumed rows
     n_layout = 0
     for dtype_name in ("bfloat16", "float32"):
-        for hq, hkv in REGISTRY_LAYOUTS.values():
+        for hq, hkv, hd in REGISTRY_LAYOUTS.values():
             for K in (1, 5):
                 for S in (1, 4):
-                    decode_case(gen, errs, main_lengths, 16, hq, hkv, 128, K,
+                    decode_case(gen, errs, main_lengths, 16, hq, hkv, hd, K,
                                 S, 0, dtype_name)
                     n_layout += 1
-            prefill_case([0, 700, 2000], [0, 0, 256], 256, 16, hq, hkv, 128,
+            prefill_case([0, 700, 2000], [0, 0, 256], 256, 16, hq, hkv, hd,
                          0, dtype_name)
             n_layout += 1
     # the bf16 tile loop's edges: hd 64/80/256 (a padded width at 80), page
@@ -656,9 +689,9 @@ def check_kernels(report):
     n_dec, neutral = check_decode_edges(gen, errs)
     torch.cuda.synchronize()
     log(f"[kernels] {n + n_layout + n_tc + n_dec} cases within tolerance "
-        f"{TOL} ({n_layout} of them at the dense registry's head layouts "
-        f"{REGISTRY_LAYOUTS} (Hq, Hkv), B1 at K 1/5 and S 1/4 and B3 on the "
-        f"256-query ISO chunk, bf16 and fp32; {n_tc} "
+        f"{TOL} ({n_layout} of them at the registry's head layouts "
+        f"{REGISTRY_LAYOUTS} (Hq, Hkv, hd), B1 at K 1/5 and S 1/4 and B3 "
+        f"on the 256-query ISO chunk, bf16 and fp32; {n_tc} "
         f"of them the bf16 tile loop's edges: {emptied} rows of resumed "
         f"requests wholly outside the window, neutral; {n_dec} the decode "
         f"kernel's edges: hd 64/80/256/20/18, ps 32/64, gk 1/12/32/33/40/"
@@ -1316,10 +1349,10 @@ def reset_observability(eng) -> None:
     eng.trace.clear()
 
 
-def serve_pass(eng, prompts, label: str, card: str) -> dict:
-    """Serve ``prompts`` (32 greedy tokens each) on ``eng`` from a zeroed
-    registry, an empty trace ring and zeroed launch counts; check that
-    every request completed, every page came back and the attention
+def serve_pass(eng, prompts, label: str, card: str, new: int = 32) -> dict:
+    """Serve ``prompts`` (``new`` greedy tokens each) on ``eng`` from a
+    zeroed registry, an empty trace ring and zeroed launch counts; check
+    that every request completed, every page came back and the attention
     kernels launched; print the pass."""
     import torch
     from repro_torch.kernels import native
@@ -1329,7 +1362,7 @@ def serve_pass(eng, prompts, label: str, card: str) -> dict:
     reset_observability(eng)
     eng.decode_splits = {}
     rids = [eng.add_request(Request(
-        prompt=p.copy(), sampling=SamplingParams(max_new_tokens=32,
+        prompt=p.copy(), sampling=SamplingParams(max_new_tokens=new,
                                                  eos_id=-1)))
         for p in prompts]
     torch.cuda.synchronize()
@@ -1342,7 +1375,7 @@ def serve_pass(eng, prompts, label: str, card: str) -> dict:
                launches=dict(native.LAUNCHES),
                variants=dict(native.VARIANTS),
                splits=dict(eng.decode_splits))
-    if any(t is None or len(t) != 32 for t in res["tokens"]):
+    if any(t is None or len(t) != new for t in res["tokens"]):
         raise AssertionError(f"{label}: not every request completed: {m}")
     if eng.alloc.free_pages != eng.alloc.num_pages:
         raise AssertionError(f"{label}: pages leaked")
@@ -1388,13 +1421,14 @@ def device_activity(prof, skip: str = None) -> dict:
                 by_name=sorted(by_name.items(), key=lambda kv: -kv[1][1]))
 
 
-def log_top(label: str, act: dict, per: int, card: str) -> None:
-    """The eight names that took the most device time, per step."""
+def log_top(label: str, act: dict, per: int, card: str,
+            top: int = 8) -> None:
+    """The ``top`` names that took the most device time, per step."""
     total = sum(t for _, (_, t) in act["by_name"])
     log(f"[serve] {label}: {act['n'] / per:.0f} device intervals and "
         f"{total / per:.3f} ms of device time a step; by name, ms a step "
         f"(launches a step) [{card}]:")
-    for name, (n, t) in act["by_name"][:8]:
+    for name, (n, t) in act["by_name"][:top]:
         log(f"    {t / per:8.3f} ({n / per:5.0f})  {name[:90]}")
 
 
@@ -3080,6 +3114,353 @@ def _leaves(tree):
 
 
 # ---------------------------------------------------------------------------
+# phase 11: the MoE family, granite-moe-3b-a800m and kimi-k2-1t-a32b
+# ---------------------------------------------------------------------------
+
+# phase 3's baseline settings (batch-1 grants, no sharing, K=1) and the
+# reference's defaults at spec_k 4 (packs, copy-on-write sharing), as in
+# serve_full and serve_defaults
+MOE_BASELINE = dict(page_size=16, max_batch=4, max_len=2048,
+                    prefill_token_budget=512, prefix_sharing=False,
+                    prefill_batching=False)
+MOE_DEFAULTS = dict(page_size=16, max_batch=4, max_len=2048,
+                    prefill_token_budget=1024, spec_k=4)
+KIMI_LAYERS = 1          # of kimi-k2-1t-a32b's 61: one layer fits one card
+
+
+def moe_config(cfg, sv: dict):
+    from repro_torch.config import Config, ISOConfig, ParallelConfig, \
+        ServingConfig
+    return Config(model=cfg, parallel=ParallelConfig(data=1, model=1),
+                  iso=ISOConfig(), serving=ServingConfig(**sv))
+
+
+def eager_then_graphed(cfg, params, sv: dict, prompts, label: str, card: str,
+                       new: int = 32) -> dict:
+    """``prompts`` on an eager engine, then on a graphed one (a capture
+    pass, a timed pass of replays only), ``serve_pass`` each; the graphed
+    tokens must equal the eager ones on both passes and the timed pass must
+    capture nothing.  Prints the timed pass beside the eager one, the peak
+    allocated memory of each engine and the graph count; returns the timed
+    pass (``serve_pass``'s dict)."""
+    import torch
+    from repro_torch.serving import PagedEngine
+
+    config = moe_config(cfg, sv)
+    torch.cuda.reset_peak_memory_stats()
+    eng = PagedEngine(config, params, device="cuda", cuda_graphs=False)
+    eager = serve_pass(eng, prompts, f"{label} eager", card, new)
+    eager_peak = torch.cuda.max_memory_allocated() / 2**30
+    del eng
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    eng = PagedEngine(config, params, device="cuda")
+    first = serve_pass(eng, prompts, f"{label} graphed, capture pass", card,
+                       new)
+    graphs, capture_s = eng.graphs, eng.capture_s
+    timed = serve_pass(eng, prompts, f"{label} graphed, timed pass", card,
+                       new)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if eng.graphs != graphs:
+        raise AssertionError(f"[moe] {label}: the timed pass captured "
+                             f"{eng.graphs - graphs} graphs")
+    del eng
+    free_cuda()
+    for name, r in (("capture pass", first), ("timed pass", timed)):
+        if r["tokens"] != eager["tokens"]:
+            diff = [i for i, (a, b) in enumerate(zip(r["tokens"],
+                                                     eager["tokens"]))
+                    if a != b]
+            raise AssertionError(f"[moe] {label}: graphed {name} tokens "
+                                 f"differ from the eager tokens in requests "
+                                 f"{diff}")
+    m = timed["m"]
+    log(f"[moe] {label}: graphed == eager tokens (both passes); {graphs} "
+        f"CUDA graphs captured in {capture_s:.2f}s; timed pass: prefill "
+        f"{m['prefill_tokens'] / m['prefill_s']:.2f} tok/s, decode "
+        f"{1e3 * m['decode_s'] / m['decode_calls']:.3f} ms/step, decode "
+        f"dispatch share {m['decode_dispatch_s'] / m['decode_s']:.4f} (eager "
+        f"{eager['m']['decode_dispatch_s'] / eager['m']['decode_s']:.4f}), "
+        f"launches {timed['launches']}, variants {timed['variants']}; peak "
+        f"allocated {eager_peak:.3f} GiB eager, {peak:.3f} GiB graphed "
+        f"[{card}]")
+    return timed
+
+
+def serve_granite(report, card: str):
+    """Phase 11 (a): granite-moe-3b-a800m at full width and depth (32
+    layers, 40 experts top-8, 24/8 heads at hd 64), bf16, tp=1, on phase 3's
+    six prompts: the reference's defaults at spec_k 4 on
+    ``defaults_prompts`` (packs, prefix sharing, a verify window), then the
+    batch-1 baseline, each eager then graphed, graphed tokens equal to
+    eager.  The defaults timed pass must run B3 on a pack, B1 on the
+    5-token window once a layer of every verify step, and share and copy
+    pages; both timed passes must launch B1 and B3 (``serve_pass``)."""
+    import torch
+    from repro_torch.config import get_model_config
+    from repro_torch.models import api
+
+    cfg = get_model_config("granite-moe-3b-a800m")
+    t0 = time.perf_counter()
+    params = api.init_params(0, cfg, tp=1, dtype=torch.bfloat16,
+                             device="cuda")
+    torch.cuda.synchronize()
+    log(f"[moe] granite-moe-3b-a800m {cfg.num_layers}L d={cfg.d_model} Hq/"
+        f"Hkv {cfg.num_heads}/{cfg.num_kv_heads} hd {cfg.resolved_head_dim}, "
+        f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k} d_ff "
+        f"{cfg.moe.d_ff_expert} capacity {cfg.moe.capacity_factor}: "
+        f"{cfg.param_count() / 1e9:.4f}B params "
+        f"({cfg.param_count(active_only=True) / 1e9:.4f}B active a token) "
+        f"bf16 made on the card in {time.perf_counter() - t0:.1f}s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated [{card}]")
+    lengths = report["lengths"]
+    _, prompts = baseline_prompts(cfg)
+    d = eager_then_graphed(cfg, params, MOE_DEFAULTS,
+                           defaults_prompts(cfg, lengths),
+                           "granite defaults (packs, sharing, spec_k 4)",
+                           card)
+    m, v = d["m"], d["variants"]
+    if v["paged_prefill/packed"] <= 0 or m["spec_calls"] <= 0 or \
+            v["paged_decode/verify"] != cfg.num_layers * m["spec_calls"] or \
+            m["cow_copies"] <= 0 or m["prefix_shared_tokens"] <= 0:
+        raise AssertionError(f"[moe] granite defaults timed pass did not "
+                             f"pack, verify once a layer, share and copy: "
+                             f"{m}, {v}")
+    log(f"[moe] granite defaults timed pass: prefill_calls "
+        f"{m['prefill_calls']} for {m['prefill_grants']} grants, B3 on packs "
+        f"{v['paged_prefill/packed']} times, prefix_shared_tokens "
+        f"{m['prefix_shared_tokens']}, cow_copies {m['cow_copies']}, "
+        f"spec_calls {m['spec_calls']}, spec_tokens {m['spec_tokens']}, B1 "
+        f"on the verify window {v['paged_decode/verify']} times "
+        f"({cfg.num_layers} a verify step) [{card}]")
+    eager_then_graphed(cfg, params, MOE_BASELINE, prompts,
+                       "granite baseline (batch-1, no sharing, K=1)", card)
+    # the kernel line's phase 11 counts; B2's: the launches its fold ran in
+    report["launches_moe"] = dict(d["launches"],
+                                  decode_reduce=v["paged_decode/fold"])
+    del params
+    free_cuda()
+
+
+def moe_no_drop(cfg):
+    """``cfg`` at capacity factor E_pad / top_k, where C = T: an expert can
+    take every token of a call, so nothing drops and the output no longer
+    depends on how tokens are batched."""
+    import dataclasses
+    m = cfg.moe
+    return dataclasses.replace(cfg, name=f"{cfg.name} no-drop twin",
+                               moe=dataclasses.replace(
+                                   m, capacity_factor=m.padded_experts(1) /
+                                   m.top_k))
+
+
+class DropCounter:
+    """While active, counts on the host the assignments the MoE layers drop
+    (past the capacity) and those they route: eager engines only, since it
+    reads the routing back."""
+
+    def __enter__(self):
+        import torch
+        from repro_torch.layers import moe
+        self.dropped = self.routed = 0
+        self.real = moe.route
+
+        def route(router_w, x, mcfg, e_pad):
+            w, idx, aux = self.real(router_w, x, mcfg, e_pad)
+            load = torch.bincount(idx.reshape(-1), minlength=e_pad)
+            C = moe.capacity(x.shape[0], mcfg, e_pad)
+            self.dropped += int(torch.clamp_min(load - C, 0).sum())
+            self.routed += idx.numel()
+            return w, idx, aux
+
+        moe.route = route
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.layers import moe
+        moe.route = self.real
+        return False
+
+
+def serve_granite_fp32(report, card: str):
+    """Phase 11 (b): granite at full width cut to 2 layers, fp32 weights
+    from seed 0.  At the config's capacity factor (1.25): the baseline and
+    the defaults settings each eager then graphed, graphed tokens equal to
+    eager on both passes.  Then the defaults pass against the plain engine
+    (batch-1, no sharing, K=1), eager, under the fp32 rule
+    (``check_against_plain``, every shared-context position within 1e-5 +
+    1e-5 rel): enforced on the no-drop twin only (capacity factor E / k, so
+    C = T), since where capacity drops an assignment the output depends on
+    how tokens are batched; the capacity-1.25 run is printed beside it with
+    the assignments it dropped, and not enforced."""
+    import dataclasses
+    import torch
+    from repro_torch.config import get_model_config
+    from repro_torch.models import api
+    from repro_torch.serving import PagedEngine
+
+    cfg = dataclasses.replace(get_model_config("granite-moe-3b-a800m"),
+                              num_layers=2)
+    params = api.init_params(0, cfg, tp=1, dtype=torch.float32,
+                             device="cuda")
+    lengths = report["lengths"]
+    _, prompts = baseline_prompts(cfg)
+    dprompts = defaults_prompts(cfg, lengths)
+    eager_then_graphed(cfg, params, MOE_BASELINE, prompts,
+                       "granite fp32 2-layer baseline", card)
+    eager_then_graphed(cfg, params, MOE_DEFAULTS, dprompts,
+                       "granite fp32 2-layer defaults", card)
+    plain_sv = dict(MOE_DEFAULTS, prefix_sharing=False,
+                    prefill_batching=False, spec_k=0)
+    for twin in (moe_no_drop(cfg), cfg):
+        res = {}
+        for name, sv in (("defaults", MOE_DEFAULTS), ("plain", plain_sv)):
+            eng = PagedEngine(moe_config(twin, sv), params, device="cuda",
+                              cuda_graphs=False)
+            with LogitsRecorder(cfg.vocab_size) as rec, DropCounter() as dc:
+                res[name] = serve_pass(eng, dprompts, f"granite fp32 "
+                                       f"2-layer {twin.name} {name} eager",
+                                       card)
+            res[name].update(rec=rec, dropped=dc.dropped, routed=dc.routed)
+            if not rec.finite:
+                raise AssertionError(f"[moe] {twin.name} {name}: "
+                                     f"non-finite logits")
+            del eng
+        gate = twin is not cfg
+        log(f"[moe] {twin.name} (capacity factor "
+            f"{twin.moe.capacity_factor}): assignments dropped by capacity "
+            f"{res['defaults']['dropped']} of {res['defaults']['routed']} "
+            f"(defaults), {res['plain']['dropped']} of "
+            f"{res['plain']['routed']} (plain); defaults against plain "
+            + ("(the gate):" if gate else "(printed, not a gate: capacity "
+               "drops, so batching changes the function):"))
+        if gate and (res["defaults"]["dropped"] or res["plain"]["dropped"]):
+            raise AssertionError("[moe] the no-drop twin dropped "
+                                 "assignments")
+        check_against_plain(
+            f"moe fp32 {twin.name}", TOL["float32"], res["plain"],
+            res["defaults"], res["plain"]["rec"], res["defaults"]["rec"],
+            card, every_position=True, enforce=gate)
+    del params
+    free_cuda()
+
+
+def serve_kimi(card: str):
+    """Phase 11 (c): kimi-k2-1t-a32b at full width (d 7168, 64/8 heads at
+    hd 112, 384 experts top-8 with a shared expert, vocab 163840), cut to
+    ``KIMI_LAYERS`` of its 61 layers (reduced: the whole model is ~2 TB of
+    bf16), bf16, tp=1: four prompts of 300-1000 tokens, 16 new each, eager
+    then graphed, graphed tokens equal to eager; peak memory printed."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.config import get_model_config
+    from repro_torch.models import api
+
+    full = get_model_config("kimi-k2-1t-a32b")
+    cfg = dataclasses.replace(full, num_layers=KIMI_LAYERS)
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = api.init_params(0, cfg, tp=1, dtype=torch.bfloat16,
+                             device="cuda")
+    torch.cuda.synchronize()
+    log(f"[moe] kimi-k2-1t-a32b at full width, {KIMI_LAYERS} of "
+        f"{full.num_layers} layers (reduced: depth), d={cfg.d_model} Hq/Hkv "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} hd {cfg.resolved_head_dim}, "
+        f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k} d_ff "
+        f"{cfg.moe.d_ff_expert} + a shared expert of "
+        f"{cfg.moe.shared_expert_d_ff}: {cfg.param_count() / 1e9:.4f}B "
+        f"params bf16 made on the card in {time.perf_counter() - t0:.1f}s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB while made "
+        f"(the whole model: {full.param_count() / 1e12:.4f}T params) "
+        f"[{card}]")
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(2, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in rng.integers(300, 1001, 4)]
+    eager_then_graphed(cfg, params, MOE_BASELINE, prompts,
+                       f"kimi-k2-1t-a32b {KIMI_LAYERS}-layer (prompts "
+                       f"{[len(p) for p in prompts]})", card, new=16)
+    del params
+    free_cuda()
+
+
+def moe_profile(card: str):
+    """Phase 11, last in the script (a ``torch.profiler`` window leaves a
+    host cost on later replays): where granite's graphed steps go.
+    granite at full width and depth, bf16, graphed, baseline settings:
+    four of phase 3's prompts prefilled (their grants' graphs captured
+    first, on the same prompts), then three decode steps, each window
+    under ``torch.profiler`` with CUDA activities; printed: the wall and
+    device time a step, the idle share, and the device kernels that took
+    the most time, by name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.config import get_model_config
+    from repro_torch.models import api
+    from repro_torch.serving import PagedEngine, Request
+    from repro_torch.serving.requests import SamplingParams
+
+    cfg = get_model_config("granite-moe-3b-a800m")
+    params = api.init_params(0, cfg, tp=1, dtype=torch.bfloat16,
+                             device="cuda")
+    eng = PagedEngine(moe_config(cfg, MOE_BASELINE), params, device="cuda")
+    _, prompts = baseline_prompts(cfg)
+
+    def prefill_four() -> int:
+        for p in prompts[:4]:
+            eng.add_request(Request(prompt=p.copy(), sampling=SamplingParams(
+                max_new_tokens=32, eos_id=-1)))
+        steps = 0
+        while eng.scheduler.waiting or any(
+                s is not None and s.prefilled < sum(s.chunk_plan)
+                for s in eng.slots):
+            eng.step()
+            steps += 1
+        return steps
+
+    def window(label, run):
+        graphs = eng.graphs
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            steps = run()
+            torch.cuda.synchronize()
+            wall = 1e3 * (time.perf_counter() - t0) / steps
+        if eng.graphs != graphs:
+            raise AssertionError(f"[moe] the profiled {label} captured")
+        act = device_activity(prof)
+        busy = act["busy_ms"] / steps
+        log(f"[moe] granite graphed {label} under torch.profiler ({steps} "
+            f"steps): {wall:.3f} ms of wall a step, device busy {busy:.3f} "
+            f"ms, idle share {1 - busy / wall:.4f} [{card}]")
+        log_top(f"granite graphed {label}", act, steps, card, top=12)
+
+    def three_decode_steps() -> int:
+        for _ in range(3):
+            eng.step()
+        return 3
+
+    prefill_four()                            # every graph captured
+    eng.run_until_complete()
+    window("steps prefilling four requests", prefill_four)
+    eng.step()
+    window("decode steps (4 requests)", three_decode_steps)
+    eng.run_until_complete()
+    del eng, params
+    free_cuda()
+
+
+def serve_moe(report, card: str):
+    """Phase 11 (a)-(c): granite and its fp32 gates, then kimi's layer;
+    each model freed before the next."""
+    serve_granite(report, card)
+    serve_granite_fp32(report, card)
+    serve_kimi(card)
+
+
+# ---------------------------------------------------------------------------
 # phase 4: kernel path against plain path
 # ---------------------------------------------------------------------------
 
@@ -3292,13 +3673,14 @@ class PsumTimers:
                 setattr(mod, name, fn)
 
 
-def tp_rank(group, big, tiny):
+def tp_rank(group, big, tiny, moe):
     """Body of each rank (module level: the spawned ranks import it):
     time one reduce at the decode and prefill shapes in each pattern, serve
     the full-width variants one at a time with the host time inside the
     reduces recorded, freeing the weights after each, a short quantized
-    batch-split run under the host profiler, then the tiny ones.
-    ``big``/``tiny`` are ``serve_rank`` arguments after the group."""
+    batch-split run under the host profiler, then the tiny ones and the
+    MoE ones.  ``big``/``tiny``/``moe`` are ``serve_rank`` arguments after
+    the group."""
     import torch
     from repro_torch.launch.serve import serve_rank
     d = big[0].model.d_model
@@ -3341,7 +3723,31 @@ def tp_rank(group, big, tiny):
                         s=time.perf_counter() - t0)
     free_cuda()
     out["tiny"] = serve_rank(group, *tiny)
+    out["moe"] = serve_rank(group, *moe)
     return out
+
+
+def granite_tp_case():
+    """Phase 5's MoE pass at tp=1: granite-moe-3b-a800m at full width cut
+    to 2 layers (fp32), page 16, max_batch 4, budget 512, and three
+    requests of 300-1200 tokens (seed 4), 16 new each: (config, variants)."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.config import Config, ISOConfig, ParallelConfig, \
+        ServingConfig, get_model_config
+    cfg = dataclasses.replace(get_model_config("granite-moe-3b-a800m"),
+                              num_layers=2)
+    rng = np.random.default_rng(4)
+    lengths = [int(n) for n in rng.integers(300, 1201, 3)]
+    lengths[0] = max(lengths[0], 900)            # at least one resumed grant
+    prompts = [rng.integers(2, cfg.vocab_size, n).astype(np.int32)
+               for n in lengths]
+    config = Config(model=cfg, parallel=ParallelConfig(data=1, model=1),
+                    iso=ISOConfig(),
+                    serving=ServingConfig(page_size=16, max_batch=4,
+                                          max_len=2048,
+                                          prefill_token_budget=512))
+    return config, [dict(prompts=prompts, max_new=TP_NEW_TOKENS)]
 
 
 def tiny_config(tp: int):
@@ -3358,6 +3764,7 @@ def tiny_config(tp: int):
 
 
 def serve_tp(report, card: str):
+    import dataclasses
     import numpy as np
     import torch
     from repro_torch.config import Config, ISOConfig, ParallelConfig, \
@@ -3398,9 +3805,19 @@ def serve_tp(report, card: str):
                                 serving=tiny_cases[c])], None, 0, "float32",
                           device="cuda")[0]["tokens"] for c in tiny_cases}
     free_cuda()
+    # expert parallelism: granite at full width, 2 layers, fp32, 20 of its
+    # 40 experts a rank, against the tp=1 engine on the same weights (seed
+    # 0 makes the same tensors at tp 1 and 2: no expert, head or vocab pad)
+    moe_cfg, moe_v = granite_tp_case()
+    moe = (dataclasses.replace(moe_cfg, parallel=ParallelConfig(data=1,
+                                                                model=2)),
+           moe_v, None, 0, "float32")
+    moe_want = serve_rank(None, moe_cfg, moe_v, None, 0, "float32",
+                          device="cuda")
+    free_cuda()
 
     t0 = time.perf_counter()
-    ranks = spawn(tp_rank, 2, args=(big, tiny), device="cuda:0",
+    ranks = spawn(tp_rank, 2, args=(big, tiny, moe), device="cuda:0",
                   backend="gloo", timeout_s=900)
     log(f"[tp] 2 ranks on cuda:0 over gloo, {time.perf_counter() - t0:.1f}s "
         f"with start-up and weights")
@@ -3513,6 +3930,26 @@ def serve_tp(report, card: str):
     log(f"[tp] tiny fp32 model: tp=2 on cuda:0 == tp=1 on the card, greedy "
         f"tokens on every rank, cases {tiny_keys}; every run's trace equal "
         f"on both ranks once timings are removed ({n_ev} events)")
+    cfg = moe_cfg.model
+    for i, v in enumerate(moe_v):
+        for r, rank in enumerate(ranks):
+            run = rank["moe"][i]
+            if run["tokens"] != moe_want[i]["tokens"]:
+                raise AssertionError(f"[tp] granite tp=2 rank {r}: tokens "
+                                     f"differ from tp=1's")
+            for kname in ATTENTION_KERNELS:
+                if run["launches"][kname] <= 0:
+                    raise AssertionError(f"[tp] granite tp=2: {kname} never "
+                                         f"launched: {run['launches']}")
+        m = ranks[0]["moe"][i]["metrics"]
+        log(f"[tp] granite-moe-3b-a800m full width, {cfg.num_layers} layers, "
+            f"fp32, tp=2 ({cfg.moe.padded_experts(2) // 2} experts and 12/4 "
+            f"heads a rank), {ranks[0]['moe'][i]['decode_schedule']} "
+            f"decode, prompts {[len(p) for p in v['prompts']]}: tokens on "
+            f"both ranks == the tp=1 engine's on the same weights; "
+            f"{m['prefill_calls']} prefill calls ({m['resumed_grants']} "
+            f"resumed), {m['decode_calls']} decode steps, launches per rank "
+            f"{ranks[0]['moe'][i]['launches']} ({TP_LABEL}) [{card}]")
 
 
 # ---------------------------------------------------------------------------
@@ -3636,7 +4073,9 @@ def main() -> int:
     serve_ops(report, card)
     serve_dense(report, card)
     serve_whisper(report, card)
+    serve_moe(report, card)
     dense_profiles(report, card)
+    moe_profile(card)
 
     log(f"[done] every phase passed in {time.perf_counter() - t0:.1f}s "
         f"(the build included) [{card}]")
@@ -3649,7 +4088,8 @@ def main() -> int:
                         "max_abs_err": report["errs"][name],
                         "ms": t["ms"], "plain_ms": t["plain_ms"],
                         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
-                        "library_ms": t["library_ms"]})
+                        "library_ms": t["library_ms"],
+                        "launches_moe": report["launches_moe"].get(name, 0)})
         assert all(math.isfinite(x) for x in (t["ms"], t["plain_ms"],
                                               t["bound_ms"]))
     print(json.dumps({"kernels": kernels}))

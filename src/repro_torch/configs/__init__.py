@@ -3,15 +3,17 @@ config the port serves.
 
 The six dense ``attn_mlp`` configs of the reference's registry, copied field
 for field: four public ones and the paper's own two evaluation models (Table
-1), the three ladder-residual twins (``configs/ladder.py``, ``LADDER``) and
-the encoder-decoder whisper-medium (``ENCDEC``), which the dense ``Engine``
-serves.
+1), the three ladder-residual twins (``configs/ladder.py``, ``LADDER``), the
+encoder-decoder whisper-medium (``ENCDEC``), which the dense ``Engine``
+serves, and the two ``attn_moe`` configs (``MOE``).
 The reference's other names raise ``NotImplementedError`` from
 ``config.get_model_config``, naming the ROADMAP queue A item that ports them
 (``UNPORTED``).
 """
 from repro_torch.configs import (  # noqa: F401
     codeqwen1_5_7b,
+    granite_moe_3b_a800m,
+    kimi_k2_1t_a32b,
     ladder,
     paper_30b,
     paper_70b,
@@ -26,8 +28,8 @@ DENSE = ["qwen3-4b", "qwen3-8b", "qwen3-32b", "codeqwen1.5-7b", "paper-30b",
 PAPER = ["paper-30b", "paper-70b"]
 LADDER = ["ladder-qwen3-4b", "ladder-qwen3-8b", "ladder-paper-30b"]
 ENCDEC = ["whisper-medium"]
+MOE = ["granite-moe-3b-a800m", "kimi-k2-1t-a32b"]
 
 # the reference's registered names the port does not serve yet -> the
 # ROADMAP queue A item that ports them
-UNPORTED = dict.fromkeys(["granite-moe-3b-a800m", "kimi-k2-1t-a32b",
-                          "hymba-1.5b", "xlstm-350m", "internvl2-2b"], 10)
+UNPORTED = dict.fromkeys(["hymba-1.5b", "xlstm-350m", "internvl2-2b"], 10)

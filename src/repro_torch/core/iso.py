@@ -1,6 +1,6 @@
 """The ISO scheduler: interleaved per-chunk execution of a transformer stack
-(port of ``repro/core/iso.py`` for attention stacks: ``attn_mlp`` and
-whisper's ``dec_block`` and bidirectional encoder).
+(port of ``repro/core/iso.py`` for attention stacks: ``attn_mlp``,
+``attn_moe``, whisper's ``dec_block`` and bidirectional encoder).
 
 ISO splits the sequence into chunks and walks the (stage x chunk) grid in the
 order of the paper's Figure 1(d):
@@ -59,7 +59,8 @@ def run_layer(p_layer, kind: str, state: PipeState, sctx: StageCtx,
               starts: Sequence[int] = (0,),
               ladder: bool = False) -> Tuple[PipeState, Dict]:
     """Run one layer over all chunks in ISO order; returns extras for the
-    KV scatter (``kv_k``/``kv_v`` of the call's tokens).
+    KV scatter (``kv_k``/``kv_v`` of the call's tokens) and, for an MoE
+    layer, ``moe_aux`` summed over the chunks.
 
     ``ladder=True``: the ladder-residual wiring.  The pre-resolve branch is
     skipped, so every stage computes on the residual as of two stages ago
@@ -75,6 +76,7 @@ def run_layer(p_layer, kind: str, state: PipeState, sctx: StageCtx,
     pend, pend_base = state.pend, state.pend_base
     pend_chunk = n_chunks - 1                 # invariant at layer entry
     kv_chunks: List = [None] * n_chunks
+    extras_out: Dict[str, Any] = {}
     seq_state = None
     if sctx.mode == "encode":
         # bidirectional attention: every chunk attends the FULL sequence,
@@ -109,13 +111,15 @@ def run_layer(p_layer, kind: str, state: PipeState, sctx: StageCtx,
             seq_state = seq_state_new
             if "kv" in extras:
                 kv_chunks[c] = extras["kv"]
+            if "moe_aux" in extras:
+                extras_out["moe_aux"] = extras_out.get("moe_aux", 0.0) + \
+                    extras["moe_aux"]
             if reduces:
                 pend, pend_base, pend_chunk = started, xs[c], c
             else:
                 xs[c] = xs[c] + out
         seq_state = None                      # stage boundary
 
-    extras_out: Dict[str, Any] = {}
     if kv_chunks[0] is not None:
         extras_out["kv_k"] = torch.cat([kv[0] for kv in kv_chunks], dim=1)
         extras_out["kv_v"] = torch.cat([kv[1] for kv in kv_chunks], dim=1)
@@ -143,7 +147,8 @@ def run_stack_prefill(params_periods, pattern: Sequence[str], x_chunks,
     whisper's cross K/V (``cross_k``/``cross_v`` (P, B, F, Hkv, hd)).
     ``starts`` are call-relative chunk offsets; a row's absolute position is
     ``sctx.pos_offset + starts[c] + t``.  Returns (x_chunks_final, per
-    position extras with ``kv_k``/``kv_v`` stacked over periods).
+    position extras with ``kv_k``/``kv_v``, and ``moe_aux`` for an MoE
+    position, stacked over periods).
 
     The reference starts from a zero pending reduce (``x += psum(0)``); the
     port starts with none, which is the same numbers without a collective.
@@ -161,9 +166,9 @@ def run_stack_prefill(params_periods, pattern: Sequence[str], x_chunks,
     extras = []
     for exs in per_pos:
         e = {}
-        if exs and "kv_k" in exs[0]:
-            e["kv_k"] = torch.stack([x["kv_k"] for x in exs])
-            e["kv_v"] = torch.stack([x["kv_v"] for x in exs])
+        for name in ("kv_k", "kv_v", "moe_aux"):
+            if exs and name in exs[0]:
+                e[name] = torch.stack([x[name] for x in exs])
         extras.append(e)
     return flush_pending(state), tuple(extras)
 

@@ -2,7 +2,8 @@
 ``python -m repro_torch.launch.serve --arch qwen3-8b --preset full [--paged
 [--tp N]]``.  ``--arch`` takes every config the port registers
 (``configs.DENSE``: qwen3-4b/8b/32b, codeqwen1.5-7b, paper-30b, paper-70b;
-the ladder twins; ``configs.ENCDEC``: whisper-medium); ``--preset full``
+the ladder twins; ``configs.ENCDEC``: whisper-medium; ``configs.MOE``:
+granite-moe-3b-a800m, kimi-k2-1t-a32b); ``--preset full``
 serves it at its published widths (paper-30b fits one H100; paper-70b needs
 several cards), ``--preset tiny`` a reduced twin.
 
@@ -85,6 +86,11 @@ def reduce_cfg(cfg: ModelConfig, preset: str) -> ModelConfig:
               encoder_layers=min(cfg.encoder_layers, layers),
               encoder_frames=min(cfg.encoder_frames, 64),
               num_patches=min(cfg.num_patches, 16))
+    if cfg.moe:
+        kw["moe"] = dataclasses.replace(
+            cfg.moe, num_experts=4, top_k=2, d_ff_expert=d * 2,
+            capacity_factor=2.0,
+            shared_expert_d_ff=d if cfg.moe.shared_expert_d_ff else 0)
     if cfg.sliding_window:
         kw["sliding_window"] = 64
     return dataclasses.replace(cfg, **kw)

@@ -1,5 +1,5 @@
 """Model API used by launch/ and serving/ (port of ``repro/models/api.py``
-for the dense and audio families).
+for the dense, MoE and audio families).
 
   init_params(seed, cfg, tp, dtype, device, rank) -> params
   prefill(params, cfg, ctx, iso, batch, ...)  -> dict (logits_local, ...)
@@ -8,9 +8,10 @@ for the dense and audio families).
   init_caches(cfg, batch, cache_len, tp, dtype, device) -> dense caches
   make_inputs(cfg, seq_len, batch, seed, dtype, device) -> batch
 
-``batch`` is ``{"tokens": (B, S) integer}`` for the dense family and
-``{"frames": (B, F, D), "tokens": (B, S)}`` for audio (whisper; the frames
-are the stub frontend's output).
+``prefill``'s dict carries ``moe_aux``, the MoE load-balance aux (0.0
+without MoE).  ``batch`` is ``{"tokens": (B, S) integer}`` for the dense and
+MoE families and ``{"frames": (B, F, D), "tokens": (B, S)}`` for audio
+(whisper; the frames are the stub frontend's output).
 """
 from __future__ import annotations
 

@@ -1,13 +1,13 @@
 """Block stage functions, the unit the ISO scheduler drives (port of the
-attention subset of ``repro/models/blocks.py``: ``attn_mlp`` and whisper's
-``dec_block``).
+attention subset of ``repro/models/blocks.py``: ``attn_mlp``, ``attn_moe``
+and whisper's ``dec_block``).
 
 A layer is a list of stages; each maps a chunk of the residual stream to an
 output that NEEDS the TP all-reduce (``reduces=True``).  The scheduler
 (core/iso.py) owns residual adds and collective timing, so blocks never
 reduce.  Sequential per-stage state: attention carries the growing (k, v)
 prefix of the call (in ``encode`` mode, the whole sequence's); cross-
-attention and the MLP carry none.
+attention, the MLP and the MoE FFN carry none.
 """
 from __future__ import annotations
 
@@ -16,9 +16,11 @@ from typing import Any, Optional
 
 import torch
 
-from repro_torch.config import BLOCK_ATTN_MLP, BLOCK_DEC, ModelConfig
+from repro_torch.config import BLOCK_ATTN_MLP, BLOCK_ATTN_MOE, BLOCK_DEC, \
+    ModelConfig
 from repro_torch.layers import attention as attn_lib
 from repro_torch.layers import mlp as mlp_lib
+from repro_torch.layers import moe as moe_lib
 from repro_torch.layers.norms import norm
 
 
@@ -26,6 +28,8 @@ from repro_torch.layers.norms import norm
 class StageCtx:
     cfg: ModelConfig
     group_eff: int                     # local GQA group (q slots per kv slot)
+    tp: int = 1
+    expert_offset: int = 0             # first global expert id of this rank
     mode: str = "prefill"              # prefill | decode | encode
     window: int = 0
     # decode: (B,) cached token counts; paged prefill: (B,) prefix lengths
@@ -137,9 +141,18 @@ def mlp_stage(p, x, start_pos, seq_state, sctx: StageCtx, cache=None):
     return mlp_lib.mlp_partial(p["mlp"], xn, sctx.cfg.mlp_type), seq_state, {}
 
 
+def moe_stage(p, x, start_pos, seq_state, sctx: StageCtx, cache=None):
+    xn = _n2(p, x, sctx.cfg)
+    partial, aux = moe_lib.moe_partial(p["moe"], xn, sctx.cfg.moe,
+                                       tp=sctx.tp,
+                                       expert_offset=sctx.expert_offset)
+    return partial, seq_state, {"moe_aux": aux}
+
+
 # kind -> ((stage_fn, reduces), ...); every stage ends in a TP all-reduce
 BLOCK_STAGES = {
     BLOCK_ATTN_MLP: ((attn_stage, True), (mlp_stage, True)),
+    BLOCK_ATTN_MOE: ((attn_stage, True), (moe_stage, True)),
     BLOCK_DEC: ((attn_stage, True), (cross_attn_stage, True),
                 (mlp_stage, True)),
 }

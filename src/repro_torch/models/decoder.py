@@ -1,5 +1,5 @@
 """Decoder-stack model driver (port of ``repro/models/decoder.py`` for the
-dense family and for whisper's encoder and decoder stacks,
+dense and MoE families and for whisper's encoder and decoder stacks,
 ``models/whisper.py``).
 
 Forward code is written in the local-shard view: under tensor parallelism
@@ -10,7 +10,9 @@ Parameters are plain dicts of tensors: ``{"embed": {"table", "head"},
 per-period layer dicts)}`` — the reference's ``(P, ...)``-stacked leaves
 unstacked into one dict per layer.  LayerNorm configs add a ``bias`` to
 every norm; a ``dec_block`` layer adds ``cross`` (the cross-attention's
-projections) and ``norm_cross``.
+projections) and ``norm_cross``; an ``attn_moe`` layer has ``moe``
+(layers/moe.init_moe: ``router``, expert-stacked ``w_up``/``w_gate``/
+``w_down``, an optional ``shared`` expert) where a dense one has ``mlp``.
 """
 from __future__ import annotations
 
@@ -18,27 +20,32 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from repro_torch.config import BLOCK_ATTN_MLP, BLOCK_DEC, ISOConfig, \
-    ModelConfig, padded_vocab
+from repro_torch.config import BLOCK_ATTN_MLP, BLOCK_ATTN_MOE, BLOCK_DEC, \
+    ISOConfig, ModelConfig, padded_vocab
 from repro_torch.core.chunking import split_chunks
 from repro_torch.core.iso import run_stack_decode, run_stack_prefill
 from repro_torch.core.overlap import AxisCtx, psum_now
 from repro_torch.layers import embeddings as emb_lib
 from repro_torch.layers.heads import expand_heads, head_layout
+from repro_torch.layers.moe import init_moe
 from repro_torch.layers.norms import init_norm, norm
 from repro_torch.layers.rope import sinusoid_angles, sinusoidal_embedding
 from repro_torch.models.blocks import StageCtx
 
 
+# family -> the block kinds the port serves in it
+FAMILY_KINDS = {"dense": (BLOCK_ATTN_MLP,),
+                "moe": (BLOCK_ATTN_MOE,),
+                "audio": (BLOCK_ATTN_MLP, BLOCK_DEC)}
+
+
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves dense ``attn_mlp`` stacks, standard- or
-    ladder-wired, and whisper's encoder (``attn_mlp``) and decoder
-    (``dec_block``) stacks; anything else raises, naming its ROADMAP
-    item."""
-    kinds = (BLOCK_ATTN_MLP, BLOCK_DEC) if cfg.family == "audio" \
-        else (BLOCK_ATTN_MLP,)
-    if cfg.family not in ("dense", "audio") or \
-            any(k not in kinds for k in cfg.block_pattern):
+    """The port serves dense ``attn_mlp`` and MoE ``attn_moe`` stacks,
+    standard- or ladder-wired, and whisper's encoder (``attn_mlp``) and
+    decoder (``dec_block``) stacks; anything else raises, naming its
+    ROADMAP item."""
+    kinds = FAMILY_KINDS.get(cfg.family, ())
+    if not kinds or any(k not in kinds for k in cfg.block_pattern):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} / blocks {cfg.block_pattern}"
             f" are not ported (ROADMAP queue A item 10)")
@@ -48,9 +55,11 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 # ---------------------------------------------------------------------------
-# tensor-parallel sharding (the dense rules of the reference's
+# tensor-parallel sharding (the attention-stack rules of the reference's
 # models/decoder._leaf_spec): leaf name -> the axis split over the tp ranks;
-# leaves not named here (norms, qk-norm scales) are replicated
+# leaves not named here (norms, qk-norm scales, the MoE router) are
+# replicated.  An expert-stacked (3-D) w_up/w_gate/w_down splits its experts
+# instead (EXPERT_AXIS); the shared expert's 2-D leaves split as the MLP's
 # ---------------------------------------------------------------------------
 
 SHARD_AXIS = {
@@ -60,6 +69,7 @@ SHARD_AXIS = {
     "w_up": 1, "w_gate": 1,                  # (D, F): column-split
     "w_down": 0,                             # (F, D): row-split
 }
+EXPERT_AXIS = 0                              # (E, D, F) / (E, F, D)
 
 
 def shard_leaf(name: str, t: torch.Tensor, rank: int, tp: int
@@ -67,6 +77,8 @@ def shard_leaf(name: str, t: torch.Tensor, rank: int, tp: int
     """Rank ``rank``'s shard of leaf ``name`` (a copy, so the full tensor can
     be freed); replicated leaves come back as they are."""
     axis = SHARD_AXIS.get(name)
+    if name in ("w_up", "w_gate", "w_down") and t.ndim == 3:
+        axis = EXPERT_AXIS
     if axis is None or tp == 1:
         return t
     n = t.shape[axis]
@@ -133,17 +145,22 @@ def _init_attention(gen, cfg: ModelConfig, layout, dtype, device,
 
 
 def _init_layer(gen, cfg: ModelConfig, kind: str, layout, dtype,
-                device) -> Dict:
+                device, tp: int) -> Dict:
     d, ff = cfg.d_model, cfg.d_ff
     s = 0.02
     so = s / (2 * cfg.num_layers) ** 0.5
-    attn = _init_attention(gen, cfg, layout, dtype, device)
+    p = {"norm1": init_norm(d, device, cfg.norm_type),
+         "attn": _init_attention(gen, cfg, layout, dtype, device),
+         "norm2": init_norm(d, device, cfg.norm_type)}
+    if kind == BLOCK_ATTN_MOE:
+        p["moe"] = init_moe(gen, d, cfg.moe, tp, cfg.num_layers, dtype,
+                            device)
+        return p
     mlp = {"w_up": _normal(gen, (d, ff), s, dtype, device)}
     if cfg.mlp_type == "swiglu":
         mlp["w_gate"] = _normal(gen, (d, ff), s, dtype, device)
     mlp["w_down"] = _normal(gen, (ff, d), so, dtype, device)
-    p = {"norm1": init_norm(d, device, cfg.norm_type), "attn": attn,
-         "norm2": init_norm(d, device, cfg.norm_type), "mlp": mlp}
+    p["mlp"] = mlp
     if kind == BLOCK_DEC:
         p["cross"] = _init_attention(gen, cfg, layout, dtype, device,
                                      cross=True)
@@ -174,7 +191,8 @@ def init_decoder_params(seed: int, cfg: ModelConfig, tp: int = 1,
     if not cfg.tie_embeddings:
         embed["head"] = _normal(gen, (v, cfg.d_model), 0.02, dtype, device)
     embed = cut(embed)
-    periods = tuple([cut(_init_layer(gen, cfg, kind, layout, dtype, device))
+    periods = tuple([cut(_init_layer(gen, cfg, kind, layout, dtype, device,
+                                     tp))
                      for _ in range(pattern_periods(cfg))]
                     for kind in cfg.block_pattern)
     return {"embed": embed,
@@ -189,7 +207,12 @@ def init_decoder_params(seed: int, cfg: ModelConfig, tp: int = 1,
 def _stage_ctx(cfg: ModelConfig, ctx: AxisCtx, mode: str,
                lengths=None) -> StageCtx:
     layout = head_layout(cfg.num_heads, max(cfg.num_kv_heads, 1), ctx.tp)
-    return StageCtx(cfg=cfg, group_eff=layout.group_eff, mode=mode,
+    expert_offset = 0
+    if cfg.moe is not None:
+        e_loc = cfg.moe.padded_experts(ctx.tp) // ctx.tp
+        expert_offset = ctx.axis_index() * e_loc
+    return StageCtx(cfg=cfg, group_eff=layout.group_eff, tp=ctx.tp,
+                    expert_offset=expert_offset, mode=mode,
                     window=cfg.sliding_window, lengths=lengths)
 
 
@@ -283,6 +306,13 @@ def prefill(params, cfg: ModelConfig, ctx: AxisCtx, iso: ISOConfig, *,
                                                     x[:, -1:, :])
     elif logits_mode != "none":
         raise ValueError(f"unknown logits_mode {logits_mode!r}")
+    # the MoE load-balance aux, summed over chunks, layers and positions
+    # (0.0 for a stack without MoE, as the reference)
+    aux = 0.0
+    for ex in extras:
+        if "moe_aux" in ex:
+            aux = aux + torch.sum(ex["moe_aux"])
+    out["moe_aux"] = aux
     if return_cache:
         out["caches"] = _build_caches(extras, cfg, B, S, cache_len or S)
     if return_extras:

@@ -43,7 +43,7 @@ import numpy as np
 import torch
 
 from repro_torch.bridge import to_torch
-from repro_torch.config import BLOCK_ATTN_MLP, Config
+from repro_torch.config import BLOCK_ATTN_MLP, BLOCK_ATTN_MOE, Config
 from repro_torch.core.overlap import AxisCtx
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.models import api
@@ -105,7 +105,7 @@ class Engine:
         self._finished: List[RequestState] = []
         # speculative decoding: attention stacks only, as the paged engine;
         # whisper's decode (and a recurrent stack) falls back to plain
-        self.spec_k = spec_k if all(k == BLOCK_ATTN_MLP
+        self.spec_k = spec_k if all(k in (BLOCK_ATTN_MLP, BLOCK_ATTN_MOE)
                                     for k in self.cfg.block_pattern) else 0
         self._drafts: List[Optional[BigramDraft]] = [None] * max_batch
         # observability: the paged engine's counter names (plus the

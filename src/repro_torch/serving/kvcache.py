@@ -39,7 +39,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.layers.heads import head_layout
 
 # block kinds that own a KV cache
-KV_KINDS = ("attn_mlp",)
+KV_KINDS = ("attn_mlp", "attn_moe")
 
 
 class OutOfPages(RuntimeError):

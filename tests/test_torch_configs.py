@@ -1,6 +1,6 @@
-"""The port's model registry against the reference's: the six dense configs
-and whisper-medium equal field for field, the names the port does not serve
-yet raising
+"""The port's model registry against the reference's: the six dense configs,
+whisper-medium and the two MoE configs equal field for field, the names the
+port does not serve yet raising
 ``NotImplementedError`` with their ROADMAP item, unknown names ``KeyError``;
 and the widths of the registry through the port's layout helpers
 (``padded_vocab``, ``head_layout`` at tp 1/2/4/8, the int8 reduce's
@@ -18,7 +18,7 @@ from repro.configs import PAPER as R_PAPER
 from repro.layers.heads import head_layout as r_head_layout
 
 from repro_torch.config import ModelConfig, get_model_config, padded_vocab
-from repro_torch.configs import DENSE, ENCDEC, PAPER, UNPORTED
+from repro_torch.configs import DENSE, ENCDEC, MOE, PAPER, UNPORTED
 from repro_torch.kernels import int8_quant as q8
 from repro_torch.layers.heads import head_layout
 
@@ -52,6 +52,26 @@ def test_encdec_config_equals_reference(name):
     assert got.source == "arXiv:2212.04356"
     assert name not in UNPORTED
     assert padded_vocab(got, 1) == r_padded_vocab(want, 1) == 53248
+
+
+@pytest.mark.parametrize("name", MOE)
+def test_moe_config_equals_reference(name):
+    """granite-moe-3b-a800m and kimi-k2-1t-a32b are served: fields (the
+    ``MoEConfig`` included), ``param_count`` whole and ``active_only``, and
+    the padded expert counts equal to the reference's, and neither is in
+    ``UNPORTED``."""
+    got, want = get_model_config(name), r_get(name)
+    for f in dataclasses.fields(ModelConfig):
+        if f.name != "moe":
+            assert getattr(got, f.name) == getattr(want, f.name), f.name
+    assert dataclasses.asdict(got.moe) == dataclasses.asdict(want.moe)
+    for active in (False, True):
+        assert got.param_count(active_only=active) == \
+            want.param_count(active_only=active)
+    for tp in (1, 2, 4, 16):
+        assert got.moe.padded_experts(tp) == want.moe.padded_experts(tp)
+    assert got.block_pattern == ("attn_moe",) and got.family == "moe"
+    assert name not in UNPORTED
 
 
 def test_paper_list_matches_reference():

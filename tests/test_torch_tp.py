@@ -14,12 +14,18 @@ ranks on the CPU (``launch/mesh.spawn``), at the ``tiny_dense`` size in fp32.
     greedy tokens EQUAL to the reference ``PagedEngine(mesh=None)`` on the
     same (tp=1) model, and equal on every rank;
   * at tp=2, packed grants, prefix sharing and a spec_k=2 verify window
-    together give the tp=1 port engine's tokens and counters.
+    together give the tp=1 port engine's tokens and counters;
+  * MoE twins at tp=2 and tp=4 (expert parallelism: 4 experts split 2 and
+    1 a rank, 5 padded to 6 and 8 at capacity 1.25): greedy tokens on every
+    rank equal the reference ``PagedEngine(mesh=None)`` on the same
+    tp-built params.
 
 One spawn per tp degree runs every rank-side case: the parent writes the
 reference's tp=N params to ``tmp_path`` as ``.npz``; the ranks load and
 shard them (``launch/serve.serve_rank``) and hand their results back.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -28,8 +34,9 @@ import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 from jax.sharding import PartitionSpec as P  # noqa: E402
 
-from conftest import iso_cfg, tiny_dense  # noqa: E402
+from conftest import iso_cfg, tiny_dense, tiny_moe  # noqa: E402
 from repro.config import Config as RConfig  # noqa: E402
+from repro.config import MoEConfig as RMoEConfig  # noqa: E402
 from repro.config import ParallelConfig as RParallel  # noqa: E402
 from repro.config import ServingConfig as RServing  # noqa: E402
 from repro.core.quantized_collectives import \
@@ -41,7 +48,7 @@ from repro.serving import Request as RRequest  # noqa: E402
 from repro.serving.requests import SamplingParams as RSampling  # noqa: E402
 
 from repro_torch import bridge  # noqa: E402
-from repro_torch.config import Config, ISOConfig, ModelConfig, \
+from repro_torch.config import Config, ISOConfig, ModelConfig, MoEConfig, \
     ParallelConfig, ServingConfig  # noqa: E402
 from repro_torch.core import iso  # noqa: E402
 from repro_torch.core.overlap import AxisCtx  # noqa: E402
@@ -631,3 +638,102 @@ def test_auto_split_plans_at_the_engines_tp(mha_tp4):
             want = split_chunks(S, iso_auto, MHA_PORT_CFG, tp=4)
             assert len(want) == 2
             assert plans[("scheduler", S)] == plans[("decoder", S)] == want
+
+
+# ---------------------------------------------------------------------------
+# expert parallelism: MoE twins at tp=2 and tp=4
+# ---------------------------------------------------------------------------
+
+# tiny_moe (4 experts: 2 a rank at tp=2, 1 at tp=4; a shared expert split
+# as the dense MLP) and a 5-expert twin at capacity 1.25 (padded to 6 at
+# tp=2 and to 8 at tp=4, the padding experts masked out of the router)
+MOE_TWINS = {
+    "moe4": tiny_moe(vocab_size=64),
+    "moe5_cf1.25": tiny_moe(vocab_size=64, moe=RMoEConfig(
+        num_experts=5, top_k=2, d_ff_expert=64, capacity_factor=1.25)),
+}
+# (decode schedule, forced split count) of each rank-side run, on CASES[0]'s
+# traffic: the default batch-split, and sequential over 4 split-KV spans
+MOE_RUNS = (("auto", 0), ("sequential", 4))
+
+
+def _moe_port_cfg(ref_cfg):
+    kw = {f.name: getattr(ref_cfg, f.name)
+          for f in dataclasses.fields(ModelConfig)}
+    kw["moe"] = MoEConfig(**dataclasses.asdict(ref_cfg.moe))
+    return ModelConfig(**kw)
+
+
+def _moe_rank_job(group, jobs):
+    """Serve each twin's runs from its params (built at the group's tp)."""
+    return [serve_rank(group, config, variants, params_npz=path)
+            for path, config, variants in jobs]
+
+
+@pytest.fixture(scope="module")
+def moe_tp_runs(tmp_path_factory):
+    """tp -> (per-rank results by twin, the reference tokens by twin): the
+    reference ``PagedEngine(mesh=None)`` on the same tp-built params."""
+    cache = {}
+
+    def get(tp):
+        if tp in cache:
+            return cache[tp]
+        name, lengths, seed, new, sv = CASES[0]
+        prompts = _prompts(lengths, seed)
+        jobs, want = [], {}
+        for twin, rcfg in MOE_TWINS.items():
+            ref = r_api.init_params(jax.random.PRNGKey(0), rcfg, tp=tp,
+                                    dtype=jnp.float32)
+            assert ref["periods"][0]["moe"]["router"].shape[-1] == \
+                rcfg.moe.padded_experts(tp)
+            path = tmp_path_factory.mktemp(f"{twin}_tp{tp}") / "p.npz"
+            bridge.save_npz(path, jax.tree_util.tree_map(np.asarray, ref))
+            r_eng = RPagedEngine(RConfig(
+                model=rcfg, parallel=RParallel(data=1, model=1), iso=REF_ISO,
+                serving=RServing(prefix_sharing=False, prefill_batching=False,
+                                 **sv)), ref)
+            rids = [r_eng.add_request(RRequest(
+                prompt=p.copy(), sampling=RSampling(max_new_tokens=new,
+                                                    eos_id=-1)))
+                for p in prompts]
+            out = r_eng.run_until_complete()
+            want[twin] = ([out[r] for r in rids], dict(r_eng.metrics))
+            config = Config(model=_moe_port_cfg(rcfg),
+                            parallel=ParallelConfig(data=1, model=tp),
+                            iso=PORT_ISO,
+                            serving=ServingConfig(prefix_sharing=False,
+                                                  prefill_batching=False))
+            variants = [dict(prompts=prompts, max_new=new,
+                             serving=dict(sv, decode_schedule=sched,
+                                          decode_kv_splits=splits))
+                        for sched, splits in MOE_RUNS]
+            jobs.append((str(path), config, variants))
+        res = mesh.spawn(_moe_rank_job, tp, args=(jobs,), device="cpu",
+                         timeout_s=300)
+        cache[tp] = ({twin: [r[i] for r in res]
+                      for i, twin in enumerate(MOE_TWINS)}, want)
+        return cache[tp]
+    return get
+
+
+@pytest.mark.parametrize("twin", sorted(MOE_TWINS))
+@pytest.mark.parametrize("tp", [2, 4])
+def test_tp_moe_engine_tokens_equal_reference(moe_tp_runs, tp, twin):
+    """Each rank serves its experts (``expert_offset``) and its shard of the
+    shared expert; the partials ride the MLP's all-reduce.  Greedy tokens
+    on every rank, under batch-split and under sequential split-KV decode,
+    equal the reference engine's at tp=1 on the same weights, and the
+    prefill counters too."""
+    ranks, want = moe_tp_runs(tp)
+    tokens, ref_m = want[twin]
+    for r, runs in enumerate(ranks[twin]):
+        assert len(runs) == len(MOE_RUNS)
+        for (sched, splits), run in zip(MOE_RUNS, runs):
+            assert run["tokens"] == tokens, (r, sched, run["tokens"], tokens)
+            assert run["decode_schedule"] == (
+                "batch_split" if sched == "auto" else sched)
+    m = ranks[twin][0][0]["metrics"]
+    for k in ("prefill_calls", "prefill_grants", "resumed_grants",
+              "decode_calls", "prefill_pad_tokens"):
+        assert m[k] == ref_m[k], (k, m[k], ref_m[k])
