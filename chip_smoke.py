@@ -266,6 +266,34 @@ Phases, each fatal on failure:
                memory printed.  Last in the script, a ``torch.profiler``
                window over three graphed granite decode steps: wall,
                device busy time, idle share and the kernels by name.
+ 12. recurrent the recurrent families, after phase 11: (a) hymba-1.5b
+               (arXiv:2411.13676: 32 ``hybrid`` layers, 25/5 heads at hd
+               64, SSM inner 3200 x N 16, window 2048) at full width and
+               depth, bf16, ``PagedEngine`` tp=1, on phase 3's six baseline
+               prompts and then one 2600-token prompt at max_len 4096
+               (B1's and B3's window masks cut on the path), each eager
+               then graphed: graphed tokens equal to eager, B1 and B3
+               launched (every B3 launch tensor-core), no page leaked;
+               prints decode ms/step, prefill tok/s, peak allocated memory,
+               the graph count and capture seconds (one closure a distinct
+               grant length: a recurrent stack pads, packs, shares and
+               speculates nothing), the launches and the dispatch shares.
+               (b) xlstm-350m (arXiv:2405.04517: 18 mLSTM and 6 sLSTM
+               layers, d 1024) at full width and depth, bf16, the same
+               traffic, eager then graphed, equal tokens; it has no
+               attention and must launch none of the hand-written kernels.
+               (c) fp32 twins at full width (hymba 2 layers with its window
+               cut to 64; xlstm one 4-layer period): graphed == eager, and
+               ``PagedEngine`` == the dense ``Engine`` (bucket 16) token
+               for token on prompt lengths that are multiples of 16 (the
+               dense engine's bucket pad would advance the state).  Phase 2
+               holds B1 (S 1/4) and B3 (256 and 173 queries) at hymba's
+               25/5 hd 64 with windows 0, 2048 and 300; phase 5 serves
+               hymba's 2-layer fp32 twin at tp=2 (window 64), whose tokens
+               must equal tp=1's on both ranks.  (e) Last in the script, a
+               ``torch.profiler`` window over one graphed prefill step of
+               four requests and three decode steps of each model: wall,
+               device busy time, idle share and the kernels by name.
 
 Every pass resets its engine's registry and trace ring together
 (``reset_observability``), so a pass's trace replays into its registry.
@@ -280,7 +308,9 @@ from rank 0 of phase 5's quantized batch-split run, the flash-prefill,
 RMSNorm, SwiGLU and int8 quantize kernels from phase 7 (the serving path
 does not launch them); phase 10's dense path launches none of them (its
 passes check that every count stays 0).  Each kernel's ``launches_moe`` is
-read the same way from phase 11's granite defaults timed pass.  It
+read the same way from phase 11's granite defaults timed pass, its
+``launches_hymba`` and ``launches_xlstm`` from phase 12's baseline timed
+passes (xlstm's all 0, checked).  It
 imports nothing of JAX or of the JAX package.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and
 power limit from nvidia-smi, and before that a JSON line with each kernel's
@@ -355,6 +385,12 @@ REGISTRY_LAYOUTS = {"paper-30b": (52, 52, 128),
                     "qwen3-32b, paper-70b": (64, 8, 128),
                     "granite-moe-3b-a800m": (24, 8, 64),
                     "kimi-k2-1t-a32b": (64, 8, 112)}
+# hymba-1.5b's (Hq, Hkv, hd): group 5, which no other served layout has;
+# its window (2048), none, and one that cuts into every long prefix; and
+# decode lengths on both sides of the window
+HYMBA_LAYOUT = (25, 5, 64)
+HYMBA_WINDOWS = (0, 2048, 300)
+HYMBA_LENGTHS = [1, 17, 1000, 2047, 2048, 2049, 2600, 3000]
 # paper-30b's ISO-chunk MLP GEMM, (512, 6656) @ (6656, 17920): the shape
 # that sets the h100 profile's matmul rate in perf/model.py
 PROFILE_GEMM = (512, 6656, 17920)
@@ -662,6 +698,22 @@ def check_kernels(report):
             prefill_case([0, 700, 2000], [0, 0, 256], 256, 16, hq, hkv, hd,
                          0, dtype_name)
             n_layout += 1
+    # hymba-1.5b's 25/5 heads at hd 64 (group 5: B1's 5 query rows a kv
+    # head, B3's 12 query rows a group member, 60 rows a block) with window
+    # 0, its own 2048 and 300 (which cuts into every long prefix), B3 on
+    # the unbucketed chunk lengths a recurrent stack serves (256 and 173
+    # queries, a fresh row beside resumed ones past the window)
+    n_hymba = 0
+    for dtype_name in ("bfloat16", "float32"):
+        for window in HYMBA_WINDOWS:
+            for S in (1, 4):
+                decode_case(gen, errs, HYMBA_LENGTHS, 16, *HYMBA_LAYOUT, 1,
+                            S, window, dtype_name)
+                n_hymba += 1
+            for Sq in (256, 173):
+                prefill_case([0, 700, 2600, 3000], [0, 0, 256, 37], Sq, 16,
+                             *HYMBA_LAYOUT, window, dtype_name)
+                n_hymba += 1
     # the bf16 tile loop's edges: hd 64/80/256 (a padded width at 80), page
     # sizes 8/16/32 (a 64-key tile from 8/4/2 pages), group 1/2/4/8 (64/32/
     # 16/8 query rows per head), Sq 100 (a ragged last query block),
@@ -688,10 +740,13 @@ def check_kernels(report):
     n_tc += 2
     n_dec, neutral = check_decode_edges(gen, errs)
     torch.cuda.synchronize()
-    log(f"[kernels] {n + n_layout + n_tc + n_dec} cases within tolerance "
-        f"{TOL} ({n_layout} of them at the registry's head layouts "
+    log(f"[kernels] {n + n_layout + n_hymba + n_tc + n_dec} cases within "
+        f"tolerance {TOL} ({n_layout} of them at the registry's head layouts "
         f"{REGISTRY_LAYOUTS} (Hq, Hkv, hd), B1 at K 1/5 and S 1/4 and B3 "
-        f"on the 256-query ISO chunk, bf16 and fp32; {n_tc} "
+        f"on the 256-query ISO chunk, bf16 and fp32; {n_hymba} at "
+        f"hymba-1.5b's {HYMBA_LAYOUT}, windows {HYMBA_WINDOWS}, B1 at S 1/4 "
+        f"over lengths {HYMBA_LENGTHS}, B3 on 256- and 173-query chunks; "
+        f"{n_tc} "
         f"of them the bf16 tile loop's edges: {emptied} rows of resumed "
         f"requests wholly outside the window, neutral; {n_dec} the decode "
         f"kernel's edges: hd 64/80/256/20/18, ps 32/64, gk 1/12/32/33/40/"
@@ -1349,11 +1404,13 @@ def reset_observability(eng) -> None:
     eng.trace.clear()
 
 
-def serve_pass(eng, prompts, label: str, card: str, new: int = 32) -> dict:
+def serve_pass(eng, prompts, label: str, card: str, new: int = 32,
+               kernels=ATTENTION_KERNELS) -> dict:
     """Serve ``prompts`` (``new`` greedy tokens each) on ``eng`` from a
     zeroed registry, an empty trace ring and zeroed launch counts; check
     that every request completed, every page came back and the attention
-    kernels launched; print the pass."""
+    kernels launched (``kernels``; an empty tuple: a stack with no
+    attention, which must launch no kernel at all); print the pass."""
     import torch
     from repro_torch.kernels import native
     from repro_torch.serving import Request
@@ -1379,10 +1436,13 @@ def serve_pass(eng, prompts, label: str, card: str, new: int = 32) -> dict:
         raise AssertionError(f"{label}: not every request completed: {m}")
     if eng.alloc.free_pages != eng.alloc.num_pages:
         raise AssertionError(f"{label}: pages leaked")
-    for name in ATTENTION_KERNELS:
+    for name in kernels:
         if res["launches"][name] <= 0:
             raise AssertionError(f"{label}: kernel {name} never launched on "
                                  f"the main path: {res['launches']}")
+    if not kernels and any(res["launches"].values()):
+        raise AssertionError(f"{label}: a stack with no attention launched "
+                             f"hand-written kernels: {res['launches']}")
     if m["resumed_grants"] <= 0:
         raise AssertionError(f"{label}: no resumed grant ran")
     log(f"[serve] {label}: prefill {m['prefill_tokens']} tok in "
@@ -3136,34 +3196,41 @@ def moe_config(cfg, sv: dict):
 
 
 def eager_then_graphed(cfg, params, sv: dict, prompts, label: str, card: str,
-                       new: int = 32) -> dict:
+                       new: int = 32, kernels=ATTENTION_KERNELS,
+                       tag: str = "moe", keep: bool = False) -> dict:
     """``prompts`` on an eager engine, then on a graphed one (a capture
-    pass, a timed pass of replays only), ``serve_pass`` each; the graphed
-    tokens must equal the eager ones on both passes and the timed pass must
-    capture nothing.  Prints the timed pass beside the eager one, the peak
-    allocated memory of each engine and the graph count; returns the timed
-    pass (``serve_pass``'s dict)."""
+    pass, a timed pass of replays only), ``serve_pass`` each (``kernels``:
+    those it must see launched); the graphed tokens must equal the eager
+    ones on both passes and the timed pass must capture nothing.  Prints
+    (under ``[tag]``) the timed pass beside the eager one, the peak
+    allocated memory of each engine, the graph count and the capture
+    seconds; returns the timed pass (``serve_pass``'s dict, with
+    ``eager``, ``graphs``, ``capture_s`` and the two peaks, and with
+    ``keep`` the graphed engine, ``engine``, left alive for a later
+    profile)."""
     import torch
     from repro_torch.serving import PagedEngine
 
     config = moe_config(cfg, sv)
+    held = torch.cuda.memory_allocated() / 2**30
     torch.cuda.reset_peak_memory_stats()
     eng = PagedEngine(config, params, device="cuda", cuda_graphs=False)
-    eager = serve_pass(eng, prompts, f"{label} eager", card, new)
+    eager = serve_pass(eng, prompts, f"{label} eager", card, new, kernels)
     eager_peak = torch.cuda.max_memory_allocated() / 2**30
     del eng
     free_cuda()
     torch.cuda.reset_peak_memory_stats()
     eng = PagedEngine(config, params, device="cuda")
     first = serve_pass(eng, prompts, f"{label} graphed, capture pass", card,
-                       new)
+                       new, kernels)
     graphs, capture_s = eng.graphs, eng.capture_s
     timed = serve_pass(eng, prompts, f"{label} graphed, timed pass", card,
-                       new)
+                       new, kernels)
     peak = torch.cuda.max_memory_allocated() / 2**30
     if eng.graphs != graphs:
-        raise AssertionError(f"[moe] {label}: the timed pass captured "
+        raise AssertionError(f"[{tag}] {label}: the timed pass captured "
                              f"{eng.graphs - graphs} graphs")
+    kept = eng if keep else None
     del eng
     free_cuda()
     for name, r in (("capture pass", first), ("timed pass", timed)):
@@ -3171,20 +3238,25 @@ def eager_then_graphed(cfg, params, sv: dict, prompts, label: str, card: str,
             diff = [i for i, (a, b) in enumerate(zip(r["tokens"],
                                                      eager["tokens"]))
                     if a != b]
-            raise AssertionError(f"[moe] {label}: graphed {name} tokens "
+            raise AssertionError(f"[{tag}] {label}: graphed {name} tokens "
                                  f"differ from the eager tokens in requests "
                                  f"{diff}")
     m = timed["m"]
-    log(f"[moe] {label}: graphed == eager tokens (both passes); {graphs} "
+    log(f"[{tag}] {label}: graphed == eager tokens (both passes); {graphs} "
         f"CUDA graphs captured in {capture_s:.2f}s; timed pass: prefill "
         f"{m['prefill_tokens'] / m['prefill_s']:.2f} tok/s, decode "
         f"{1e3 * m['decode_s'] / m['decode_calls']:.3f} ms/step, decode "
         f"dispatch share {m['decode_dispatch_s'] / m['decode_s']:.4f} (eager "
         f"{eager['m']['decode_dispatch_s'] / eager['m']['decode_s']:.4f}), "
-        f"launches {timed['launches']}, variants {timed['variants']}; peak "
+        f"prefill dispatch share "
+        f"{m['prefill_dispatch_s'] / m['prefill_s']:.4f} (eager "
+        f"{eager['m']['prefill_dispatch_s'] / eager['m']['prefill_s']:.4f}),"
+        f" launches {timed['launches']}, variants {timed['variants']}; peak "
         f"allocated {eager_peak:.3f} GiB eager, {peak:.3f} GiB graphed "
+        f"({held:.3f} GiB allocated before the passes, weights included) "
         f"[{card}]")
-    return timed
+    return dict(timed, eager=eager, graphs=graphs, capture_s=capture_s,
+                eager_peak=eager_peak, peak=peak, engine=kept)
 
 
 def serve_granite(report, card: str):
@@ -3385,41 +3457,39 @@ def serve_kimi(card: str):
     free_cuda()
 
 
-def moe_profile(card: str):
-    """Phase 11, last in the script (a ``torch.profiler`` window leaves a
-    host cost on later replays): where granite's graphed steps go.
-    granite at full width and depth, bf16, graphed, baseline settings:
-    four of phase 3's prompts prefilled (their grants' graphs captured
-    first, on the same prompts), then three decode steps, each window
-    under ``torch.profiler`` with CUDA activities; printed: the wall and
-    device time a step, the idle share, and the device kernels that took
-    the most time, by name."""
+def profile_graphed(eng, prompts, label: str, card: str, tag: str,
+                    prefill_steps: int = 0) -> None:
+    """Where a graphed engine's steps go: four of ``prompts`` prefilled
+    on ``eng`` (their grants' graphs captured first, on the same prompts;
+    with ``prefill_steps`` only that many of the prefilling steps are in
+    the window, the rest run after it), then three decode steps, each
+    window under ``torch.profiler`` with CUDA activities; printed: the wall
+    and device time a step, the idle share, and the device kernels that
+    took the most time, by name."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    from repro_torch.config import get_model_config
-    from repro_torch.models import api
-    from repro_torch.serving import PagedEngine, Request
+    from repro_torch.serving import Request
     from repro_torch.serving.requests import SamplingParams
 
-    cfg = get_model_config("granite-moe-3b-a800m")
-    params = api.init_params(0, cfg, tp=1, dtype=torch.bfloat16,
-                             device="cuda")
-    eng = PagedEngine(moe_config(cfg, MOE_BASELINE), params, device="cuda")
-    _, prompts = baseline_prompts(cfg)
-
-    def prefill_four() -> int:
+    def submit_four() -> None:
         for p in prompts[:4]:
             eng.add_request(Request(prompt=p.copy(), sampling=SamplingParams(
                 max_new_tokens=32, eos_id=-1)))
+
+    def prefill(limit: int = 0) -> int:
         steps = 0
-        while eng.scheduler.waiting or any(
+        while (eng.scheduler.waiting or any(
                 s is not None and s.prefilled < sum(s.chunk_plan)
-                for s in eng.slots):
+                for s in eng.slots)) and (not limit or steps < limit):
             eng.step()
             steps += 1
         return steps
 
-    def window(label, run):
+    def prefill_four() -> int:
+        submit_four()
+        return prefill()
+
+    def window(what, run):
         graphs = eng.graphs
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -3429,13 +3499,13 @@ def moe_profile(card: str):
             torch.cuda.synchronize()
             wall = 1e3 * (time.perf_counter() - t0) / steps
         if eng.graphs != graphs:
-            raise AssertionError(f"[moe] the profiled {label} captured")
+            raise AssertionError(f"[{tag}] the profiled {what} captured")
         act = device_activity(prof)
         busy = act["busy_ms"] / steps
-        log(f"[moe] granite graphed {label} under torch.profiler ({steps} "
+        log(f"[{tag}] {label} graphed {what} under torch.profiler ({steps} "
             f"steps): {wall:.3f} ms of wall a step, device busy {busy:.3f} "
             f"ms, idle share {1 - busy / wall:.4f} [{card}]")
-        log_top(f"granite graphed {label}", act, steps, card, top=12)
+        log_top(f"{label} graphed {what}", act, steps, card, top=12)
 
     def three_decode_steps() -> int:
         for _ in range(3):
@@ -3444,10 +3514,34 @@ def moe_profile(card: str):
 
     prefill_four()                            # every graph captured
     eng.run_until_complete()
-    window("steps prefilling four requests", prefill_four)
+    if prefill_steps:
+        submit_four()
+        window(f"first {prefill_steps} of the steps prefilling four "
+               f"requests", lambda: prefill(prefill_steps))
+        prefill()                             # the rest, outside
+    else:
+        window("steps prefilling four requests", prefill_four)
     eng.step()
     window("decode steps (4 requests)", three_decode_steps)
     eng.run_until_complete()
+
+
+def moe_profile(card: str):
+    """Phase 11, near the end of the script (a ``torch.profiler`` window
+    leaves a host cost on later replays): where granite's graphed steps go,
+    at full width and depth, bf16, baseline settings (``profile_graphed``)."""
+    import torch
+    from repro_torch.config import get_model_config
+    from repro_torch.models import api
+
+    from repro_torch.serving import PagedEngine
+
+    cfg = get_model_config("granite-moe-3b-a800m")
+    params = api.init_params(0, cfg, tp=1, dtype=torch.bfloat16,
+                             device="cuda")
+    _, prompts = baseline_prompts(cfg)
+    eng = PagedEngine(moe_config(cfg, MOE_BASELINE), params, device="cuda")
+    profile_graphed(eng, prompts, "granite", card, "moe")
     del eng, params
     free_cuda()
 
@@ -3458,6 +3552,187 @@ def serve_moe(report, card: str):
     serve_granite(report, card)
     serve_granite_fp32(report, card)
     serve_kimi(card)
+
+
+# ---------------------------------------------------------------------------
+# phase 12: the recurrent families, hymba-1.5b and xlstm-350m
+# ---------------------------------------------------------------------------
+
+# phase 3's baseline settings; a recurrent stack runs them whatever it is
+# asked (the engine's gates: no buckets, packs, sharing or spec)
+RECURRENT_SV = dict(page_size=16, max_batch=4, max_len=2048,
+                    prefill_token_budget=512)
+# one prompt past hymba's 2048-token window, at max_len 4096
+HYMBA_LONG_PROMPT = 2600
+HYMBA_LONG_SV = dict(RECURRENT_SV, max_len=4096)
+
+
+def recurrent_model(name: str, layers: int = 0, window: int = 0,
+                    dtype: str = "bfloat16"):
+    """(cfg, params made on the card from seed 0, seconds): ``name`` at
+    full width, its depth cut to ``layers`` and its window to ``window``
+    when given."""
+    import dataclasses
+    import torch
+    from repro_torch.config import get_model_config
+    from repro_torch.models import api
+
+    cfg = get_model_config(name)
+    cut = {}
+    if layers:
+        cut["num_layers"] = layers
+    if window:
+        cut["sliding_window"] = window
+    if cut:
+        cfg = dataclasses.replace(cfg, name=f"{name} cut {cut}", **cut)
+    t0 = time.perf_counter()
+    params = api.init_params(0, cfg, tp=1, dtype=getattr(torch, dtype),
+                             device="cuda")
+    torch.cuda.synchronize()
+    return cfg, params, time.perf_counter() - t0
+
+
+def _recurrent_weights_line(cfg, params, made_s, card):
+    import torch
+    n = sum(t.numel() for t in _leaves(params))
+    log(f"[recurrent] {cfg.name} {cfg.num_layers}L d={cfg.d_model} Hq/Hkv "
+        f"{cfg.num_heads}/{cfg.num_kv_heads} hd {cfg.resolved_head_dim} "
+        f"pattern {cfg.block_pattern} window {cfg.sliding_window}: "
+        f"{n / 1e9:.4f}B parameters in the tensors (param_count "
+        f"{cfg.param_count() / 1e9:.4f}B), made on the card in "
+        f"{made_s:.1f}s, {torch.cuda.memory_allocated() / 2**30:.3f} GiB "
+        f"allocated [{card}]")
+
+
+def serve_hymba(report, card: str):
+    """Phase 12 (a): hymba-1.5b at full width and depth (32 layers, 25/5
+    heads at hd 64, SSM inner 3200 x N 16, window 2048), bf16,
+    ``PagedEngine`` tp=1: phase 3's six baseline prompts, then one of
+    ``HYMBA_LONG_PROMPT`` tokens at max_len 4096 (B3's and B1's window
+    masks cut on the path), each eager then graphed, graphed tokens equal
+    to eager; B1 and B3 launched, every B3 launch on the tensor-core
+    instantiation."""
+    import numpy as np
+    cfg, params, made_s = recurrent_model("hymba-1.5b")
+    _recurrent_weights_line(cfg, params, made_s, card)
+    _, prompts = baseline_prompts(cfg)
+    base = eager_then_graphed(cfg, params, RECURRENT_SV, prompts,
+                              "hymba-1.5b baseline", card, tag="recurrent",
+                              keep=True)
+    v = base["variants"]
+    if v["paged_prefill/tc"] != base["launches"]["paged_prefill"]:
+        raise AssertionError(f"[recurrent] hymba: a B3 launch missed the "
+                             f"tensor-core instantiation: {v}")
+    long_prompt = [np.random.default_rng(7).integers(
+        2, cfg.vocab_size, HYMBA_LONG_PROMPT).astype(np.int32)]
+    long = eager_then_graphed(cfg, params, HYMBA_LONG_SV, long_prompt,
+                              f"hymba-1.5b one {HYMBA_LONG_PROMPT}-token "
+                              f"prompt past the window", card,
+                              tag="recurrent")
+    report["launches_hymba"] = dict(base["launches"],
+                                    decode_reduce=v["paged_decode/fold"])
+    report["recurrent"] = {"hymba-1.5b": _recurrent_summary(base),
+                           "hymba-1.5b long": _recurrent_summary(long)}
+    # the baseline's graphed engine (and through it the weights) stays for
+    # the profile at the end of the script
+    report["recurrent_engines"] = {"hymba-1.5b": (base["engine"], prompts)}
+    del params, base
+    free_cuda()
+
+
+def _recurrent_summary(r) -> dict:
+    m = r["m"]
+    return dict(prefill_tok_s=m["prefill_tokens"] / m["prefill_s"],
+                decode_ms_step=1e3 * m["decode_s"] / m["decode_calls"],
+                eager_prefill_tok_s=r["eager"]["m"]["prefill_tokens"]
+                / r["eager"]["m"]["prefill_s"],
+                eager_decode_ms_step=1e3 * r["eager"]["m"]["decode_s"]
+                / r["eager"]["m"]["decode_calls"],
+                graphs=r["graphs"], capture_s=r["capture_s"],
+                peak_gib=r["peak"], eager_peak_gib=r["eager_peak"],
+                launches=r["launches"])
+
+
+def serve_xlstm(report, card: str):
+    """Phase 12 (b): xlstm-350m at full width and depth (24 layers: 18
+    mLSTM, 6 sLSTM; d 1024, 4 heads at hd 256), bf16, ``PagedEngine`` tp=1
+    on phase 3's six baseline prompts, eager then graphed, graphed tokens
+    equal to eager.  It has no attention: it launches none of the seven
+    hand-written kernels (checked)."""
+    cfg, params, made_s = recurrent_model("xlstm-350m")
+    _recurrent_weights_line(cfg, params, made_s, card)
+    _, prompts = baseline_prompts(cfg)
+    r = eager_then_graphed(cfg, params, RECURRENT_SV, prompts,
+                           "xlstm-350m baseline", card, kernels=(),
+                           tag="recurrent", keep=True)
+    report["recurrent"]["xlstm-350m"] = _recurrent_summary(r)
+    report["recurrent_engines"]["xlstm-350m"] = (r["engine"], prompts)
+    del params, r
+    free_cuda()
+
+
+def recurrent_gates(report, card: str):
+    """Phase 12 (c): fp32 twins at full width, hymba cut to 2 layers with
+    its window cut to 64, xlstm to one 4-layer period: graphed tokens ==
+    eager (``eager_then_graphed``); then ``PagedEngine`` == the dense
+    ``Engine`` (bucket 16, max_len 2048), token for token, on prompts whose
+    lengths are multiples of 16, where the dense engine pads nothing (its
+    bucket pad would advance the recurrent state)."""
+    import numpy as np
+    from repro_torch.config import Config, ISOConfig, ParallelConfig
+    from repro_torch.serving import Engine, PagedEngine
+
+    rng = np.random.default_rng(8)
+    lengths = [16 * int(n) for n in rng.integers(20, 126, 4)]
+    lengths[0] = max(lengths[0], 1200)            # resumed grants
+    for name, layers, window in (("hymba-1.5b", 2, 64), ("xlstm-350m", 4, 0)):
+        cfg, params, _ = recurrent_model(name, layers, window, "float32")
+        prompts = [rng.integers(2, cfg.vocab_size, n).astype(np.int32)
+                   for n in lengths]
+        kernels = ATTENTION_KERNELS if name.startswith("hymba") else ()
+        r = eager_then_graphed(cfg, params, RECURRENT_SV, prompts,
+                               f"{cfg.name} fp32", card, kernels=kernels,
+                               tag="recurrent")
+        eng = Engine(Config(model=cfg, parallel=ParallelConfig(data=1,
+                                                               model=1),
+                            iso=ISOConfig()), params, max_batch=4,
+                     max_len=2048, bucket=16, device="cuda")
+        dense = dense_pass(eng, prompts, f"{cfg.name} fp32 dense Engine",
+                           card)
+        del eng
+        if dense["tokens"] != r["tokens"]:
+            diff = [i for i, (a, b) in enumerate(zip(dense["tokens"],
+                                                     r["tokens"])) if a != b]
+            raise AssertionError(f"[recurrent] {cfg.name} fp32: paged tokens "
+                                 f"differ from the dense Engine's in "
+                                 f"requests {diff}")
+        log(f"[recurrent] {cfg.name} fp32, prompts {lengths} (multiples of "
+            f"the dense bucket 16): PagedEngine (graphed and eager) == dense "
+            f"Engine, token for token [{card}]")
+        del params
+        free_cuda()
+
+
+def recurrent_profile(report, card: str):
+    """Phase 12 (e), last in the script: ``profile_graphed`` on each model's
+    graphed baseline engine of (a) and (b) (full width and depth, bf16),
+    over one prefill step of four requests and three decode steps: the
+    split between the SSM's elementwise work, the sLSTM's sequential steps
+    and the GEMMs.  The engines are freed after."""
+    engines = report.pop("recurrent_engines")
+    for name, (eng, prompts) in list(engines.items()):
+        profile_graphed(eng, prompts, name, card, "recurrent",
+                        prefill_steps=1)
+        del engines[name], eng
+        free_cuda()
+
+
+def serve_recurrent(report, card: str):
+    """Phase 12 (a)-(c): hymba, xLSTM, the fp32 gates; each model freed
+    before the next."""
+    serve_hymba(report, card)
+    serve_xlstm(report, card)
+    recurrent_gates(report, card)
 
 
 # ---------------------------------------------------------------------------
@@ -3673,14 +3948,14 @@ class PsumTimers:
                 setattr(mod, name, fn)
 
 
-def tp_rank(group, big, tiny, moe):
+def tp_rank(group, big, tiny, moe, hymba):
     """Body of each rank (module level: the spawned ranks import it):
     time one reduce at the decode and prefill shapes in each pattern, serve
     the full-width variants one at a time with the host time inside the
     reduces recorded, freeing the weights after each, a short quantized
-    batch-split run under the host profiler, then the tiny ones and the
-    MoE ones.  ``big``/``tiny``/``moe`` are ``serve_rank`` arguments after
-    the group."""
+    batch-split run under the host profiler, then the tiny ones, the MoE
+    ones and the hymba ones.  ``big``/``tiny``/``moe``/``hymba`` are
+    ``serve_rank`` arguments after the group."""
     import torch
     from repro_torch.launch.serve import serve_rank
     d = big[0].model.d_model
@@ -3724,6 +3999,8 @@ def tp_rank(group, big, tiny, moe):
     free_cuda()
     out["tiny"] = serve_rank(group, *tiny)
     out["moe"] = serve_rank(group, *moe)
+    free_cuda()
+    out["hymba"] = serve_rank(group, *hymba)
     return out
 
 
@@ -3748,6 +4025,33 @@ def granite_tp_case():
                                           max_len=2048,
                                           prefill_token_budget=512))
     return config, [dict(prompts=prompts, max_new=TP_NEW_TOKENS)]
+
+
+def hymba_tp_case():
+    """Phase 5's recurrent pass at tp=1: hymba-1.5b at full width cut to 2
+    layers with its window cut to 64, fp32, page 16, max_batch 4, budget
+    512, three requests of 300-1200 tokens (seed 5), 16 new each, under the
+    default (batch-split at tp=2) and the sequential decode schedule.  Seed
+    0 makes the same function at tp 1 and 2: the heads the tp=2 layout pads
+    (25/5 -> 30/6) are zero, the vocab pads to 32768 and the SSM's inner
+    dim to 3200 at both."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.config import Config, ISOConfig, ParallelConfig, \
+        ServingConfig, get_model_config
+    cfg = dataclasses.replace(get_model_config("hymba-1.5b"), num_layers=2,
+                              sliding_window=64)
+    rng = np.random.default_rng(5)
+    lengths = [int(n) for n in rng.integers(300, 1201, 3)]
+    lengths[0] = max(lengths[0], 900)            # at least one resumed grant
+    prompts = [rng.integers(2, cfg.vocab_size, n).astype(np.int32)
+               for n in lengths]
+    config = Config(model=cfg, parallel=ParallelConfig(data=1, model=1),
+                    iso=ISOConfig(),
+                    serving=ServingConfig(**RECURRENT_SV))
+    return config, [dict(prompts=prompts, max_new=TP_NEW_TOKENS,
+                         serving=dict(decode_schedule=sched))
+                    for sched in ("auto", "sequential")]
 
 
 def tiny_config(tp: int):
@@ -3815,9 +4119,18 @@ def serve_tp(report, card: str):
     moe_want = serve_rank(None, moe_cfg, moe_v, None, 0, "float32",
                           device="cuda")
     free_cuda()
+    # the recurrent family: hymba's 2-layer fp32 twin, the SSM's inner dim
+    # split 1600 a rank with its state, against tp=1 on the same weights
+    hyb_cfg, hyb_v = hymba_tp_case()
+    hymba = (dataclasses.replace(hyb_cfg, parallel=ParallelConfig(data=1,
+                                                                  model=2)),
+             hyb_v, None, 0, "float32")
+    hymba_want = serve_rank(None, hyb_cfg, hyb_v[:1], None, 0, "float32",
+                            device="cuda")[0]
+    free_cuda()
 
     t0 = time.perf_counter()
-    ranks = spawn(tp_rank, 2, args=(big, tiny, moe), device="cuda:0",
+    ranks = spawn(tp_rank, 2, args=(big, tiny, moe, hymba), device="cuda:0",
                   backend="gloo", timeout_s=900)
     log(f"[tp] 2 ranks on cuda:0 over gloo, {time.perf_counter() - t0:.1f}s "
         f"with start-up and weights")
@@ -3950,6 +4263,27 @@ def serve_tp(report, card: str):
             f"{m['prefill_calls']} prefill calls ({m['resumed_grants']} "
             f"resumed), {m['decode_calls']} decode steps, launches per rank "
             f"{ranks[0]['moe'][i]['launches']} ({TP_LABEL}) [{card}]")
+    cfg = hyb_cfg.model
+    for i, v in enumerate(hyb_v):
+        for r, rank in enumerate(ranks):
+            run = rank["hymba"][i]
+            if run["tokens"] != hymba_want["tokens"]:
+                raise AssertionError(f"[tp] hymba tp=2 rank {r} "
+                                     f"{run['decode_schedule']}: tokens "
+                                     f"differ from tp=1's")
+            for kname in ATTENTION_KERNELS:
+                if run["launches"][kname] <= 0:
+                    raise AssertionError(f"[tp] hymba tp=2: {kname} never "
+                                         f"launched: {run['launches']}")
+        m = ranks[0]["hymba"][i]["metrics"]
+        log(f"[tp] hymba-1.5b full width, {cfg.num_layers} layers, window "
+            f"{cfg.sliding_window}, fp32, tp=2 (SSM inner 1600 and 15/3 head "
+            f"slots a rank), {ranks[0]['hymba'][i]['decode_schedule']} "
+            f"decode, prompts {[len(p) for p in v['prompts']]}: tokens on "
+            f"both ranks == the tp=1 engine's on the same weights; "
+            f"{m['prefill_calls']} prefill calls ({m['resumed_grants']} "
+            f"resumed), {m['decode_calls']} decode steps, launches per rank "
+            f"{ranks[0]['hymba'][i]['launches']} ({TP_LABEL}) [{card}]")
 
 
 # ---------------------------------------------------------------------------
@@ -4064,18 +4398,24 @@ def main() -> int:
     log(f"[build] card: {card}")
 
     report = {"launches": {}}
-    check_kernels(report)
-    serve_full(report, card)
-    serve_paper30b(report, card)
-    parity_tiny()
-    serve_tp(report, card)
-    time_kernels(report)
-    serve_ops(report, card)
-    serve_dense(report, card)
-    serve_whisper(report, card)
-    serve_moe(report, card)
-    dense_profiles(report, card)
-    moe_profile(card)
+    phases = (("2 kernels", lambda: check_kernels(report)),
+              ("3 serve qwen3-8b", lambda: serve_full(report, card)),
+              ("3 serve paper-30b", lambda: serve_paper30b(report, card)),
+              ("4 parity", parity_tiny),
+              ("5 tp", lambda: serve_tp(report, card)),
+              ("6 time", lambda: time_kernels(report)),
+              ("7 ops", lambda: serve_ops(report, card)),
+              ("10 dense", lambda: serve_dense(report, card)),
+              ("10 whisper", lambda: serve_whisper(report, card)),
+              ("11 moe", lambda: serve_moe(report, card)),
+              ("12 recurrent", lambda: serve_recurrent(report, card)),
+              ("10 (c) profiles", lambda: dense_profiles(report, card)),
+              ("11 profile", lambda: moe_profile(card)),
+              ("12 (e) profiles", lambda: recurrent_profile(report, card)))
+    for name, run in phases:
+        t = time.perf_counter()
+        run()
+        log(f"[time] phase {name}: {time.perf_counter() - t:.1f}s")
 
     log(f"[done] every phase passed in {time.perf_counter() - t0:.1f}s "
         f"(the build included) [{card}]")
@@ -4089,7 +4429,11 @@ def main() -> int:
                         "ms": t["ms"], "plain_ms": t["plain_ms"],
                         "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
                         "library_ms": t["library_ms"],
-                        "launches_moe": report["launches_moe"].get(name, 0)})
+                        "launches_moe": report["launches_moe"].get(name, 0),
+                        "launches_hymba": report["launches_hymba"].get(
+                            name, 0),
+                        "launches_xlstm": report["recurrent"][
+                            "xlstm-350m"]["launches"].get(name, 0)})
         assert all(math.isfinite(x) for x in (t["ms"], t["plain_ms"],
                                               t["bound_ms"]))
     print(json.dumps({"kernels": kernels}))

@@ -79,29 +79,41 @@ class ModelConfig:
         return self.block_pattern[layer_idx % len(self.block_pattern)]
 
     def param_count(self, active_only: bool = False) -> int:
-        """Parameters of an ``attn_mlp``, ``attn_moe`` or whisper
-        (``dec_block`` + encoder) stack, norms included, counted as the
-        reference counts them (its LayerNorm biases and whisper's norm_cross
-        apart).  ``active_only``: an MoE layer counts the ``top_k`` experts a
-        token runs through, not all of them (the router and the shared
-        expert count whole either way)."""
+        """Parameters counted as the reference counts them, norms included:
+        its LayerNorm biases and whisper's norm_cross apart, and for a
+        ``hybrid`` layer without the SSM's ``w_dt``, ``w_b`` and ``w_c``
+        (the tensors hold more than this).  ``active_only``: an MoE layer
+        counts the ``top_k`` experts a token runs through, not all of them
+        (the router and the shared expert count whole either way)."""
         d, hd = self.d_model, self.resolved_head_dim
         total = self.vocab_size * d * (1 if self.tie_embeddings else 2)
         mlp_mats = 3 if self.mlp_type == "swiglu" else 2
         attn = 2 * d * self.num_heads * hd + 2 * d * self.num_kv_heads * hd
         for layer in range(self.num_layers):
             kind = self.block_kind(layer)
-            total += attn + 2 * d
+            if kind in (BLOCK_ATTN_MLP, BLOCK_ATTN_MOE, BLOCK_HYBRID,
+                        BLOCK_DEC):
+                total += attn
             if kind == BLOCK_ATTN_MOE:
                 m = self.moe
                 n_e = m.top_k if active_only else m.num_experts
                 total += 3 * d * m.d_ff_expert * n_e
                 total += d * m.num_experts                  # router
                 total += 3 * d * m.shared_expert_d_ff
+            elif kind == BLOCK_HYBRID:
+                s = self.ssm
+                inner = s.expand * d
+                total += 3 * d * inner + inner * (2 * s.state_dim + 1)
+                total += 3 * d * self.d_ff
+            elif kind == BLOCK_MLSTM:
+                total += 4 * d * 2 * d + 3 * d * d
+            elif kind == BLOCK_SLSTM:
+                total += 8 * d * d                # input and recurrent gates
             else:
                 total += mlp_mats * d * self.d_ff
             if kind == BLOCK_DEC:                           # cross-attention
                 total += attn
+            total += 2 * d                                  # norms
         total += self.encoder_layers * (4 * d * d + 2 * d * self.d_ff + 2 * d)
         return int(total)
 

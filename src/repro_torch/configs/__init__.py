@@ -5,14 +5,16 @@ The six dense ``attn_mlp`` configs of the reference's registry, copied field
 for field: four public ones and the paper's own two evaluation models (Table
 1), the three ladder-residual twins (``configs/ladder.py``, ``LADDER``), the
 encoder-decoder whisper-medium (``ENCDEC``), which the dense ``Engine``
-serves, and the two ``attn_moe`` configs (``MOE``).
-The reference's other names raise ``NotImplementedError`` from
+serves, the two ``attn_moe`` configs (``MOE``) and the two recurrent ones
+(``RECURRENT``: the ``hybrid`` hymba-1.5b and the mLSTM/sLSTM xlstm-350m).
+The reference's other name raises ``NotImplementedError`` from
 ``config.get_model_config``, naming the ROADMAP queue A item that ports them
 (``UNPORTED``).
 """
 from repro_torch.configs import (  # noqa: F401
     codeqwen1_5_7b,
     granite_moe_3b_a800m,
+    hymba_1_5b,
     kimi_k2_1t_a32b,
     ladder,
     paper_30b,
@@ -21,6 +23,7 @@ from repro_torch.configs import (  # noqa: F401
     qwen3_4b,
     qwen3_8b,
     whisper_medium,
+    xlstm_350m,
 )
 
 DENSE = ["qwen3-4b", "qwen3-8b", "qwen3-32b", "codeqwen1.5-7b", "paper-30b",
@@ -29,7 +32,8 @@ PAPER = ["paper-30b", "paper-70b"]
 LADDER = ["ladder-qwen3-4b", "ladder-qwen3-8b", "ladder-paper-30b"]
 ENCDEC = ["whisper-medium"]
 MOE = ["granite-moe-3b-a800m", "kimi-k2-1t-a32b"]
+RECURRENT = ["hymba-1.5b", "xlstm-350m"]
 
 # the reference's registered names the port does not serve yet -> the
 # ROADMAP queue A item that ports them
-UNPORTED = dict.fromkeys(["hymba-1.5b", "xlstm-350m", "internvl2-2b"], 10)
+UNPORTED = {"internvl2-2b": 10}

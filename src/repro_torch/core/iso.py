@@ -1,6 +1,6 @@
 """The ISO scheduler: interleaved per-chunk execution of a transformer stack
-(port of ``repro/core/iso.py`` for attention stacks: ``attn_mlp``,
-``attn_moe``, whisper's ``dec_block`` and bidirectional encoder).
+(port of ``repro/core/iso.py``: ``attn_mlp``, ``attn_moe``, ``hybrid``,
+``mlstm``/``slstm``, whisper's ``dec_block`` and bidirectional encoder).
 
 ISO splits the sequence into chunks and walks the (stage x chunk) grid in the
 order of the paper's Figure 1(d):
@@ -16,7 +16,8 @@ pending collective crosses layer boundaries.  The KV prefix is threaded
 chunk to chunk within each layer.  At tp=1 the collectives are identities,
 so every schedule is numerically the plain stack.  ``lax.scan`` over periods
 becomes a Python loop; the decode drivers update the caches in place (page
-pools, or dense ring caches).
+pools, or dense ring caches, and the recurrent states, which advance only
+in the slots of ``decode_mask`` when one is given).
 
 The ladder-residual wiring (``ladder=True`` in prefill,
 ``run_stack_decode_ladder`` in decode; PAPERS.md, arXiv 2501.06589) is the
@@ -35,7 +36,7 @@ from repro_torch.core.overlap import AxisCtx, Pending, psum_now, psum_start, \
     psum_wait
 from repro_torch.layers import attention as attn_lib
 from repro_torch.layers.norms import norm
-from repro_torch.models.blocks import BLOCK_STAGES, StageCtx
+from repro_torch.models.blocks import BLOCK_STAGES, STATE_KEYS, StageCtx
 
 DECODE_SCHEDULES = ("sequential", "batch_split", "cross_block", "ladder",
                     "ladder_seq")
@@ -49,9 +50,24 @@ class PipeState:
     pend_base: Optional[torch.Tensor]      # its residual base
 
 
+def _index(v, idx):
+    """``v[idx]`` of a tensor, or of each field of a state NamedTuple."""
+    if isinstance(v, tuple):
+        return type(v)(*(t[idx] for t in v))
+    return v[idx]
+
+
 def _period(tree, p: int):
-    """Slice one period out of a per-position dict of period-stacked leaves."""
-    return None if tree is None else {k: v[p] for k, v in tree.items()}
+    """Slice one period out of a per-position dict of period-stacked leaves
+    (views: an in-place write lands in the stacked tensor)."""
+    return None if tree is None else {k: _index(v, p)
+                                      for k, v in tree.items()}
+
+
+def _stack_states(states):
+    """Per-period states of one key -> one state of period-stacked
+    fields."""
+    return type(states[0])(*(torch.stack(f) for f in zip(*states)))
 
 
 def run_layer(p_layer, kind: str, state: PipeState, sctx: StageCtx,
@@ -59,8 +75,9 @@ def run_layer(p_layer, kind: str, state: PipeState, sctx: StageCtx,
               starts: Sequence[int] = (0,),
               ladder: bool = False) -> Tuple[PipeState, Dict]:
     """Run one layer over all chunks in ISO order; returns extras for the
-    KV scatter (``kv_k``/``kv_v`` of the call's tokens) and, for an MoE
-    layer, ``moe_aux`` summed over the chunks.
+    KV scatter (``kv_k``/``kv_v`` of the call's tokens), the recurrent
+    state after the call's last token (``ssm``/``mlstm``/``slstm``) and,
+    for an MoE layer, ``moe_aux`` summed over the chunks.
 
     ``ladder=True``: the ladder-residual wiring.  The pre-resolve branch is
     skipped, so every stage computes on the residual as of two stages ago
@@ -114,6 +131,9 @@ def run_layer(p_layer, kind: str, state: PipeState, sctx: StageCtx,
             if "moe_aux" in extras:
                 extras_out["moe_aux"] = extras_out.get("moe_aux", 0.0) + \
                     extras["moe_aux"]
+            for sk in STATE_KEYS:
+                if sk in extras:
+                    extras_out[sk] = extras[sk]
             if reduces:
                 pend, pend_base, pend_chunk = started, xs[c], c
             else:
@@ -147,8 +167,11 @@ def run_stack_prefill(params_periods, pattern: Sequence[str], x_chunks,
     whisper's cross K/V (``cross_k``/``cross_v`` (P, B, F, Hkv, hd)).
     ``starts`` are call-relative chunk offsets; a row's absolute position is
     ``sctx.pos_offset + starts[c] + t``.  Returns (x_chunks_final, per
-    position extras with ``kv_k``/``kv_v``, and ``moe_aux`` for an MoE
-    position, stacked over periods).
+    position extras with ``kv_k``/``kv_v``, the final recurrent state of a
+    recurrent position and ``moe_aux`` for an MoE position, stacked over
+    periods).  A recurrent position's ``layer_caches`` entry may carry its
+    incoming state (``ssm``/``mlstm``/``slstm``, period-stacked): a
+    resumed grant's carry.
 
     The reference starts from a zero pending reduce (``x += psum(0)``); the
     port starts with none, which is the same numbers without a collective.
@@ -169,6 +192,9 @@ def run_stack_prefill(params_periods, pattern: Sequence[str], x_chunks,
         for name in ("kv_k", "kv_v", "moe_aux"):
             if exs and name in exs[0]:
                 e[name] = torch.stack([x[name] for x in exs])
+        for sk in STATE_KEYS:
+            if exs and sk in exs[0]:
+                e[sk] = _stack_states([x[sk] for x in exs])
         extras.append(e)
     return flush_pending(state), tuple(extras)
 
@@ -215,14 +241,27 @@ def _insert_ring(cache, kv_new, lengths) -> None:
 def _apply_decode_cache_update(cache, extras, sctx: StageCtx) -> None:
     """Fold one stage's decode extras into its cache (in place): page pools
     take the window's KV through the block tables, dense ring caches insert
-    it at ``lengths % ring``."""
-    if cache is None or "kv" not in extras:
+    it at ``lengths % ring``, and a recurrent state is replaced whole (the
+    reference's wholesale replace), only in the slots of
+    ``sctx.decode_mask`` when it is given (the paged engine's slots that
+    really decoded; the reference selects them after the stack, the same
+    numbers since no slot's state reads another's)."""
+    if cache is None:
         return
-    if "k_pages" in cache:
-        _scatter_token_to_pages(cache, extras["kv"], sctx.lengths,
-                                sctx.block_tables, sctx.decode_mask)
-    elif "k" in cache:
-        _insert_ring(cache, extras["kv"], sctx.lengths)
+    if "kv" in extras:
+        if "k_pages" in cache:
+            _scatter_token_to_pages(cache, extras["kv"], sctx.lengths,
+                                    sctx.block_tables, sctx.decode_mask)
+        elif "k" in cache:
+            _insert_ring(cache, extras["kv"], sctx.lengths)
+    for sk in STATE_KEYS:
+        if sk in extras and sk in cache:
+            for old, new in zip(cache[sk], extras[sk]):
+                if sctx.decode_mask is not None:
+                    keep = sctx.decode_mask.reshape(
+                        (-1,) + (1,) * (old.ndim - 1))
+                    new = torch.where(keep, new.to(old.dtype), old)
+                old.copy_(new)
 
 
 def run_stack_decode(params_periods, pattern: Sequence[str], x, caches,
@@ -327,9 +366,10 @@ def run_stack_decode_overlap(params_periods, pattern: Sequence[str], x,
 
     At decode there is no sequence to split, but a continuous-batching step
     carries independent requests, so slots [0, B/2) and [B/2, B) are the two
-    "chunks".  They share no state (separate KV pages), so there is no
-    cross-chunk edge: each half's reduce is started as soon as its partial
-    exists, its KV scatter lands inside the window, and the OTHER half's
+    "chunks".  They share no state (separate KV pages and recurrent
+    slots), so there is no cross-chunk edge: each half's reduce is started
+    as soon as its partial exists, its KV scatter lands inside the window,
+    and the OTHER half's
     pending reduce completes after this half's compute.  Paged caches only;
     the pools are shared by both halves and scattered in place.  ``B < 2``
     has no second half and runs the sequential schedule."""
@@ -353,12 +393,17 @@ def run_stack_decode_overlap(params_periods, pattern: Sequence[str], x,
     for p in range(len(params_periods[0])):
         for i, kind in enumerate(pattern):
             cache_i = _period(caches[i], p)
+            # each half reads and advances its own slots' recurrent states
+            # (views); the pools are shared whole
+            halves = [None if cache_i is None else
+                      {k: _index(v, slice(lo, hi)) if k in STATE_KEYS else v
+                       for k, v in cache_i.items()} for lo, hi in bounds]
             for fn, reduces in BLOCK_STAGES[kind]:
                 for h in range(2):
                     out, _, extras = fn(params_periods[i][p], xs[h], 0, None,
-                                        sctxs[h], cache_i)
+                                        sctxs[h], halves[h])
                     started = psum_start(out, ctx) if reduces else None
-                    _apply_decode_cache_update(cache_i, extras, sctxs[h])
+                    _apply_decode_cache_update(halves[h], extras, sctxs[h])
                     # the other half's reduce ran beside this half's compute
                     if pend is not None:
                         xs[pend_h] = pend_base + psum_wait(pend)[0]

@@ -1,17 +1,19 @@
 """Model API used by launch/ and serving/ (port of ``repro/models/api.py``
-for the dense, MoE and audio families).
+for the dense, MoE, hybrid, ssm (xLSTM) and audio families).
 
   init_params(seed, cfg, tp, dtype, device, rank) -> params
   prefill(params, cfg, ctx, iso, batch, ...)  -> dict (logits_local, ...)
   decode_step(params, cfg, ctx, tokens, caches, lengths, ...)
                                               -> (logits_local, caches)
   init_caches(cfg, batch, cache_len, tp, dtype, device) -> dense caches
+  init_state_caches(cfg, batch, tp, dtype, device, local)
+                                              -> per-slot recurrent states
   make_inputs(cfg, seq_len, batch, seed, dtype, device) -> batch
 
 ``prefill``'s dict carries ``moe_aux``, the MoE load-balance aux (0.0
-without MoE).  ``batch`` is ``{"tokens": (B, S) integer}`` for the dense and
-MoE families and ``{"frames": (B, F, D), "tokens": (B, S)}`` for audio
-(whisper; the frames are the stub frontend's output).
+without MoE).  ``batch`` is ``{"tokens": (B, S) integer}`` for the dense,
+MoE, hybrid and ssm families and ``{"frames": (B, F, D), "tokens": (B,
+S)}`` for audio (whisper; the frames are the stub frontend's output).
 """
 from __future__ import annotations
 
@@ -77,6 +79,19 @@ def init_caches(cfg: ModelConfig, batch: int, cache_len: int, tp: int = 1,
         return whisper_lib.init_whisper_caches(cfg, batch, cache_len, tp,
                                                dtype=dtype, device=device)
     return dec_lib.init_caches(cfg, batch, cache_len, tp, dtype, device)
+
+
+def init_state_caches(cfg: ModelConfig, batch: int, tp: int = 1,
+                      dtype=torch.bfloat16, device=None, local: bool = False):
+    """Per-slot recurrent-state caches for the paged engine: the dense
+    caches minus ``k``/``v``/``pos`` (KV lives in the page pool,
+    serving/kvcache.py); ``local``: one tp rank's shard (see
+    decoder.init_state_caches)."""
+    if cfg.family == "audio":
+        raise NotImplementedError("the paged engine does not serve "
+                                  "encoder-decoder models")
+    return dec_lib.init_state_caches(cfg, batch, tp, dtype,
+                                     resolve_device(device), local=local)
 
 
 def make_inputs(cfg: ModelConfig, seq_len: int, global_batch: int,

@@ -1,13 +1,18 @@
-"""Block stage functions, the unit the ISO scheduler drives (port of the
-attention subset of ``repro/models/blocks.py``: ``attn_mlp``, ``attn_moe``
-and whisper's ``dec_block``).
+"""Block stage functions, the unit the ISO scheduler drives (port of
+``repro/models/blocks.py``: ``attn_mlp``, ``attn_moe``, hymba's ``hybrid``,
+xLSTM's ``mlstm`` and ``slstm``, and whisper's ``dec_block``).
 
 A layer is a list of stages; each maps a chunk of the residual stream to an
-output that NEEDS the TP all-reduce (``reduces=True``).  The scheduler
-(core/iso.py) owns residual adds and collective timing, so blocks never
-reduce.  Sequential per-stage state: attention carries the growing (k, v)
-prefix of the call (in ``encode`` mode, the whole sequence's); cross-
-attention, the MLP and the MoE FFN carry none.
+output that either NEEDS the TP all-reduce (``reduces=True``, an unreduced
+partial) or is already whole (the sLSTM, whose weights are replicated).
+The scheduler (core/iso.py) owns residual adds and collective timing, so
+blocks never reduce.  Sequential per-stage state, the cross-chunk edge ISO
+keeps: attention carries the growing (k, v) prefix of the call (in
+``encode`` mode, the whole sequence's); ``hybrid`` the pair (that prefix,
+its ``SSMState``); ``mlstm``/``slstm`` their ``MLSTMState``/``SLSTMState``;
+cross-attention, the MLP and the MoE FFN carry none.  A recurrent stage's
+first chunk starts from ``cache[ssm|mlstm|slstm]`` when the cache has one
+(a decode step, or a resumed grant's carry), else from zero state.
 """
 from __future__ import annotations
 
@@ -17,10 +22,12 @@ from typing import Any, Optional
 import torch
 
 from repro_torch.config import BLOCK_ATTN_MLP, BLOCK_ATTN_MOE, BLOCK_DEC, \
-    ModelConfig
+    BLOCK_HYBRID, BLOCK_MLSTM, BLOCK_SLSTM, ModelConfig
 from repro_torch.layers import attention as attn_lib
 from repro_torch.layers import mlp as mlp_lib
 from repro_torch.layers import moe as moe_lib
+from repro_torch.layers import ssm as ssm_lib
+from repro_torch.layers import xlstm as xlstm_lib
 from repro_torch.layers.norms import norm
 
 
@@ -91,21 +98,34 @@ def _prefill_attn(p_attn, xn, kv_state, cache, sctx: StageCtx, start_pos, B):
         prefix_pos=prefix_pos, window=sctx.window, k_limit=k_limit)
 
 
+def _decode_attn(p_attn, xn, sctx: StageCtx, cache):
+    """One decode window's attention over the page pools or a dense ring
+    cache; returns (partial, the window's kv)."""
+    cfg = sctx.cfg
+    if "k_pages" in cache:
+        return attn_lib.attn_decode_paged_partial(
+            p_attn, xn, cfg, sctx.group_eff,
+            k_pages=cache["k_pages"], v_pages=cache["v_pages"],
+            block_tables=sctx.block_tables, lengths=sctx.lengths,
+            window=sctx.window, kv_splits=sctx.kv_splits)
+    return attn_lib.attn_decode_partial(
+        p_attn, xn, cfg, sctx.group_eff,
+        cache_k=cache["k"], cache_v=cache["v"], lengths=sctx.lengths,
+        window=sctx.window, cache_pos=cache.get("pos"))
+
+
+def _grow_kv(kv_state, kv_new):
+    if kv_state is None:
+        return kv_new
+    return (torch.cat([kv_state[0], kv_new[0]], dim=1),
+            torch.cat([kv_state[1], kv_new[1]], dim=1))
+
+
 def attn_stage(p, x, start_pos, seq_state, sctx: StageCtx, cache=None):
     cfg = sctx.cfg
     xn = _n1(p, x, cfg)
     if sctx.mode == "decode":
-        if "k_pages" in cache:
-            partial, kv_new = attn_lib.attn_decode_paged_partial(
-                p["attn"], xn, cfg, sctx.group_eff,
-                k_pages=cache["k_pages"], v_pages=cache["v_pages"],
-                block_tables=sctx.block_tables, lengths=sctx.lengths,
-                window=sctx.window, kv_splits=sctx.kv_splits)
-        else:
-            partial, kv_new = attn_lib.attn_decode_partial(
-                p["attn"], xn, cfg, sctx.group_eff,
-                cache_k=cache["k"], cache_v=cache["v"], lengths=sctx.lengths,
-                window=sctx.window, cache_pos=cache.get("pos"))
+        partial, kv_new = _decode_attn(p["attn"], xn, sctx, cache)
         return partial, seq_state, {"kv": kv_new}
     if sctx.mode == "encode":
         # seq_state holds the full sequence's (k, v), projected by the
@@ -115,12 +135,7 @@ def attn_stage(p, x, start_pos, seq_state, sctx: StageCtx, cache=None):
         return partial, seq_state, {}
     partial, kv_new = _prefill_attn(p["attn"], xn, seq_state, cache, sctx,
                                     start_pos, x.shape[0])
-    if seq_state is None:
-        new_state = kv_new
-    else:
-        new_state = (torch.cat([seq_state[0], kv_new[0]], dim=1),
-                     torch.cat([seq_state[1], kv_new[1]], dim=1))
-    return partial, new_state, {"kv": kv_new}
+    return partial, _grow_kv(seq_state, kv_new), {"kv": kv_new}
 
 
 def cross_attn_stage(p, x, start_pos, seq_state, sctx: StageCtx,
@@ -149,18 +164,71 @@ def moe_stage(p, x, start_pos, seq_state, sctx: StageCtx, cache=None):
     return partial, seq_state, {"moe_aux": aux}
 
 
-# kind -> ((stage_fn, reduces), ...); every stage ends in a TP all-reduce
+def _carry(seq_state, cache, key):
+    """A recurrent stage's incoming state: the call's previous chunk's, else
+    the cache's (a decode step, a resumed grant), else None (zero)."""
+    if seq_state is None and cache is not None and key in cache:
+        return cache[key]
+    return seq_state
+
+
+def hybrid_stage(p, x, start_pos, seq_state, sctx: StageCtx, cache=None):
+    """hymba: attention and mamba heads side by side on the one pre-norm
+    input; their unreduced partials ADD, so the block still ends in ONE
+    all-reduce.  seq_state: (the call's kv prefix, the SSM state)."""
+    cfg = sctx.cfg
+    xn = _n1(p, x, cfg)
+    kv_state, ssm_state = seq_state if seq_state is not None else (None,
+                                                                   None)
+    if sctx.mode == "decode":
+        a_part, kv_new = _decode_attn(p["attn"], xn, sctx, cache)
+        s_part, ssm_new = ssm_lib.ssm_decode_partial(p["ssm"], xn, cfg.ssm,
+                                                     cache["ssm"])
+        return a_part + s_part, seq_state, {"kv": kv_new, "ssm": ssm_new}
+    ssm_state = _carry(ssm_state, cache, "ssm")
+    a_part, kv_new = _prefill_attn(p["attn"], xn, kv_state, cache, sctx,
+                                   start_pos, x.shape[0])
+    s_part, ssm_new = ssm_lib.ssm_partial(p["ssm"], xn, cfg.ssm, ssm_state)
+    return a_part + s_part, (_grow_kv(kv_state, kv_new), ssm_new), \
+        {"kv": kv_new, "ssm": ssm_new}
+
+
+def mlstm_stage(p, x, start_pos, seq_state, sctx: StageCtx, cache=None):
+    cfg = sctx.cfg
+    xn = _n1(p, x, cfg)
+    out, state = xlstm_lib.mlstm_partial(p["mlstm"], xn, cfg,
+                                         _carry(seq_state, cache, "mlstm"))
+    return out, state, {"mlstm": state}
+
+
+def slstm_stage(p, x, start_pos, seq_state, sctx: StageCtx, cache=None):
+    cfg = sctx.cfg
+    xn = _n1(p, x, cfg)
+    out, state = xlstm_lib.slstm_forward(p["slstm"], xn, cfg,
+                                         _carry(seq_state, cache, "slstm"))
+    return out, state, {"slstm": state}
+
+
+# kind -> ((stage_fn, reduces), ...); the sLSTM's replicated weights give a
+# whole output: no collective
 BLOCK_STAGES = {
     BLOCK_ATTN_MLP: ((attn_stage, True), (mlp_stage, True)),
     BLOCK_ATTN_MOE: ((attn_stage, True), (moe_stage, True)),
+    BLOCK_HYBRID: ((hybrid_stage, True), (mlp_stage, True)),
+    BLOCK_MLSTM: ((mlstm_stage, True),),
+    BLOCK_SLSTM: ((slstm_stage, False),),
     BLOCK_DEC: ((attn_stage, True), (cross_attn_stage, True),
                 (mlp_stage, True)),
 }
+
+# the per-slot recurrent states a block kind carries, by cache key
+STATE_KEYS = ("ssm", "mlstm", "slstm")
 
 
 def pattern_all_reduces(pattern) -> bool:
     """True when every stage of every block kind in ``pattern`` ends in a TP
     all-reduce: the precondition of the ladder-residual wiring
     (core/iso.run_stack_decode_ladder), since a stage without a collective
-    has nothing to lag behind the next stage's compute."""
+    has nothing to lag behind the next stage's compute (the sLSTM), and the
+    one-stage lag would change the function for no overlap."""
     return all(r for kind in pattern for _, r in BLOCK_STAGES[kind])

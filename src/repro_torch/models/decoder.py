@@ -1,6 +1,6 @@
 """Decoder-stack model driver (port of ``repro/models/decoder.py`` for the
-dense and MoE families and for whisper's encoder and decoder stacks,
-``models/whisper.py``).
+dense, MoE, hybrid (hymba) and xLSTM families and for whisper's encoder and
+decoder stacks, ``models/whisper.py``).
 
 Forward code is written in the local-shard view: under tensor parallelism
 each rank holds its shard of every sharded leaf (``SHARD_AXIS``) and the
@@ -12,7 +12,10 @@ unstacked into one dict per layer.  LayerNorm configs add a ``bias`` to
 every norm; a ``dec_block`` layer adds ``cross`` (the cross-attention's
 projections) and ``norm_cross``; an ``attn_moe`` layer has ``moe``
 (layers/moe.init_moe: ``router``, expert-stacked ``w_up``/``w_gate``/
-``w_down``, an optional ``shared`` expert) where a dense one has ``mlp``.
+``w_down``, an optional ``shared`` expert) where a dense one has ``mlp``; a
+``hybrid`` layer has ``attn``, ``ssm`` (layers/ssm.init_ssm) and ``mlp``;
+an ``mlstm`` or ``slstm`` layer has ``norm1`` and ``mlstm`` or ``slstm``
+(layers/xlstm.py) only.
 """
 from __future__ import annotations
 
@@ -21,29 +24,35 @@ from typing import Any, Dict, Optional
 import torch
 
 from repro_torch.config import BLOCK_ATTN_MLP, BLOCK_ATTN_MOE, BLOCK_DEC, \
-    ISOConfig, ModelConfig, padded_vocab
+    BLOCK_HYBRID, BLOCK_MLSTM, BLOCK_SLSTM, ISOConfig, ModelConfig, \
+    padded_vocab
 from repro_torch.core.chunking import split_chunks
 from repro_torch.core.iso import run_stack_decode, run_stack_prefill
 from repro_torch.core.overlap import AxisCtx, psum_now
 from repro_torch.layers import embeddings as emb_lib
 from repro_torch.layers.heads import expand_heads, head_layout
+from repro_torch.layers import ssm as ssm_lib
+from repro_torch.layers import xlstm as xlstm_lib
 from repro_torch.layers.moe import init_moe
 from repro_torch.layers.norms import init_norm, norm
 from repro_torch.layers.rope import sinusoid_angles, sinusoidal_embedding
-from repro_torch.models.blocks import StageCtx
+from repro_torch.models.blocks import STATE_KEYS, StageCtx
 
 
 # family -> the block kinds the port serves in it
 FAMILY_KINDS = {"dense": (BLOCK_ATTN_MLP,),
                 "moe": (BLOCK_ATTN_MOE,),
+                "hybrid": (BLOCK_HYBRID,),
+                "ssm": (BLOCK_MLSTM, BLOCK_SLSTM),
                 "audio": (BLOCK_ATTN_MLP, BLOCK_DEC)}
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """The port serves dense ``attn_mlp`` and MoE ``attn_moe`` stacks,
-    standard- or ladder-wired, and whisper's encoder (``attn_mlp``) and
-    decoder (``dec_block``) stacks; anything else raises, naming its
-    ROADMAP item."""
+    standard- or ladder-wired, hymba's ``hybrid`` and xLSTM's ``mlstm`` /
+    ``slstm`` stacks, and whisper's encoder (``attn_mlp``) and decoder
+    (``dec_block``) stacks; anything else (the VLM family) raises, naming
+    its ROADMAP item."""
     kinds = FAMILY_KINDS.get(cfg.family, ())
     if not kinds or any(k not in kinds for k in cfg.block_pattern):
         raise NotImplementedError(
@@ -55,11 +64,11 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 # ---------------------------------------------------------------------------
-# tensor-parallel sharding (the attention-stack rules of the reference's
-# models/decoder._leaf_spec): leaf name -> the axis split over the tp ranks;
-# leaves not named here (norms, qk-norm scales, the MoE router) are
-# replicated.  An expert-stacked (3-D) w_up/w_gate/w_down splits its experts
-# instead (EXPERT_AXIS); the shared expert's 2-D leaves split as the MLP's
+# tensor-parallel sharding (the rules of the reference's
+# models/decoder._leaf_spec): a leaf's name, its parent and its rank -> the
+# axis split over the tp ranks, or None (replicated: norms, qk-norm scales,
+# the MoE router, the SSM's w_b/w_c, the mLSTM's q/k and gates, the biases,
+# and every leaf under ``slstm``)
 # ---------------------------------------------------------------------------
 
 SHARD_AXIS = {
@@ -68,17 +77,32 @@ SHARD_AXIS = {
     "wo": 0,                                 # (H, hd, D): row-split
     "w_up": 1, "w_gate": 1,                  # (D, F): column-split
     "w_down": 0,                             # (F, D): row-split
+    "w_x": 1, "w_z": 1, "w_dt": 1,           # SSM (D, inner): column-split
+    "conv_w": 1,                             # (width, inner)
+    "dt_bias": 0, "d_skip": 0, "a_log": 0,   # along inner
+    "w_v": 2, "w_og": 2,                     # mLSTM (D, H, hd): the v dim
 }
 EXPERT_AXIS = 0                              # (E, D, F) / (E, F, D)
 
 
-def shard_leaf(name: str, t: torch.Tensor, rank: int, tp: int
-               ) -> torch.Tensor:
-    """Rank ``rank``'s shard of leaf ``name`` (a copy, so the full tensor can
-    be freed); replicated leaves come back as they are."""
-    axis = SHARD_AXIS.get(name)
-    if name in ("w_up", "w_gate", "w_down") and t.ndim == 3:
-        axis = EXPERT_AXIS
+def shard_axis(name: str, parent: str, ndim: int) -> Optional[int]:
+    """The axis of leaf ``name`` (under ``parent``, of ``ndim`` dims) split
+    over the tp ranks, or None when it is replicated."""
+    if parent == "slstm":                    # replicated, w_z included
+        return None
+    if name in ("w_up", "w_gate", "w_down") and ndim == 3:
+        return EXPERT_AXIS                   # MoE expert-stacked
+    if name == "w_out":                      # mLSTM (H, hd_loc, D): dim 1;
+        return 1 if ndim == 3 else 0         # SSM (inner_loc, D): rows
+    return SHARD_AXIS.get(name)
+
+
+def shard_leaf(name: str, t: torch.Tensor, rank: int, tp: int,
+               parent: str = "") -> torch.Tensor:
+    """Rank ``rank``'s shard of leaf ``name`` under ``parent`` (a copy, so
+    the full tensor can be freed); replicated leaves come back as they
+    are."""
+    axis = shard_axis(name, parent, t.ndim)
     if axis is None or tp == 1:
         return t
     n = t.shape[axis]
@@ -88,15 +112,15 @@ def shard_leaf(name: str, t: torch.Tensor, rank: int, tp: int
     return t.narrow(axis, rank * (n // tp), n // tp).clone()
 
 
-def _shard_tree(tree, rank: int, tp: int, name: str = ""):
+def _shard_tree(tree, rank: int, tp: int, name: str = "", parent: str = ""):
     if isinstance(tree, dict):
-        return {k: _shard_tree(v, rank, tp, k) for k, v in tree.items()}
-    return shard_leaf(name, tree, rank, tp)
+        return {k: _shard_tree(v, rank, tp, k, name) for k, v in tree.items()}
+    return shard_leaf(name, tree, rank, tp, parent)
 
 
 def shard_params(params: Dict, rank: int, tp: int) -> Dict:
     """Rank ``rank``'s local view of port params built at tp=``tp`` (head
-    slots and vocab padded for that degree)."""
+    slots, vocab and the SSM's inner dim padded for that degree)."""
     if not 0 <= rank < tp:
         raise ValueError(f"rank {rank} outside tp={tp}")
     out = {k: _shard_tree(v, rank, tp) for k, v in params.items()
@@ -149,13 +173,22 @@ def _init_layer(gen, cfg: ModelConfig, kind: str, layout, dtype,
     d, ff = cfg.d_model, cfg.d_ff
     s = 0.02
     so = s / (2 * cfg.num_layers) ** 0.5
-    p = {"norm1": init_norm(d, device, cfg.norm_type),
-         "attn": _init_attention(gen, cfg, layout, dtype, device),
-         "norm2": init_norm(d, device, cfg.norm_type)}
+    p = {"norm1": init_norm(d, device, cfg.norm_type)}
+    if kind == BLOCK_MLSTM:
+        p["mlstm"] = xlstm_lib.init_mlstm(gen, cfg, dtype, device)
+        return p
+    if kind == BLOCK_SLSTM:
+        p["slstm"] = xlstm_lib.init_slstm(gen, cfg, dtype, device)
+        return p
+    p["attn"] = _init_attention(gen, cfg, layout, dtype, device)
+    p["norm2"] = init_norm(d, device, cfg.norm_type)
     if kind == BLOCK_ATTN_MOE:
         p["moe"] = init_moe(gen, d, cfg.moe, tp, cfg.num_layers, dtype,
                             device)
         return p
+    if kind == BLOCK_HYBRID:
+        p["ssm"] = ssm_lib.init_ssm(gen, d, cfg.ssm, tp, cfg.num_layers,
+                                    dtype, device)
     mlp = {"w_up": _normal(gen, (d, ff), s, dtype, device)}
     if cfg.mlp_type == "swiglu":
         mlp["w_gate"] = _normal(gen, (d, ff), s, dtype, device)
@@ -172,8 +205,10 @@ def init_decoder_params(seed: int, cfg: ModelConfig, tp: int = 1,
                         dtype=torch.bfloat16, device: torch.device = None,
                         rank: Optional[int] = None) -> Dict:
     """Random weights from ``seed`` with the reference's distributions
-    (normal x 0.02; ``wo`` and ``w_down`` x 0.02/sqrt(2L); norms at one,
-    LayerNorm biases at zero), made on ``device``.  The bits differ from the
+    (normal x 0.02; ``wo``, ``w_down`` and the recurrent blocks' out
+    projections x 0.02/sqrt(2L); norms at one, LayerNorm biases at zero;
+    the recurrent blocks' fp32 leaves as layers/ssm.py and
+    layers/xlstm.py make them), made on ``device``.  The bits differ from the
     reference's: JAX's PRNG is not re-implemented (``bridge.py`` imports the
     reference's own weights).
 
@@ -325,8 +360,9 @@ def prefill(params, cfg: ModelConfig, ctx: AxisCtx, iso: ISOConfig, *,
 def _build_caches(extras, cfg: ModelConfig, B: int, S: int, cache_len: int):
     """Per-position prefill extras -> dense decode caches: ``k``/``v`` (P,
     B, L, Hkv, hd) and ``pos`` (P, B, L) int32 (-1 = empty), L the cache
-    length (the window for a sliding-window config); the last L tokens land
-    at slot ``position % L``."""
+    length (the window for a sliding-window config), the last L tokens at
+    slot ``position % L``; and a recurrent position's final state
+    (``ssm``/``mlstm``/``slstm``, period-stacked) as it is."""
     caches = []
     for ex in extras:
         c: Dict[str, Any] = {}
@@ -347,26 +383,69 @@ def _build_caches(extras, cfg: ModelConfig, B: int, S: int, cache_len: int):
             cv[:, :, slots] = v[:, :, S - n_keep:]
             cpos[:, :, slots] = pos_vals
             c.update(k=ck, v=cv, pos=cpos)
+        for sk in STATE_KEYS:
+            if sk in ex:
+                c[sk] = ex[sk]
         caches.append(c)
     return tuple(caches)
+
+
+def init_state_caches(cfg: ModelConfig, batch: int, tp: int = 1,
+                      dtype=torch.bfloat16, device=None,
+                      local: bool = False):
+    """Zero recurrent states per pattern position, period-stacked: a
+    ``hybrid`` position's ``ssm`` (``SSMState``: conv (P, batch, width-1,
+    inner) in ``dtype``, h (P, batch, inner, N) fp32), an ``mlstm``'s
+    (``MLSTMState``: c (P, batch, H, hd, hd), n, m at -1e30, fp32) and an
+    ``slstm``'s (``SLSTMState``, (P, batch, D) each, n at 1, fp32); other
+    positions get ``{}``.  GLOBAL shapes (the SSM inner dim padded for
+    ``tp``), or with ``local`` one rank's: inner and the mLSTM's v dim
+    divided by ``tp``, as the reference's ``cache_specs`` shard them."""
+    periods = pattern_periods(cfg)
+    split = tp if local else 1
+
+    def stacked(state):
+        return type(state)(*(t.unsqueeze(0).repeat(
+            (periods,) + (1,) * t.ndim) for t in state))
+
+    out = []
+    for kind in cfg.block_pattern:
+        c: Dict[str, Any] = {}
+        if kind == BLOCK_HYBRID:
+            inner = ssm_lib.inner_dim(cfg.d_model, cfg.ssm, tp) // split
+            c["ssm"] = stacked(ssm_lib.init_ssm_state(batch, inner, cfg.ssm,
+                                                      dtype, device))
+        elif kind == BLOCK_MLSTM:
+            hd = cfg.d_model // cfg.num_heads
+            c["mlstm"] = stacked(xlstm_lib.init_mlstm_state(
+                batch, cfg.num_heads, hd, hd // split, device))
+        elif kind == BLOCK_SLSTM:
+            c["slstm"] = stacked(xlstm_lib.init_slstm_state(
+                batch, cfg.d_model, device))
+        out.append(c)
+    return tuple(out)
 
 
 def init_caches(cfg: ModelConfig, batch: int, cache_len: int, tp: int = 1,
                 dtype=torch.bfloat16, device=None):
     """Empty dense decode caches at the GLOBAL padded kv head count: per
-    pattern position ``k``/``v`` (P, batch, L, Hkv, hd) zeros and ``pos``
+    attention position ``k``/``v`` (P, batch, L, Hkv, hd) zeros and ``pos``
     (P, batch, L) int32 at -1, L = ``cache_len`` (the window for a
-    sliding-window config)."""
+    sliding-window config), and beside them each position's zero recurrent
+    state (``init_state_caches``)."""
     periods = pattern_periods(cfg)
     hkv = head_layout(cfg.num_heads, max(cfg.num_kv_heads, 1), tp).hkv_eff
     eff_len = min(cache_len, cfg.sliding_window) if cfg.sliding_window \
         else cache_len
     shape = (periods, batch, eff_len, hkv, cfg.resolved_head_dim)
-    return tuple(
-        dict(k=torch.zeros(shape, dtype=dtype, device=device),
-             v=torch.zeros(shape, dtype=dtype, device=device),
-             pos=torch.full(shape[:3], -1, dtype=torch.int32, device=device))
-        for _ in cfg.block_pattern)
+    caches = init_state_caches(cfg, batch, tp, dtype, device)
+    for kind, c in zip(cfg.block_pattern, caches):
+        if kind not in (BLOCK_MLSTM, BLOCK_SLSTM):
+            c.update(k=torch.zeros(shape, dtype=dtype, device=device),
+                     v=torch.zeros(shape, dtype=dtype, device=device),
+                     pos=torch.full(shape[:3], -1, dtype=torch.int32,
+                                    device=device))
+    return caches
 
 
 # ---------------------------------------------------------------------------

@@ -123,6 +123,8 @@ def decode_overlap_probe(engine, iters: int = 10, warmup: int = 3
                            device=engine.device)
     pools = engine.kv.k + engine.kv.v
     saved = [pool.index_select(1, written) for pool in pools]
+    # the recurrent states every decode advances (a recurrent stack's)
+    states = [(t, t.clone()) for t in engine._state_tensors]
 
     def run(fn) -> float:
         if fn.graphed and fn.graph is None:
@@ -147,6 +149,8 @@ def decode_overlap_probe(engine, iters: int = 10, warmup: int = 3
     finally:
         for pool, keep in zip(pools, saved):
             pool.index_copy_(1, written, keep)
+        for t, keep in states:
+            t.copy_(keep)
         synchronize(engine.device)
     t_seq = result["t_sequential_s"] = result["schedules"]["sequential"]
     t_ovl = result["t_overlap_s"] = result["schedules"].get("batch_split",

@@ -10,12 +10,19 @@ lengths are bucketed (``bucket``); the padded tail's cache positions are
 scrubbed to -1 when the prefill's caches are written into the slot
 (``_write_slot``).  It is the only engine that serves the encoder-decoder
 family (whisper): a request's ``frames`` ride into its prefill, and its
-cross K/V into the slot's ``cross_k``/``cross_v``.
+cross K/V into the slot's ``cross_k``/``cross_v``.  A recurrent stack
+(hymba's ``hybrid``, xLSTM's ``mlstm``/``slstm``) keeps each slot's state
+(``ssm``/``mlstm``/``slstm``) beside the ring caches: a prefill writes the
+state after the whole BUCKET-PADDED prompt into the slot (the pad tokens
+advance it, as the reference's do), and every decode step advances every
+slot's state, as the reference's wholesale replace (a slot's state is
+rewritten by the prefill of the next request it takes).
 
 Speculative decoding (``spec_k``): greedy-only self-drafting on attention
-stacks, as the reference; a verify step runs a (spec_k+1)-token window
-through the same dense decode and scrubs the rejected positions
-(``pos >= confirmed length`` -> -1).  Whisper gets ``spec_k`` 0.
+stacks, as the reference (a recurrent stack or whisper gets ``spec_k`` 0:
+a rejected verify token would have advanced the state); a verify step runs
+a (spec_k+1)-token window through the same dense decode and scrubs the
+rejected positions (``pos >= confirmed length`` -> -1).
 
 Observability as the reference's (and ``PagedEngine``'s): the same counter
 names (plus the dense-only ``spec_accepted``), the ``ttft``/``tpot``/
@@ -215,11 +222,15 @@ class Engine:
 
     def _write_slot(self, new_caches, slot: int, real_len: int) -> None:
         """Copy a batch-1 prefill's caches into the engine's slot IN PLACE
-        (every leaf with a batch dim of 1; cross K/V cast to the cache
-        dtype), scrubbing the padded positions (``pos >= real_len`` -> -1)."""
+        (every leaf with a batch dim of 1, each field of a recurrent state;
+        cross K/V cast to the cache dtype), scrubbing the padded positions
+        (``pos >= real_len`` -> -1)."""
         for big, small in zip(self.caches, new_caches):
             for name, t in small.items():
-                if t.ndim >= 2 and t.shape[1] == 1:
+                if isinstance(t, tuple):          # a recurrent state
+                    for b, s in zip(big[name], t):
+                        b[:, slot].copy_(s[:, 0])
+                elif t.ndim >= 2 and t.shape[1] == 1:
                     big[name][:, slot].copy_(t[:, 0])
             if "pos" in big:
                 pos = big["pos"][:, slot]

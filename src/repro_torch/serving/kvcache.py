@@ -39,7 +39,7 @@ from repro_torch.config import ModelConfig
 from repro_torch.layers.heads import head_layout
 
 # block kinds that own a KV cache
-KV_KINDS = ("attn_mlp", "attn_moe")
+KV_KINDS = ("attn_mlp", "attn_moe", "hybrid")
 
 
 class OutOfPages(RuntimeError):
@@ -439,13 +439,19 @@ class PagedKVCache:
     """Owns the page pools: ``k[i]``/``v[i]`` for the i-th attention
     position, each (P, N+1, page_size, Hkv_loc, hd), zero-initialised.
     ``Hkv_loc = hkv_eff // tp`` is this rank's share of the kv head slots
-    (the reference shards the pool's head axis over the model axis)."""
+    (the reference shards the pool's head axis over the model axis).  A
+    stack with no attention position (xLSTM) has empty ``k``/``v`` tuples;
+    its allocator still keeps the block tables, and ``dtype``/``device``
+    still name the pool's."""
 
     def __init__(self, cfg: ModelConfig, num_pages: int, page_size: int,
                  tp: int = 1, dtype=torch.bfloat16, device=None):
         self.cfg = cfg
         self.num_pages = num_pages            # usable pages (scratch excluded)
         self.page_size = page_size
+        self.dtype = dtype
+        self.device = torch.device(device) if device is not None \
+            else torch.device("cpu")
         periods = cfg.num_layers // len(cfg.block_pattern)
         layout = head_layout(cfg.num_heads, max(cfg.num_kv_heads, 1), tp)
         shape = (periods, num_pages + 1, page_size, layout.hkv_eff // tp,

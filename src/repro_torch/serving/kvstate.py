@@ -70,7 +70,7 @@ class KVPool:
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.kv.k[0].dtype
+        return self.kv.dtype
 
     # ------------------------------------------------------------------
     # export / import
@@ -98,7 +98,7 @@ class KVPool:
                 row.append(local_of[pg])
             tables[rid] = row
         src = torch.tensor(list(local_of), dtype=torch.long,
-                           device=self.kv.k[0].device)
+                           device=self.kv.device)
         pages = {"k": [_to_host(k.index_select(1, src)) for k in self.kv.k],
                  "v": [_to_host(v.index_select(1, src)) for v in self.kv.v]}
         return {"page_size": self.page_size,
@@ -124,7 +124,7 @@ class KVPool:
         n = blob["n_pages"]
         if n == 0:
             return mapping
-        dev = self.kv.k[0].device
+        dev = self.kv.device
         new_ids = torch.tensor([mapping[lid] for lid in range(n)],
                                dtype=torch.long, device=dev)
         for pools, payloads in ((self.kv.k, blob["pages"]["k"]),
@@ -146,7 +146,7 @@ class KVPool:
         if not len(pages):
             return
         ids = torch.tensor(list(pages), dtype=torch.long,
-                           device=self.kv.k[0].device)
+                           device=self.kv.device)
         for pool in self.kv.k + self.kv.v:
             pool.index_fill_(1, ids, 0)
 

@@ -120,7 +120,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.config import Config, ServingConfig, padded_vocab
+from repro_torch.config import BLOCK_ATTN_MLP, BLOCK_ATTN_MOE, Config, \
+    ServingConfig, padded_vocab
 from repro_torch.core.chunking import grant_buckets, round_to_bucket
 from repro_torch.core.iso import DECODE_SCHEDULES
 from repro_torch.core.overlap import AxisCtx, all_gather_last
@@ -159,8 +160,11 @@ class StepClosure:
     counts stay those of the kernels that ran."""
 
     def __init__(self, buffers: Dict[str, torch.Tensor], body,
-                 graphed: bool):
+                 graphed: bool, mutates: Tuple[torch.Tensor, ...] = ()):
         self.inputs = buffers
+        # state the body advances in place (the recurrent slots): the
+        # capture's warm-up must leave it as it found it
+        self._mutates = mutates
         self._body = torch.no_grad()(body)
         self.graphed = graphed
         on_card = next(iter(buffers.values())).device.type == "cuda"
@@ -194,14 +198,20 @@ class StepClosure:
         stream ``side`` over the staged inputs, so the kernels' library is
         loaded, their attributes are set and B1's arrival counters are
         grown before the capture, which must allocate nothing that outlives
-        it.  The warm-up writes the KV the replay then writes again."""
+        it.  The warm-up writes the KV the replay then writes again; the
+        state it advances (``mutates``) is put back, so the replay that
+        follows advances it once."""
         dev = next(iter(self.inputs.values())).device
         t0 = time.perf_counter()
         main = torch.cuda.current_stream(dev)
+        saved = [t.clone() for t in self._mutates]
         side.wait_stream(main)
         with torch.cuda.stream(side):
             self._body()
         main.wait_stream(side)
+        for t, old in zip(self._mutates, saved):
+            t.copy_(old)
+        del saved
         graph = torch.cuda.CUDAGraph()
         before = native.launch_counts()
         with torch.cuda.graph(graph, pool=pool):
@@ -354,10 +364,10 @@ class PagedEngine:
                                     trace=self.trace)
         else:
             if kv_pool.page_size != self.ps or kv_pool.dtype != table.dtype \
-                    or kv_pool.kv.k[0].device.type != self.device.type:
+                    or kv_pool.kv.device.type != self.device.type:
                 raise ValueError(
                     f"kv_pool (page {kv_pool.page_size}, {kv_pool.dtype}, "
-                    f"{kv_pool.kv.k[0].device}) does not fit this engine "
+                    f"{kv_pool.kv.device}) does not fit this engine "
                     f"(page {self.ps}, {table.dtype}, {self.device})")
             kv_pool.alloc.trace = self.trace
         self.pool = kv_pool
@@ -366,9 +376,26 @@ class PagedEngine:
         # phase routing (disagg): "prefill" never runs the decode phase,
         # "decode" never admits or prefills; "mixed" is the single engine
         self.phase = phase
+        # per-slot recurrent states (hybrid, mlstm, slstm positions), this
+        # rank's shard, static buffers every closure reads and advances in
+        # place: a fresh grant starts from zero state and writes its slot's,
+        # a resumed one reads and writes it, decode advances the slots that
+        # decode
+        self.states = api.init_state_caches(self.cfg, sv.max_batch, self.tp,
+                                            dtype=table.dtype,
+                                            device=self.device, local=True)
+        self._state_tensors = tuple(t for c in self.states
+                                    for st in c.values() for t in st)
+        # the reference's gates: bucketing, packing, prefix sharing and
+        # speculation only for attention-only stacks (pad tokens, packed
+        # rows, shared pages and rejected verify tokens would each advance a
+        # recurrent state wrongly); a recurrent stack runs one closure per
+        # exact grant length
+        attn_only = all(k in (BLOCK_ATTN_MLP, BLOCK_ATTN_MOE)
+                        for k in self.cfg.block_pattern)
         self._buckets = grant_buckets(sv.max_len, sv.min_grant_bucket,
                                       sv.grant_buckets) \
-            if sv.grant_bucketing else None
+            if sv.grant_bucketing and attn_only else None
         self.scheduler = TokenBudgetScheduler(
             policy=sv.scheduler_policy,
             prefill_token_budget=sv.prefill_token_budget,
@@ -377,14 +404,14 @@ class PagedEngine:
         # batched prefill: same-padded-length grants packed into one call,
         # the row count padded up a power-of-two ladder so closures stay
         # keyed on (length bucket, row bucket, all-fresh)
-        self._batch_prefill = sv.prefill_batching
+        self._batch_prefill = sv.prefill_batching and attn_only
         self._row_buckets = grant_buckets(sv.max_batch, min_bucket=1) \
             if self._batch_prefill else (1,)
         # copy-on-write prefix sharing
         self.prefix_cache: Optional[PrefixCache] = \
-            PrefixCache(self.ps) if sv.prefix_sharing else None
+            PrefixCache(self.ps) if sv.prefix_sharing and attn_only else None
         # speculative decoding: greedy-only self-drafting
-        self.spec_k = sv.spec_k
+        self.spec_k = sv.spec_k if attn_only else 0
         self._drafts: List[Optional[BigramDraft]] = [None] * sv.max_batch
         self.slots: List[Optional[RequestState]] = [None] * sv.max_batch
         self.lengths = np.zeros(sv.max_batch, np.int64)   # tokens resident
@@ -577,13 +604,15 @@ class PagedEngine:
             toks = np.concatenate([toks, np.asarray(st.generated, np.int32)])
         return toks
 
-    def _paged_prefix(self):
-        """Per-position prefill caches exposing the page pools in place."""
+    def _paged_prefix(self, states=None):
+        """Per-position caches exposing the page pools in place, and with
+        ``states`` (per position, a dict of state NamedTuples) each
+        recurrent position's state."""
         prefix, kv_i = [], 0
         for i in range(len(self.cfg.block_pattern)):
-            c = {}
+            c = dict(states[i]) if states is not None else {}
             if i in self.kv.kv_positions:
-                c = {"k_pages": self.kv.k[kv_i], "v_pages": self.kv.v[kv_i]}
+                c.update(k_pages=self.kv.k[kv_i], v_pages=self.kv.v[kv_i])
                 kv_i += 1
             prefix.append(c)
         return tuple(prefix)
@@ -643,8 +672,11 @@ class PagedEngine:
         closure serves every grant of its bucket: pad-tail tokens are
         masked out of attention (``valid_len``), scatter to the scratch
         page, and the logits come from the last real row, each through a
-        device comparison or index.  Returns the last real row's local
-        logits (1, V_loc)."""
+        device comparison or index.  A recurrent stack adds the 0-d
+        ``slot``: a resumed grant starts from that slot's states (gathered
+        on the device), a fresh one from zero state, and either writes its
+        final states into the slot in place.  Returns the last real row's
+        local logits (1, V_loc)."""
         key = (n_text, resumed)
         if key in self._prefill_fns:
             return self._prefill_fns[key]
@@ -654,12 +686,25 @@ class PagedEngine:
                 "bt": torch.full((1, self.max_blocks), -1, **i32),
                 "start": torch.zeros((), **i32),
                 "n_real": torch.zeros((), **i32)}
-        prefix = self._paged_prefix() if resumed else None
+        states = self.states
+        if self._state_tensors:
+            bufs["slot"] = torch.zeros((), **i32)
         params, cfg, ctx, iso, kv, ps = self._body_env()
         scratch = kv.scratch_page
+        pools = self._paged_prefix() if resumed else None
 
         def body():
             start, n_real, bt = bufs["start"], bufs["n_real"], bufs["bt"]
+            slot = bufs["slot"].reshape(1).long() if "slot" in bufs \
+                else None
+            prefix = pools
+            if resumed and slot is not None:
+                # the slot's states, (P, 1, ...), beside the pools
+                prefix = tuple(
+                    dict(c, **{sk: type(st)(*(t.index_select(1, slot)
+                                              for t in st))
+                               for sk, st in states[i].items()})
+                    for i, c in enumerate(pools))
             out = api.prefill(
                 params, cfg, ctx, iso,
                 {"tokens": bufs["tokens"]}, logits_mode="none",
@@ -684,9 +729,16 @@ class PagedEngine:
                 k_pool, v_pool = kv.k[kv_i], kv.v[kv_i]
                 k_pool[:, page, off] = ex["kv_k"][:, 0].to(k_pool.dtype)
                 v_pool[:, page, off] = ex["kv_v"][:, 0].to(v_pool.dtype)
+            # the call's final states into the slot (the reference's
+            # states.at[:, slot].set)
+            for i, c in enumerate(states):
+                for sk, st in c.items():
+                    for big, new in zip(st, out["extras"][i][sk]):
+                        big.index_copy_(1, slot, new.to(big.dtype))
             return logits_last
 
-        self._prefill_fns[key] = StepClosure(bufs, body, self._graphed)
+        self._prefill_fns[key] = StepClosure(bufs, body, self._graphed,
+                                             self._state_tensors)
         return self._prefill_fns[key]
 
     def _get_prefill_batched(self, n_text: int, rows: int,
@@ -808,8 +860,10 @@ class PagedEngine:
                          ctx: AxisCtx = None) -> StepClosure:
         """Inputs at B = max_batch: ``toks`` (B, K), ``lengths`` (B,), the
         block tables ``bt`` (B, MB) and the decode ``mask`` (B,).  The body
-        reads the pools in place, scatters the window's KV into them and
-        returns the local logits (B, K, V_loc).  ``ctx``: the collectives'
+        reads the pools in place, scatters the window's KV into them,
+        advances the recurrent states of the slots in ``mask`` in place (the
+        reference's ``jnp.where`` on ``active``) and returns the local
+        logits (B, K, V_loc).  ``ctx``: the collectives'
         context, the engine's by default."""
         B, dev = self.max_batch, self.device
         i32 = dict(dtype=torch.int32, device=dev)
@@ -817,7 +871,7 @@ class PagedEngine:
                 "lengths": torch.zeros((B,), **i32),
                 "bt": torch.full((B, self.max_blocks), -1, **i32),
                 "mask": torch.zeros((B,), dtype=torch.bool, device=dev)}
-        caches = self._paged_prefix()
+        caches = self._paged_prefix(self.states)
         params, cfg, engine_ctx = self._body_env()[:3]
         ctx = engine_ctx if ctx is None else ctx
 
@@ -828,7 +882,7 @@ class PagedEngine:
                 decode_mask=bufs["mask"], kv_splits=S, schedule=schedule)
             return logits
 
-        return StepClosure(bufs, body, self._graphed)
+        return StepClosure(bufs, body, self._graphed, self._state_tensors)
 
     # ------------------------------------------------------------------
     # step phases
@@ -845,6 +899,8 @@ class PagedEngine:
                     bt=self.alloc.block_table(st.request.rid,
                                               self.max_blocks)[None],
                     start=start, n_real=n_tokens)
+        if "slot" in fn.inputs:
+            host["slot"] = st.slot
         self._compile(fn, host)
         t0 = time.perf_counter()
         with torchprof.annotate(f"prefill/T={padded}"):

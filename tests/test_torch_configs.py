@@ -1,6 +1,7 @@
 """The port's model registry against the reference's: the six dense configs,
-whisper-medium and the two MoE configs equal field for field, the names the
-port does not serve yet raising
+whisper-medium, the two MoE configs and the two recurrent ones (hymba-1.5b,
+xlstm-350m) equal field for field, the name the port does not serve yet
+raising
 ``NotImplementedError`` with their ROADMAP item, unknown names ``KeyError``;
 and the widths of the registry through the port's layout helpers
 (``padded_vocab``, ``head_layout`` at tp 1/2/4/8, the int8 reduce's
@@ -18,7 +19,8 @@ from repro.configs import PAPER as R_PAPER
 from repro.layers.heads import head_layout as r_head_layout
 
 from repro_torch.config import ModelConfig, get_model_config, padded_vocab
-from repro_torch.configs import DENSE, ENCDEC, MOE, PAPER, UNPORTED
+from repro_torch.configs import DENSE, ENCDEC, MOE, PAPER, RECURRENT, \
+    UNPORTED
 from repro_torch.kernels import int8_quant as q8
 from repro_torch.layers.heads import head_layout
 
@@ -72,6 +74,35 @@ def test_moe_config_equals_reference(name):
         assert got.moe.padded_experts(tp) == want.moe.padded_experts(tp)
     assert got.block_pattern == ("attn_moe",) and got.family == "moe"
     assert name not in UNPORTED
+
+
+@pytest.mark.parametrize("name", RECURRENT)
+def test_recurrent_config_equals_reference(name):
+    """hymba-1.5b and xlstm-350m are served: fields (the ``SSMConfig``
+    included), ``param_count`` (with the reference's omissions: the SSM's
+    w_dt, w_b and w_c are not counted) and the head layout at tp 1/2/4
+    equal to the reference's, and neither is in ``UNPORTED``."""
+    got, want = get_model_config(name), r_get(name)
+    for f in dataclasses.fields(ModelConfig):
+        if f.name != "ssm":
+            assert getattr(got, f.name) == getattr(want, f.name), f.name
+    assert (got.ssm is None) == (want.ssm is None)
+    if got.ssm is not None:
+        assert dataclasses.asdict(got.ssm) == dataclasses.asdict(want.ssm)
+    assert got.param_count() == want.param_count()
+    for tp in (1, 2, 4):
+        assert dataclasses.astuple(head_layout(
+            got.num_heads, got.num_kv_heads, tp)) == dataclasses.astuple(
+            r_head_layout(want.num_heads, want.num_kv_heads, tp))
+        assert padded_vocab(got, tp) == r_padded_vocab(want, tp)
+    assert name not in UNPORTED
+    if name == "hymba-1.5b":
+        assert (got.family, got.sliding_window, got.num_heads,
+                got.num_kv_heads, got.resolved_head_dim) == \
+            ("hybrid", 2048, 25, 5, 64)
+        assert got.param_count() == 1_639_427_200
+    else:
+        assert got.block_pattern == ("mlstm",) * 3 + ("slstm",)
 
 
 def test_paper_list_matches_reference():
@@ -150,4 +181,4 @@ def test_serve_launcher_takes_every_dense_arch(name, capsys):
 def test_serve_launcher_refuses_unported_arch():
     from repro_torch.launch import serve
     with pytest.raises(NotImplementedError, match="queue A item 10"):
-        serve.main(["--arch", "hymba-1.5b", "--paged", "--device", "cpu"])
+        serve.main(["--arch", "internvl2-2b", "--paged", "--device", "cpu"])

@@ -11,8 +11,8 @@ tests/test_serving.py and the dense-engine cases of tests/test_obs.py:
   * the trace: the same event stream as the JAX engine once timings are
     removed, replaying into the registry; the replayable key set shared
     with ``PagedEngine``;
-  * hybrid and VLM requests (ROADMAP queue A item 10) and a mesh (item 11)
-    raise, naming their item."""
+  * the VLM family and its requests (ROADMAP queue A item 10) and a mesh
+    (item 11) raise, naming their item."""
 import dataclasses
 
 import numpy as np
@@ -22,7 +22,7 @@ jax = pytest.importorskip("jax")
 import jax.numpy as jnp  # noqa: E402
 import torch  # noqa: E402
 
-from conftest import iso_cfg, tiny_dense, tiny_hybrid  # noqa: E402
+from conftest import iso_cfg, tiny_dense, tiny_vlm  # noqa: E402
 from repro.config import Config as RConfig  # noqa: E402
 from repro.config import ParallelConfig as RParallel  # noqa: E402
 from repro.core.overlap import AxisCtx as RAxisCtx  # noqa: E402
@@ -242,15 +242,15 @@ def test_dense_and_paged_share_replayable_key_set(weights):
 
 
 def test_outside_the_slice_raises(weights):
-    """Hybrid and VLM requests (test_serving.py:67, :80) wait on ROADMAP
+    """The VLM family and its requests (test_serving.py:80) wait on ROADMAP
     queue A item 10, a mesh on item 11; the cache dtype follows the
     params."""
     _, params = weights
-    hyb = tiny_hybrid(vocab_size=64)
-    hcfg = ModelConfig(**{f.name: getattr(hyb, f.name)
+    vlm = tiny_vlm(vocab_size=64)
+    vcfg = ModelConfig(**{f.name: getattr(vlm, f.name)
                           for f in dataclasses.fields(ModelConfig)})
     with pytest.raises(NotImplementedError, match="queue A item 10"):
-        Engine(Config(model=hcfg), params, device="cpu")
+        Engine(Config(model=vcfg), params, device="cpu")
     eng = _port_engine(params)
     assert eng.caches[0]["k"].dtype == torch.float32
     with pytest.raises(NotImplementedError, match="queue A item 10"):

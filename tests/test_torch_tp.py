@@ -18,7 +18,14 @@ ranks on the CPU (``launch/mesh.spawn``), at the ``tiny_dense`` size in fp32.
   * MoE twins at tp=2 and tp=4 (expert parallelism: 4 experts split 2 and
     1 a rank, 5 padded to 6 and 8 at capacity 1.25): greedy tokens on every
     rank equal the reference ``PagedEngine(mesh=None)`` on the same
-    tp-built params.
+    tp-built params;
+  * the recurrent twins of the reference's tests/test_multidevice.py:55-60
+    (hymba's ``hybrid`` block at 8/2 heads with window 16, and 3 mLSTM : 1
+    sLSTM) at tp=2: the SSM's inner dim and the mLSTM's v dim split over
+    the ranks with their states, the sLSTM replicated and not reduced;
+    greedy tokens on every rank, under batch-split and sequential decode,
+    equal the reference ``PagedEngine(mesh=None)`` on the same tp-built
+    params.
 
 One spawn per tp degree runs every rank-side case: the parent writes the
 reference's tp=N params to ``tmp_path`` as ``.npz``; the ranks load and
@@ -36,7 +43,9 @@ from jax.sharding import PartitionSpec as P  # noqa: E402
 
 from conftest import iso_cfg, tiny_dense, tiny_moe  # noqa: E402
 from repro.config import Config as RConfig  # noqa: E402
+from repro.config import ModelConfig as RModelConfig  # noqa: E402
 from repro.config import MoEConfig as RMoEConfig  # noqa: E402
+from repro.config import SSMConfig as RSSMConfig  # noqa: E402
 from repro.config import ParallelConfig as RParallel  # noqa: E402
 from repro.config import ServingConfig as RServing  # noqa: E402
 from repro.core.quantized_collectives import \
@@ -49,7 +58,7 @@ from repro.serving.requests import SamplingParams as RSampling  # noqa: E402
 
 from repro_torch import bridge  # noqa: E402
 from repro_torch.config import Config, ISOConfig, ModelConfig, MoEConfig, \
-    ParallelConfig, ServingConfig  # noqa: E402
+    ParallelConfig, SSMConfig, ServingConfig  # noqa: E402
 from repro_torch.core import iso  # noqa: E402
 from repro_torch.core.overlap import AxisCtx  # noqa: E402
 from repro_torch.core.quantized_collectives import \
@@ -736,4 +745,83 @@ def test_tp_moe_engine_tokens_equal_reference(moe_tp_runs, tp, twin):
     m = ranks[twin][0][0]["metrics"]
     for k in ("prefill_calls", "prefill_grants", "resumed_grants",
               "decode_calls", "prefill_pad_tokens"):
+        assert m[k] == ref_m[k], (k, m[k], ref_m[k])
+
+
+# ---------------------------------------------------------------------------
+# the recurrent families at tp=2
+# ---------------------------------------------------------------------------
+
+RECURRENT_TWINS = {
+    "hybrid": RModelConfig(name="hybrid", family="hybrid", num_layers=2,
+                           d_model=64, num_heads=8, num_kv_heads=2, d_ff=128,
+                           vocab_size=64, block_pattern=("hybrid",),
+                           ssm=RSSMConfig(state_dim=8), sliding_window=16),
+    "xlstm": RModelConfig(name="xlstm", family="ssm", num_layers=4,
+                          d_model=64, num_heads=4, num_kv_heads=4, d_ff=0,
+                          vocab_size=64,
+                          block_pattern=("mlstm", "mlstm", "mlstm",
+                                         "slstm")),
+}
+# prompts past the window, resumed grants of 16, 2 slots draining to one
+RECURRENT_TRAFFIC = (_prompts((41, 23, 9), 3), 5,
+                     dict(prefill_token_budget=16, page_size=8, max_len=96,
+                          max_batch=2))
+
+
+def _recurrent_port_cfg(ref_cfg):
+    kw = {f.name: getattr(ref_cfg, f.name)
+          for f in dataclasses.fields(ModelConfig)}
+    if ref_cfg.ssm is not None:
+        kw["ssm"] = SSMConfig(**dataclasses.asdict(ref_cfg.ssm))
+    return ModelConfig(**kw)
+
+
+@pytest.fixture(scope="module")
+def recurrent_tp2(tmp_path_factory):
+    """(per-rank results by twin, the reference tokens by twin): the
+    reference ``PagedEngine(mesh=None)`` on the same tp=2-built params
+    (head slots and the SSM's inner dim padded for tp=2)."""
+    prompts, new, sv = RECURRENT_TRAFFIC
+    jobs, want = [], {}
+    for twin, rcfg in RECURRENT_TWINS.items():
+        # the port's tp=2-built weights from a seed, carried to the
+        # reference by the bridge (its own init compiles for seconds)
+        host = bridge.to_reference(decoder.init_decoder_params(
+            0, _recurrent_port_cfg(rcfg), tp=2, dtype=torch.float32,
+            device="cpu"))
+        ref = jax.tree_util.tree_map(jnp.asarray, host)
+        path = tmp_path_factory.mktemp(f"{twin}_tp2") / "p.npz"
+        bridge.save_npz(path, host)
+        r_eng = RPagedEngine(RConfig(
+            model=rcfg, parallel=RParallel(data=1, model=1), iso=REF_ISO,
+            serving=RServing(**sv)), ref)
+        rids = [r_eng.add_request(RRequest(prompt=p.copy(), sampling=RSampling(
+            max_new_tokens=new, eos_id=-1))) for p in prompts]
+        out = r_eng.run_until_complete()
+        want[twin] = ([out[r] for r in rids], dict(r_eng.metrics))
+        config = Config(model=_recurrent_port_cfg(rcfg),
+                        parallel=ParallelConfig(data=1, model=2),
+                        iso=PORT_ISO, serving=ServingConfig(**sv))
+        variants = [dict(prompts=prompts, max_new=new,
+                         serving=dict(decode_schedule=sched))
+                    for sched in ("auto", "sequential")]
+        jobs.append((str(path), config, variants))
+    res = mesh.spawn(_moe_rank_job, 2, args=(jobs,), device="cpu",
+                     timeout_s=300)
+    return {twin: [r[i] for r in res]
+            for i, twin in enumerate(RECURRENT_TWINS)}, want
+
+
+@pytest.mark.parametrize("twin", sorted(RECURRENT_TWINS))
+def test_tp2_recurrent_engine_tokens_equal_reference(recurrent_tp2, twin):
+    ranks, want = recurrent_tp2
+    tokens, ref_m = want[twin]
+    for r, runs in enumerate(ranks[twin]):
+        for sched, run in zip(("batch_split", "sequential"), runs):
+            assert run["tokens"] == tokens, (r, sched, run["tokens"], tokens)
+            assert run["decode_schedule"] == sched
+    m = ranks[twin][0][0]["metrics"]
+    for k in ("prefill_calls", "prefill_grants", "resumed_grants",
+              "decode_calls", "prefill_pad_tokens", "prefix_shared_tokens"):
         assert m[k] == ref_m[k], (k, m[k], ref_m[k])
