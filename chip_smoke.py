@@ -294,6 +294,44 @@ Phases, each fatal on failure:
                ``torch.profiler`` window over one graphed prefill step of
                four requests and three decode steps of each model: wall,
                device busy time, idle share and the kernels by name.
+ 13. vlm       the VLM family, after phase 12: (a) internvl2-2b
+               (arXiv:2404.16821: 24 layers, d 2048, 16/8 heads at hd 128,
+               vocab 92553; the vision encoder stubbed, a request carries
+               256 patch embeddings) at full width and depth, bf16,
+               ``PagedEngine`` tp=1, on phase 3's six baseline prompts at
+               max_len 4096, four of them with 256 seeded patches and two
+               text-only (the long one resumes: B3), eager then graphed:
+               graphed tokens equal to eager, B1 and B3 launched (every B3
+               tensor-core), a patch grant's closure keyed (n_text,
+               n_patches, resumed); prints decode ms/step, prefill
+               positions/s (patches counted), peak allocated memory, the
+               graphs and capture seconds, then a ``torch.profiler`` window
+               over one graphed prefill step and three decode steps.  (b)
+               the dense ``Engine``, eager, on the same requests.  (c) the
+               fp32 2-layer twin at full width: graphed == eager, and
+               ``PagedEngine`` == the dense ``Engine`` token for token.
+               Phase 5 serves the twin at tp=2 (patches replicated), whose
+               tokens must equal tp=1's on both ranks.
+ 14. train     the training path (``training/``), after phase 13: (a)
+               internvl2-2b bf16 at full width and depth, tp=1 dp=1, remat,
+               lr 3e-4 warmup 10, clip 1.0, 20 steps of the synthetic
+               batches at 4 x 2048 positions (256 patches a row): every
+               loss and gradient norm finite, the last five steps' mean
+               loss below the first five's, no hand-written kernel
+               launched; prints each step's loss and norm, ms a step and
+               positions/s after the first two, peak allocated memory, and
+               one more step under ``torch.profiler`` (idle share, kernels
+               by name).  (b) the fp32 2-layer twin, 4 steps on the card
+               and on the CPU from the same weights: loss and norm within
+               rtol 1e-4.  (c) dp=2, two ranks sharing the card over gloo:
+               the fp32 twin under plain AdamW and ZeRO-1 (parameters
+               within 1e-4 after 3 steps), the bf16 twin under the int8
+               gradient mean (the three int8 kernels launched, counted as
+               ``launches_train``), then those kernels on the embedding
+               gradient's rows against their plain versions (bit-equal)
+               with their times.  (d) the fp32 twin at tp=2 (two ranks on
+               the card over gloo) against tp=1: equal losses, gradient
+               norm twice tp=1's, as the reference's.
 
 Every pass resets its engine's registry and trace ring together
 (``reset_observability``), so a pass's trace replays into its registry.
@@ -310,7 +348,9 @@ does not launch them); phase 10's dense path launches none of them (its
 passes check that every count stays 0).  Each kernel's ``launches_moe`` is
 read the same way from phase 11's granite defaults timed pass, its
 ``launches_hymba`` and ``launches_xlstm`` from phase 12's baseline timed
-passes (xlstm's all 0, checked).  It
+passes (xlstm's all 0, checked), its ``launches_vlm`` from phase 13's
+graphed timed pass and its ``launches_train`` from rank 0 of phase 14's
+int8 run (phase 14 (a) launches none, checked).  It
 imports nothing of JAX or of the JAX package.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and
 power limit from nvidia-smi, and before that a JSON line with each kernel's
@@ -1405,8 +1445,9 @@ def reset_observability(eng) -> None:
 
 
 def serve_pass(eng, prompts, label: str, card: str, new: int = 32,
-               kernels=ATTENTION_KERNELS) -> dict:
-    """Serve ``prompts`` (``new`` greedy tokens each) on ``eng`` from a
+               kernels=ATTENTION_KERNELS, patches=None) -> dict:
+    """Serve ``prompts`` (``new`` greedy tokens each; with ``patches``, a
+    vlm model's per request, None for a text-only one) on ``eng`` from a
     zeroed registry, an empty trace ring and zeroed launch counts; check
     that every request completed, every page came back and the attention
     kernels launched (``kernels``; an empty tuple: a stack with no
@@ -1420,8 +1461,9 @@ def serve_pass(eng, prompts, label: str, card: str, new: int = 32,
     eng.decode_splits = {}
     rids = [eng.add_request(Request(
         prompt=p.copy(), sampling=SamplingParams(max_new_tokens=new,
-                                                 eos_id=-1)))
-        for p in prompts]
+                                                 eos_id=-1),
+        patches=None if patches is None else patches[i]))
+        for i, p in enumerate(prompts)]
     torch.cuda.synchronize()
     native.reset_launches()
     t0 = time.perf_counter()
@@ -2858,9 +2900,10 @@ def serve_observability(report, card: str, cfg, params, lengths) -> None:
 # ---------------------------------------------------------------------------
 
 def dense_pass(eng, prompts, label: str, card: str, frames=None,
-               max_new: int = 32) -> dict:
+               max_new: int = 32, patches=None) -> dict:
     """Serve ``prompts`` (greedy, ``max_new`` tokens each; with ``frames``
-    for whisper) on a dense ``Engine`` from a zeroed registry and launch
+    for whisper, ``patches`` for a vlm) on a dense ``Engine`` from a zeroed
+    registry and launch
     counts; check that every request completed, every sampled logits row was
     finite and no hand-written kernel launched (dense caches attend in plain
     PyTorch, as the reference's in XLA); print the pass."""
@@ -2873,6 +2916,7 @@ def dense_pass(eng, prompts, label: str, card: str, frames=None,
     reset_observability(eng)
     rids = [eng.add_request(Request(
         prompt=p.copy(), frames=None if frames is None else frames[i],
+        patches=None if patches is None else patches[i],
         sampling=SamplingParams(max_new_tokens=max_new, eos_id=-1)))
         for i, p in enumerate(prompts)]
     real_sample = engine.sample
@@ -3197,7 +3241,8 @@ def moe_config(cfg, sv: dict):
 
 def eager_then_graphed(cfg, params, sv: dict, prompts, label: str, card: str,
                        new: int = 32, kernels=ATTENTION_KERNELS,
-                       tag: str = "moe", keep: bool = False) -> dict:
+                       tag: str = "moe", keep: bool = False,
+                       patches=None) -> dict:
     """``prompts`` on an eager engine, then on a graphed one (a capture
     pass, a timed pass of replays only), ``serve_pass`` each (``kernels``:
     those it must see launched); the graphed tokens must equal the eager
@@ -3215,17 +3260,18 @@ def eager_then_graphed(cfg, params, sv: dict, prompts, label: str, card: str,
     held = torch.cuda.memory_allocated() / 2**30
     torch.cuda.reset_peak_memory_stats()
     eng = PagedEngine(config, params, device="cuda", cuda_graphs=False)
-    eager = serve_pass(eng, prompts, f"{label} eager", card, new, kernels)
+    eager = serve_pass(eng, prompts, f"{label} eager", card, new, kernels,
+                       patches)
     eager_peak = torch.cuda.max_memory_allocated() / 2**30
     del eng
     free_cuda()
     torch.cuda.reset_peak_memory_stats()
     eng = PagedEngine(config, params, device="cuda")
     first = serve_pass(eng, prompts, f"{label} graphed, capture pass", card,
-                       new, kernels)
+                       new, kernels, patches)
     graphs, capture_s = eng.graphs, eng.capture_s
     timed = serve_pass(eng, prompts, f"{label} graphed, timed pass", card,
-                       new, kernels)
+                       new, kernels, patches)
     peak = torch.cuda.max_memory_allocated() / 2**30
     if eng.graphs != graphs:
         raise AssertionError(f"[{tag}] {label}: the timed pass captured "
@@ -3458,7 +3504,7 @@ def serve_kimi(card: str):
 
 
 def profile_graphed(eng, prompts, label: str, card: str, tag: str,
-                    prefill_steps: int = 0) -> None:
+                    prefill_steps: int = 0, patches=None) -> None:
     """Where a graphed engine's steps go: four of ``prompts`` prefilled
     on ``eng`` (their grants' graphs captured first, on the same prompts;
     with ``prefill_steps`` only that many of the prefilling steps are in
@@ -3472,9 +3518,10 @@ def profile_graphed(eng, prompts, label: str, card: str, tag: str,
     from repro_torch.serving.requests import SamplingParams
 
     def submit_four() -> None:
-        for p in prompts[:4]:
+        for i, p in enumerate(prompts[:4]):
             eng.add_request(Request(prompt=p.copy(), sampling=SamplingParams(
-                max_new_tokens=32, eos_id=-1)))
+                max_new_tokens=32, eos_id=-1),
+                patches=None if patches is None else patches[i]))
 
     def prefill(limit: int = 0) -> int:
         steps = 0
@@ -3736,6 +3783,497 @@ def serve_recurrent(report, card: str):
 
 
 # ---------------------------------------------------------------------------
+# phase 13: the VLM family, internvl2-2b
+# ---------------------------------------------------------------------------
+
+# phase 3's baseline settings at max_len 4096: a request's 256 patches sit
+# in its stream ahead of up to 2000 text tokens
+VLM_SV = dict(page_size=16, max_batch=4, max_len=4096,
+              prefill_token_budget=512)
+# the baseline requests that carry no patches (text alone, so they resume
+# across grants: B3's path); request 0 is the >= 1500-token one
+VLM_TEXT_ONLY = (0, 3)
+
+
+def vlm_traffic(cfg, n: int = 6):
+    """Phase 3's baseline prompts (seed 0), each with ``num_patches`` seeded
+    patches, N(0, 1) x 0.1 (seed 13), but ``VLM_TEXT_ONLY``: (lengths,
+    prompts, patches)."""
+    import numpy as np
+    lengths, prompts = baseline_prompts(cfg)
+    rng = np.random.default_rng(13)
+    patches = [None if i in VLM_TEXT_ONLY else
+               (rng.standard_normal((cfg.num_patches, cfg.d_model)) * 0.1
+                ).astype(np.float32) for i in range(len(prompts))]
+    return lengths[:n], prompts[:n], patches[:n]
+
+
+def serve_vlm(report, card: str):
+    """Phase 13 (a)-(c): internvl2-2b at full width and depth, bf16, on the
+    paged engine eager then graphed and on the dense ``Engine``; the fp32
+    2-layer gates."""
+    import torch
+    from repro_torch.config import Config, ISOConfig, ParallelConfig
+    from repro_torch.serving import Engine
+
+    cfg, params, made_s = recurrent_model("internvl2-2b")
+    _recurrent_weights_line(cfg, params, made_s, card)
+    lengths, prompts, patches = vlm_traffic(cfg)
+    r = eager_then_graphed(cfg, params, VLM_SV, prompts,
+                           "internvl2-2b baseline", card, tag="vlm",
+                           keep=True, patches=patches)
+    v = r["variants"]
+    if v["paged_prefill/tc"] != r["launches"]["paged_prefill"]:
+        raise AssertionError(f"[vlm] a B3 launch missed the tensor-core "
+                             f"instantiation: {v}")
+    eng = r.pop("engine")
+    keys = sorted(eng._prefill_fns, key=str)
+    if not any(len(k) == 3 for k in keys):
+        raise AssertionError(f"[vlm] no patch grant ran: {keys}")
+    report["launches_vlm"] = dict(r["launches"],
+                                  decode_reduce=v["paged_decode/fold"])
+    m = r["m"]
+    log(f"[vlm] internvl2-2b prompts {lengths} (text; requests "
+        f"{list(VLM_TEXT_ONLY)} text-only, the others with "
+        f"{cfg.num_patches} patches): prefill {m['prefill_tokens']} "
+        f"positions (patches counted), prefill closures {keys}, graphs "
+        f"{r['graphs']} in {r['capture_s']:.2f}s [{card}]")
+    report["vlm"] = _recurrent_summary(r)
+    profile_graphed(eng, prompts, "internvl2-2b", card, "vlm",
+                    prefill_steps=1, patches=patches)
+    del eng, r
+    free_cuda()
+    # (b) the dense Engine, eager, on the same requests
+    torch.cuda.reset_peak_memory_stats()
+    dense = Engine(Config(model=cfg, parallel=ParallelConfig(data=1, model=1),
+                          iso=ISOConfig()), params, max_batch=4,
+                   max_len=VLM_SV["max_len"], bucket=32, device="cuda")
+    d = dense_pass(dense, prompts, "internvl2-2b dense Engine, eager", card,
+                   patches=patches)
+    del dense
+    dm = d["m"]
+    report["vlm"].update(
+        dense_decode_ms_step=1e3 * dm["decode_s"] / dm["decode_calls"],
+        dense_prefill_tok_s=dm["prefill_tokens"] / dm["prefill_s"],
+        dense_peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    log(f"[vlm] internvl2-2b dense Engine: peak allocated "
+        f"{report['vlm']['dense_peak_gib']:.3f} GiB; prefill_tokens counts "
+        f"text only, as the reference's dense engine [{card}]")
+    del params
+    free_cuda()
+    vlm_gates(card)
+
+
+def vlm_gates(card: str):
+    """Phase 13 (c): internvl2-2b at full width, 2 layers, fp32, on the
+    baseline traffic with 16 new tokens: graphed == eager
+    (``eager_then_graphed``), then ``PagedEngine`` == the dense ``Engine``
+    (bucket 16; its pad tail sits after the prompt and is scrubbed), token
+    for token: the reference's ``test_paged_vlm_matches_dense``."""
+    import torch
+    from repro_torch.config import Config, ISOConfig, ParallelConfig
+    from repro_torch.serving import Engine
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg, params, _ = recurrent_model("internvl2-2b", 2, dtype="float32")
+    lengths, prompts, patches = vlm_traffic(cfg)
+    r = eager_then_graphed(cfg, params, VLM_SV, prompts,
+                           f"{cfg.name} fp32", card, new=16, tag="vlm",
+                           patches=patches)
+    eng = Engine(Config(model=cfg, parallel=ParallelConfig(data=1, model=1),
+                        iso=ISOConfig()), params, max_batch=4,
+                 max_len=VLM_SV["max_len"], bucket=16, device="cuda")
+    dense = dense_pass(eng, prompts, f"{cfg.name} fp32 dense Engine", card,
+                       max_new=16, patches=patches)
+    del eng, params
+    free_cuda()
+    if dense["tokens"] != r["tokens"]:
+        diff = [i for i, (a, b) in enumerate(zip(dense["tokens"],
+                                                 r["tokens"])) if a != b]
+        raise AssertionError(f"[vlm] {cfg.name} fp32: paged tokens differ "
+                             f"from the dense Engine's in requests {diff}")
+    log(f"[vlm] {cfg.name} fp32, prompts {lengths}: PagedEngine (graphed "
+        f"and eager) == dense Engine, token for token [{card}]")
+
+
+def vlm_tp_case():
+    """Phase 5's VLM pass at tp=1: internvl2-2b at full width cut to 2
+    layers, fp32, ``VLM_SV``, three requests of 300-1200 tokens (seed 6),
+    the first text-only, the others with 256 patches, 16 new each.  Seed 0
+    makes the same function at tp 1 and 2 (16/8 heads and the 92672-row
+    padded vocab split evenly)."""
+    import dataclasses
+    import numpy as np
+    from repro_torch.config import Config, ISOConfig, ParallelConfig, \
+        ServingConfig, get_model_config
+    cfg = dataclasses.replace(get_model_config("internvl2-2b"), num_layers=2)
+    rng = np.random.default_rng(6)
+    lengths = [int(n) for n in rng.integers(300, 1201, 3)]
+    lengths[0] = max(lengths[0], 900)            # at least one resumed grant
+    prompts = [rng.integers(2, cfg.vocab_size, n).astype(np.int32)
+               for n in lengths]
+    patches = [None] + [(rng.standard_normal((cfg.num_patches, cfg.d_model))
+                         * 0.1).astype(np.float32) for _ in lengths[1:]]
+    config = Config(model=cfg, parallel=ParallelConfig(data=1, model=1),
+                    iso=ISOConfig(), serving=ServingConfig(**VLM_SV))
+    return config, [dict(prompts=prompts, patches=patches,
+                         max_new=TP_NEW_TOKENS)]
+
+
+# ---------------------------------------------------------------------------
+# phase 14: training
+# ---------------------------------------------------------------------------
+
+# the full-size run: the reference launcher's learning rate, warmup 10,
+# grad_clip 1.0 (the default), remat on; batch 4 x 2048 positions (256 of
+# them patches)
+TRAIN_STEPS = 20
+TRAIN_BATCH, TRAIN_SEQ = 4, 2048
+# the 2-layer twins' runs: steps and batch (card == CPU; dp=2; tp=2)
+TWIN_STEPS, TWIN_BATCH, TWIN_SEQ = 4, 2, 64
+DP_STEPS, DP_BATCH, DP_SEQ = 3, 4, 256
+
+
+def train_config(cfg, steps: int, batch: int, seq: int, **rt):
+    from repro_torch.config import Config, ISOConfig, ParallelConfig, \
+        RuntimeConfig
+    par = rt.pop("parallel", (1, 1))
+    return Config(model=cfg, parallel=ParallelConfig(data=par[0],
+                                                     model=par[1]),
+                  iso=ISOConfig(num_chunks=2, min_chunk_tokens=32,
+                                chunk_align=16),
+                  runtime=RuntimeConfig(**dict(dict(
+                      mode="train", seq_len=seq, global_batch=batch,
+                      learning_rate=3e-4, max_steps=steps, warmup_steps=10,
+                      remat=True), **rt)))
+
+
+def train_twin(dtype: str = "float32"):
+    import dataclasses
+    from repro_torch.config import get_model_config
+    return dataclasses.replace(get_model_config("internvl2-2b"),
+                               num_layers=2,
+                               name=f"internvl2-2b 2L {dtype}")
+
+
+def run_steps(config, params, opt, steps: int, group=None) -> list:
+    """``steps`` train steps in place; [(loss, gnorm)]."""
+    from repro_torch.training.data import make_training_batch
+    from repro_torch.training.trainer import make_train_step
+    rt = config.runtime
+    step_fn = make_train_step(config, group)
+    out = []
+    for s in range(steps):
+        b = make_training_batch(config.model, rt.seq_len, rt.global_batch, s)
+        loss, gn = step_fn(params, opt, b, s)
+        out.append((float(loss), float(gn)))
+    return out
+
+
+def train_full(report, card: str):
+    """Phase 14 (a): internvl2-2b at full width and depth, bf16, tp=1 dp=1,
+    ``TRAIN_STEPS`` steps of ``make_training_batch`` at ``TRAIN_BATCH`` x
+    ``TRAIN_SEQ``; every loss and gradient norm finite and the last five
+    steps' mean loss below the first five's; ms a step and tokens/s after
+    the first two steps, each step fenced; peak memory; then one more step
+    under ``torch.profiler``."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.config import get_model_config
+    from repro_torch.kernels import native
+    from repro_torch.training.data import make_training_batch
+    from repro_torch.training.trainer import init_train_state, \
+        make_train_step
+
+    cfg = get_model_config("internvl2-2b")
+    config = train_config(cfg, TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params, opt = init_train_state(config, 0, device="cuda")
+    torch.cuda.synchronize()
+    state_gib = torch.cuda.memory_allocated() / 2**30
+    log(f"[train] internvl2-2b {cfg.num_layers}L d={cfg.d_model} bf16: "
+        f"weights and fp32 moments made in {time.perf_counter() - t0:.1f}s, "
+        f"{state_gib:.3f} GiB allocated [{card}]")
+    step_fn = make_train_step(config)
+    batches = [make_training_batch(cfg, TRAIN_SEQ, TRAIN_BATCH, s)
+               for s in range(TRAIN_STEPS + 1)]
+    n_p = batches[0]["patches"].shape[1]
+    native.reset_launches()
+    log_rows, times = [], []
+    for s in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        loss, gn = step_fn(params, opt, batches[s], s)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t)
+        log_rows.append((float(loss), float(gn)))
+        log(f"[train] step {s:2d} loss {log_rows[-1][0]:.6f} gnorm "
+            f"{log_rows[-1][1]:.6f} {1e3 * times[-1]:.1f} ms")
+    launches = dict(native.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    losses = np.array(log_rows)
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"[train] non-finite loss or gnorm: {log_rows}")
+    first, last = losses[:5, 0].mean(), losses[-5:, 0].mean()
+    if not last < first:
+        raise AssertionError(f"[train] the loss did not fall: first five "
+                             f"{first:.6f}, last five {last:.6f}")
+    if any(launches.values()):
+        raise AssertionError(f"[train] the tp=1 dp=1 step launched "
+                             f"hand-written kernels: {launches}")
+    ms = 1e3 * float(np.mean(times[2:]))
+    tok_s = TRAIN_BATCH * TRAIN_SEQ / (ms / 1e3)
+    log(f"[train] internvl2-2b full size, {TRAIN_STEPS} steps of "
+        f"{TRAIN_BATCH} x {TRAIN_SEQ} positions ({n_p} patches + "
+        f"{TRAIN_SEQ - n_p} text a row), remat, lr 3e-4 warmup 10, clip "
+        f"1.0: mean loss {first:.4f} over the first five steps, {last:.4f} "
+        f"over the last five; {ms:.1f} ms a step ({tok_s:.0f} positions/s) "
+        f"after the first two; peak allocated {peak:.3f} GiB; no "
+        f"hand-written kernel on this path [{card}]")
+    report["train"] = dict(losses=log_rows, ms_step=ms, tok_s=tok_s,
+                           peak_gib=peak, state_gib=state_gib)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        step_fn(params, opt, batches[TRAIN_STEPS], TRAIN_STEPS)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t)
+    act = device_activity(prof)
+    log(f"[train] one step under torch.profiler: {wall:.1f} ms of wall, "
+        f"device busy {act['busy_ms']:.1f} ms, idle share "
+        f"{1 - act['busy_ms'] / wall:.4f} [{card}]")
+    log_top("internvl2-2b train step", act, 1, card, top=15)
+    del params, opt, step_fn, prof
+    free_cuda()
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(_to(v, device) for v in tree)
+    return tree.to(device)
+
+
+def train_card_vs_cpu(card: str):
+    """Phase 14 (b): the fp32 2-layer twin, ``TWIN_STEPS`` steps on the
+    card and the same steps on the CPU in this process from the same
+    weights (made on the CPU): loss and gradient norm within rtol 1e-4."""
+    import numpy as np
+    import torch
+    from repro_torch.models import api
+    from repro_torch.training.trainer import init_train_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = train_twin()
+    config = train_config(cfg, TWIN_STEPS, TWIN_BATCH, TWIN_SEQ)
+    cpu = api.init_params(0, cfg, dtype=torch.float32, device="cpu")
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        t = time.perf_counter()
+        params, opt = init_train_state(config, params=_to(cpu, dev))
+        runs[dev] = run_steps(config, params, opt, TWIN_STEPS)
+        log(f"[train] {cfg.name} on {dev}: {runs[dev]} "
+            f"({time.perf_counter() - t:.1f}s)")
+        del params, opt
+    del cpu
+    free_cuda()
+    np.testing.assert_allclose(np.array(runs["cuda"]), np.array(runs["cpu"]),
+                               rtol=1e-4)
+    log(f"[train] {cfg.name}, {TWIN_STEPS} steps of {TWIN_BATCH} x "
+        f"{TWIN_SEQ}: card == CPU, loss and gnorm within rtol 1e-4 [{card}]")
+
+
+def train_dp_rank(group, cfg32, cfg16):
+    """Body of each rank of phase 14 (c) (module level: the spawned ranks
+    import it): dp=2 sharing the card over gloo.  The fp32 twin, plain
+    AdamW and then ZeRO-1 from the same weights; the bf16 twin under the
+    int8 gradient mean, its kernel launches counted; then the three int8
+    kernels on this rank's actual gradient rows (the embedding table's,
+    split in dp shards) against their plain versions, and their times."""
+    import torch
+    from repro_torch.kernels import int8_quant as q8
+    from repro_torch.kernels import native
+    from repro_torch.models import api
+    from repro_torch.training.data import make_training_batch
+    from repro_torch.training.trainer import init_train_state, \
+        make_train_step, param_leaves
+
+    out, kept = {}, None
+    for name, rt in (("plain", {}), ("zero1", dict(zero1=True))):
+        config = train_config(cfg32, DP_STEPS, DP_BATCH, DP_SEQ,
+                              parallel=(2, 1), **rt)
+        params = api.init_params(0, cfg32, dtype=torch.float32,
+                                 device=group.device)
+        params, opt = init_train_state(config, group=group, params=params)
+        t0 = time.perf_counter()
+        out[name] = run_steps(config, params, opt, DP_STEPS, group)
+        out[name + "_s"] = time.perf_counter() - t0
+        flat = [x for leaf in param_leaves(params) for x in leaf.tensors]
+        if kept is None:
+            kept = flat
+        else:
+            out["zero1_vs_plain"] = max(float((a - b).abs().max())
+                                        for a, b in zip(flat, kept))
+        del params, opt, flat
+    del kept
+    torch.cuda.empty_cache()
+    config = train_config(cfg16, DP_STEPS, DP_BATCH, DP_SEQ,
+                          parallel=(2, 1), grad_comm_int8=True)
+    params = api.init_params(0, cfg16, dtype=torch.bfloat16,
+                             device=group.device)
+    params, opt = init_train_state(config, group=group, params=params)
+    torch.cuda.synchronize()
+    native.reset_launches()
+    t = time.perf_counter()
+    out["int8"] = run_steps(config, params, opt, DP_STEPS, group)
+    torch.cuda.synchronize()
+    out["int8_s"] = time.perf_counter() - t
+    out["launches"] = dict(native.LAUNCHES)
+    # the kernels on this rank's gradient rows: the embedding table's
+    step_fn = make_train_step(config, group)
+    _, leaves, grads = step_fn.grads(params, make_training_batch(
+        cfg16, DP_SEQ, DP_BATCH, DP_STEPS))
+    i = [leaf.name for leaf in leaves].index("['embed']['table']")
+    flat = grads[i][0].reshape(-1)
+    flat = torch.nn.functional.pad(flat, (0, (-flat.numel()) % 2))
+    del grads, step_fn, params, opt
+    q, s = q8.quantize_int8_shards(flat, 2)
+    qp, sp = q8.quantize_int8_shards_plain(flat, 2)
+    q2, s2 = q8.dequant_sum_quantize_int8(q, s)
+    q2p, s2p = q8.dequant_sum_quantize_int8_plain(q, s)
+    qg, sg = torch.stack([q2, q2]), torch.stack([s2, s2])
+    o = q8.dequantize_int8_gathered(qg, sg, flat.dtype)
+    op = q8.dequantize_int8_gathered_plain(qg, sg, flat.dtype)
+    out["rows"] = dict(
+        elements=flat.numel(), dtype=str(flat.dtype),
+        equal=[bool(torch.equal(q, qp)), bool(torch.equal(s, sp)),
+               bool(torch.equal(q2, q2p)), bool(torch.equal(s2, s2p)),
+               bool(torch.equal(o, op))],
+        ms={"quantize_int8_shards": call_ms(
+                lambda: q8.quantize_int8_shards(flat, 2), 5),
+            "dequant_sum_quantize_int8": call_ms(
+                lambda: q8.dequant_sum_quantize_int8(q, s), 5),
+            "dequantize_int8_gathered": call_ms(
+                lambda: q8.dequantize_int8_gathered(qg, sg, flat.dtype), 5)},
+        plain_ms={"quantize_int8_shards": call_ms(
+                      lambda: q8.quantize_int8_shards_plain(flat, 2), 5),
+                  "dequant_sum_quantize_int8": call_ms(
+                      lambda: q8.dequant_sum_quantize_int8_plain(q, s), 5),
+                  "dequantize_int8_gathered": call_ms(
+                      lambda: q8.dequantize_int8_gathered_plain(
+                          qg, sg, flat.dtype), 5)})
+    return out
+
+
+def train_dp(report, card: str):
+    """Phase 14 (c): ``train_dp_rank`` on two ranks sharing cuda:0 over
+    gloo.  Gates: ZeRO-1's parameters after ``DP_STEPS`` steps equal plain
+    AdamW's within 1e-4 (fp32; the reference's tests/test_zero1.py bound),
+    both ranks' losses and norms agree, the three int8 kernels launched in
+    the int8 run (no standalone B7) and equal their plain versions on the
+    gradient rows."""
+    from repro_torch.launch.mesh import spawn
+    cfg32, cfg16 = train_twin(), train_twin("bfloat16")
+    t0 = time.perf_counter()
+    ranks = spawn(train_dp_rank, 1, args=(cfg32, cfg16), device="cuda:0",
+                  backend="gloo", data=2, timeout_s=900)
+    log(f"[train] dp=2 (two ranks on cuda:0 over gloo), "
+        f"{time.perf_counter() - t0:.1f}s with start-up")
+    r0 = ranks[0]
+    for name in ("plain", "zero1", "int8"):
+        if ranks[1][name] != r0[name]:
+            raise AssertionError(f"[train] dp=2 {name}: the ranks disagree: "
+                                 f"{r0[name]} vs {ranks[1][name]}")
+        log(f"[train] dp=2 {name} ({'bf16' if name == 'int8' else 'fp32'} "
+            f"2-layer twin, {DP_STEPS} steps of {DP_BATCH} x {DP_SEQ}, "
+            f"{r0[name + '_s']:.1f}s over gloo): (loss, gnorm) {r0[name]}")
+    d = max(r["zero1_vs_plain"] for r in ranks)
+    if not d < 1e-4:
+        raise AssertionError(f"[train] ZeRO-1 params differ from plain "
+                             f"AdamW's by {d}")
+    launches = r0["launches"]
+    if any(launches[k] <= 0 for k in INT8_REDUCE_KERNELS) or \
+            launches["quantize_int8"] != 0:
+        raise AssertionError(f"[train] int8 gradient mean launches: "
+                             f"{launches}")
+    rows = r0["rows"]
+    if not all(rows["equal"]):
+        raise AssertionError(f"[train] int8 kernels differ from their plain "
+                             f"versions on the gradient rows: {rows}")
+    report["launches_train"] = launches
+    report["train_rows"] = rows
+    log(f"[train] ZeRO-1 == plain AdamW, max |diff| {d:.3e} over the params "
+        f"(fp32); int8 run launches per rank {launches}")
+    log(f"[train] int8 kernels on rank 0's embedding-table gradient "
+        f"({rows['elements']} {rows['dtype']} elements, 2 shard rows): "
+        f"bit-equal to their plain versions; ms (plain ms) "
+        + ", ".join(f"{k} {rows['ms'][k]:.3f} ({rows['plain_ms'][k]:.3f})"
+                    for k in INT8_REDUCE_KERNELS) + f" [{card}]")
+
+
+def train_tp_rank(group, cfg):
+    """Body of each rank of phase 14 (d): this rank's shard of the tp=2
+    fp32 twin, ``DP_STEPS`` steps; [(loss, gnorm)]."""
+    import torch
+    from repro_torch.models import api
+    from repro_torch.training.trainer import init_train_state
+    config = train_config(cfg, DP_STEPS, TWIN_BATCH, DP_SEQ,
+                          parallel=(1, 2))
+    params = api.init_params(0, cfg, tp=2, dtype=torch.float32,
+                             device=group.device, rank=group.rank)
+    params, opt = init_train_state(config, group=group, params=params)
+    return run_steps(config, params, opt, DP_STEPS, group)
+
+
+def train_tp(report, card: str):
+    """Phase 14 (d): the fp32 twin at tp=2 (two ranks on cuda:0 over gloo)
+    against tp=1 on the same weights: the losses agree, and the gradient
+    norm is twice tp=1's, as the reference's (its ``lax.psum`` transposes to
+    ``psum`` under ``shard_map(check_vma=False)``)."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models import api
+    from repro_torch.training.trainer import init_train_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = train_twin()
+    config = train_config(cfg, DP_STEPS, TWIN_BATCH, DP_SEQ)
+    params = api.init_params(0, cfg, tp=2, dtype=torch.float32,
+                             device="cuda")
+    params, opt = init_train_state(config, params=params)
+    tp1 = np.array(run_steps(config, params, opt, DP_STEPS))
+    del params, opt
+    free_cuda()
+    ranks = spawn(train_tp_rank, 2, args=(cfg,), device="cuda:0",
+                  backend="gloo", timeout_s=600)
+    tp2 = np.array(ranks[0])
+    if ranks[1] != ranks[0]:
+        raise AssertionError(f"[train] tp=2 ranks disagree: {ranks}")
+    np.testing.assert_allclose(tp2[0], [tp1[0, 0], 2 * tp1[0, 1]],
+                               rtol=1e-4)
+    np.testing.assert_allclose(tp2[:, 0], tp1[:, 0], rtol=1e-3)
+    np.testing.assert_allclose(tp2[:, 1], 2 * tp1[:, 1], rtol=1e-3)
+    report["train_tp"] = dict(tp1=tp1.tolist(), tp2=tp2.tolist())
+    log(f"[train] {cfg.name} tp=2 (gloo on the card) vs tp=1: (loss, gnorm) "
+        f"{tp2.tolist()} vs {tp1.tolist()}: gnorm ratio "
+        f"{(tp2[:, 1] / tp1[:, 1]).tolist()} (2 = the reference's psum "
+        f"transpose) [{card}]")
+
+
+def train_all(report, card: str):
+    """Phase 14 (a)-(d)."""
+    train_full(report, card)
+    train_card_vs_cpu(card)
+    train_dp(report, card)
+    train_tp(report, card)
+
+
+# ---------------------------------------------------------------------------
 # phase 4: kernel path against plain path
 # ---------------------------------------------------------------------------
 
@@ -3948,14 +4486,14 @@ class PsumTimers:
                 setattr(mod, name, fn)
 
 
-def tp_rank(group, big, tiny, moe, hymba):
+def tp_rank(group, big, tiny, moe, hymba, vlm):
     """Body of each rank (module level: the spawned ranks import it):
     time one reduce at the decode and prefill shapes in each pattern, serve
     the full-width variants one at a time with the host time inside the
     reduces recorded, freeing the weights after each, a short quantized
     batch-split run under the host profiler, then the tiny ones, the MoE
-    ones and the hymba ones.  ``big``/``tiny``/``moe``/``hymba`` are
-    ``serve_rank`` arguments after the group."""
+    ones, the hymba ones and the VLM one.  ``big``/``tiny``/``moe``/
+    ``hymba``/``vlm`` are ``serve_rank`` arguments after the group."""
     import torch
     from repro_torch.launch.serve import serve_rank
     d = big[0].model.d_model
@@ -4001,6 +4539,8 @@ def tp_rank(group, big, tiny, moe, hymba):
     out["moe"] = serve_rank(group, *moe)
     free_cuda()
     out["hymba"] = serve_rank(group, *hymba)
+    free_cuda()
+    out["vlm"] = serve_rank(group, *vlm)
     return out
 
 
@@ -4128,10 +4668,19 @@ def serve_tp(report, card: str):
     hymba_want = serve_rank(None, hyb_cfg, hyb_v[:1], None, 0, "float32",
                             device="cuda")[0]
     free_cuda()
+    # the VLM family: internvl2-2b's 2-layer fp32 twin, patch requests and
+    # a text-only one, against tp=1 on the same weights
+    vlm_cfg, vlm_v = vlm_tp_case()
+    vlm = (dataclasses.replace(vlm_cfg, parallel=ParallelConfig(data=1,
+                                                                model=2)),
+           vlm_v, None, 0, "float32")
+    vlm_want = serve_rank(None, vlm_cfg, vlm_v, None, 0, "float32",
+                          device="cuda")[0]
+    free_cuda()
 
     t0 = time.perf_counter()
-    ranks = spawn(tp_rank, 2, args=(big, tiny, moe, hymba), device="cuda:0",
-                  backend="gloo", timeout_s=900)
+    ranks = spawn(tp_rank, 2, args=(big, tiny, moe, hymba, vlm),
+                  device="cuda:0", backend="gloo", timeout_s=900)
     log(f"[tp] 2 ranks on cuda:0 over gloo, {time.perf_counter() - t0:.1f}s "
         f"with start-up and weights")
     coll = ranks[0]["collective_ms"]
@@ -4284,6 +4833,25 @@ def serve_tp(report, card: str):
             f"{m['prefill_calls']} prefill calls ({m['resumed_grants']} "
             f"resumed), {m['decode_calls']} decode steps, launches per rank "
             f"{ranks[0]['hymba'][i]['launches']} ({TP_LABEL}) [{card}]")
+    cfg = vlm_cfg.model
+    for r, rank in enumerate(ranks):
+        run = rank["vlm"][0]
+        if run["tokens"] != vlm_want["tokens"]:
+            raise AssertionError(f"[tp] internvl2-2b tp=2 rank {r}: tokens "
+                                 f"differ from tp=1's")
+        for kname in ATTENTION_KERNELS:
+            if run["launches"][kname] <= 0:
+                raise AssertionError(f"[tp] internvl2-2b tp=2: {kname} never "
+                                     f"launched: {run['launches']}")
+    m = ranks[0]["vlm"][0]["metrics"]
+    log(f"[tp] internvl2-2b full width, {cfg.num_layers} layers, fp32, tp=2 "
+        f"(8/4 heads a rank; the patches replicated), "
+        f"{ranks[0]['vlm'][0]['decode_schedule']} decode, prompts "
+        f"{[len(p) for p in vlm_v[0]['prompts']]} (the first text-only): "
+        f"tokens on both ranks == the tp=1 engine's on the same weights; "
+        f"{m['prefill_calls']} prefill calls ({m['resumed_grants']} "
+        f"resumed), {m['decode_calls']} decode steps, launches per rank "
+        f"{ranks[0]['vlm'][0]['launches']} ({TP_LABEL}) [{card}]")
 
 
 # ---------------------------------------------------------------------------
@@ -4409,6 +4977,8 @@ def main() -> int:
               ("10 whisper", lambda: serve_whisper(report, card)),
               ("11 moe", lambda: serve_moe(report, card)),
               ("12 recurrent", lambda: serve_recurrent(report, card)),
+              ("13 vlm", lambda: serve_vlm(report, card)),
+              ("14 train", lambda: train_all(report, card)),
               ("10 (c) profiles", lambda: dense_profiles(report, card)),
               ("11 profile", lambda: moe_profile(card)),
               ("12 (e) profiles", lambda: recurrent_profile(report, card)))
@@ -4433,7 +5003,10 @@ def main() -> int:
                         "launches_hymba": report["launches_hymba"].get(
                             name, 0),
                         "launches_xlstm": report["recurrent"][
-                            "xlstm-350m"]["launches"].get(name, 0)})
+                            "xlstm-350m"]["launches"].get(name, 0),
+                        "launches_vlm": report["launches_vlm"].get(name, 0),
+                        "launches_train": report["launches_train"].get(
+                            name, 0)})
         assert all(math.isfinite(x) for x in (t["ms"], t["plain_ms"],
                                               t["bound_ms"]))
     print(json.dumps({"kernels": kernels}))

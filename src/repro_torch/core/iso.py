@@ -31,6 +31,7 @@ from dataclasses import dataclass, replace
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch.core.overlap import AxisCtx, Pending, psum_now, psum_start, \
     psum_wait
@@ -155,9 +156,24 @@ def flush_pending(state: PipeState) -> Tuple[torch.Tensor, ...]:
     return tuple(xs)
 
 
+def _run_period(params_periods, pattern, p: int, state: PipeState,
+                sctx: StageCtx, ctx: AxisCtx, layer_caches, starts,
+                ladder: bool):
+    """One pattern period: each position's layer in turn."""
+    extras = []
+    for i, kind in enumerate(pattern):
+        cache_i = _period(layer_caches[i], p) if layer_caches else None
+        state, ex = run_layer(params_periods[i][p], kind, state, sctx, ctx,
+                              layer_cache=cache_i, starts=starts,
+                              ladder=ladder)
+        extras.append(ex)
+    return state, extras
+
+
 def run_stack_prefill(params_periods, pattern: Sequence[str], x_chunks,
                       starts: Sequence[int], sctx: StageCtx, ctx: AxisCtx,
-                      layer_caches=None, ladder: bool = False):
+                      layer_caches=None, ladder: bool = False,
+                      remat: bool = False):
     """Loop over pattern periods (the reference's ``lax.scan``).
 
     params_periods: per position of ``pattern``, a list of per-period layer
@@ -175,17 +191,25 @@ def run_stack_prefill(params_periods, pattern: Sequence[str], x_chunks,
 
     The reference starts from a zero pending reduce (``x += psum(0)``); the
     port starts with none, which is the same numbers without a collective.
-    ``ladder``: the ladder-residual wiring (``run_layer``), single-chunk."""
+    ``ladder``: the ladder-residual wiring (``run_layer``), single-chunk.
+    ``remat``: each period runs under ``torch.utils.checkpoint``
+    (non-reentrant), the counterpart of the reference's
+    ``jax.checkpoint(period_body)``: the backward pass keeps only the
+    carry between periods and recomputes a period's activations, its
+    reduces included, when it reaches it."""
     n_periods = len(params_periods[0])
     state = PipeState(tuple(x_chunks), None, None)
     per_pos: List[List[Dict]] = [[] for _ in pattern]
     for p in range(n_periods):
-        for i, kind in enumerate(pattern):
-            cache_i = _period(layer_caches[i], p) if layer_caches else None
-            state, extras = run_layer(params_periods[i][p], kind, state, sctx,
-                                      ctx, layer_cache=cache_i, starts=starts,
-                                      ladder=ladder)
-            per_pos[i].append(extras)
+        args = (params_periods, pattern, p, state, sctx, ctx, layer_caches,
+                starts, ladder)
+        if remat:
+            state, extras = torch.utils.checkpoint.checkpoint(
+                _run_period, *args, use_reentrant=False)
+        else:
+            state, extras = _run_period(*args)
+        for i, ex in enumerate(extras):
+            per_pos[i].append(ex)
     extras = []
     for exs in per_pos:
         e = {}

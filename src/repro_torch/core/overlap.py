@@ -17,6 +17,14 @@ back unchanged: the reference's optimization barrier has nothing to pin in
 eager code, but callers keep its calling convention.
 
 At tp=1 (``tp_axis=None``) every collective is the identity.
+
+Under autograd (training: a partial that requires grad while grad mode is
+on) the reduce is ``all_reduce_sum``, an ``autograd.Function`` run at once,
+out of place, whose backward all-reduces the cotangent.  That is the
+transpose the reference's ``lax.psum`` gets inside ``shard_map(check_vma=
+False)``: every cotangent reaching a reduce is summed over the ranks, so a
+tp=M gradient is M x the tp=1 one (ROADMAP queue C).  Serving never builds
+an autograd graph and keeps the in-place, asynchronous reduces.
 """
 from __future__ import annotations
 
@@ -32,18 +40,25 @@ from repro_torch.core.quantized_collectives import all_gather_stack, \
 
 @dataclass(frozen=True)
 class AxisCtx:
-    """The TP group as seen by the stage code.
+    """The TP group (and, in training, the data-parallel group) as seen by
+    the stage code.
 
     ``tp_axis=None`` means single-device execution: all collectives are the
     identity.  Otherwise ``group`` is the ``torch.distributed`` process
     group of the tp ranks (None: the default group) and ``rank`` this
     process's index in it.  ``quantized_comm`` sends every reduce through
-    the int8 ``quantized_psum``."""
+    the int8 ``quantized_psum``.  ``dp_axes`` (the reference's batch axes,
+    empty: no data parallelism) with ``dp`` ranks in ``dp_group``, where
+    this process is ``dp_rank``: the group of the gradient mean."""
     tp_axis: Optional[str] = None
     tp: int = 1
     group: Any = None
     rank: int = 0
     quantized_comm: bool = False
+    dp_axes: Tuple[str, ...] = ()
+    dp: int = 1
+    dp_group: Any = None
+    dp_rank: int = 0
 
     def __post_init__(self):
         if self.tp_axis is None and self.tp != 1:
@@ -52,23 +67,57 @@ class AxisCtx:
         if not 0 <= self.rank < self.tp:
             raise ValueError(f"AxisCtx: rank {self.rank} outside tp="
                              f"{self.tp}")
+        if not self.dp_axes and self.dp != 1:
+            raise ValueError(f"AxisCtx: dp={self.dp} needs dp_axes (and "
+                             f"the process group)")
+        if not 0 <= self.dp_rank < self.dp:
+            raise ValueError(f"AxisCtx: dp rank {self.dp_rank} outside dp="
+                             f"{self.dp}")
 
     def axis_index(self) -> int:
         return self.rank
+
+
+class _AllReduceSum(torch.autograd.Function):
+    """Sum over ``group``, out of place; the backward sums the cotangent
+    over the group (``lax.psum``'s transpose under ``check_vma=False``)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        y = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
+    """Differentiable sum of ``x`` over the ranks of ``group``."""
+    return _AllReduceSum.apply(x, group)
+
+
+def _autograd(x: torch.Tensor) -> bool:
+    return x.requires_grad and torch.is_grad_enabled()
 
 
 @dataclass
 class Pending:
     """A collective that has been issued but not awaited.  ``work`` is the
     ``dist.Work`` of an all-reduce running in place on ``partial``, or the
-    quantized reduce's phase-1 state; None for the identity."""
+    quantized reduce's phase-1 state; None for the identity and for a
+    reduce under autograd, whose ``partial`` is then already the sum."""
     partial: torch.Tensor
     ctx: AxisCtx
     work: Any = None
 
     @property
     def noop(self) -> bool:
-        return self.ctx.tp_axis is None
+        return self.ctx.tp_axis is None or self.work is None
 
 
 def psum_start(partial: torch.Tensor, ctx: AxisCtx) -> Pending:
@@ -76,9 +125,17 @@ def psum_start(partial: torch.Tensor, ctx: AxisCtx) -> Pending:
     all-reduce runs in place: the caller must not read ``partial`` until
     ``psum_wait``.  With ``quantized_comm`` the int8 quantize and wire
     phase 1 (all-to-all) are issued here; phase 2 (all-gather) runs inside
-    ``psum_wait``, so part of that reduce completes there, exposed."""
+    ``psum_wait``, so part of that reduce completes there, exposed.  Under
+    autograd the reduce is ``all_reduce_sum``, complete on return."""
     if ctx.tp_axis is None:
         return Pending(partial, ctx)
+    if _autograd(partial):
+        if ctx.quantized_comm:
+            raise NotImplementedError(
+                "int8 TP reduces under autograd: the reference's rounding "
+                "has no gradient; train with ISOConfig(quantized_comm="
+                "False)")
+        return Pending(all_reduce_sum(partial, ctx.group), ctx)
     if ctx.quantized_comm:
         return Pending(partial, ctx,
                        quantized_psum_start(partial, ctx.group, ctx.tp))
@@ -102,6 +159,16 @@ def psum_now(partial: torch.Tensor, ctx: AxisCtx) -> torch.Tensor:
     """Immediate (baseline, non-overlapped) reduce, in place like
     ``psum_start``."""
     return psum_wait(psum_start(partial, ctx))[0]
+
+
+def dp_psum(x: torch.Tensor, ctx: AxisCtx) -> torch.Tensor:
+    """Sum over the data-parallel ranks (the loss, gradient norms), out of
+    place and outside autograd; the identity without data parallelism."""
+    if not ctx.dp_axes:
+        return x
+    y = x.detach().clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(y, group=ctx.dp_group)
+    return y
 
 
 def all_gather_last(x: torch.Tensor, ctx: AxisCtx) -> torch.Tensor:

@@ -19,8 +19,10 @@ each rank, so int8 summation cannot overflow:
 Steps 1, 3 and 5 are one kernel each (``kernels/int8_quant.py``): three
 launches a reduce on the card.  Wire bytes ~= 2 (n-1)/n * size * 1 B,
 against 2 (n-1)/n * size * 2 B for a bf16 ring all-reduce.
-``quantized_pmean`` (the data-parallel gradient mean) belongs to training
-and is not ported yet.
+``quantized_pmean`` is the data-parallel gradient mean of training on the
+same three kernels: a leaf flattened to one row, split into dp shards.
+Neither is differentiable; the trainer runs them on gradients, after the
+backward pass.
 """
 from __future__ import annotations
 
@@ -88,6 +90,18 @@ def quantized_psum_finish(pend: QuantizedPending) -> torch.Tensor:
     q2_g = all_gather_stack(q2, pend.group, tp)        # (tp, ..., d/tp)
     s2_g = all_gather_stack(s2, pend.group, tp)        # (tp, ..., 1)
     return dequantize_int8_gathered(q2_g, s2_g, pend.x_dtype)   # (..., d)
+
+
+def quantized_pmean(g: torch.Tensor, group, n: int) -> torch.Tensor:
+    """int8 mean of ``g`` over the ``n`` ranks of ``group`` (the
+    reference's ``quantized_pmean`` over one data axis): flattened, padded
+    to a multiple of ``n``, summed by ``quantized_psum``, divided by ``n``
+    in ``g``'s dtype."""
+    flat = g.reshape(-1)
+    pad = (-flat.shape[0]) % n
+    fp = quantized_psum(torch.nn.functional.pad(flat, (0, pad)), group, n)
+    flat = fp[:flat.shape[0]] if pad else fp
+    return (flat / n).reshape(g.shape).to(g.dtype)
 
 
 def quantized_psum(x: torch.Tensor, group, tp: int) -> torch.Tensor:

@@ -1,11 +1,14 @@
-"""Tensor-parallel process groups (the port's counterpart of
+"""Tensor- and data-parallel process groups (the port's counterpart of
 ``repro/launch/mesh.make_mesh``).
 
 The reference runs TP as one program over a device mesh (``shard_map``); the
 port runs one process per rank, joined by ``torch.distributed``.  ``spawn``
 starts the ranks with the ``spawn`` start method (fork breaks once CUDA is
 initialised), each rank calls ``fn(group, *args)`` with its ``TPGroup``, and
-the parent gets every rank's return value back.
+the parent gets every rank's return value back.  ``spawn(..., data=N)``
+starts the (data, model) grid of training, N x tp ranks in the reference's
+device order (``model`` the fast axis: global rank ``d * tp + m``), with a
+process group for each TP row and each data-parallel column.
 
 Device and backend follow each other:
 
@@ -43,16 +46,22 @@ from repro_torch.device import resolve_device
 
 @dataclass(frozen=True)
 class TPGroup:
-    """One rank's view of the tensor-parallel group."""
+    """One rank's view of the tensor-parallel group, and of the
+    data-parallel group of a (data, model) grid (``dp`` 1: none)."""
     rank: int
     tp: int
     device: torch.device
     backend: str
     group: Any = None            # the process group of the tp ranks
+    dp: int = 1
+    dp_rank: int = 0
+    dp_group: Any = None         # the process group of the dp ranks
 
     def axis_ctx(self, quantized_comm: bool = False) -> AxisCtx:
+        dp = dict(dp_axes=("data",), dp=self.dp, dp_group=self.dp_group,
+                  dp_rank=self.dp_rank) if self.dp > 1 else {}
         return AxisCtx(tp_axis="model", tp=self.tp, group=self.group,
-                       rank=self.rank, quantized_comm=quantized_comm)
+                       rank=self.rank, quantized_comm=quantized_comm, **dp)
 
 
 def rank_device(device, rank: int, tp: int,
@@ -81,9 +90,11 @@ def rank_device(device, rank: int, tp: int,
 
 def init_tp_group(rank: int, tp: int, init_file: str, device=None,
                   backend: Optional[str] = None,
-                  timeout_s: float = 600.0) -> TPGroup:
-    """Join the default process group as rank ``rank`` of ``tp``."""
-    dev, backend = rank_device(device, rank, tp, backend)
+                  timeout_s: float = 600.0, data: int = 1) -> TPGroup:
+    """Join the default process group as global rank ``rank`` of the
+    ``data`` x ``tp`` grid (``data`` 1: rank ``rank`` of ``tp``)."""
+    world = data * tp
+    dev, backend = rank_device(device, rank, world, backend)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
     else:
@@ -91,16 +102,26 @@ def init_tp_group(rank: int, tp: int, init_file: str, device=None,
         # several processes starve gloo's progress threads
         torch.set_num_threads(1)
     dist.init_process_group(backend, init_method=f"file://{init_file}",
-                            rank=rank, world_size=tp,
+                            rank=rank, world_size=world,
                             timeout=timedelta(seconds=timeout_s))
-    return TPGroup(rank=rank, tp=tp, device=dev, backend=backend,
-                   group=dist.group.WORLD)
+    if data == 1:
+        return TPGroup(rank=rank, tp=tp, device=dev, backend=backend,
+                       group=dist.group.WORLD)
+    # every rank creates every group, in one order: the TP rows, then the
+    # data-parallel columns
+    d, m = divmod(rank, tp)
+    rows = [dist.new_group([r * tp + j for j in range(tp)])
+            for r in range(data)]
+    cols = [dist.new_group([r * tp + j for r in range(data)])
+            for j in range(tp)]
+    return TPGroup(rank=m, tp=tp, device=dev, backend=backend, group=rows[d],
+                   dp=data, dp_rank=d, dp_group=cols[m])
 
 
 def _rank_main(rank: int, fn: Callable, tp: int, tmp: str, device, backend,
-               timeout_s: float, args: Sequence) -> None:
+               timeout_s: float, args: Sequence, data: int = 1) -> None:
     group = init_tp_group(rank, tp, os.path.join(tmp, "rendezvous"), device,
-                          backend, timeout_s)
+                          backend, timeout_s, data)
     try:
         result = fn(group, *args)
     finally:
@@ -112,18 +133,20 @@ def _rank_main(rank: int, fn: Callable, tp: int, tmp: str, device, backend,
 
 
 def spawn(fn: Callable, tp: int, *, args: Sequence = (), device=None,
-          backend: Optional[str] = None, timeout_s: float = 600.0
-          ) -> List[Any]:
-    """Run ``fn(group, *args)`` on ``tp`` fresh rank processes and return
-    the ranks' results in rank order.  ``fn`` must be importable by name
-    (module level) and its result picklable.  A rank that raises, or a run
-    past ``timeout_s``, stops every rank and raises here."""
-    rank_device(device, 0, tp, backend)           # refuse before starting
+          backend: Optional[str] = None, timeout_s: float = 600.0,
+          data: int = 1) -> List[Any]:
+    """Run ``fn(group, *args)`` on ``data * tp`` fresh rank processes and
+    return the ranks' results in global rank order (``d * tp + m``).
+    ``fn`` must be importable by name (module level) and its result
+    picklable.  A rank that raises, or a run past ``timeout_s``, stops
+    every rank and raises here."""
+    world = data * tp
+    rank_device(device, 0, world, backend)        # refuse before starting
     with tempfile.TemporaryDirectory(prefix="repro_torch_tp") as tmp:
         ctx = mp.start_processes(
             _rank_main, args=(fn, tp, tmp, device, backend, timeout_s,
-                              tuple(args)),
-            nprocs=tp, start_method="spawn", join=False)
+                              tuple(args), data),
+            nprocs=world, start_method="spawn", join=False)
         deadline = time.monotonic() + timeout_s
         while not ctx.join(timeout=1.0):
             if time.monotonic() > deadline:
@@ -132,10 +155,10 @@ def spawn(fn: Callable, tp: int, *, args: Sequence = (), device=None,
                         p.kill()
                 for p in ctx.processes:
                     p.join(10)
-                raise TimeoutError(f"tp={tp} ranks still running after "
-                                   f"{timeout_s} s")
+                raise TimeoutError(f"{data} x tp={tp} ranks still running "
+                                   f"after {timeout_s} s")
         results = []
-        for r in range(tp):
+        for r in range(world):
             with open(os.path.join(tmp, f"rank{r}.pkl"), "rb") as f:
                 results.append(pickle.load(f))
     return results

@@ -3,16 +3,17 @@
 [--tp N]]``.  ``--arch`` takes every config the port registers
 (``configs.DENSE``: qwen3-4b/8b/32b, codeqwen1.5-7b, paper-30b, paper-70b;
 the ladder twins; ``configs.ENCDEC``: whisper-medium; ``configs.MOE``:
-granite-moe-3b-a800m, kimi-k2-1t-a32b); ``--preset full``
+granite-moe-3b-a800m, kimi-k2-1t-a32b; ``configs.RECURRENT``: hymba-1.5b,
+xlstm-350m; ``configs.VLM``: internvl2-2b); ``--preset full``
 serves it at its published widths (paper-30b fits one H100; paper-70b needs
 several cards), ``--preset tiny`` a reduced twin.
 
 Builds random weights from a seed on the device, submits a batch of
 synthetic greedy requests and reports prefill and decode throughput: with
 ``--paged`` to the paged engine, without it to the dense-cache ``Engine``
-(tp=1, bucket 32, the only engine for an audio arch, whose
-requests carry seeded frames, N(0, 1) x 0.1, as the stub frontend's
-output).  Runs on ``cuda`` unless ``--device cpu`` is given.  ``--tp N``
+(tp=1, bucket 32, the only engine for an audio arch).  An audio
+arch's requests carry seeded frames, a vlm arch's seeded patches (its
+``num_patches``), N(0, 1) x 0.1, as the stub frontends' outputs.  Runs on ``cuda`` unless ``--device cpu`` is given.  ``--tp N``
 spawns N ranks (``launch/mesh.spawn``): one per card over NCCL, or on the
 host over gloo under ``--device cpu``; each rank makes only its shard of the
 weights, and rank 0's run is reported.
@@ -55,45 +56,19 @@ import numpy as np
 import torch
 
 from repro_torch import bridge
-from repro_torch.config import Config, ISOConfig, ModelConfig, \
+from repro_torch.config import Config, ISOConfig, \
     ParallelConfig, RuntimeConfig, ServingConfig, get_model_config
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.kernels import native
 from repro_torch.core.iso import DECODE_SCHEDULES
 from repro_torch.launch.mesh import TPGroup, disagg_devices, spawn
+from repro_torch.launch.train import reduce_cfg  # noqa: F401
 from repro_torch.models import api
 from repro_torch.obs import torchprof, write_chrome_trace
 from repro_torch.serving import Engine, PagedEngine, Request, engine, \
     paged_engine
 from repro_torch.serving.disagg import DisaggRouter
 from repro_torch.serving.requests import SamplingParams
-
-
-def reduce_cfg(cfg: ModelConfig, preset: str) -> ModelConfig:
-    """Shrink an arch to a CPU-runnable size, keeping its family/structure
-    (copy of ``repro/launch/train.reduce_cfg``)."""
-    if preset == "full":
-        return cfg
-    layers, d, vocab = {"tiny": (2, 128, 512)}[preset]
-    n_pat = len(cfg.block_pattern)
-    layers = max(layers, n_pat)
-    layers -= layers % n_pat
-    heads = max(2, min(cfg.num_heads, d // 64))
-    kv = max(1, min(cfg.num_kv_heads, heads))
-    kw = dict(num_layers=layers, d_model=d, num_heads=heads, num_kv_heads=kv,
-              head_dim=0, d_ff=(d * 4 if cfg.d_ff else 0),
-              vocab_size=min(cfg.vocab_size, vocab),
-              encoder_layers=min(cfg.encoder_layers, layers),
-              encoder_frames=min(cfg.encoder_frames, 64),
-              num_patches=min(cfg.num_patches, 16))
-    if cfg.moe:
-        kw["moe"] = dataclasses.replace(
-            cfg.moe, num_experts=4, top_k=2, d_ff_expert=d * 2,
-            capacity_factor=2.0,
-            shared_expert_d_ff=d if cfg.moe.shared_expert_d_ff else 0)
-    if cfg.sliding_window:
-        kw["sliding_window"] = 64
-    return dataclasses.replace(cfg, **kw)
 
 
 def _engines(eng) -> tuple:
@@ -159,11 +134,13 @@ def _make_engine(config: Config, params, group: Optional[TPGroup], dev):
 
 
 def _submit(eng, v: Dict[str, Any]) -> List[int]:
+    patches = v.get("patches")
     return [eng.add_request(Request(
         prompt=np.asarray(p, np.int32).copy(),
         sampling=SamplingParams(max_new_tokens=v["max_new"], eos_id=-1,
                                 temperature=v.get("temperature", 0.0),
-                                seed=i)))
+                                seed=i),
+        patches=None if patches is None else patches[i]))
         for i, p in enumerate(v["prompts"])]
 
 
@@ -431,6 +408,10 @@ def main(argv=None) -> int:
                     min_chunk_tokens=16, chunk_align=16)
     max_len = args.shared_prefix + args.prompt_len + args.max_new + 8
     max_len += args.spec_k + 1 if args.spec_k else 0
+    # a vlm request's patches sit in the stream too (the reference's
+    # launcher leaves them out, and its paged engine then refuses the
+    # requests: ROADMAP queue C)
+    max_len += cfg.num_patches if cfg.family == "vlm" else 0
     serving = ServingConfig(page_size=args.page_size, max_batch=args.max_batch,
                             max_len=max_len,
                             prefill_token_budget=args.prefill_budget,
@@ -450,18 +431,25 @@ def main(argv=None) -> int:
     rng = np.random.default_rng(args.seed)
     system = rng.integers(2, cfg.vocab_size,
                           args.shared_prefix).astype(np.int32)
-    prompts, frames = [], []
+    prompts, frames, patches = [], [], []
     for _ in range(args.requests):
         plen = int(rng.integers(args.prompt_len // 2, args.prompt_len))
         prompts.append(np.concatenate(
             [system, rng.integers(2, cfg.vocab_size, plen)]).astype(np.int32))
-        if cfg.family == "audio":           # the stub frontend's output
+        # the stub frontends' outputs
+        if cfg.family == "audio":
             frames.append((rng.standard_normal(
                 (cfg.encoder_frames, cfg.d_model)) * 0.1).astype(np.float32))
+        if cfg.family == "vlm":
+            patches.append((rng.standard_normal(
+                (cfg.num_patches, cfg.d_model)) * 0.1).astype(np.float32))
     if not args.paged:
-        return _serve_dense(args, config, prompts, frames or None, device)
+        return _serve_dense(args, config, prompts, frames or None, device,
+                            patches or None)
     variant = dict(prompts=prompts, max_new=args.max_new,
                    temperature=args.temperature)
+    if patches:
+        variant["patches"] = patches
     if args.probe_overlap:
         variant["probe"] = {}
     variants = [variant]
@@ -545,9 +533,11 @@ def main(argv=None) -> int:
     return 0
 
 
-def _serve_dense(args, config: Config, prompts, frames, device) -> int:
+def _serve_dense(args, config: Config, prompts, frames, device,
+                 patches=None) -> int:
     """``main`` without ``--paged``: serve ``prompts`` (with ``frames`` for
-    an audio arch) on the dense ``Engine`` at tp=1, bucket 32, weights from
+    an audio arch, ``patches`` for a vlm one) on the dense ``Engine`` at
+    tp=1, bucket 32, weights from
     ``--seed``; request i samples with seed i, and every sampled logits row
     is checked finite."""
     cfg = config.model
@@ -558,6 +548,7 @@ def _serve_dense(args, config: Config, prompts, frames, device) -> int:
                  spec_k=args.spec_k, device=device)
     rids = [eng.add_request(Request(
         prompt=p, frames=None if frames is None else frames[i],
+        patches=None if patches is None else patches[i],
         sampling=SamplingParams(max_new_tokens=args.max_new, eos_id=-1,
                                 temperature=args.temperature, seed=i)))
         for i, p in enumerate(prompts)]

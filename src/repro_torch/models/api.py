@@ -1,5 +1,5 @@
-"""Model API used by launch/ and serving/ (port of ``repro/models/api.py``
-for the dense, MoE, hybrid, ssm (xLSTM) and audio families).
+"""Model API used by launch/, serving/ and training/ (port of
+``repro/models/api.py``; every family of the reference).
 
   init_params(seed, cfg, tp, dtype, device, rank) -> params
   prefill(params, cfg, ctx, iso, batch, ...)  -> dict (logits_local, ...)
@@ -12,8 +12,12 @@ for the dense, MoE, hybrid, ssm (xLSTM) and audio families).
 
 ``prefill``'s dict carries ``moe_aux``, the MoE load-balance aux (0.0
 without MoE).  ``batch`` is ``{"tokens": (B, S) integer}`` for the dense,
-MoE, hybrid and ssm families and ``{"frames": (B, F, D), "tokens": (B,
-S)}`` for audio (whisper; the frames are the stub frontend's output).
+MoE, hybrid and ssm families, ``{"frames": (B, F, D), "tokens": (B,
+S)}`` for audio (whisper; the frames are the stub frontend's output) and
+``{"tokens": (B, S_text), "patches": (B, P, D)}`` for vlm (the stub vision
+encoder's output, prepended to the text).  A vlm batch without
+``patches`` is text alone: a text-only request, or a resumed grant whose
+patches are already in the KV pages.
 """
 from __future__ import annotations
 
@@ -50,6 +54,11 @@ def prefill(params, cfg: ModelConfig, ctx: AxisCtx, iso: ISOConfig,
         return whisper_lib.whisper_prefill(
             params, cfg, ctx, iso, frames=batch["frames"],
             tokens=batch["tokens"], **kw)
+    if cfg.family == "vlm":
+        # the reference reads batch["patches"] unconditionally and so
+        # raises KeyError on a batch of text alone (ROADMAP queue C)
+        return dec_lib.prefill(params, cfg, ctx, iso, tokens=batch["tokens"],
+                               extra_embeds=batch.get("patches"), **kw)
     return dec_lib.prefill(params, cfg, ctx, iso, tokens=batch["tokens"],
                            **kw)
 
@@ -98,14 +107,23 @@ def make_inputs(cfg: ModelConfig, seq_len: int, global_batch: int,
                 seed: int = 0, dtype=torch.bfloat16, device=None
                 ) -> Dict[str, torch.Tensor]:
     """Random model inputs from ``seed``: tokens in [0, vocab), and for
-    audio frames ~ N(0, 1) x 0.1 of (B, encoder_frames, D)."""
+    audio frames ~ N(0, 1) x 0.1 of (B, encoder_frames, D); for vlm the
+    first ``n_p = min(num_patches, max(1, S // 2))`` of the S positions are
+    patches ~ N(0, 1) x 0.1 of (B, n_p, D), the rest text."""
     device = resolve_device(device)
     gen = torch.Generator(device=device).manual_seed(seed)
     B, S = global_batch, seq_len
-    out = {"tokens": torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
-                                   dtype=torch.int32, device=device)}
+    n_p = min(cfg.num_patches, max(1, S // 2)) if cfg.family == "vlm" else 0
+    out = {"tokens": torch.randint(0, cfg.vocab_size, (B, S - n_p),
+                                   generator=gen, dtype=torch.int32,
+                                   device=device)}
+
+    def emb(shape):
+        return (torch.randn(shape, generator=gen, dtype=torch.float32,
+                            device=device) * 0.1).to(dtype)
+
     if cfg.family == "audio":
-        out["frames"] = (torch.randn(
-            (B, cfg.encoder_frames, cfg.d_model), generator=gen,
-            dtype=torch.float32, device=device) * 0.1).to(dtype)
+        out["frames"] = emb((B, cfg.encoder_frames, cfg.d_model))
+    if n_p:
+        out["patches"] = emb((B, n_p, cfg.d_model))
     return out

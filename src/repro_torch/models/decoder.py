@@ -1,6 +1,7 @@
 """Decoder-stack model driver (port of ``repro/models/decoder.py`` for the
-dense, MoE, hybrid (hymba) and xLSTM families and for whisper's encoder and
-decoder stacks, ``models/whisper.py``).
+dense, MoE, hybrid (hymba), xLSTM and VLM families and for whisper's encoder
+and decoder stacks, ``models/whisper.py``).  A VLM prompt is its patch
+embeddings (the stub vision encoder's output) followed by its text.
 
 Forward code is written in the local-shard view: under tensor parallelism
 each rank holds its shard of every sharded leaf (``SHARD_AXIS``) and the
@@ -44,20 +45,21 @@ FAMILY_KINDS = {"dense": (BLOCK_ATTN_MLP,),
                 "moe": (BLOCK_ATTN_MOE,),
                 "hybrid": (BLOCK_HYBRID,),
                 "ssm": (BLOCK_MLSTM, BLOCK_SLSTM),
-                "audio": (BLOCK_ATTN_MLP, BLOCK_DEC)}
+                "audio": (BLOCK_ATTN_MLP, BLOCK_DEC),
+                "vlm": (BLOCK_ATTN_MLP,)}
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """The port serves dense ``attn_mlp`` and MoE ``attn_moe`` stacks,
-    standard- or ladder-wired, hymba's ``hybrid`` and xLSTM's ``mlstm`` /
-    ``slstm`` stacks, and whisper's encoder (``attn_mlp``) and decoder
-    (``dec_block``) stacks; anything else (the VLM family) raises, naming
-    its ROADMAP item."""
+    """The port serves dense and VLM ``attn_mlp`` and MoE ``attn_moe``
+    stacks, standard- or ladder-wired, hymba's ``hybrid`` and xLSTM's
+    ``mlstm`` / ``slstm`` stacks, and whisper's encoder (``attn_mlp``) and
+    decoder (``dec_block``) stacks, the reference's whole registry; any
+    other family or block kind raises."""
     kinds = FAMILY_KINDS.get(cfg.family, ())
     if not kinds or any(k not in kinds for k in cfg.block_pattern):
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} / blocks {cfg.block_pattern}"
-            f" are not ported (ROADMAP queue A item 10)")
+            f" are not ported")
     if cfg.residual_wiring not in ("standard", "ladder"):
         raise ValueError(f"{cfg.name}: unknown residual wiring "
                          f"{cfg.residual_wiring!r}")
@@ -275,14 +277,20 @@ def _final(params, x, cfg):
 
 def prefill(params, cfg: ModelConfig, ctx: AxisCtx, iso: ISOConfig, *,
             tokens: torch.Tensor = None, embeds: torch.Tensor = None,
+            extra_embeds: torch.Tensor = None,
             logits_mode: str = "all", return_cache: bool = False,
-            cache_len: int = 0, layer_statics=None, mode: str = "prefill",
-            prefix_caches=None, pos_offset=0, block_tables=None,
-            prefix_lens=None, valid_len=None,
+            cache_len: int = 0, remat: bool = False, layer_statics=None,
+            mode: str = "prefill", prefix_caches=None, pos_offset=0,
+            block_tables=None, prefix_lens=None, valid_len=None,
             return_extras: bool = False) -> Dict[str, Any]:
     """Run the stack over a prompt, or one resumed slice of it, with the ISO
     schedule.  tokens: (B, S) integer, or embeds: (B, S, D) precomputed (the
-    whisper encoder's frames).  ``mode="encode"`` runs bidirectional
+    whisper encoder's frames).  ``extra_embeds`` (B, S0, D): continuous
+    tokens prepended to the text (a VLM's patches), cast to the embedding
+    dtype; the ISO split then sees S0 + S positions.  ``remat``: recompute
+    each pattern period in the backward pass instead of keeping its
+    activations (training; ``core/iso.run_stack_prefill``).
+    ``mode="encode"`` runs bidirectional
     attention (the whisper encoder).  ``logits_mode``: ``all`` rows,
     the ``last`` row, or ``none``.
 
@@ -310,6 +318,8 @@ def prefill(params, cfg: ModelConfig, ctx: AxisCtx, iso: ISOConfig, *,
                 isinstance(pos_offset, int) and pos_offset == 0):
             raise NotImplementedError(
                 "resumed prefill with sinusoidal positions (traced offset)")
+    if extra_embeds is not None:
+        embeds = torch.cat([extra_embeds.to(embeds.dtype), embeds], dim=1)
     if layer_statics is not None and prefix_caches is not None:
         raise ValueError("layer_statics and prefix_caches both given")
     B, S, D = embeds.shape
@@ -328,7 +338,7 @@ def prefill(params, cfg: ModelConfig, ctx: AxisCtx, iso: ISOConfig, *,
     xs_final, extras = run_stack_prefill(
         params["periods"], cfg.block_pattern, x_chunks, tuple(starts), sctx,
         ctx, layer_caches=layer_statics if prefix_caches is None
-        else prefix_caches, ladder=ladder)
+        else prefix_caches, ladder=ladder, remat=remat)
     x = torch.cat(xs_final, dim=1) if len(xs_final) > 1 else xs_final[0]
     x = _final(params, x, cfg)
 

@@ -52,15 +52,17 @@ def init_whisper_params(seed: int, cfg: ModelConfig, tp: int = 1,
 
 
 def encode(params, cfg: ModelConfig, ctx: AxisCtx, iso: ISOConfig,
-           frames: torch.Tensor) -> torch.Tensor:
+           frames: torch.Tensor, remat: bool = False) -> torch.Tensor:
     """frames: (B, F, D), the stub frontend's output -> the encoder's hidden
     states (B, F, D) in the frames' dtype (float32 frames against bfloat16
-    weights compute in float32, as in the reference)."""
+    weights compute in float32, as in the reference).  ``remat``: as
+    decoder.prefill's."""
     embeds = frames + sinusoidal_embedding(
         frames.shape[1], cfg.d_model, device=frames.device).to(
             frames.dtype)[None]
     out = dec_lib.prefill(params["encoder"], encoder_cfg(cfg), ctx, iso,
-                          embeds=embeds, logits_mode="none", mode="encode")
+                          embeds=embeds, logits_mode="none", mode="encode",
+                          remat=remat)
     return out["hidden"]
 
 
@@ -76,18 +78,18 @@ def _cross_statics(params, cfg: ModelConfig, enc_out: torch.Tensor):
 
 def whisper_prefill(params, cfg: ModelConfig, ctx: AxisCtx, iso: ISOConfig,
                     *, frames, tokens, logits_mode: str = "all",
-                    return_cache: bool = False, cache_len: int = 0
-                    ) -> Dict[str, Any]:
+                    return_cache: bool = False, cache_len: int = 0,
+                    remat: bool = False) -> Dict[str, Any]:
     """Encode ``frames``, then prefill the decoder on ``tokens`` with the
     cross K/V as layer statics.  With ``return_cache`` the decoder's caches
     also carry the cross K/V (in the encoder's dtype; the engine casts them
     into its own caches).  ``enc_out`` is the encoder's output."""
-    enc_out = encode(params, cfg, ctx, iso, frames)
+    enc_out = encode(params, cfg, ctx, iso, frames, remat=remat)
     statics = _cross_statics(params, cfg, enc_out)
     out = dec_lib.prefill(params["decoder"], decoder_cfg(cfg), ctx, iso,
                           tokens=tokens, logits_mode=logits_mode,
                           return_cache=return_cache, cache_len=cache_len,
-                          layer_statics=statics)
+                          layer_statics=statics, remat=remat)
     if return_cache:
         out["caches"] = (dict(out["caches"][0], **statics[0]),)
     out["enc_out"] = enc_out

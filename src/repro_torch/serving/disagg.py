@@ -149,8 +149,8 @@ class DisaggRouter:
         """Admit to the prefill engine, after checking that the request can
         ever live in the decode pool too (else it would prefill, then wedge
         the migration queue)."""
-        need = pages_for(len(req.prompt) + req.sampling.max_new_tokens,
-                         self.decode.ps)
+        eff = len(req.prompt) + self.prefill._eff_extra(req)
+        need = pages_for(eff + req.sampling.max_new_tokens, self.decode.ps)
         if need > self.decode.alloc.num_pages:
             raise ValueError(
                 f"request {req.rid}: needs {need} pages but the decode pool "

@@ -10,7 +10,9 @@ lengths are bucketed (``bucket``); the padded tail's cache positions are
 scrubbed to -1 when the prefill's caches are written into the slot
 (``_write_slot``).  It is the only engine that serves the encoder-decoder
 family (whisper): a request's ``frames`` ride into its prefill, and its
-cross K/V into the slot's ``cross_k``/``cross_v``.  A recurrent stack
+cross K/V into the slot's ``cross_k``/``cross_v``.  A VLM request's
+``patches`` ride into its prefill ahead of its text, and the slot's length
+counts them.  A recurrent stack
 (hymba's ``hybrid``, xLSTM's ``mlstm``/``slstm``) keeps each slot's state
 (``ssm``/``mlstm``/``slstm``) beside the ring caches: a prefill writes the
 state after the whole BUCKET-PADDED prompt into the slot (the pad tokens
@@ -65,6 +67,10 @@ from repro_torch.serving.speculative import BigramDraft, accept_greedy
 
 MESH_ITEM = ("the dense Engine under tensor parallelism comes with "
              "launch/runner (ROADMAP queue A item 11); it serves at tp=1")
+
+
+def _n_patches(req: Request) -> int:
+    return req.patches.shape[0] if req.patches is not None else 0
 
 
 def _bucket(n: int, b: int) -> int:
@@ -134,9 +140,11 @@ class Engine:
 
     # ------------------------------------------------------------------
     def add_request(self, req: Request) -> int:
-        if req.patches is not None:
-            raise NotImplementedError("vision requests (patches): ROADMAP "
-                                      "queue A item 10")
+        if req.patches is not None and \
+                tuple(req.patches.shape[1:]) != (self.cfg.d_model,):
+            raise ValueError(f"request {req.rid}: patches of shape "
+                             f"{tuple(req.patches.shape)}, want (n, "
+                             f"{self.cfg.d_model})")
         if (req.frames is not None) != (self.cfg.family == "audio"):
             raise ValueError(f"request {req.rid}: frames "
                              f"{'missing' if req.frames is None else 'given'}"
@@ -145,8 +153,9 @@ class Engine:
         if req.frames is not None and tuple(req.frames.shape) != want:
             raise ValueError(f"request {req.rid}: frames of shape "
                              f"{tuple(req.frames.shape)}, want {want}")
-        if len(req.prompt) + req.sampling.max_new_tokens > self.max_len:
-            raise ValueError(f"request {req.rid}: {len(req.prompt)} prompt + "
+        eff = len(req.prompt) + _n_patches(req)
+        if eff + req.sampling.max_new_tokens > self.max_len:
+            raise ValueError(f"request {req.rid}: {eff} prompt + "
                              f"{req.sampling.max_new_tokens} new tokens "
                              f"exceeds max_len={self.max_len}")
         self._t_submit[req.rid] = time.perf_counter()
@@ -164,15 +173,20 @@ class Engine:
             if frames.dtype == np.float64:      # jnp.asarray's precision
                 frames = frames.astype(np.float32)
             batch["frames"] = to_torch(frames, self.device)[None]
+        if req.patches is not None:
+            batch["patches"] = to_torch(np.asarray(req.patches, np.float32),
+                                        self.device)[None]
+        # the prompt's length in the decoder stream (patches come first)
+        eff_plen = plen + _n_patches(req)
 
         t0 = time.perf_counter()
         with torchprof.annotate(f"prefill/T={blen}"):
             out = api.prefill(self.params, self.cfg, self._ctx,
                               self.config.iso, batch, logits_mode="all",
                               return_cache=True, cache_len=self.max_len)
-            self._write_slot(out["caches"], slot, plen)
+            self._write_slot(out["caches"], slot, eff_plen)
             # the one row to sample, taken on the device
-            row = out["logits_local"][0, plen - 1]
+            row = out["logits_local"][0, eff_plen - 1]
         self.metrics["prefill_dispatch_s"] += time.perf_counter() - t0
         # fence the whole step, the caches' write included
         synchronize(self.device)
@@ -194,10 +208,10 @@ class Engine:
         self.registry.histogram("ttft").observe(ttft)
         self.trace.emit("sample", rid=req.rid, slot=slot, first=True)
 
-        st = RequestState(request=req, slot=slot, prompt_len=plen)
+        st = RequestState(request=req, slot=slot, prompt_len=eff_plen)
         st.generated.append(first)
         st.finish_check()
-        self.lengths[slot] = plen
+        self.lengths[slot] = eff_plen
         self.last_tokens[slot] = first
         if self.spec_k:
             d = BigramDraft()

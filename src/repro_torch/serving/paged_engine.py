@@ -101,6 +101,13 @@ collectives (``ladder``) when ``decode_overlap``, immediate ones
 When the pool runs dry a victim is evicted (recompute preemption: its pages
 are freed and prompt + generated re-enter the waiting queue).
 
+A VLM request (``Request.patches``, (n, d_model)) occupies n positions
+ahead of its text: its prompt is one chunk, granted whole and never
+padded, packed or shared (a patch-carrying model's engine has no buckets
+and no packing at all, as the reference's).  Its first grant carries the
+patches; a later grant (the tail a grant cap cut off) is text from the
+text offset ``start - n``.
+
 Disaggregated serving (``serving/disagg.py``): ``phase="prefill"`` admits
 and prefills only (a request's first token comes from its prefill's last
 logits), ``phase="decode"`` decodes only, its requests arriving by
@@ -393,9 +400,12 @@ class PagedEngine:
         # exact grant length
         attn_only = all(k in (BLOCK_ATTN_MLP, BLOCK_ATTN_MOE)
                         for k in self.cfg.block_pattern)
+        # nor for a patch-carrying model: its patch grants run unbucketed
+        # and unpacked (a row-heterogeneous embed layout)
+        no_patches = self.cfg.num_patches == 0
         self._buckets = grant_buckets(sv.max_len, sv.min_grant_bucket,
                                       sv.grant_buckets) \
-            if sv.grant_bucketing and attn_only else None
+            if sv.grant_bucketing and attn_only and no_patches else None
         self.scheduler = TokenBudgetScheduler(
             policy=sv.scheduler_policy,
             prefill_token_budget=sv.prefill_token_budget,
@@ -404,7 +414,8 @@ class PagedEngine:
         # batched prefill: same-padded-length grants packed into one call,
         # the row count padded up a power-of-two ladder so closures stay
         # keyed on (length bucket, row bucket, all-fresh)
-        self._batch_prefill = sv.prefill_batching and attn_only
+        self._batch_prefill = sv.prefill_batching and attn_only \
+            and no_patches
         self._row_buckets = grant_buckets(sv.max_batch, min_bucket=1) \
             if self._batch_prefill else (1,)
         # copy-on-write prefix sharing
@@ -461,16 +472,24 @@ class PagedEngine:
     # ------------------------------------------------------------------
     # request lifecycle
     # ------------------------------------------------------------------
+    @staticmethod
+    def _eff_extra(req: Request) -> int:
+        """Positions a request's patch embeddings take ahead of its text."""
+        return req.patches.shape[0] if req.patches is not None else 0
+
     def add_request(self, req: Request) -> int:
         if self.phase == "decode":
             raise RuntimeError("a decode-phase engine admits nothing: its "
                                "requests arrive by attach_requests")
         if req.frames is not None:
             raise NotImplementedError(AUDIO_MSG)
-        if req.patches is not None:
-            raise NotImplementedError("vision requests (patches): ROADMAP "
-                                      "queue A item 10")
-        eff = len(req.prompt)
+        if req.patches is not None and \
+                tuple(req.patches.shape[1:]) != (self.cfg.d_model,):
+            raise ValueError(f"request {req.rid}: patches of shape "
+                             f"{tuple(req.patches.shape)}, want (n, "
+                             f"{self.cfg.d_model})")
+        # the effective prompt: its patch embeddings, then its text
+        eff = len(req.prompt) + self._eff_extra(req)
         if eff + req.sampling.max_new_tokens > self.max_len:
             raise ValueError(f"request {req.rid}: {eff} prompt + "
                              f"{req.sampling.max_new_tokens} new tokens exceeds "
@@ -484,7 +503,7 @@ class PagedEngine:
         st = RequestState(request=req, slot=-1, t_submit=time.perf_counter())
         st.prompt_len = eff
         st.chunk_plan = plan_chunks(eff, self.config.iso, self.cfg,
-                                    tp=self.tp)
+                                    whole=req.patches is not None, tp=self.tp)
         self._by_rid[req.rid] = st
         self.scheduler.add(req.rid, priority=req.priority)
         return req.rid
@@ -505,7 +524,7 @@ class PagedEngine:
         """Map a live donor's matching prompt-prefix pages into this request
         (refcounted, nothing copied); prefill then resumes after the shared
         part."""
-        if self.prefix_cache is None:
+        if self.prefix_cache is None or st.request.patches is not None:
             return
         rid = st.request.rid
         hit = self.prefix_cache.lookup(st.request.prompt, self.alloc,
@@ -581,7 +600,9 @@ class PagedEngine:
         # decode left off
         st.prefilled = 0
         st.chunk_plan = plan_chunks(st.prompt_len + len(st.generated),
-                                    self.config.iso, self.cfg, tp=self.tp)
+                                    self.config.iso, self.cfg,
+                                    whole=st.request.patches is not None,
+                                    tp=self.tp)
         self.scheduler.requeue_front(victim)
         self.metrics["preemptions"] += 1
         return True
@@ -664,10 +685,15 @@ class PagedEngine:
                                          self._graph_pool)
             self.graphs += 1
 
-    def _get_prefill(self, n_text: int, resumed: bool) -> StepClosure:
+    def _get_prefill(self, n_text: int, resumed: bool,
+                     n_patches: int = 0) -> StepClosure:
         """Prefill closure of a (bucket-padded) grant length, fresh or
-        resumed: the reference's ``(n_text, n_patches, resumed)`` key
-        without patches.  Inputs: ``tokens`` (1, n_text), the block-table
+        resumed: the reference's ``(n_text, n_patches, resumed)`` key, or
+        ``(n_text, resumed)`` without patches.  A patch grant (the first
+        grant of a patch-carrying request, unpadded) adds the input
+        ``patches`` (1, n_patches, D) fp32, prepended to its text; its
+        ``start`` and ``n_real`` count the patch positions.  Inputs:
+        ``tokens`` (1, n_text), the block-table
         row ``bt`` (1, MB) and the 0-d ``start`` and ``n_real``, so one
         closure serves every grant of its bucket: pad-tail tokens are
         masked out of attention (``valid_len``), scatter to the scratch
@@ -677,18 +703,22 @@ class PagedEngine:
         on the device), a fresh one from zero state, and either writes its
         final states into the slot in place.  Returns the last real row's
         local logits (1, V_loc)."""
-        key = (n_text, resumed)
+        key = (n_text, n_patches, resumed) if n_patches else \
+            (n_text, resumed)
         if key in self._prefill_fns:
             return self._prefill_fns[key]
-        dev, T = self.device, n_text
+        dev, T = self.device, n_text + n_patches
         i32 = dict(dtype=torch.int32, device=dev)
-        bufs = {"tokens": torch.zeros((1, T), **i32),
+        bufs = {"tokens": torch.zeros((1, n_text), **i32),
                 "bt": torch.full((1, self.max_blocks), -1, **i32),
                 "start": torch.zeros((), **i32),
                 "n_real": torch.zeros((), **i32)}
         states = self.states
         if self._state_tensors:
             bufs["slot"] = torch.zeros((), **i32)
+        if n_patches:
+            bufs["patches"] = torch.zeros((1, n_patches, self.cfg.d_model),
+                                          dtype=torch.float32, device=dev)
         params, cfg, ctx, iso, kv, ps = self._body_env()
         scratch = kv.scratch_page
         pools = self._paged_prefix() if resumed else None
@@ -705,9 +735,11 @@ class PagedEngine:
                                               for t in st))
                                for sk, st in states[i].items()})
                     for i, c in enumerate(pools))
+            batch = {"tokens": bufs["tokens"]}
+            if n_patches:
+                batch["patches"] = bufs["patches"]
             out = api.prefill(
-                params, cfg, ctx, iso,
-                {"tokens": bufs["tokens"]}, logits_mode="none",
+                params, cfg, ctx, iso, batch, logits_mode="none",
                 prefix_caches=prefix, pos_offset=start,
                 block_tables=bt if resumed else None,
                 prefix_lens=start.reshape(1) if resumed else None,
@@ -892,15 +924,25 @@ class PagedEngine:
         """Execute one prefill grant; returns the sampled token if ``last``.
         ``padded`` (>= n_tokens) is the forward-call length; the pad tail is
         token 0, masked out of attention and scattered to the scratch page."""
-        buf = np.zeros(padded, np.int32)
-        buf[:n_tokens] = self._resident_tokens(st)[start:start + n_tokens]
-        fn = self._get_prefill(padded, resumed=start > 0)
+        req = st.request
+        # a request's patches take the first effective positions of its
+        # first grant; a later grant (a cut tail, or text) covers text from
+        # the text offset t0
+        extra = self._eff_extra(req)
+        n_patches = extra if start == 0 else 0
+        t0 = max(0, start - extra)
+        n_text = n_tokens - n_patches
+        buf = np.zeros(padded - n_patches, np.int32)
+        buf[:n_text] = self._resident_tokens(st)[t0:t0 + n_text]
+        fn = self._get_prefill(padded - n_patches, resumed=start > 0,
+                               n_patches=n_patches)
         host = dict(tokens=buf[None],
-                    bt=self.alloc.block_table(st.request.rid,
-                                              self.max_blocks)[None],
+                    bt=self.alloc.block_table(req.rid, self.max_blocks)[None],
                     start=start, n_real=n_tokens)
         if "slot" in fn.inputs:
             host["slot"] = st.slot
+        if n_patches:
+            host["patches"] = np.asarray(req.patches, np.float32)[None]
         self._compile(fn, host)
         t0 = time.perf_counter()
         with torchprof.annotate(f"prefill/T={padded}"):
@@ -1052,7 +1094,9 @@ class PagedEngine:
         # the scheduler rounded the grant; re-round only when sharing this
         # step shrank it
         n = end - start
-        if start == g.start and n == g.n_tokens:
+        if st.request.patches is not None:    # patch grants: never padded
+            padded = n
+        elif start == g.start and n == g.n_tokens:
             padded = g.padded or n
         elif self._buckets is None:
             padded = n

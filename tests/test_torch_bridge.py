@@ -114,9 +114,9 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
     (dict(disagg=True), {}, "item 15"),
     # the cost model is in the slice: it does not shield disagg under TP
     (dict(disagg=True, cost_table="auto"), {}, "item 15"),
-    # ladder wiring, the MoE and the recurrent families are in the slice;
-    # the VLM family is not
-    ({}, dict(family="vlm"), "item 10"),
+    # every family the reference registers is in the slice (the VLM since
+    # its patches were ported); a family it does not know raises
+    ({}, dict(family="vision"), "not ported"),
 ])
 def test_settings_outside_the_slice_raise(setting, model, item):
     from repro_torch.launch.mesh import TPGroup

@@ -1,8 +1,9 @@
 """The port's model registry against the reference's: the six dense configs,
 whisper-medium, the two MoE configs and the two recurrent ones (hymba-1.5b,
-xlstm-350m) equal field for field, the name the port does not serve yet
-raising
-``NotImplementedError`` with their ROADMAP item, unknown names ``KeyError``;
+xlstm-350m) equal field for field (internvl2-2b: tests/test_torch_vlm.py),
+a name the port would not serve yet raising ``NotImplementedError`` with
+its ROADMAP item (none is left: the path is held with a faked entry),
+unknown names ``KeyError``;
 and the widths of the registry through the port's layout helpers
 (``padded_vocab``, ``head_layout`` at tp 1/2/4/8, the int8 reduce's
 shards)."""
@@ -109,8 +110,13 @@ def test_paper_list_matches_reference():
     assert PAPER == R_PAPER == ["paper-30b", "paper-70b"]
 
 
-@pytest.mark.parametrize("name,item", sorted(UNPORTED.items()))
-def test_unported_name_raises_with_item(name, item):
+@pytest.mark.parametrize("name,item", [("internvl2-2b", 99)])
+def test_unported_name_raises_with_item(monkeypatch, name, item):
+    """Every registered name is ported (``UNPORTED`` is empty); an entry
+    there still makes ``get_model_config`` raise naming its item."""
+    from repro_torch import configs
+    assert UNPORTED == {}
+    monkeypatch.setitem(configs.UNPORTED, name, item)
     r_get(name)                              # the reference registers it
     with pytest.raises(NotImplementedError, match=f"queue A item {item}"):
         get_model_config(name)
@@ -178,7 +184,11 @@ def test_serve_launcher_takes_every_dense_arch(name, capsys):
     assert f"arch={name}" in out and "completed=2" in out
 
 
-def test_serve_launcher_refuses_unported_arch():
+def test_serve_launcher_refuses_unported_arch(monkeypatch):
+    """An arch in ``UNPORTED`` (none is left; one is faked) stops the
+    launcher before it builds anything."""
+    from repro_torch import configs
     from repro_torch.launch import serve
-    with pytest.raises(NotImplementedError, match="queue A item 10"):
+    monkeypatch.setitem(configs.UNPORTED, "internvl2-2b", 99)
+    with pytest.raises(NotImplementedError, match="queue A item 99"):
         serve.main(["--arch", "internvl2-2b", "--paged", "--device", "cpu"])

@@ -242,20 +242,19 @@ def test_dense_and_paged_share_replayable_key_set(weights):
 
 
 def test_outside_the_slice_raises(weights):
-    """The VLM family and its requests (test_serving.py:80) wait on ROADMAP
-    queue A item 10, a mesh on item 11; the cache dtype follows the
-    params."""
+    """A mesh waits on ROADMAP queue A item 11; the VLM family serves
+    (tests/test_torch_vlm.py), and a request's patches must have the
+    model's width; the cache dtype follows the params."""
     _, params = weights
     vlm = tiny_vlm(vocab_size=64)
     vcfg = ModelConfig(**{f.name: getattr(vlm, f.name)
                           for f in dataclasses.fields(ModelConfig)})
-    with pytest.raises(NotImplementedError, match="queue A item 10"):
-        Engine(Config(model=vcfg), params, device="cpu")
+    Engine(Config(model=vcfg), params, device="cpu")
     eng = _port_engine(params)
     assert eng.caches[0]["k"].dtype == torch.float32
-    with pytest.raises(NotImplementedError, match="queue A item 10"):
+    with pytest.raises(ValueError, match="patches of shape"):
         eng.add_request(Request(prompt=np.arange(2, 10, dtype=np.int32),
-                                patches=np.zeros((8, 64), np.float32)))
+                                patches=np.zeros((8, 32), np.float32)))
     with pytest.raises(NotImplementedError, match="queue A item 11"):
         Engine(Config(model=PORT_CFG), params, mesh=object(), device="cpu")
     half = _port_engine(api.init_params(0, PORT_CFG, dtype=torch.bfloat16,
