@@ -126,8 +126,9 @@ Phases, each fatal on failure:
                two ranks on one device; gloo moves every collective through
                host memory, so the run proves the sharded model, the local
                head counts, the int8 reduce and the ISO issue order on CUDA
-               tensors, and measures no overlap).  qwen3-8b at full width
-               and depth, bf16, each rank holding half the weights, serves
+               tensors, and measures no overlap).  qwen3-8b at full width,
+               its depth cut to 12 of 36 layers (the script's time limit),
+               bf16, each rank holding half the weights, serves
                3 greedy requests of 300-1200 prompt tokens (a resumed grant,
                split-KV decode; the reference's default packed grants and
                prefix sharing) under the default batch-split schedule and
@@ -332,6 +333,26 @@ Phases, each fatal on failure:
                with their times.  (d) the fp32 twin at tp=2 (two ranks on
                the card over gloo) against tp=1: equal losses, gradient
                norm twice tp=1's, as the reference's.
+ 15. runner    ``launch/runner`` and the dense ``Engine`` under TP, after
+               phase 14: (a) qwen3-8b bf16 at full width and depth on the
+               dense ``Engine`` at tp=2, two ranks sharing the card over
+               gloo, phase 3's first three baseline prompts, 32 new each
+               with bf16 reduces, then 8 new each with int8 reduces (one
+               launch of each int8 reduce kernel a reduce, B7 none; ranks
+               agree; decode ms/step, prefill tok/s, peak memory a rank,
+               host time inside the reduces); (b) whisper-medium bf16 at
+               full width and depth at tp=2, 3 requests (the encoder timed
+               alone); (c) the fp32
+               2-layer (2 + 2) twins of qwen3-8b, whisper-medium and
+               internvl2-2b at tp=2 == tp=1 token for token, and whisper's
+               twin trained 2 steps at tp=2 (tp=1's losses, twice its
+               gradient norm); (d) ``attn_impl="blockwise"`` (key blocks of
+               256) against dense attention on a 2-layer fp32 twin at
+               qwen3-8b's widths, one 1024-token prompt, logits within 1e-4;
+               (e) the dry run (``launch/dryrun.py``, meta tensors, the
+               ``"fake"`` process-group backend) of qwen3-8b decode_32k and
+               prefill_32k at 16 x 16, ISO's hideable fraction above
+               iso-off's, and the quantized train_4k cell refused.
 
 Every pass resets its engine's registry and trace ring together
 (``reset_observability``), so a pass's trace replays into its registry.
@@ -349,8 +370,9 @@ passes check that every count stays 0).  Each kernel's ``launches_moe`` is
 read the same way from phase 11's granite defaults timed pass, its
 ``launches_hymba`` and ``launches_xlstm`` from phase 12's baseline timed
 passes (xlstm's all 0, checked), its ``launches_vlm`` from phase 13's
-graphed timed pass and its ``launches_train`` from rank 0 of phase 14's
-int8 run (phase 14 (a) launches none, checked).  It
+graphed timed pass, its ``launches_train`` from rank 0 of phase 14's
+int8 run (phase 14 (a) launches none, checked) and its
+``launches_runner`` from rank 0 of phase 15 (a)'s int8 pass.  It
 imports nothing of JAX or of the JAX package.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and
 power limit from nvidia-smi, and before that a JSON line with each kernel's
@@ -4274,6 +4296,388 @@ def train_all(report, card: str):
 
 
 # ---------------------------------------------------------------------------
+# phase 15: launch/runner and the dense Engine under TP, blockwise attention,
+# the dry run
+# ---------------------------------------------------------------------------
+
+RUNNER_NEW = 32          # new tokens a request in (a) and (b)
+RUNNER_INT8_NEW = 8      # in (a)'s int8 pass: its launch counts need only a
+                         # few reduces, and gloo's int8 pairs are the slowest
+RUNNER_TWIN_NEW = 16     # in (c)
+RUNNER_TRAIN_STEPS = 2   # (c)'s whisper training steps
+RUNNER_REQUESTS = 3
+BLOCKWISE_PROMPT, BLOCKWISE_BLOCK = 1024, 256
+DRYRUN_SHAPES = ("decode_32k", "prefill_32k")
+
+
+def runner_serve(eng, reqs, max_new: int) -> dict:
+    """Serve ``reqs`` (dicts of ``Request`` fields) greedily on a dense
+    ``Engine`` from a zeroed registry and launch counts, the host time in
+    the TP reduces recorded (``PsumTimers``) and the peak memory from a
+    reset: tokens, metrics, launches, reduces, wall, peak GiB.  Every
+    sampled logits row must be finite and every request complete."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import native
+    from repro_torch.serving import Request, engine
+    from repro_torch.serving.requests import SamplingParams
+
+    reset_observability(eng)
+    rids = [eng.add_request(Request(sampling=SamplingParams(
+        max_new_tokens=max_new, eos_id=-1), **r)) for r in reqs]
+    real_sample = engine.sample
+
+    def finite_sample(logits, sp, step):
+        if not np.isfinite(logits).all():
+            raise AssertionError("non-finite logits row")
+        return real_sample(logits, sp, step)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    native.reset_launches()
+    timers = PsumTimers()
+    engine.sample = finite_sample
+    t0 = time.perf_counter()
+    try:
+        done = eng.run_until_complete()
+    finally:
+        engine.sample = real_sample
+        timers.restore()
+    wall = time.perf_counter() - t0
+    tokens = [done.get(r) for r in rids]
+    m = dict(eng.metrics)
+    if any(t is None or len(t) != max_new for t in tokens) or \
+            m["completed"] != len(reqs):
+        raise AssertionError(f"not every request completed: {m}")
+    return dict(tokens=tokens, m=m, launches=dict(native.LAUNCHES),
+                psum=dict(timers.acc), wall=wall,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def runner_traffic(name: str, cfg) -> list:
+    """Phase 15's requests of ``name``: phase 3's first three baseline
+    prompts (qwen3-8b), phase 10's first three whisper requests with their
+    frames, or phase 13's first three VLM requests (one text-only)."""
+    if name == "whisper":
+        prompts, frames = whisper_traffic(cfg)
+        return [dict(prompt=p, frames=f) for p, f in
+                zip(prompts[:RUNNER_REQUESTS], frames)]
+    if name == "vlm":
+        _, prompts, patches = vlm_traffic(cfg, RUNNER_REQUESTS)
+        return [dict(prompt=p, patches=pt) for p, pt in zip(prompts, patches)]
+    return [dict(prompt=p) for p in
+            baseline_prompts(cfg)[1][:RUNNER_REQUESTS]]
+
+
+def runner_models(twin: bool) -> dict:
+    """name -> (config, engine kwargs): qwen3-8b and whisper-medium at full
+    width and depth in bf16 (``twin`` False), or the 2-layer (2 + 2) fp32
+    twins at full width of qwen3-8b, whisper-medium and internvl2-2b."""
+    import dataclasses
+    from repro_torch.config import get_model_config
+    from repro_torch.configs.whisper_medium import N_TEXT_CTX
+    out = {}
+    for name, arch in (("qwen3-8b", "qwen3-8b"), ("whisper", "whisper-medium"),
+                       ("vlm", "internvl2-2b")):
+        if name == "vlm" and not twin:
+            continue
+        cfg = get_model_config(arch)
+        if twin:
+            cfg = dataclasses.replace(cfg, num_layers=2, **(
+                dict(encoder_layers=2) if cfg.encoder_layers else {}))
+        out[name] = (cfg, dict(max_batch=RUNNER_REQUESTS,
+                               max_len=N_TEXT_CTX if name == "whisper"
+                               else 2048, bucket=64))
+    return out
+
+
+def runner_config(cfg, tp: int, quantized: bool = False):
+    from repro_torch.config import Config, ISOConfig, ParallelConfig
+    return Config(model=cfg, parallel=ParallelConfig(data=1, model=tp),
+                  iso=ISOConfig(quantized_comm=quantized))
+
+
+def runner_rank(group):
+    """Body of each rank of phase 15 (a)-(c) (module level: the spawned
+    ranks import it): qwen3-8b bf16 plain then quantized, whisper-medium
+    bf16 (its encoder timed alone first), the fp32 twins, and whisper's
+    2-layer twin trained at tp=2."""
+    import torch
+    from repro_torch.models import api, whisper
+    from repro_torch.serving import Engine
+    from repro_torch.training.trainer import init_train_state
+
+    out = {}
+    for name, (cfg, kw) in runner_models(twin=False).items():
+        params = api.init_params(0, cfg, tp=2, dtype=torch.bfloat16,
+                                 device=group.device, rank=group.rank)
+        reqs = runner_traffic(name, cfg)
+        if name == "whisper":
+            config = runner_config(cfg, 2)
+            f0 = torch.from_numpy(reqs[0]["frames"]).to(group.device)[None]
+            enc_ms = []
+            for _ in range(4):
+                t0 = time.perf_counter()
+                enc = whisper.encode(params, cfg, group.axis_ctx(),
+                                     config.iso, f0)
+                torch.cuda.synchronize()
+                enc_ms.append(1e3 * (time.perf_counter() - t0))
+            if not torch.isfinite(enc).all():
+                raise AssertionError("non-finite encoder output")
+            del enc, f0
+            out["whisper encoder ms"] = enc_ms
+        for q in ((False, True) if name == "qwen3-8b" else (False,)):
+            eng = Engine(runner_config(cfg, 2, q), params, mesh=group, **kw)
+            out[f"{name}{' quantized' if q else ''}"] = runner_serve(
+                eng, reqs, RUNNER_INT8_NEW if q else RUNNER_NEW)
+            del eng
+            free_cuda()
+        del params
+        free_cuda()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    for name, (cfg, kw) in runner_models(twin=True).items():
+        params = api.init_params(0, cfg, tp=2, dtype=torch.float32,
+                                 device=group.device, rank=group.rank)
+        eng = Engine(runner_config(cfg, 2), params, mesh=group, **kw)
+        out[f"{name} twin"] = runner_serve(eng, runner_traffic(name, cfg),
+                                           RUNNER_TWIN_NEW)
+        del eng, params
+        free_cuda()
+    cfg = runner_models(twin=True)["whisper"][0]
+    config = train_config(cfg, RUNNER_TRAIN_STEPS, TWIN_BATCH, TWIN_SEQ,
+                          parallel=(1, 2))
+    params = api.init_params(0, cfg, tp=2, dtype=torch.float32,
+                             device=group.device, rank=group.rank)
+    params, opt = init_train_state(config, group=group, params=params)
+    out["whisper train"] = run_steps(config, params, opt, RUNNER_TRAIN_STEPS,
+                                     group)
+    return out
+
+
+def runner_check_ranks(label: str, ranks) -> dict:
+    """Rank 0's run of ``label``, once every rank gave its tokens."""
+    runs = [r[label] for r in ranks]
+    if any(r["tokens"] != runs[0]["tokens"] for r in runs):
+        raise AssertionError(f"[runner] {label}: ranks emitted different "
+                             f"tokens")
+    return runs[0]
+
+
+def runner_tp(report, card: str):
+    """Phase 15 (a)-(c): the fp32 twins' tp=1 tokens and whisper's tp=1
+    training on the card first, then one spawn of two ranks on cuda:0
+    over gloo, and the checks."""
+    import numpy as np
+    import torch
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models import api
+    from repro_torch.serving import Engine
+    from repro_torch.training.trainer import init_train_state
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    want = {}
+    for name, (cfg, kw) in runner_models(twin=True).items():
+        # built at tp=2, whole: the tp=1 engine runs the same function (no
+        # head, vocab or expert pad differs between tp 1 and 2 here)
+        params = api.init_params(0, cfg, tp=2, dtype=torch.float32,
+                                 device="cuda")
+        eng = Engine(runner_config(cfg, 1), params, device="cuda", **kw)
+        want[name] = runner_serve(eng, runner_traffic(name, cfg),
+                                  RUNNER_TWIN_NEW)["tokens"]
+        del eng, params
+        free_cuda()
+    cfg = runner_models(twin=True)["whisper"][0]
+    config = train_config(cfg, RUNNER_TRAIN_STEPS, TWIN_BATCH, TWIN_SEQ)
+    params = api.init_params(0, cfg, tp=2, dtype=torch.float32, device="cuda")
+    params, opt = init_train_state(config, params=params)
+    tp1 = np.array(run_steps(config, params, opt, RUNNER_TRAIN_STEPS))
+    del params, opt
+    free_cuda()
+
+    t0 = time.perf_counter()
+    ranks = spawn(runner_rank, 2, device="cuda:0", backend="gloo",
+                  timeout_s=900)
+    log(f"[runner] 2 ranks on cuda:0 over gloo, "
+        f"{time.perf_counter() - t0:.1f}s with start-up and weights")
+    full = runner_models(twin=False)
+    for label in ("qwen3-8b", "qwen3-8b quantized", "whisper"):
+        run = runner_check_ranks(label, ranks)
+        m, launches = run["m"], run["launches"]
+        n_reduces = sum(n for k, (_, n) in run["psum"].items()
+                        if k.endswith("psum_start"))
+        int8 = {k: launches[k] for k in INT8_REDUCE_KERNELS}
+        want_int8 = n_reduces if label.endswith("quantized") else 0
+        others = {k: n for k, n in launches.items()
+                  if k not in INT8_REDUCE_KERNELS and n}
+        if n_reduces <= 0 or others or \
+                any(n != want_int8 for n in int8.values()):
+            raise AssertionError(f"[runner] {label}: {n_reduces} reduces, "
+                                 f"int8 launches {int8}, others {others}: "
+                                 f"want {want_int8} of each int8 kernel and "
+                                 f"no other")
+        steps = m["decode_calls"]
+        inside = {k: (1e3 * t / steps if k.startswith("decode")
+                      else 1e3 * t, n)
+                  for k, (t, n) in sorted(run["psum"].items())}
+        cfg = full[label.split()[0]][0]
+        peaks = [r[label]["peak_gib"] for r in ranks]
+        log(f"[runner] {cfg.name} {cfg.num_layers}L bf16 dense Engine tp=2 "
+            f"{'int8 reduces' if want_int8 else 'bf16 reduces'} ({TP_LABEL}):"
+            f" {len(run['tokens'])} requests, prompts "
+            f"{[len(r['prompt']) for r in runner_traffic(label.split()[0], cfg)]}"
+            f", {len(run['tokens'][0])} new each, ranks agree; prefill "
+            f"{m['prefill_tokens']} tok in {m['prefill_s']:.3f}s = "
+            f"{m['prefill_tokens'] / m['prefill_s']:.1f} tok/s; decode "
+            f"{1e3 * m['decode_s'] / steps:.3f} ms/step over {steps} steps; "
+            f"peak allocated per rank {[round(p, 3) for p in peaks]} GiB; "
+            f"wall {run['wall']:.1f}s [{card}]")
+        log(f"[runner] {label} rank 0 host time inside the reduces (decode: "
+            f"ms per step; prefill: ms in all; calls in all): "
+            + ", ".join(f"{k} {v:.2f} ({n})" for k, (v, n) in inside.items()))
+        log(f"[runner] {label}: {n_reduces} reduces, int8 kernel launches "
+            f"{int8}, quantize_int8 {launches['quantize_int8']}")
+        report.setdefault("runner", {})[label] = dict(
+            prefill_tok_s=m["prefill_tokens"] / m["prefill_s"],
+            decode_ms_step=1e3 * m["decode_s"] / steps, peak_gib=peaks,
+            reduces=n_reduces, psum_host=inside)
+    report["launches_runner"] = {
+        k: ranks[0]["qwen3-8b quantized"]["launches"][k]
+        for k in INT8_REDUCE_KERNELS}
+    enc = ranks[0]["whisper encoder ms"]
+    report["runner"]["whisper"]["encoder_ms"] = sorted(enc[1:])[1]
+    log(f"[runner] whisper-medium tp=2 encoder ({TP_LABEL}), rank 0, ms a "
+        f"request: {[round(t, 2) for t in enc]} (the first with warm-up) "
+        f"[{card}]")
+    for name in want:
+        run = runner_check_ranks(f"{name} twin", ranks)
+        if run["tokens"] != want[name]:
+            diff = [i for i, (a, b) in enumerate(zip(run["tokens"],
+                                                     want[name])) if a != b]
+            raise AssertionError(f"[runner] {name} fp32 twin: tp=2 tokens "
+                                 f"differ from tp=1's in requests {diff}")
+    log(f"[runner] fp32 twins at full width, 2 (2 + 2) layers: the dense "
+        f"Engine at tp=2 == tp=1 token for token on both ranks for "
+        f"{sorted(want)} ({RUNNER_REQUESTS} requests, {RUNNER_TWIN_NEW} new "
+        f"each) [{card}]")
+    tp2 = np.array(ranks[0]["whisper train"])
+    if ranks[1]["whisper train"] != ranks[0]["whisper train"]:
+        raise AssertionError(f"[runner] whisper tp=2 training: ranks "
+                             f"disagree: {[r['whisper train'] for r in ranks]}")
+    np.testing.assert_allclose(tp2[:, 0], tp1[:, 0], rtol=1e-4)
+    np.testing.assert_allclose(tp2[:, 1], 2 * tp1[:, 1], rtol=1e-4)
+    report["runner"]["whisper_train"] = dict(tp1=tp1.tolist(),
+                                             tp2=tp2.tolist())
+    log(f"[runner] whisper-medium 2+2-layer fp32 trained at tp=2 (gloo on "
+        f"the card) vs tp=1: (loss, gnorm) {tp2.tolist()} vs {tp1.tolist()};"
+        f" gnorm ratio {(tp2[:, 1] / tp1[:, 1]).tolist()} (2 = the "
+        f"reference's psum transpose) [{card}]")
+
+
+def runner_blockwise(report, card: str):
+    """Phase 15 (d): ``attn_impl="blockwise"`` (key blocks of 256) against
+    ``"dense"`` on a 2-layer fp32 twin at qwen3-8b's widths, one
+    1024-token prompt, prefill logits within 1e-4."""
+    import dataclasses
+    import numpy as np
+    import torch
+    from repro_torch.config import ISOConfig, get_model_config
+    from repro_torch.core.overlap import AxisCtx
+    from repro_torch.models import api
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(get_model_config("qwen3-8b"), num_layers=2)
+    params = api.init_params(0, cfg, dtype=torch.float32, device="cuda")
+    toks = torch.from_numpy(np.random.default_rng(15).integers(
+        2, cfg.vocab_size, (1, BLOCKWISE_PROMPT)).astype(np.int32)).cuda()
+    out, ms = {}, {}
+    for impl in ("dense", "blockwise"):
+        c = dataclasses.replace(cfg, attn_impl=impl,
+                                attn_block_k=BLOCKWISE_BLOCK)
+        for _ in range(2):                     # the second call timed
+            t0 = time.perf_counter()
+            out[impl] = api.prefill(params, c, AxisCtx(), ISOConfig(),
+                                    {"tokens": toks},
+                                    logits_mode="all")["logits_local"]
+            torch.cuda.synchronize()
+            ms[impl] = 1e3 * (time.perf_counter() - t0)
+    err = (out["blockwise"] - out["dense"]).abs().max().item()
+    if not torch.isfinite(out["blockwise"]).all() or err > 1e-4:
+        raise AssertionError(f"[runner] blockwise prefill logits differ "
+                             f"from dense by {err}")
+    report["blockwise"] = dict(max_abs_err=err, ms=ms)
+    log(f"[runner] attn_impl=blockwise (block_k {BLOCKWISE_BLOCK}) vs dense, "
+        f"qwen3-8b widths, 2 layers, fp32, {BLOCKWISE_PROMPT}-token prompt "
+        f"(2 ISO chunks): logits max abs err {err:.3e} (limit 1e-4); "
+        f"prefill ms {ms['blockwise']:.2f} vs {ms['dense']:.2f} [{card}]")
+    del params, out
+    free_cuda()
+
+
+def runner_dryrun(report, card: str):
+    """Phase 15 (e): the dry run on this machine's PyTorch (the ``"fake"``
+    process-group backend, meta tensors, no device): qwen3-8b x
+    ``DRYRUN_SHAPES`` at 16 x 16, ISO on and off; ISO's
+    ``hideable_fraction`` must exceed iso-off's; the quantized train_4k
+    cell must be reported as refused."""
+    import tempfile
+    from repro_torch.core.analysis import overlap_metric
+    from repro_torch.launch import dryrun
+
+    out = {}
+    for shape in DRYRUN_SHAPES:
+        frac = {}
+        for iso_on in (True, False):
+            rep, tr = dryrun.trace_shape("qwen3-8b", shape, iso_on=iso_on,
+                                         verbose=False)
+            ov = overlap_metric(tr)
+            r = rep["roofline"]
+            frac[iso_on] = ov["hideable_fraction"]
+            out[f"{shape} iso={'on' if iso_on else 'off'}"] = dict(
+                collectives=rep["collective_counts"],
+                wire_bytes=rep["collective_wire_bytes_per_device"],
+                roofline={k: r[k] for k in ("compute_s", "memory_s",
+                                            "collective_s", "bottleneck")},
+                hideable_fraction=ov["hideable_fraction"],
+                trace_s=rep["compile_s"])
+            log(f"[dryrun] qwen3-8b x {shape} [16x16] iso="
+                f"{'on' if iso_on else 'off'}: collectives "
+                f"{rep['collective_counts']}, wire "
+                f"{rep['collective_wire_bytes_per_device']:.4e} B/device; "
+                f"roofline compute {r['compute_s']:.3e}s memory "
+                f"{r['memory_s']:.3e}s collective {r['collective_s']:.3e}s "
+                f"-> {r['bottleneck']} ('h100' profile; link_bw the data "
+                f"sheet's); hideable_fraction {ov['hideable_fraction']:.4f} "
+                f"({ov['avg_hideable_dots']:.2f} of {ov['total_dots']} dots "
+                f"over {ov['collectives']} collectives); traced in "
+                f"{rep['compile_s']}s")
+        if not frac[True] > frac[False]:
+            raise AssertionError(f"[dryrun] {shape}: ISO's hideable fraction"
+                                 f" {frac[True]} is not above iso-off's "
+                                 f"{frac[False]}")
+    with tempfile.TemporaryDirectory() as tmp:
+        path = f"{tmp}/q.json"
+        rc = dryrun.main(["--arch", "qwen3-8b", "--shape", "train_4k",
+                          "--quantized", "--out", path])
+        with open(path) as f:
+            data = json.load(f)
+    fails = data["failures"]
+    if rc != 1 or data["reports"] or len(fails) != 1 or \
+            "int8 TP reduces under autograd" not in fails[0][3]:
+        raise AssertionError(f"[dryrun] --quantized train_4k: rc {rc}, "
+                             f"{data}")
+    out["quantized train_4k"] = fails[0][3]
+    report["dryrun"] = out
+    log(f"[dryrun] --quantized train_4k reported as refused: {fails[0][3]}")
+
+
+def runner_all(report, card: str):
+    """Phase 15 (a)-(e)."""
+    runner_tp(report, card)
+    runner_blockwise(report, card)
+    runner_dryrun(report, card)
+
+
+# ---------------------------------------------------------------------------
 # phase 4: kernel path against plain path
 # ---------------------------------------------------------------------------
 
@@ -4394,6 +4798,8 @@ def parity_tiny():
 # ---------------------------------------------------------------------------
 
 TP_NEW_TOKENS = 16
+TP_BIG_LAYERS = 12       # qwen3-8b's depth here, cut from 36 to keep the
+                         # script inside its time limit (gloo varies most)
 PROFILE_NEW = 4          # new tokens of the profiled quantized run
 # (reduce, decode schedule) of each full-width run; "auto" is batch_split
 TP_BIG_VARIANTS = (("default", "auto"), ("default", "sequential"),
@@ -4616,7 +5022,8 @@ def serve_tp(report, card: str):
     from repro_torch.launch.mesh import spawn
     from repro_torch.launch.serve import serve_rank
 
-    cfg = get_model_config("qwen3-8b")           # full width and depth
+    cfg = dataclasses.replace(get_model_config("qwen3-8b"),  # full width
+                              num_layers=TP_BIG_LAYERS)
     rng = np.random.default_rng(1)
     lengths = [int(n) for n in rng.integers(300, 1201, 3)]
     lengths[0] = max(lengths[0], 900)            # at least one resumed grant
@@ -4979,6 +5386,7 @@ def main() -> int:
               ("12 recurrent", lambda: serve_recurrent(report, card)),
               ("13 vlm", lambda: serve_vlm(report, card)),
               ("14 train", lambda: train_all(report, card)),
+              ("15 runner", lambda: runner_all(report, card)),
               ("10 (c) profiles", lambda: dense_profiles(report, card)),
               ("11 profile", lambda: moe_profile(card)),
               ("12 (e) profiles", lambda: recurrent_profile(report, card)))
@@ -5006,6 +5414,8 @@ def main() -> int:
                             "xlstm-350m"]["launches"].get(name, 0),
                         "launches_vlm": report["launches_vlm"].get(name, 0),
                         "launches_train": report["launches_train"].get(
+                            name, 0),
+                        "launches_runner": report["launches_runner"].get(
                             name, 0)})
         assert all(math.isfinite(x) for x in (t["ms"], t["plain_ms"],
                                               t["bound_ms"]))

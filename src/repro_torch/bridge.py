@@ -8,8 +8,9 @@ head-slot layout of ``layers/heads.expand_heads`` is kept as it is.  bf16
 leaves arrive as ``ml_dtypes.bfloat16`` arrays, which ``torch.from_numpy``
 rejects, so they are bit-cast through int16.  Whisper's ``{"encoder",
 "decoder"}`` tree converts half by half (the encoder has no ``embed``;
-LayerNorms carry a ``bias``; decoder layers ``cross`` and ``norm_cross``).  ``shard_params`` cuts params
-built at tp=N into one rank's local view, and ``save_npz``/``load_npz``
+LayerNorms carry a ``bias``; decoder layers ``cross`` and
+``norm_cross``).  ``shard_params`` cuts params built at tp=N (whisper's
+too) into one rank's local view, and ``save_npz``/``load_npz``
 carry a reference-layout pytree between processes.
 """
 from __future__ import annotations
@@ -83,8 +84,13 @@ def shard_params(params: Dict[str, Any], rank: int, tp: int,
     reference's ``init_params(key, cfg, tp=tp)`` as numpy (its layout, with
     period-stacked leaves; bridged to torch on the CPU first) or the port's
     ``api.init_params(seed, cfg, tp=tp)``.  Follows the reference's
-    ``decoder_param_specs`` for the dense leaves (models/decoder.SHARD_AXIS).
-    ``device`` given: the local view is moved there."""
+    ``decoder_param_specs`` for the dense leaves (models/decoder.SHARD_AXIS);
+    an encoder-decoder tree (whisper) is cut half by half, the decoder's
+    cross-attention as its self-attention.  ``device`` given: the local
+    view is moved there."""
+    if _is_encdec(params):
+        return {k: shard_params(params[k], rank, tp, device)
+                for k in ENCDEC_KEYS}
     if isinstance(params["periods"][0], dict):          # reference layout
         params = from_reference(params)
     local = decoder.shard_params(params, rank, tp)

@@ -2,8 +2,9 @@
 
 Frozen dataclasses, so configs are hashable, and a string registry so the
 launcher can select ``--arch <id>``.  The fields and defaults are the
-reference's; only the parts the port's slice reaches are kept (no input-shape
-table).  ``ladder_variant`` builds the ladder-residual twin of a config.
+reference's, and so is the input-shape table of the dry run
+(``INPUT_SHAPES``).  ``ladder_variant`` builds the ladder-residual twin of a
+config.
 """
 from __future__ import annotations
 
@@ -234,6 +235,26 @@ def padded_ff(d_ff: int, shards: int) -> int:
     return pad_to_multiple(d_ff, shards * 128) if d_ff else 0
 
 
+# ---------------------------------------------------------------------------
+# Input shape assignments (the dry run's cells)
+# ---------------------------------------------------------------------------
+
+@dataclass(frozen=True)
+class InputShape:
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str                        # train | prefill | decode
+
+
+INPUT_SHAPES: Dict[str, InputShape] = {
+    "train_4k": InputShape("train_4k", 4096, 256, "train"),
+    "prefill_32k": InputShape("prefill_32k", 32768, 32, "prefill"),
+    "decode_32k": InputShape("decode_32k", 32768, 128, "decode"),
+    "long_500k": InputShape("long_500k", 524288, 1, "decode"),
+}
+
+
 def ladder_variant(cfg: ModelConfig, name: str = "") -> ModelConfig:
     """Ladder-residual twin of a standard-wired config: the same shapes and
     parameter layout, the residual stream rewired
@@ -273,3 +294,8 @@ def get_model_config(name: str) -> ModelConfig:
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[name]()
+
+
+def list_archs():
+    import repro_torch.configs  # noqa: F401  (populates the registry)
+    return sorted(_REGISTRY)

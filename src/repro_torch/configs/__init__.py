@@ -36,6 +36,13 @@ ENCDEC = ["whisper-medium"]
 MOE = ["granite-moe-3b-a800m", "kimi-k2-1t-a32b"]
 RECURRENT = ["hymba-1.5b", "xlstm-350m"]
 VLM = ["internvl2-2b"]
+# the reference's assigned architectures, in its order: the dry run's
+# ``--all`` sweep
+ASSIGNED = [
+    "granite-moe-3b-a800m", "qwen3-4b", "hymba-1.5b", "kimi-k2-1t-a32b",
+    "xlstm-350m", "qwen3-8b", "whisper-medium", "qwen3-32b", "internvl2-2b",
+    "codeqwen1.5-7b",
+]
 
 # the reference's registered names the port does not serve yet -> the
 # ROADMAP queue A item that ports them (none left)

@@ -51,6 +51,11 @@ class PipeState:
     pend_base: Optional[torch.Tensor]      # its residual base
 
 
+# the page pools of a paged cache: shared by every request, never sliced
+# by batch rows
+PAGE_KEYS = ("k_pages", "v_pages")
+
+
 def _index(v, idx):
     """``v[idx]`` of a tensor, or of each field of a state NamedTuple."""
     if isinstance(v, tuple):
@@ -394,9 +399,12 @@ def run_stack_decode_overlap(params_periods, pattern: Sequence[str], x,
     slots), so there is no cross-chunk edge: each half's reduce is started
     as soon as its partial exists, its KV scatter lands inside the window,
     and the OTHER half's
-    pending reduce completes after this half's compute.  Paged caches only;
-    the pools are shared by both halves and scattered in place.  ``B < 2``
-    has no second half and runs the sequential schedule."""
+    pending reduce completes after this half's compute.  Paged pools are
+    shared by both halves and scattered in place; dense ring caches (and
+    recurrent states) are split with the batch, each half writing its own
+    rows in place (the reference runs this schedule on paged caches only;
+    the dry run also gives it the dense caches of ``launch/runner``).
+    ``B < 2`` has no second half and runs the sequential schedule."""
     B = x.shape[0]
     if B < 2:
         return run_stack_decode(params_periods, pattern, x, caches, sctx, ctx)
@@ -417,10 +425,10 @@ def run_stack_decode_overlap(params_periods, pattern: Sequence[str], x,
     for p in range(len(params_periods[0])):
         for i, kind in enumerate(pattern):
             cache_i = _period(caches[i], p)
-            # each half reads and advances its own slots' recurrent states
-            # (views); the pools are shared whole
+            # each half reads and advances its own slots' rows (views); the
+            # page pools are shared whole
             halves = [None if cache_i is None else
-                      {k: _index(v, slice(lo, hi)) if k in STATE_KEYS else v
+                      {k: v if k in PAGE_KEYS else _index(v, slice(lo, hi))
                        for k, v in cache_i.items()} for lo, hi in bounds]
             for fn, reduces in BLOCK_STAGES[kind]:
                 for h in range(2):

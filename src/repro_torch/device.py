@@ -2,7 +2,8 @@
 
 Entry points run on the card unless the caller asks for the CPU: no quiet
 fallback, so a machine without CUDA fails loudly instead of serving on the
-host."""
+host.  ``meta`` (shapes without data) is accepted for the dry run
+(``launch/dryrun.py``), which traces a rank's program and runs none of it."""
 from __future__ import annotations
 
 from typing import Optional, Union
@@ -13,15 +14,25 @@ import torch
 def resolve_device(device: Optional[Union[str, torch.device]] = None
                    ) -> torch.device:
     """``None`` means ``cuda``.  Raises if CUDA is asked for (explicitly or
-    by default) and absent."""
+    by default) and absent.  ``meta`` is taken as it is."""
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             "CUDA is not available; pass device='cpu' to run the port on "
             "the host")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {dev}")
     return dev
+
+
+def generator(device: Optional[Union[str, torch.device]], seed: int
+              ) -> torch.Generator:
+    """A generator seeded with ``seed`` for drawing on ``device`` (None: the
+    host); on ``meta``, which has none, a host one (a draw on meta makes no
+    data)."""
+    dev = torch.device("cpu" if device is None else device)
+    return torch.Generator(device="cpu" if dev.type == "meta" else dev
+                           ).manual_seed(seed)
 
 
 def synchronize(device: torch.device) -> None:

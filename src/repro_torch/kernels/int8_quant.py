@@ -38,7 +38,8 @@ abs-max and read again, from L1/L2, to write q.
 
 The plain versions follow ``repro/kernels/ref.quantize_int8_ref`` and
 ``repro/core/quantized_collectives.quantized_psum``; the wrappers use them
-only for CPU tensors.
+only for CPU tensors, and the int8 reduce's three also for ``meta`` tensors
+(the dry run's trace, shapes without data).
 """
 from __future__ import annotations
 
@@ -51,6 +52,9 @@ from repro_torch.kernels import native
 _SOURCE = "int8_quant.cu"
 # the fp32 reciprocal of 127, held exactly in a Python float
 _INV_127 = float(torch.tensor(1.0, dtype=torch.float32) / 127.0)
+# devices whose tensors the int8 reduce's wrappers hand to the plain
+# versions
+_PLAIN_DEVICES = ("cpu", "meta")
 
 
 def quantize_int8_plain(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -126,13 +130,14 @@ def quantize_int8_shards(x: torch.Tensor, tp: int
                          ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x (..., D), D % tp == 0 -> q (tp, ..., D/tp) int8 and scale
     (tp, ..., 1) fp32: shard t of each row quantized as a row of its own.
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    CPU (and meta) tensors take the plain version; CUDA tensors launch the
+    kernel."""
     _check_float("quantize_int8_shards", x)
     if x.ndim == 0 or tp < 1 or x.shape[-1] == 0 or x.shape[-1] % tp:
         raise ValueError(f"quantize_int8_shards: last dim of "
                          f"{tuple(x.shape)} not a positive multiple of "
                          f"tp={tp}")
-    if x.device.type == "cpu":
+    if x.device.type in _PLAIN_DEVICES:
         return quantize_int8_shards_plain(x, tp)
     d = x.shape[-1] // tp
     x2 = x.contiguous().reshape(-1, d)                  # (R * tp, d)
@@ -166,10 +171,10 @@ def dequant_sum_quantize_int8(q: torch.Tensor, scale: torch.Tensor
     """q (tp, ..., d) int8 and scale (tp, ..., 1) fp32, rank t's shard of
     this rank's slice at index t -> (q2 (..., d) int8, s2 (..., 1) fp32):
     the slice's fp32 sum over the ranks, in rank order, quantized with B7's
-    rule.  CPU tensors take the plain version; CUDA tensors launch the
-    kernel."""
+    rule.  CPU (and meta) tensors take the plain version; CUDA tensors
+    launch the kernel."""
     _check_exchange("dequant_sum_quantize_int8", q, scale)
-    if q.device.type == "cpu":
+    if q.device.type in _PLAIN_DEVICES:
         return dequant_sum_quantize_int8_plain(q, scale)
     tp, d = q.shape[0], q.shape[-1]
     q = q.contiguous()
@@ -202,12 +207,13 @@ def dequantize_int8_gathered(q: torch.Tensor, scale: torch.Tensor,
     """q (tp, ..., d) int8 and scale (tp, ..., 1) fp32, rank t's slice at
     index t -> (..., tp * d) of ``dtype`` (float32 or bfloat16): element
     (..., t * d + j) is q[t, ..., j] * scale[t, ...], rounded to ``dtype``.
-    CPU tensors take the plain version; CUDA tensors launch the kernel."""
+    CPU (and meta) tensors take the plain version; CUDA tensors launch the
+    kernel."""
     _check_exchange("dequantize_int8_gathered", q, scale)
     if dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"dequantize_int8_gathered writes float32 or "
                         f"bfloat16, got {dtype}")
-    if q.device.type == "cpu":
+    if q.device.type in _PLAIN_DEVICES:
         return dequantize_int8_gathered_plain(q, scale, dtype)
     tp, d = q.shape[0], q.shape[-1]
     q = q.contiguous()

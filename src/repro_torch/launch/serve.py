@@ -32,8 +32,11 @@ Serving modes and traffic, as the reference's launcher: ``--disagg`` serves
 through a prefill engine and a decode engine with KV pages migrating
 between them (``serving/disagg.py``; ``--decode-pool-pages`` sizes the
 decode pool, ``--migrate-batch`` caps the requests a transfer; tp=1 only
-so far), ``--decode-schedule`` forces a decode collective schedule
-(``ladder``/``ladder_seq`` with a ladder arch, ``--arch ladder-qwen3-8b``),
+so far), ``--latency-hiding`` is taken into
+``ServingConfig.latency_hiding`` and prints that it has no effect in the
+port (eager program order is the schedule), ``--decode-schedule`` forces
+a decode collective schedule (``ladder``/``ladder_seq`` with a ladder
+arch, ``--arch ladder-qwen3-8b``),
 ``--probe-overlap`` times the decode schedules after the run
 (``obs/overlap_probe.py``), ``--temperature`` samples instead of greedy
 decoding, and ``--shared-prefix N`` opens every prompt with one N-token
@@ -69,6 +72,14 @@ from repro_torch.serving import Engine, PagedEngine, Request, engine, \
     paged_engine
 from repro_torch.serving.disagg import DisaggRouter
 from repro_torch.serving.requests import SamplingParams
+
+
+LATENCY_HIDING_NOTE = (
+    "[latency-hiding] no effect in the port: the reference's flag sets "
+    "XLA's async-collective scheduler flags, and PyTorch has no such "
+    "scheduler; the port runs eagerly, so program order is the schedule "
+    "(core/overlap.py): each reduce is issued the moment its partial "
+    "exists and waited on after the next unit's compute")
 
 
 def _engines(eng) -> tuple:
@@ -363,8 +374,15 @@ def main(argv=None) -> int:
                          "(obs/overlap_probe.py); at tp=1 every efficiency "
                          "is ~0, and over gloo it times the host's "
                          "collectives: no overlap claim on one card")
+    ap.add_argument("--latency-hiding", action="store_true",
+                    help="the reference's flag (XLA's async-collective "
+                         "scheduler flags); accepted into ServingConfig."
+                         "latency_hiding and without effect here: the port "
+                         "runs eagerly, so program order is the schedule")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    if args.latency_hiding:
+        print(LATENCY_HIDING_NOTE, flush=True)
     if args.probe_overlap and not args.paged:
         ap.error("--probe-overlap requires --paged")
     if (args.autotune or args.cost_table) and not args.paged:
@@ -398,8 +416,9 @@ def main(argv=None) -> int:
         ap.error("--paged does not support enc-dec (audio) archs: the dense "
                  "Engine serves them (drop --paged)")
     if args.tp > 1 and not args.paged:
-        ap.error("--tp requires --paged (the dense Engine stays "
-                 "single-device)")
+        ap.error("--tp requires --paged (as the reference's launcher; the "
+                 "dense Engine serves under TP through the API, "
+                 "Engine(mesh=TPGroup))")
     if args.decode_schedule in ("ladder", "ladder_seq") and \
             cfg.residual_wiring != "ladder":
         ap.error(f"--decode-schedule {args.decode_schedule} needs a ladder "
@@ -424,7 +443,8 @@ def main(argv=None) -> int:
                             decode_schedule=args.decode_schedule,
                             disagg=args.disagg,
                             decode_pool_pages=args.decode_pool_pages,
-                            migrate_batch=args.migrate_batch)
+                            migrate_batch=args.migrate_batch,
+                            latency_hiding=args.latency_hiding)
     config = Config(model=cfg, parallel=ParallelConfig(data=1, model=args.tp),
                     iso=iso, runtime=RuntimeConfig(mode="serve"),
                     serving=serving)

@@ -1,5 +1,5 @@
-"""GQA attention, local-shard view (port of ``repro/layers/attention.py``
-without ``sdpa_blockwise``): chunked prefill over a dense or paged prefix,
+"""GQA attention, local-shard view (port of ``repro/layers/attention.py``):
+chunked prefill over a dense or paged prefix,
 decode over the page pool or a dense padded cache, and whisper's
 bidirectional encoder attention and cross-attention.
 
@@ -8,8 +8,10 @@ UNREDUCED partial output: the TP all-reduce after ``o_proj`` is the caller's
 (the ISO scheduler decides when).  Layouts at the public functions are the
 reference's: activations (B, S, D), heads (B, S, H, hd), page pools
 (N+1, ps, Hkv, hd).  The dense einsums of ``sdpa_partial`` sit outside any
-kernel in the reference too, so they are plain torch ops here; the paged
-walks go through the hand-written kernels of ``repro_torch.kernels``.
+kernel in the reference too, so they are plain torch ops here, and so is
+``sdpa_blockwise`` (``attn_impl="blockwise"``: an XLA scan in the
+reference); the paged walks go through the hand-written kernels of
+``repro_torch.kernels``.
 """
 from __future__ import annotations
 
@@ -117,6 +119,58 @@ def sdpa(q, k, v, **kw):
     return sdpa_partial(q, k, v, **kw)[0]
 
 
+def sdpa_blockwise(q, k, v, *, q_pos, k_pos, causal: bool = True,
+                   window: int = 0, k_valid=None, group_eff: int = 1,
+                   block_k: int = 1024):
+    """Flash-style blockwise attention in plain torch: a loop over key
+    blocks of ``block_k`` with a running fp32 (max, denominator,
+    accumulator), O(Sq x block_k) live scores instead of O(Sq x Sk); the
+    masks of ``sdpa`` (positions, causal, window, ``k_valid``).  At ``Sk <=
+    block_k`` it is ``sdpa``, as the reference's.  Runs the reference's
+    float ops in its order; it does not go through B4, which takes a scalar
+    query start and no key mask."""
+    B, Sq, Hq, hd = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    assert Hq == Hkv * group_eff, (Hq, Hkv, group_eff)
+    if Sk <= block_k:
+        return sdpa(q, k, v, q_pos=q_pos, k_pos=k_pos, causal=causal,
+                    window=window, k_valid=k_valid, group_eff=group_eff)
+    qg = q.reshape(B, Sq, Hkv, group_eff, hd).float()
+    scale = hd ** -0.5
+    dev = q.device
+    m_run = torch.full((B, Hkv, group_eff, Sq), NEG_INF, dtype=torch.float32,
+                       device=dev)
+    l_run = torch.zeros((B, Hkv, group_eff, Sq), dtype=torch.float32,
+                        device=dev)
+    acc = torch.zeros((B, Hkv, group_eff, Sq, hd), dtype=torch.float32,
+                      device=dev)
+    for s0 in range(0, Sk, block_k):
+        # the last block is short where the reference pads it with keys
+        # at position -1, which its mask drops
+        kb, vb = k[:, s0:s0 + block_k], v[:, s0:s0 + block_k]
+        kpb = k_pos[:, s0:s0 + block_k]
+        mask = (k_valid[:, s0:s0 + block_k] if k_valid is not None
+                else kpb >= 0)[:, None, :]                   # (B,1,bk)
+        if causal:
+            mask = mask & (kpb[:, None, :] <= q_pos[:, :, None])
+        if window:
+            mask = mask & (kpb[:, None, :] > q_pos[:, :, None] - window)
+        mask_b = mask[:, None, None]                         # (B,1,1,.,bk)
+        s = torch.einsum("bqhgd,bshd->bhgqs", qg, kb.float()) * scale
+        s = torch.where(mask_b, s, torch.full_like(s, NEG_INF))
+        m_new = torch.maximum(m_run, torch.amax(s, dim=-1))
+        alpha = torch.exp(m_run - m_new)
+        # explicit mask multiply: a fully-masked block has s == m_new ==
+        # NEG_INF and exp(0) would leak weight 1 per masked key
+        p = torch.exp(s - m_new[..., None]) * mask_b
+        l_run = l_run * alpha + torch.sum(p, dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhgqs,bshd->bhgqd", p,
+                                                    vb.float())
+        m_run = m_new
+    out = acc / torch.clamp(l_run, min=1e-30)[..., None]
+    return torch.movedim(out, 3, 1).reshape(B, Sq, Hq, hd)
+
+
 def merge_softmax_states(o_a, m_a, l_a, o_b, m_b, l_b):
     """Combine two flash partial-softmax states over disjoint key sets into
     the normalised output over their union, fp32.  A state with l == 0
@@ -172,12 +226,16 @@ def attn_prefill_partial(p: dict, x, cfg: ModelConfig, layout_group: int, *,
     if k_limit is not None:
         lim = k_pos < _k_limit_col(k_limit, dev)
         k_valid = lim if k_valid is None else (k_valid & lim)
-    if cfg.attn_impl != "dense":
-        raise NotImplementedError(
-            f"attn_impl {cfg.attn_impl!r}: the port runs the dense sdpa "
-            f"only (ROADMAP queue B item 4)")
-    out = sdpa(q, k_all, v_all, q_pos=q_pos, k_pos=k_pos, causal=causal,
-               window=window, k_valid=k_valid, group_eff=layout_group)
+    if cfg.attn_impl == "blockwise":
+        out = sdpa_blockwise(q, k_all, v_all, q_pos=q_pos, k_pos=k_pos,
+                             causal=causal, window=window, k_valid=k_valid,
+                             group_eff=layout_group,
+                             block_k=cfg.attn_block_k)
+    elif cfg.attn_impl == "dense":
+        out = sdpa(q, k_all, v_all, q_pos=q_pos, k_pos=k_pos, causal=causal,
+                   window=window, k_valid=k_valid, group_eff=layout_group)
+    else:
+        raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
     return o_proj_partial(p, out), (k, v)
 
 

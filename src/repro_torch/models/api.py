@@ -5,7 +5,8 @@
   prefill(params, cfg, ctx, iso, batch, ...)  -> dict (logits_local, ...)
   decode_step(params, cfg, ctx, tokens, caches, lengths, ...)
                                               -> (logits_local, caches)
-  init_caches(cfg, batch, cache_len, tp, dtype, device) -> dense caches
+  init_caches(cfg, batch, cache_len, tp, dtype, device, local)
+                                              -> dense caches
   init_state_caches(cfg, batch, tp, dtype, device, local)
                                               -> per-slot recurrent states
   make_inputs(cfg, seq_len, batch, seed, dtype, device) -> batch
@@ -27,7 +28,7 @@ import torch
 
 from repro_torch.config import ISOConfig, ModelConfig
 from repro_torch.core.overlap import AxisCtx
-from repro_torch.device import resolve_device
+from repro_torch.device import generator, resolve_device
 from repro_torch.models import decoder as dec_lib
 from repro_torch.models import whisper as whisper_lib
 
@@ -36,14 +37,12 @@ def init_params(seed: int, cfg: ModelConfig, tp: int = 1,
                 dtype=torch.bfloat16, device=None, rank: int = None):
     """Random weights made on ``device`` (default ``cuda``; raises when CUDA
     is absent unless ``device="cpu"``).  ``rank`` given: only that rank's
-    shard of the tp=``tp`` model (see decoder.init_decoder_params; not for
-    audio)."""
+    shard of the tp=``tp`` model (see decoder.init_decoder_params and
+    whisper.init_whisper_params)."""
     device = resolve_device(device)
     if cfg.family == "audio":
-        if rank is not None:
-            raise NotImplementedError("sharded whisper weights: the dense "
-                                      "Engine serves audio at tp=1")
-        return whisper_lib.init_whisper_params(seed, cfg, tp, dtype, device)
+        return whisper_lib.init_whisper_params(seed, cfg, tp, dtype, device,
+                                               rank=rank)
     return dec_lib.init_decoder_params(seed, cfg, tp, dtype, device=device,
                                        rank=rank)
 
@@ -80,14 +79,17 @@ def decode_step(params, cfg: ModelConfig, ctx: AxisCtx, tokens, caches,
 
 
 def init_caches(cfg: ModelConfig, batch: int, cache_len: int, tp: int = 1,
-                dtype=torch.bfloat16, device=None):
+                dtype=torch.bfloat16, device=None, local: bool = False):
     """Empty dense decode caches (the dense ``Engine``'s), made on
-    ``device`` (default ``cuda``, as ``init_params``)."""
+    ``device`` (default ``cuda``, as ``init_params``); ``local``: one tp
+    rank's shard (decoder.init_caches)."""
     device = resolve_device(device)
     if cfg.family == "audio":
         return whisper_lib.init_whisper_caches(cfg, batch, cache_len, tp,
-                                               dtype=dtype, device=device)
-    return dec_lib.init_caches(cfg, batch, cache_len, tp, dtype, device)
+                                               dtype=dtype, device=device,
+                                               local=local)
+    return dec_lib.init_caches(cfg, batch, cache_len, tp, dtype, device,
+                               local=local)
 
 
 def init_state_caches(cfg: ModelConfig, batch: int, tp: int = 1,
@@ -111,7 +113,7 @@ def make_inputs(cfg: ModelConfig, seq_len: int, global_batch: int,
     first ``n_p = min(num_patches, max(1, S // 2))`` of the S positions are
     patches ~ N(0, 1) x 0.1 of (B, n_p, D), the rest text."""
     device = resolve_device(device)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = generator(device, seed)
     B, S = global_batch, seq_len
     n_p = min(cfg.num_patches, max(1, S // 2)) if cfg.family == "vlm" else 0
     out = {"tokens": torch.randint(0, cfg.vocab_size, (B, S - n_p),

@@ -30,6 +30,7 @@ from repro_torch.config import BLOCK_ATTN_MLP, BLOCK_ATTN_MOE, BLOCK_DEC, \
 from repro_torch.core.chunking import split_chunks
 from repro_torch.core.iso import run_stack_decode, run_stack_prefill
 from repro_torch.core.overlap import AxisCtx, psum_now
+from repro_torch.device import generator
 from repro_torch.layers import embeddings as emb_lib
 from repro_torch.layers.heads import expand_heads, head_layout
 from repro_torch.layers import ssm as ssm_lib
@@ -219,7 +220,7 @@ def init_decoder_params(seed: int, cfg: ModelConfig, tp: int = 1,
     the same stream and cut at once, so no more than one layer is ever held
     whole."""
     check_supported(cfg)
-    gen = torch.Generator(device=device).manual_seed(seed)
+    gen = generator(device, seed)
     layout = head_layout(cfg.num_heads, max(cfg.num_kv_heads, 1), tp)
     v = padded_vocab(cfg, tp)
     cut = (lambda tree: _shard_tree(tree, rank, tp)) if rank is not None \
@@ -437,18 +438,21 @@ def init_state_caches(cfg: ModelConfig, batch: int, tp: int = 1,
 
 
 def init_caches(cfg: ModelConfig, batch: int, cache_len: int, tp: int = 1,
-                dtype=torch.bfloat16, device=None):
+                dtype=torch.bfloat16, device=None, local: bool = False):
     """Empty dense decode caches at the GLOBAL padded kv head count: per
     attention position ``k``/``v`` (P, batch, L, Hkv, hd) zeros and ``pos``
     (P, batch, L) int32 at -1, L = ``cache_len`` (the window for a
     sliding-window config), and beside them each position's zero recurrent
-    state (``init_state_caches``)."""
+    state (``init_state_caches``).  ``local``: one tp rank's shard, Hkv /
+    tp heads and the states as ``init_state_caches(local=True)`` makes
+    them (the reference's ``cache_specs`` split)."""
     periods = pattern_periods(cfg)
     hkv = head_layout(cfg.num_heads, max(cfg.num_kv_heads, 1), tp).hkv_eff
+    hkv //= tp if local else 1
     eff_len = min(cache_len, cfg.sliding_window) if cfg.sliding_window \
         else cache_len
     shape = (periods, batch, eff_len, hkv, cfg.resolved_head_dim)
-    caches = init_state_caches(cfg, batch, tp, dtype, device)
+    caches = init_state_caches(cfg, batch, tp, dtype, device, local=local)
     for kind, c in zip(cfg.block_pattern, caches):
         if kind not in (BLOCK_MLSTM, BLOCK_SLSTM):
             c.update(k=torch.zeros(shape, dtype=dtype, device=device),

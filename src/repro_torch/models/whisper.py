@@ -14,7 +14,7 @@ Parameters: ``{"encoder": {"final_norm", "periods"}, "decoder": {"embed",
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
@@ -39,15 +39,19 @@ def decoder_cfg(cfg: ModelConfig) -> ModelConfig:
 
 
 def init_whisper_params(seed: int, cfg: ModelConfig, tp: int = 1,
-                        dtype=torch.bfloat16, device=None) -> Dict:
+                        dtype=torch.bfloat16, device=None,
+                        rank: Optional[int] = None) -> Dict:
     """Random weights: the encoder from ``seed`` (its embedding dropped:
     the stub frontend provides the embeddings), the decoder from
-    ``seed + 1``."""
+    ``seed + 1``, both laid out for ``tp`` (the reference builds them per
+    tp too).  ``rank`` given: that rank's shard of the encoder, the decoder
+    and its cross-attention, equal to ``shard_params`` of the whole (see
+    decoder.init_decoder_params)."""
     enc = dec_lib.init_decoder_params(seed, encoder_cfg(cfg), tp, dtype,
-                                      device=device)
+                                      device=device, rank=rank)
     enc.pop("embed")
     dec = dec_lib.init_decoder_params(seed + 1, decoder_cfg(cfg), tp, dtype,
-                                      device=device)
+                                      device=device, rank=rank)
     return {"encoder": enc, "decoder": dec}
 
 
@@ -103,12 +107,15 @@ def whisper_decode_step(params, cfg: ModelConfig, ctx: AxisCtx, tokens,
 
 
 def init_whisper_caches(cfg: ModelConfig, batch: int, cache_len: int,
-                        tp: int = 1, dtype=torch.bfloat16, device=None):
+                        tp: int = 1, dtype=torch.bfloat16, device=None,
+                        local: bool = False):
     """Decode caches with zero cross K/V placeholders (filled by a real
-    prefill): ``({k, v, pos, cross_k, cross_v},)``."""
+    prefill): ``({k, v, pos, cross_k, cross_v},)``; ``local``: one tp
+    rank's kv heads (decoder.init_caches)."""
     caches = dec_lib.init_caches(decoder_cfg(cfg), batch, cache_len, tp,
-                                 dtype, device)
+                                 dtype, device, local=local)
     hkv = head_layout(cfg.num_heads, max(cfg.num_kv_heads, 1), tp).hkv_eff
+    hkv //= tp if local else 1
     shape = (cfg.num_layers, batch, cfg.encoder_frames, hkv,
              cfg.resolved_head_dim)
     return (dict(caches[0],

@@ -40,8 +40,16 @@ the decode body reads nothing back to the host but the logits, so a CUDA
 graph can capture it later.  A prefill copies one logits row to the host,
 the row it samples (the reference copies them all).
 
-tp = 1: the reference's mesh path goes through ``launch/runner`` (ROADMAP
-queue A item 11), and its launcher keeps this engine on one device.
+Tensor parallelism: ``mesh=`` takes this rank's ``launch.mesh.TPGroup``, as
+``PagedEngine``'s does; ``params`` are then the rank's shard
+(``bridge.shard_params`` or ``api.init_params(..., rank=)``), the ring
+caches hold its share of the kv heads (``api.init_caches(..., local=True)``)
+and prefill and decode go through ``launch/runner``, the reference's
+distributed boundary.  Every rank runs this same host loop on the same
+requests; the vocab-sharded logits are gathered (``runner.gather_logits``)
+before sampling, so every rank samples the same token over the real vocab.
+Decode runs the reference's sequential schedule; speculation is as at tp=1.
+A group with data ranks is refused: the caches and slots hold every row.
 """
 from __future__ import annotations
 
@@ -52,9 +60,11 @@ import numpy as np
 import torch
 
 from repro_torch.bridge import to_torch
-from repro_torch.config import BLOCK_ATTN_MLP, BLOCK_ATTN_MOE, Config
-from repro_torch.core.overlap import AxisCtx
+from repro_torch.config import BLOCK_ATTN_MLP, BLOCK_ATTN_MOE, Config, \
+    padded_vocab
 from repro_torch.device import resolve_device, synchronize
+from repro_torch.launch import runner
+from repro_torch.launch.mesh import TPGroup
 from repro_torch.models import api
 from repro_torch.models.decoder import check_supported
 from repro_torch.obs import torchprof
@@ -64,9 +74,6 @@ from repro_torch.obs.trace import TraceRing
 from repro_torch.serving.requests import Request, RequestState
 from repro_torch.serving.sampler import sample
 from repro_torch.serving.speculative import BigramDraft, accept_greedy
-
-MESH_ITEM = ("the dense Engine under tensor parallelism comes with "
-             "launch/runner (ROADMAP queue A item 11); it serves at tp=1")
 
 
 def _n_patches(req: Request) -> int:
@@ -85,16 +92,28 @@ def _first_leaf(tree) -> torch.Tensor:
 
 
 class Engine:
-    """``device`` defaults to ``cuda`` (raises without it); the params must
-    live there (``api.init_params(..., device=)``)."""
+    """``device`` defaults to ``cuda`` (raises without it), or is the TP
+    group's (``mesh=``); the params must live there
+    (``api.init_params(..., device=)``)."""
 
-    def __init__(self, config: Config, params, mesh=None, *,
+    def __init__(self, config: Config, params, mesh: TPGroup = None, *,
                  max_batch: int = 4, max_len: int = 512, bucket: int = 64,
                  spec_k: int = 0, observability: bool = True, device=None):
-        if mesh is not None:
-            raise NotImplementedError(MESH_ITEM)
+        if mesh is not None and not isinstance(mesh, TPGroup):
+            raise TypeError(f"mesh must be a launch.mesh.TPGroup, got "
+                            f"{type(mesh).__name__}")
+        if mesh is not None and mesh.dp > 1:
+            raise ValueError(f"the dense Engine serves tensor parallelism "
+                             f"only: its caches and slots hold every row, "
+                             f"and this rank group has {mesh.dp} data ranks; "
+                             f"give each data replica its own TP group")
+        if mesh is not None and device is not None \
+                and torch.device(device) != mesh.device:
+            raise ValueError(f"device {device} differs from the TP group's "
+                             f"{mesh.device}")
         check_supported(config.model)
-        self.device = resolve_device(device)
+        self.device = mesh.device if mesh is not None \
+            else resolve_device(device)
         leaf = _first_leaf(params)
         if leaf.device.type != self.device.type:
             raise ValueError(f"params live on {leaf.device}, the engine on "
@@ -106,11 +125,23 @@ class Engine:
         self.max_batch = max_batch
         self.max_len = max_len
         self.bucket = bucket
-        self.tp = 1
-        self._ctx = AxisCtx()
-        # the cache dtype follows the params
-        self.caches = api.init_caches(self.cfg, max_batch, max_len,
-                                      dtype=leaf.dtype, device=self.device)
+        self.tp = mesh.tp if mesh is not None else 1
+        table = params.get("decoder", params)["embed"]["table"]
+        if table.shape[0] * self.tp != padded_vocab(self.cfg, self.tp):
+            raise ValueError(f"embedding shard of {table.shape[0]} rows is "
+                             f"not 1/{self.tp} of the tp={self.tp} padded "
+                             f"vocab; pass this rank's shard of params built "
+                             f"at tp={self.tp}")
+        self._prefill_fn = runner.make_prefill_fn(
+            config, mesh, logits_mode="all", return_cache=True,
+            cache_len=max_len, global_batch=1)
+        self._decode_fn = runner.make_decode_fn(config, mesh,
+                                                global_batch=max_batch)
+        self._ctx = self._decode_fn.ctx
+        # the cache dtype follows the params; this rank's kv heads
+        self.caches = api.init_caches(self.cfg, max_batch, max_len, self.tp,
+                                      dtype=leaf.dtype, device=self.device,
+                                      local=True)
         self.slots: List[Optional[RequestState]] = [None] * max_batch
         self.lengths = np.zeros(max_batch, np.int64)
         self.last_tokens = np.zeros(max_batch, np.int64)
@@ -181,12 +212,11 @@ class Engine:
 
         t0 = time.perf_counter()
         with torchprof.annotate(f"prefill/T={blen}"):
-            out = api.prefill(self.params, self.cfg, self._ctx,
-                              self.config.iso, batch, logits_mode="all",
-                              return_cache=True, cache_len=self.max_len)
+            out = self._prefill_fn(self.params, batch)
             self._write_slot(out["caches"], slot, eff_plen)
-            # the one row to sample, taken on the device
-            row = out["logits_local"][0, eff_plen - 1]
+            # the one row to sample, taken (and gathered) on the device
+            row = runner.gather_logits(
+                out["logits_local"][:, eff_plen - 1:eff_plen], self._ctx)[0, 0]
         self.metrics["prefill_dispatch_s"] += time.perf_counter() - t0
         # fence the whole step, the caches' write included
         synchronize(self.device)
@@ -260,8 +290,8 @@ class Engine:
             tt = torch.from_numpy(toks).to(self.device)
             lens = torch.from_numpy(self.lengths.astype(np.int32)).to(
                 self.device)
-            logits, _ = api.decode_step(self.params, self.cfg, self._ctx, tt,
-                                        self.caches, lens)
+            logits, _ = self._decode_fn(self.params, tt, self.caches, lens)
+            logits = runner.gather_logits(logits, self._ctx)
         self.metrics["decode_dispatch_s"] += time.perf_counter() - t0
         synchronize(self.device)
         dur = time.perf_counter() - t0

@@ -112,17 +112,18 @@ def param_leaves(params: Dict[str, Any]) -> List[Leaf]:
 
 def make_axis_ctx(config: Config, group: Optional[TPGroup]) -> AxisCtx:
     """The rank's collectives: TP over ``group``'s model ranks, the
-    gradient mean over its data ranks (none without a group)."""
+    gradient mean over its data ranks (``pods x data``; none without a
+    group)."""
+    p = config.parallel
+    dp = p.pods * p.data
     if group is None:
-        if config.parallel.model != 1 or config.parallel.data != 1:
-            raise ValueError(f"a {config.parallel.data} x "
-                             f"{config.parallel.model} mesh needs a rank "
-                             f"group (launch/mesh.spawn(..., data=))")
+        if p.model != 1 or dp != 1:
+            raise ValueError(f"a {dp} x {p.model} mesh needs a rank group "
+                             f"(launch/mesh.spawn(..., data=))")
         return AxisCtx(quantized_comm=config.iso.quantized_comm)
-    if (group.dp, group.tp) != (config.parallel.data, config.parallel.model):
-        raise ValueError(f"ParallelConfig {config.parallel.data} x "
-                         f"{config.parallel.model}, rank group {group.dp} x "
-                         f"{group.tp}")
+    if (group.dp, group.tp) != (dp, p.model):
+        raise ValueError(f"ParallelConfig {dp} x {p.model}, rank group "
+                         f"{group.dp} x {group.tp}")
     return group.axis_ctx(config.iso.quantized_comm)
 
 

@@ -242,7 +242,8 @@ def test_dense_and_paged_share_replayable_key_set(weights):
 
 
 def test_outside_the_slice_raises(weights):
-    """A mesh waits on ROADMAP queue A item 11; the VLM family serves
+    """A mesh must be a ``TPGroup`` (the dense Engine under TP:
+    tests/test_torch_runner.py); the VLM family serves
     (tests/test_torch_vlm.py), and a request's patches must have the
     model's width; the cache dtype follows the params."""
     _, params = weights
@@ -255,7 +256,7 @@ def test_outside_the_slice_raises(weights):
     with pytest.raises(ValueError, match="patches of shape"):
         eng.add_request(Request(prompt=np.arange(2, 10, dtype=np.int32),
                                 patches=np.zeros((8, 32), np.float32)))
-    with pytest.raises(NotImplementedError, match="queue A item 11"):
+    with pytest.raises(TypeError, match="TPGroup"):
         Engine(Config(model=PORT_CFG), params, mesh=object(), device="cpu")
     half = _port_engine(api.init_params(0, PORT_CFG, dtype=torch.bfloat16,
                                         device="cpu"))
