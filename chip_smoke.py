@@ -322,9 +322,9 @@ Phases, each fatal on failure:
                launched; prints each step's loss and norm, ms a step and
                positions/s after the first two, peak allocated memory, and
                one more step under ``torch.profiler`` (idle share, kernels
-               by name).  (b) the fp32 2-layer twin, 4 steps on the card
-               and on the CPU from the same weights: loss and norm within
-               rtol 1e-4.  (c) dp=2, two ranks sharing the card over gloo:
+               by name).  (b) the fp32 2-layer twin, 2 steps on the card
+               and on the CPU from the same weights (an AdamW update
+               between them): loss and norm within rtol 1e-4.  (c) dp=2, two ranks sharing the card over gloo:
                the fp32 twin under plain AdamW and ZeRO-1 (parameters
                within 1e-4 after 3 steps), the bf16 twin under the int8
                gradient mean (the three int8 kernels launched, counted as
@@ -353,6 +353,28 @@ Phases, each fatal on failure:
                ``"fake"`` process-group backend) of qwen3-8b decode_32k and
                prefill_32k at 16 x 16, ISO's hideable fraction above
                iso-off's, and the quantized train_4k cell refused.
+ 16. disagg tp disaggregated serving under TP, after phase 15: one spawn
+               of four ranks sharing the card over gloo, a prefill group
+               (ranks 0-1) and a decode group (2-3) of tp=2, phase 3's
+               baseline prompts with 16 new tokens each (the first longer
+               than the 512-token budget: resumed grants) and a decode pool
+               one and a half times the largest request's pages (the router
+               defers).  (a) qwen3-8b bf16 at full width, 12 of 36 layers
+               (cut, as phase 5's, for the script's time limit): a
+               ``DisaggRouter`` across both groups, held under the bf16
+               near-tie rule against the mixed tp=2 ``PagedEngine`` that the
+               prefill group serves by itself first; every rank's tokens and
+               router counters equal; B3 launched on the prefill ranks only
+               and B1 on the decode ranks only, no closure of the other
+               phase built; prefill tok/s of the prefill group, decode
+               ms/step of the decode group, transfers, deferrals,
+               bounce-backs, KV bytes moved, host ms a transfer (export +
+               send + import), peak allocated a rank.  (b) the 2-layer fp32
+               twin at full width: the router's tokens EQUAL the tp=1
+               ``PagedEngine``'s on the card; with ``quantized_comm`` (the
+               int8 reduce's three kernels on both roles, B7 none) they
+               EQUAL the mixed tp=2 engine's with the same reduces, the int8
+               reduces changing the numbers (tp=1's are printed beside).
 
 Every pass resets its engine's registry and trace ring together
 (``reset_observability``), so a pass's trace replays into its registry.
@@ -371,8 +393,11 @@ read the same way from phase 11's granite defaults timed pass, its
 ``launches_hymba`` and ``launches_xlstm`` from phase 12's baseline timed
 passes (xlstm's all 0, checked), its ``launches_vlm`` from phase 13's
 graphed timed pass, its ``launches_train`` from rank 0 of phase 14's
-int8 run (phase 14 (a) launches none, checked) and its
-``launches_runner`` from rank 0 of phase 15 (a)'s int8 pass.  It
+int8 run (phase 14 (a) launches none, checked), its
+``launches_runner`` from rank 0 of phase 15 (a)'s int8 pass and its
+``launches_disagg_tp`` (``{"prefill": n, "decode": n}``) from group rank 0
+of each role in phase 16: the attention kernels from (a), the int8
+reduce's three from (b)'s quantized router run.  It
 imports nothing of JAX or of the JAX package.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and
 power limit from nvidia-smi, and before that a JSON line with each kernel's
@@ -3951,8 +3976,10 @@ def vlm_tp_case():
 # them patches)
 TRAIN_STEPS = 20
 TRAIN_BATCH, TRAIN_SEQ = 4, 2048
-# the 2-layer twins' runs: steps and batch (card == CPU; dp=2; tp=2)
-TWIN_STEPS, TWIN_BATCH, TWIN_SEQ = 4, 2, 64
+# the 2-layer twins' runs: steps and batch (card == CPU; dp=2; tp=2); 2
+# steps of card == CPU keep an update between them and cut the CPU side's
+# ~40 s by half for the script's time limit
+TWIN_STEPS, TWIN_BATCH, TWIN_SEQ = 2, 2, 64
 DP_STEPS, DP_BATCH, DP_SEQ = 3, 4, 256
 
 
@@ -4678,6 +4705,318 @@ def runner_all(report, card: str):
 
 
 # ---------------------------------------------------------------------------
+# phase 16: disaggregated serving under TP, two tp=2 rank groups on the one
+# card over gloo
+# ---------------------------------------------------------------------------
+
+DISAGG_TP_LAYERS = 12              # qwen3-8b's depth in (a): 12 of 36, as
+                                   # phase 5's (gloo sets every tp=2 number)
+DISAGG_TP_NEW = 16                 # new tokens a request, (a) and (b)
+DISAGG_TP_RID = 1000               # explicit request ids: every rank of both
+                                   # groups must name a request alike
+
+
+def disagg_tp_config(cfg, prompts, quantized: bool = False,
+                     disagg: bool = True):
+    """Phase 5's serving settings at tp=2 (page 16, max_batch 4, max_len
+    2048, budget 512, the reference's defaults: sharing and packing), under
+    ``disagg`` with a decode pool one and a half times the largest
+    request's pages, so two of the long requests never fit it together and
+    the router defers; ``quantized_comm`` with ``quantized``."""
+    from repro_torch.config import Config, ISOConfig, ParallelConfig, \
+        ServingConfig
+    from repro_torch.serving.kvcache import pages_for
+    need = max(pages_for(len(p) + DISAGG_TP_NEW, 16) for p in prompts)
+    sv = ServingConfig(page_size=16, max_batch=4, max_len=2048,
+                       prefill_token_budget=512, disagg=disagg,
+                       decode_pool_pages=need + need // 2 if disagg else 0)
+    return Config(model=cfg, parallel=ParallelConfig(data=1, model=2),
+                  iso=ISOConfig(quantized_comm=quantized), serving=sv)
+
+
+def disagg_tp_models() -> dict:
+    """(a) qwen3-8b at full width cut to DISAGG_TP_LAYERS layers, bf16;
+    (b) its 2-layer fp32 twin at full width: name -> (config, dtype)."""
+    import dataclasses
+    from repro_torch.config import get_model_config
+    cfg = get_model_config("qwen3-8b")
+    return {"bf16": (dataclasses.replace(cfg, num_layers=DISAGG_TP_LAYERS),
+                     "bfloat16"),
+            "fp32": (dataclasses.replace(cfg, num_layers=2), "float32")}
+
+
+def disagg_tp_serve(eng, prompts, rid0: int, record: bool) -> dict:
+    """Serve ``prompts`` greedily (DISAGG_TP_NEW each, request ids from
+    ``rid0``) on a ``DisaggRouter`` rank or a mixed TP engine, from zeroed
+    launch counts and peak memory; with ``record``, under a
+    ``LogitsRecorder``: tokens, rids, this rank's engine's metrics and
+    closure keys, launches, the router's counters and wire, wall, peak GiB
+    and the recorded rows."""
+    import torch
+    from repro_torch.kernels import native
+    from repro_torch.serving import Request
+    from repro_torch.serving.disagg import DisaggRouter
+    from repro_torch.serving.requests import SamplingParams
+
+    router = eng if isinstance(eng, DisaggRouter) else None
+    rank_eng = eng if router is None else (router.prefill or router.decode)
+    rids = [eng.add_request(Request(
+        prompt=p.copy(), rid=rid0 + i, sampling=SamplingParams(
+            max_new_tokens=DISAGG_TP_NEW, eos_id=-1)))
+        for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    native.reset_launches()
+    rec = LogitsRecorder(rank_eng.cfg.vocab_size) if record else None
+    t0 = time.perf_counter()
+    if rec is not None:
+        with rec:
+            outs = eng.run_until_complete()
+    else:
+        outs = eng.run_until_complete()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    tokens = [outs.get(r) for r in rids]
+    if any(t is None or len(t) != DISAGG_TP_NEW for t in tokens):
+        raise AssertionError(f"not every request completed: {tokens}")
+    rank_eng.alloc.check()
+    if rank_eng.alloc.free_pages != rank_eng.alloc.num_pages:
+        raise AssertionError(f"{rank_eng.phase} pages leaked")
+    return dict(tokens=tokens, rids=rids, m=dict(rank_eng.metrics),
+                phase=rank_eng.phase, page_bytes=rank_eng.kv.page_bytes(),
+                prefill_keys=len(rank_eng._prefill_fns),
+                decode_keys=sorted(rank_eng._decode_fns),
+                schedule_steps=dict(rank_eng.decode_schedule_steps),
+                launches=dict(native.LAUNCHES),
+                variants=dict(native.VARIANTS), wall=wall,
+                peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                stats=router.migration_stats() if router else None,
+                pending=len(router._pending) if router else 0,
+                wire=dict(router.wire) if router else None,
+                finite=rec.finite if rec else True,
+                rec=rec.rec if rec else None)
+
+
+def disagg_tp_rank(dg, prompts):
+    """Body of each of phase 16's four ranks (module level: the spawned
+    ranks import it).  For (a) and (b) in turn: this rank's shard of the
+    weights; on the prefill group alone, the mixed tp=2 ``PagedEngine``
+    the router is held against ((a) bf16 and (b) with ``quantized_comm``;
+    (b) plain is held against tp=1 in the parent); then the
+    ``DisaggRouter`` across both groups.  Logits rows come back from group
+    rank 0 of each."""
+    import torch
+    import torch.distributed as dist
+    from repro_torch.models import api
+    from repro_torch.serving import PagedEngine
+    from repro_torch.serving.disagg import DisaggRouter
+
+    out = {"role": dg.role, "rank": dg.tp_group.rank}
+    lead = dg.tp_group.rank == 0
+    rid = DISAGG_TP_RID
+    for name, (cfg, dtype) in disagg_tp_models().items():
+        params = api.init_params(0, cfg, tp=2, dtype=getattr(torch, dtype),
+                                 device=dg.device, rank=dg.tp_group.rank)
+        torch.backends.cuda.matmul.allow_tf32 = False
+        passes = (("", False),) if name == "bf16" else \
+            (("", False), (" quantized", True))
+        for suffix, q in passes:
+            label = name + suffix
+            if dg.role == "prefill" and (name == "bf16" or q):
+                eng = PagedEngine(disagg_tp_config(cfg, prompts, q, False),
+                                  params, mesh=dg.tp_group)
+                out[f"{label} mixed"] = disagg_tp_serve(
+                    eng, prompts, rid, record=lead and name == "bf16")
+                del eng
+                free_cuda()
+            rid += len(prompts)
+            dist.barrier(group=dg.world)
+            router = DisaggRouter(disagg_tp_config(cfg, prompts, q), params,
+                                  mesh=dg)
+            out[label] = disagg_tp_serve(router, prompts, rid,
+                                         record=lead and name == "bf16")
+            rid += len(prompts)
+            del router
+            free_cuda()
+        del params
+        free_cuda()
+    return out
+
+
+def disagg_tp_check(label: str, ranks, n_req: int) -> list:
+    """Each rank's run of ``label``, once every rank gave the same tokens
+    and router counters, each role kept to its phase (no decode closure on
+    a prefill rank, no prefill closure on a decode rank, so B3 launched on
+    the prefill ranks alone and B1 on the decode ranks alone), nothing is
+    left pending and every logit seen was finite."""
+    runs = [r[label] for r in ranks]
+    for r, run in enumerate(runs):
+        if run["tokens"] != runs[0]["tokens"] or \
+                run["stats"] != runs[0]["stats"]:
+            raise AssertionError(f"[disagg tp] {label}: rank {r} disagrees: "
+                                 f"{run['stats']} vs {runs[0]['stats']}")
+        if run["pending"] or not run["finite"]:
+            raise AssertionError(f"[disagg tp] {label}: a transfer pending "
+                                 f"or non-finite logits on rank {r}")
+        b1, b3 = run["launches"]["paged_decode"], \
+            run["launches"]["paged_prefill"]
+        if run["phase"] == "prefill":
+            ok = run["decode_keys"] == [] and b1 == 0 and b3 > 0 and \
+                run["m"]["resumed_grants"] > 0
+        else:
+            ok = run["prefill_keys"] == 0 and b3 == 0 and b1 > 0
+        if not ok:
+            raise AssertionError(
+                f"[disagg tp] {label}: rank {r} ({run['phase']}) ran the "
+                f"other phase or missed its kernel: closures "
+                f"{run['prefill_keys']} prefill / {run['decode_keys']} "
+                f"decode, B1 {b1}, B3 {b3}, resumed "
+                f"{run['m']['resumed_grants']}")
+    st = runs[0]["stats"]
+    if st["deferrals"] < 1 or st["migrated_requests"] < n_req:
+        raise AssertionError(f"[disagg tp] {label}: no deferral, or not "
+                             f"every request migrated: {st}")
+    return runs
+
+
+def disagg_tp(report, card: str):
+    """Phase 16: disaggregated serving at tp=2, the prefill group (ranks 0
+    and 1) and the decode group (2 and 3) sharing the card over gloo, on
+    phase 3's baseline prompts (the first longer than the 512-token
+    budget: resumed grants, B3 on the prefill ranks).  (a) qwen3-8b bf16 at
+    full width, 12 of 36 layers, held against the mixed tp=2 engine under
+    the bf16 near-tie rule; (b) the 2-layer fp32 twin: the router's tokens
+    EQUAL the tp=1 ``PagedEngine``'s on the card, and with
+    ``quantized_comm`` EQUAL the mixed tp=2 engine's with the same int8
+    reduces (which change the numbers: tp=1 is printed beside it)."""
+    import torch
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models import api
+    from repro_torch.serving import PagedEngine
+
+    models = disagg_tp_models()
+    lengths, prompts = baseline_prompts(models["bf16"][0])
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg32 = models["fp32"][0]
+    # built at tp=2, whole: the tp=1 engine runs the same function
+    params = api.init_params(0, cfg32, tp=2, dtype=torch.float32,
+                             device="cuda")
+    config = disagg_tp_config(cfg32, prompts, disagg=False)
+    import dataclasses
+    from repro_torch.config import ParallelConfig
+    eng = PagedEngine(dataclasses.replace(config, parallel=ParallelConfig()),
+                      params, device="cuda", cuda_graphs=False)
+    want = disagg_tp_serve(eng, prompts, 0, record=False)["tokens"]
+    del eng, params
+    free_cuda()
+
+    t0 = time.perf_counter()
+    ranks = spawn(disagg_tp_rank, 2, args=(prompts,), device="cuda:0",
+                  backend="gloo", timeout_s=900, disagg=True)
+    log(f"[disagg tp] 4 ranks on cuda:0 over gloo (prefill 0-1, decode "
+        f"2-3), {time.perf_counter() - t0:.1f}s with start-up and weights")
+    roles = [(r["role"], r["rank"]) for r in ranks]
+    if roles != [("prefill", 0), ("prefill", 1), ("decode", 0),
+                 ("decode", 1)]:
+        raise AssertionError(f"[disagg tp] rank roles {roles}")
+    pre, dec = ranks[0], ranks[2]
+
+    # (a) bf16 at 12 layers
+    cfg = models["bf16"][0]
+    runs = disagg_tp_check("bf16", ranks, len(prompts))
+    mixed = pre["bf16 mixed"]
+    rec_mixed, rec_router = LogitsRecorder(cfg.vocab_size), \
+        LogitsRecorder(cfg.vocab_size)
+    rec_mixed.rec = mixed["rec"]
+    rec_router.rec = {**pre["bf16"]["rec"], **dec["bf16"]["rec"]}
+    report["disagg_tp_vs_mixed"] = check_against_plain(
+        "disagg tp", TOL["bfloat16"], mixed, pre["bf16"], rec_mixed,
+        rec_router, card)
+    pm, dm = pre["bf16"]["m"], dec["bf16"]["m"]
+    st = pre["bf16"]["stats"]
+    wire_p, wire_d = pre["bf16"]["wire"], dec["bf16"]["wire"]
+    page_bytes = pre["bf16"]["page_bytes"]
+    moved = st["migrated_pages"] * page_bytes
+    n_tr = max(wire_d["transfers"], 1)
+    peaks = [round(r["bf16"]["peak_gib"], 3) for r in ranks]
+    pool = disagg_tp_config(cfg, prompts).serving.decode_pool_pages
+    log(f"[disagg tp] qwen3-8b {cfg.num_layers} of 36 layers (cut for the "
+        f"script's time limit) bf16 tp=2 x 2 groups ({TP_LABEL}): prompts "
+        f"{lengths}, {DISAGG_TP_NEW} new each, budget 512, decode pool "
+        f"{pool} pages; all four ranks agree; migration_stats {st} "
+        f"[{card}]")
+    log(f"[disagg tp] prefill group {pm['prefill_tokens']} tok in "
+        f"{pm['prefill_s']:.3f}s = {pm['prefill_tokens'] / pm['prefill_s']:.1f}"
+        f" tok/s ({pm['prefill_calls']} calls, {pm['resumed_grants']} "
+        f"resumed); decode group {1e3 * dm['decode_s'] / dm['decode_calls']:.3f}"
+        f" ms/step over {dm['decode_calls']} steps "
+        f"{dec['bf16']['schedule_steps']}, {dm['decode_tokens']} tokens; "
+        f"the mixed tp=2 engine: "
+        f"{mixed['m']['prefill_tokens'] / mixed['m']['prefill_s']:.1f} tok/s,"
+        f" {1e3 * mixed['m']['decode_s'] / mixed['m']['decode_calls']:.3f} "
+        f"ms/step over {mixed['m']['decode_calls']} steps "
+        f"{mixed['schedule_steps']}, {mixed['m']['decode_tokens']} tokens; "
+        f"wall router {pre['bf16']['wall']:.1f}s, mixed "
+        f"{mixed['wall']:.1f}s; peak allocated a rank {peaks} GiB [{card}]")
+    log(f"[disagg tp] transfers {wire_d['transfers']}: KV moved {moved} B a "
+        f"rank ({st['migrated_pages']} pages of {page_bytes} B, one kv-head "
+        f"shard), payload {wire_p['bytes']} B sent by prefill rank 0; host "
+        f"ms a transfer (export + send + import, decode rank 0 from the "
+        f"decision to the end of its import) "
+        f"{1e3 * wire_d['s'] / n_tr:.1f}, the prefill side's (export + send) "
+        f"{1e3 * wire_p['s'] / n_tr:.1f}; engines' migration_us "
+        f"{st['migration_us']:.0f} [{card}]")
+    launches = {}
+    for role, run in (("prefill", runs[0]), ("decode", runs[2])):
+        launches[role] = dict(run["launches"], decode_reduce=run[
+            "variants"].get("paged_decode/fold", 0))
+    # (b) the fp32 twin: plain against tp=1, quantized against the mixed
+    # tp=2 engine with the same int8 reduces
+    plain = disagg_tp_check("fp32", ranks, len(prompts))[0]
+    quant = disagg_tp_check("fp32 quantized", ranks, len(prompts))
+    qmixed = pre["fp32 quantized mixed"]
+    if plain["tokens"] != want:
+        diff = [i for i, (a, b) in enumerate(zip(plain["tokens"], want))
+                if a != b]
+        raise AssertionError(f"[disagg tp] fp32 twin: tp=2 router tokens "
+                             f"differ from tp=1's in requests {diff}")
+    if quant[0]["tokens"] != qmixed["tokens"]:
+        raise AssertionError("[disagg tp] fp32 twin with quantized_comm: the "
+                             "router's tokens differ from the mixed tp=2 "
+                             "engine's")
+    same_tp1 = sum(a == b for a, b in zip(quant[0]["tokens"], want))
+    for role, run in (("prefill", quant[0]), ("decode", quant[2])):
+        int8 = {k: run["launches"][k] for k in INT8_REDUCE_KERNELS}
+        if len(set(int8.values())) != 1 or not all(int8.values()) or \
+                run["launches"]["quantize_int8"]:
+            raise AssertionError(f"[disagg tp] quantized {role} rank 0: int8 "
+                                 f"launches {int8}, quantize_int8 "
+                                 f"{run['launches']['quantize_int8']}")
+        for k in INT8_REDUCE_KERNELS:
+            launches[role][k] = int8[k]
+        plain_int8 = [r["fp32"]["launches"][k] for r in ranks
+                      for k in INT8_REDUCE_KERNELS]
+        if any(plain_int8):
+            raise AssertionError("[disagg tp] the plain fp32 run launched "
+                                 "int8 kernels")
+    log(f"[disagg tp] fp32 2-layer twin at full width, tp=2 x 2 groups: "
+        f"router == the tp=1 PagedEngine on the card token for token on "
+        f"{len(want)} of {len(want)} requests (migration "
+        f"{plain['stats']}); with quantized_comm == the mixed tp=2 engine "
+        f"with the same int8 reduces on {len(want)} of {len(want)} "
+        f"({same_tp1} of {len(want)} equal to the tp=1 engine's: the int8 "
+        f"reduces change the numbers) [{card}]")
+    log(f"[disagg tp] launches a rank by role (B1/B3 from (a), the int8 "
+        f"three from (b) quantized): {launches}")
+    report["launches_disagg_tp"] = launches
+    report["disagg_tp"] = dict(
+        prefill_tok_s=pm["prefill_tokens"] / pm["prefill_s"],
+        decode_ms_step=1e3 * dm["decode_s"] / dm["decode_calls"],
+        peak_gib=peaks, stats=st, moved=moved,
+        transfer_ms=1e3 * wire_d["s"] / n_tr)
+
+
+# ---------------------------------------------------------------------------
 # phase 4: kernel path against plain path
 # ---------------------------------------------------------------------------
 
@@ -5387,6 +5726,7 @@ def main() -> int:
               ("13 vlm", lambda: serve_vlm(report, card)),
               ("14 train", lambda: train_all(report, card)),
               ("15 runner", lambda: runner_all(report, card)),
+              ("16 disagg tp", lambda: disagg_tp(report, card)),
               ("10 (c) profiles", lambda: dense_profiles(report, card)),
               ("11 profile", lambda: moe_profile(card)),
               ("12 (e) profiles", lambda: recurrent_profile(report, card)))
@@ -5416,7 +5756,10 @@ def main() -> int:
                         "launches_train": report["launches_train"].get(
                             name, 0),
                         "launches_runner": report["launches_runner"].get(
-                            name, 0)})
+                            name, 0),
+                        "launches_disagg_tp": {
+                            role: n.get(name, 0) for role, n in
+                            report["launches_disagg_tp"].items()}})
         assert all(math.isfinite(x) for x in (t["ms"], t["plain_ms"],
                                               t["bound_ms"]))
     print(json.dumps({"kernels": kernels}))

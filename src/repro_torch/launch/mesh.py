@@ -10,6 +10,16 @@ starts the (data, model) grid of training, N x tp ranks in the reference's
 device order (``model`` the fast axis: global rank ``d * tp + m``), with a
 process group for each TP row and each data-parallel column.
 
+``spawn(..., disagg=True)`` starts the two rank groups of disaggregated
+serving under TP (the counterpart of the reference's ``disagg_meshes``, two
+disjoint (1, tp) meshes): 2 x tp ranks, global ranks 0..tp-1 the prefill
+group and tp..2tp-1 the decode group, each rank with a ``DisaggGroup``: its
+role, a ``TPGroup`` over its own group for its engine, and the global rank
+of its peer (prefill rank m <-> decode rank m, which hold the same kv-head
+shard).  The world group joins all 2 x tp ranks for the router's
+exchanges.  Devices follow the rules below with 2 x tp ranks: bare
+``cuda`` needs 2 x tp cards (never run: every chip run so far had one).
+
 Device and backend follow each other:
 
   * ``device="cuda"``: rank r runs on ``cuda:r`` over NCCL; asking for more
@@ -23,8 +33,8 @@ Device and backend follow each other:
 Ranks meet through a ``file://`` rendezvous in a fresh temporary directory,
 so concurrent runs never contend for a port.
 
-``disagg_devices`` places the two engines of disaggregated serving at tp=1
-(the counterpart of the reference's ``disagg_meshes``).
+``disagg_devices`` places the two engines of disaggregated serving at tp=1,
+in one process.
 """
 from __future__ import annotations
 
@@ -77,9 +87,9 @@ def rank_device(device, rank: int, tp: int,
     if asked.index is None:
         if tp > torch.cuda.device_count():
             raise ValueError(
-                f"tp={tp} needs {tp} cards, {torch.cuda.device_count()} "
-                f"visible; to share one card ask for it explicitly "
-                f"(device='cuda:0', backend='gloo')")
+                f"{tp} ranks over NCCL needs {tp} cards, "
+                f"{torch.cuda.device_count()} visible; to share one card ask "
+                f"for it explicitly (device='cuda:0', backend='gloo')")
         return torch.device("cuda", rank), backend or "nccl"
     backend = backend or ("gloo" if tp > 1 else "nccl")
     if backend == "nccl" and tp > 1:
@@ -88,12 +98,10 @@ def rank_device(device, rank: int, tp: int,
     return dev, backend
 
 
-def init_tp_group(rank: int, tp: int, init_file: str, device=None,
-                  backend: Optional[str] = None,
-                  timeout_s: float = 600.0, data: int = 1) -> TPGroup:
-    """Join the default process group as global rank ``rank`` of the
-    ``data`` x ``tp`` grid (``data`` 1: rank ``rank`` of ``tp``)."""
-    world = data * tp
+def _join(rank: int, world: int, init_file: str, device, backend,
+          timeout_s: float) -> tuple:
+    """Join the default process group as global rank ``rank`` of
+    ``world``: (device, backend)."""
     dev, backend = rank_device(device, rank, world, backend)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)
@@ -104,6 +112,16 @@ def init_tp_group(rank: int, tp: int, init_file: str, device=None,
     dist.init_process_group(backend, init_method=f"file://{init_file}",
                             rank=rank, world_size=world,
                             timeout=timedelta(seconds=timeout_s))
+    return dev, backend
+
+
+def init_tp_group(rank: int, tp: int, init_file: str, device=None,
+                  backend: Optional[str] = None,
+                  timeout_s: float = 600.0, data: int = 1) -> TPGroup:
+    """Join the default process group as global rank ``rank`` of the
+    ``data`` x ``tp`` grid (``data`` 1: rank ``rank`` of ``tp``)."""
+    dev, backend = _join(rank, data * tp, init_file, device, backend,
+                         timeout_s)
     if data == 1:
         return TPGroup(rank=rank, tp=tp, device=dev, backend=backend,
                        group=dist.group.WORLD)
@@ -118,10 +136,60 @@ def init_tp_group(rank: int, tp: int, init_file: str, device=None,
                    dp=data, dp_rank=d, dp_group=cols[m])
 
 
+@dataclass(frozen=True)
+class DisaggGroup:
+    """One rank's view of disaggregated serving under TP: 2 x tp ranks,
+    the prefill group (global ranks 0..tp-1) and the decode group
+    (tp..2tp-1).  ``tp_group`` is this rank's engine group; ``peer`` the
+    global rank holding the same kv-head shard in the other group;
+    ``world`` the group of all 2 x tp ranks, over which the router
+    exchanges its decisions (the leader, prefill rank 0, is global rank
+    0)."""
+    role: str                    # "prefill" or "decode"
+    tp_group: TPGroup
+    global_rank: int
+    peer: int
+    world: Any = None
+
+    ROLES = ("prefill", "decode")
+
+    @property
+    def tp(self) -> int:
+        return self.tp_group.tp
+
+    @property
+    def device(self) -> torch.device:
+        return self.tp_group.device
+
+    @property
+    def backend(self) -> str:
+        return self.tp_group.backend
+
+
+def init_disagg_group(rank: int, tp: int, init_file: str, device=None,
+                      backend: Optional[str] = None,
+                      timeout_s: float = 600.0) -> DisaggGroup:
+    """Join the default process group as global rank ``rank`` of the two
+    rank groups of disaggregated serving (module doc)."""
+    dev, backend = _join(rank, 2 * tp, init_file, device, backend, timeout_s)
+    # every rank creates every group, in one order: prefill, then decode
+    groups = [dist.new_group([g * tp + m for m in range(tp)])
+              for g in range(2)]
+    g, m = divmod(rank, tp)
+    return DisaggGroup(role=DisaggGroup.ROLES[g],
+                       tp_group=TPGroup(rank=m, tp=tp, device=dev,
+                                        backend=backend, group=groups[g]),
+                       global_rank=rank, peer=(1 - g) * tp + m,
+                       world=dist.group.WORLD)
+
+
 def _rank_main(rank: int, fn: Callable, tp: int, tmp: str, device, backend,
-               timeout_s: float, args: Sequence, data: int = 1) -> None:
-    group = init_tp_group(rank, tp, os.path.join(tmp, "rendezvous"), device,
-                          backend, timeout_s, data)
+               timeout_s: float, args: Sequence, data: int = 1,
+               disagg: bool = False) -> None:
+    init_file = os.path.join(tmp, "rendezvous")
+    group = init_disagg_group(rank, tp, init_file, device, backend,
+                              timeout_s) if disagg else \
+        init_tp_group(rank, tp, init_file, device, backend, timeout_s, data)
     try:
         result = fn(group, *args)
     finally:
@@ -134,18 +202,22 @@ def _rank_main(rank: int, fn: Callable, tp: int, tmp: str, device, backend,
 
 def spawn(fn: Callable, tp: int, *, args: Sequence = (), device=None,
           backend: Optional[str] = None, timeout_s: float = 600.0,
-          data: int = 1) -> List[Any]:
-    """Run ``fn(group, *args)`` on ``data * tp`` fresh rank processes and
-    return the ranks' results in global rank order (``d * tp + m``).
-    ``fn`` must be importable by name (module level) and its result
-    picklable.  A rank that raises, or a run past ``timeout_s``, stops
-    every rank and raises here."""
-    world = data * tp
+          data: int = 1, disagg: bool = False) -> List[Any]:
+    """Run ``fn(group, *args)`` on ``data * tp`` fresh rank processes (2 x
+    tp with ``disagg``, each ``group`` then a ``DisaggGroup``) and return
+    the ranks' results in global rank order (``d * tp + m``; with
+    ``disagg`` the prefill ranks, then the decode ranks).  ``fn`` must be
+    importable by name (module level) and its result picklable.  A rank
+    that raises, or a run past ``timeout_s``, stops every rank and raises
+    here."""
+    if disagg and data != 1:
+        raise ValueError("disagg spawns two TP groups; data must be 1")
+    world = 2 * tp if disagg else data * tp
     rank_device(device, 0, world, backend)        # refuse before starting
     with tempfile.TemporaryDirectory(prefix="repro_torch_tp") as tmp:
         ctx = mp.start_processes(
             _rank_main, args=(fn, tp, tmp, device, backend, timeout_s,
-                              tuple(args), data),
+                              tuple(args), data, disagg),
             nprocs=world, start_method="spawn", join=False)
         deadline = time.monotonic() + timeout_s
         while not ctx.join(timeout=1.0):
@@ -155,7 +227,7 @@ def spawn(fn: Callable, tp: int, *, args: Sequence = (), device=None,
                         p.kill()
                 for p in ctx.processes:
                     p.join(10)
-                raise TimeoutError(f"{data} x tp={tp} ranks still running "
+                raise TimeoutError(f"{world} ranks (tp={tp}) still running "
                                    f"after {timeout_s} s")
         results = []
         for r in range(world):

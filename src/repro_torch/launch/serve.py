@@ -31,8 +31,12 @@ one subdirectory a rank under ``--tp``).
 Serving modes and traffic, as the reference's launcher: ``--disagg`` serves
 through a prefill engine and a decode engine with KV pages migrating
 between them (``serving/disagg.py``; ``--decode-pool-pages`` sizes the
-decode pool, ``--migrate-batch`` caps the requests a transfer; tp=1 only
-so far), ``--latency-hiding`` is taken into
+decode pool, ``--migrate-batch`` caps the requests a transfer; with
+``--tp N`` the two engines are two groups of N ranks, 2 x N processes
+(``launch/mesh.spawn(..., disagg=True)``), each prefill rank sending its
+kv-head shard of a transfer to its peer decode rank, and the reference's
+``prefill phase:``/``decode phase:`` lines come from group rank 0 of
+each), ``--latency-hiding`` is taken into
 ``ServingConfig.latency_hiding`` and prints that it has no effect in the
 port (eager program order is the schedule), ``--decode-schedule`` forces
 a decode collective schedule (``ladder``/``ladder_seq`` with a ladder
@@ -44,7 +48,7 @@ system prompt.
 
 ``serve_rank`` is the per-rank body, also used by ``chip_smoke.py`` and the
 tests: it serves a list of request batches ("variants") on one set of
-weights.
+weights, on a ``TPGroup`` rank, a ``DisaggGroup`` rank or in this process.
 """
 from __future__ import annotations
 
@@ -64,7 +68,7 @@ from repro_torch.config import Config, ISOConfig, \
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.kernels import native
 from repro_torch.core.iso import DECODE_SCHEDULES
-from repro_torch.launch.mesh import TPGroup, disagg_devices, spawn
+from repro_torch.launch.mesh import DisaggGroup, disagg_devices, spawn
 from repro_torch.launch.train import reduce_cfg  # noqa: F401
 from repro_torch.models import api
 from repro_torch.obs import torchprof, write_chrome_trace
@@ -83,9 +87,11 @@ LATENCY_HIDING_NOTE = (
 
 
 def _engines(eng) -> tuple:
-    """The ``PagedEngine``s behind ``eng``: itself, or a router's two."""
-    return (eng.prefill, eng.decode) if isinstance(eng, DisaggRouter) \
-        else (eng,)
+    """The ``PagedEngine``s behind ``eng`` in this process: itself, or a
+    router's two (under TP the one of this rank's group)."""
+    if not isinstance(eng, DisaggRouter):
+        return (eng,)
+    return tuple(e for e in (eng.prefill, eng.decode) if e is not None)
 
 
 def _drive(eng, metrics_every: int) -> Dict[int, List[int]]:
@@ -127,18 +133,25 @@ def _drive(eng, metrics_every: int) -> Dict[int, List[int]]:
             print(line, flush=True)
         if done:
             break
+    if isinstance(eng, DisaggRouter):
+        return eng.outputs()
     return {st.request.rid: st.generated
             for e in engines for st in e._finished}
 
 
-def _make_engine(config: Config, params, group: Optional[TPGroup], dev):
+def _make_engine(config: Config, params, group, dev):
     """The variant's engine: a ``DisaggRouter`` under ``serving.disagg``
-    (tp=1 only), else a ``PagedEngine``."""
+    (across the two rank groups of a ``DisaggGroup``, or in this process),
+    else a ``PagedEngine``."""
     if not config.serving.disagg:
         return PagedEngine(config, params, mesh=group,
                            device=None if group is not None else dev)
+    if isinstance(group, DisaggGroup):
+        return DisaggRouter(config, params, mesh=group)
     if group is not None:
-        raise NotImplementedError(paged_engine.DISAGG_TP_ITEM)
+        raise TypeError("disaggregated serving under TP runs on the two rank "
+                        "groups of a launch.mesh.DisaggGroup (spawn(..., "
+                        "disagg=True)), not on one TPGroup")
     pdev, ddev, _ = disagg_devices(dev)
     return DisaggRouter(config, params, prefill_device=pdev,
                         decode_device=ddev)
@@ -155,27 +168,30 @@ def _submit(eng, v: Dict[str, Any]) -> List[int]:
         for i, p in enumerate(v["prompts"])]
 
 
-def serve_rank(group: Optional[TPGroup], config: Config,
+def serve_rank(group, config: Config,
                variants: Sequence[Dict[str, Any]],
                params_npz: Optional[str] = None, seed: int = 0,
                dtype: str = "bfloat16", device=None, autotune: bool = False,
                metrics_every: int = 0, profile_dir: Optional[str] = None
                ) -> List[Dict[str, Any]]:
-    """Serve each variant on one rank of ``group`` (or in this process at
-    tp=1 when ``group`` is None) and return, per variant, the greedy tokens
-    of its requests in submission order, the engine metrics, the kernel
+    """Serve each variant on one rank of ``group`` (a ``TPGroup``, a
+    ``DisaggGroup``, or None: in this process at tp=1) and return, per
+    variant, the greedy tokens of its requests in submission order, the
+    engine metrics, the kernel
     launch counts of that run alone, the decode steps per schedule, the
     wall time, the engine's trace events (``trace``, ``dropped``) and its
     cost model's identity (``cost_model``: platform, tp, alpha, beta, or
-    None).  Under ``serving.disagg`` the variant runs on a ``DisaggRouter``
-    (tp=1): ``metrics`` then sums both engines' counters, and
-    ``migration`` holds ``migration_stats()``.
+    None).  Under ``serving.disagg`` the variant runs on a ``DisaggRouter``:
+    ``metrics`` then sums the counters of the engines in this process (both
+    at tp=1, the rank's own under a ``DisaggGroup``), ``phases`` holds each
+    one's by phase with its mean TPOT (``tpot_s``), and ``migration``
+    holds ``migration_stats()``.
 
     ``autotune`` first measures a cost table with the small sweeps on a
     throwaway engine and serves every variant with it; ``metrics_every``
-    prints a metrics line every that many steps on rank 0; ``profile_dir``
-    records each variant's run with ``obs.torchprof`` (under ``rank<r>``
-    there at tp > 1).
+    prints a metrics line every that many steps on (global) rank 0;
+    ``profile_dir`` records each variant's run with ``obs.torchprof``
+    (under ``rank<r>`` there, r the global rank, at tp > 1).
 
     A variant is ``{"prompts": [int arrays], "max_new": int}`` plus optional
     ``"serving"`` / ``"iso"`` dicts of field overrides on ``config``, a
@@ -189,8 +205,9 @@ def serve_rank(group: Optional[TPGroup], config: Config,
     built at this tp, ``bridge.save_npz``), else from ``seed`` with only
     this rank's shard made.  Every sampled logits row is checked finite, and
     every page must be free after each run."""
-    tp = group.tp if group is not None else 1
-    rank = group.rank if group is not None else 0
+    tp_group = group.tp_group if isinstance(group, DisaggGroup) else group
+    tp = tp_group.tp if tp_group is not None else 1
+    rank = tp_group.rank if tp_group is not None else 0
     dev = group.device if group is not None else resolve_device(device)
     if params_npz is not None:
         params = bridge.shard_params(bridge.load_npz(params_npz), rank, tp,
@@ -198,7 +215,8 @@ def serve_rank(group: Optional[TPGroup], config: Config,
     else:
         params = api.init_params(seed, config.model, tp=tp,
                                  dtype=getattr(torch, dtype), device=dev,
-                                 rank=rank if group is not None else None)
+                                 rank=rank if tp_group is not None
+                                 else None)
     real_sample = paged_engine.sample
     rows = [0]
 
@@ -219,7 +237,8 @@ def serve_rank(group: Optional[TPGroup], config: Config,
         config = dataclasses.replace(config, serving=dataclasses.replace(
             config.serving, cost_model=CostModel(table)))
     if profile_dir is not None and group is not None:
-        profile_dir = os.path.join(profile_dir, f"rank{rank}")
+        profile_dir = os.path.join(
+            profile_dir, f"rank{getattr(group, 'global_rank', rank)}")
     results = []
     paged_engine.sample = finite_sample
     try:
@@ -237,9 +256,10 @@ def serve_rank(group: Optional[TPGroup], config: Config,
             rows[0] = 0
             if profile_dir is not None:
                 torchprof.start(profile_dir)
+            lead = getattr(group, "global_rank", rank) == 0
             t0 = time.perf_counter()
             try:
-                outs = _drive(eng, metrics_every if rank == 0 else 0)
+                outs = _drive(eng, metrics_every if lead else 0)
             finally:
                 wall = time.perf_counter() - t0
                 profile = torchprof.stop()
@@ -261,6 +281,8 @@ def serve_rank(group: Optional[TPGroup], config: Config,
                 profile=profile,
                 migration=eng.migration_stats()
                 if isinstance(eng, DisaggRouter) else None,
+                phases={e.phase: dict(e.metrics, tpot_s=e.registry.histogram(
+                    "tpot").mean) for e in engines},
                 cost_model=None if cm is None else dict(
                     platform=cm.platform, tp=cm.tp, alpha_s=cm.alpha_s,
                     beta_s_per_byte=cm.beta_s_per_byte))
@@ -359,7 +381,9 @@ def main(argv=None) -> int:
                          "decode engine, each request migrating by a "
                          "KV-page transfer once its prompt is resident "
                          "(serving/disagg.py; tp=1: one card twice with "
-                         "one set of weights, or two cards)")
+                         "one set of weights, or two cards; --tp N: two "
+                         "groups of N ranks, 2N cards over NCCL, or on the "
+                         "host over gloo with --device cpu)")
     ap.add_argument("--decode-pool-pages", type=int, default=0,
                     help="the decode engine's page pool under --disagg (0: "
                          "the prefill pool's size); a full decode pool "
@@ -407,8 +431,6 @@ def main(argv=None) -> int:
         ap.error("--decode-pool-pages/--migrate-batch require --disagg")
     if args.shared_prefix < 0:
         ap.error("--shared-prefix must be >= 0")
-    if args.disagg and args.tp > 1:
-        raise NotImplementedError(paged_engine.DISAGG_TP_ITEM)
     device = resolve_device(args.device)
 
     cfg = reduce_cfg(get_model_config(args.arch), args.preset)
@@ -483,10 +505,19 @@ def main(argv=None) -> int:
         per_rank = [r[0] for r in spawn(
             serve_rank, args.tp, args=(config, variants, None, args.seed,
                                        args.dtype, None) + opts,
-            device=device.type)]
+            device=device.type, disagg=args.disagg)]
         if any(r["tokens"] != per_rank[0]["tokens"] for r in per_rank):
             raise AssertionError("ranks emitted different tokens")
         res = per_rank[0]
+        if args.disagg:
+            # group rank 0 of each: the prefill and the decode engine
+            roots = (per_rank[0], per_rank[args.tp])
+            res = dict(per_rank[args.tp],
+                       metrics={k: sum(r["metrics"][k] for r in roots)
+                                for k in res["metrics"]},
+                       phases={**roots[0]["phases"], **roots[1]["phases"]},
+                       trace=roots[0]["trace"] + roots[1]["trace"],
+                       dropped=sum(r["dropped"] for r in roots))
 
     m = res["metrics"]
     dev_name = torch.cuda.get_device_name(0) if device.type == "cuda" \
@@ -497,11 +528,12 @@ def main(argv=None) -> int:
               f"alpha={cm['alpha_s']:.3e}s "
               f"beta={cm['beta_s_per_byte']:.3e}s/B")
     outs = res["tokens"]
-    print(f"arch={cfg.name}{' disagg' if args.disagg else ''} "
+    # the reference's "disagg requests=... new_tokens=..." under --disagg
+    print(f"arch={cfg.name}{' disagg' if args.disagg else ''} requests="
+          f"{len(outs)} new_tokens={sum(len(t) for t in outs)} "
           f"device={dev_name} tp={args.tp} iso="
           f"{'off' if args.iso_off else 'on'} decode_schedule="
-          f"{res['decode_schedule']} {res['schedule_steps']} requests="
-          f"{len(outs)} new_tokens={sum(len(t) for t in outs)} "
+          f"{res['decode_schedule']} {res['schedule_steps']} "
           f"wall={res['wall']:.2f}s")
     print(f"prefill: {m['prefill_tokens']} tok in {m['prefill_s']:.3f}s "
           f"({m['prefill_tokens'] / max(m['prefill_s'], 1e-9):.1f} tok/s) "
@@ -519,6 +551,15 @@ def main(argv=None) -> int:
               f"{res['accepted_per_call']:.3f}")
     ms = res["migration"]
     if ms is not None:
+        pm, dm = res["phases"]["prefill"], res["phases"]["decode"]
+        print(f"prefill phase: {pm['prefill_tokens']} tok in "
+              f"{pm['prefill_s']:.2f}s calls={pm['prefill_calls']} "
+              f"grants={pm['prefill_grants']} ttft="
+              f"{1e3 * pm['ttft_sum'] / max(pm['ttft_n'], 1):.1f}ms")
+        print(f"decode phase: {dm['decode_tokens']} tok in "
+              f"{dm['decode_s']:.2f}s calls={dm['decode_calls']} "
+              f"tpot={1e3 * dm['tpot_s']:.2f}ms "
+              f"preemptions={dm['preemptions']}")
         print(f"migration: transfers={ms['migrations']} "
               f"requests={ms['migrated_requests']} "
               f"pages={ms['migrated_pages']} us={ms['migration_us']:.0f} "

@@ -84,8 +84,9 @@ in a TP engine, the bodies run eagerly over the same buffers: a TP engine's
 collectives go through gloo on the host, which a graph cannot hold, and
 capturing NCCL collectives waits on ROADMAP queue A item 7.
 
-Tensor parallelism: ``mesh=`` takes this rank's ``launch.mesh.TPGroup``;
-``params`` are then the rank's shard (``bridge.shard_params`` or
+Tensor parallelism: ``mesh=`` takes this rank's ``launch.mesh.TPGroup``
+(of a mixed engine, or of a prefill or decode group of disaggregated
+serving); ``params`` are then the rank's shard (``bridge.shard_params`` or
 ``api.init_params(..., rank=)``) and the pool holds its share of the kv
 heads.  Every rank runs this same host loop on the same requests, so every
 rank takes the same decisions; the vocab-sharded logits are gathered before
@@ -115,9 +116,14 @@ logits), ``phase="decode"`` decodes only, its requests arriving by
 (``kv_pool``: the engine-external ``KVPool``).  Detach and attach run
 between steps, never inside a capture or a replay: an attach writes the
 pages in place and sets the host ``lengths``/``last_tokens`` that the next
-decode step stages into its static buffers.  Not under TP yet (ROADMAP
-queue A item 15).  ``measure_overlap_efficiency`` times the decode
-collective schedules against each other (``obs/overlap_probe.py``).
+decode step stages into its static buffers.  Under TP a phase engine
+runs on its rank group's ``TPGroup`` like a mixed one: its pool holds this
+rank's kv-head shard, so ``detach_requests`` exports that shard and
+``attach_requests`` imports it; every rank of a group holds the same host
+state (scheduler, allocator, slots, and the page ids an import maps to),
+and the router moves the shards between peer ranks of the two groups.
+``measure_overlap_efficiency`` times the decode collective schedules
+against each other (``obs/overlap_probe.py``).
 """
 from __future__ import annotations
 
@@ -243,13 +249,15 @@ class StepClosure:
         return self._out
 
 
-# the ROADMAP item that ports disaggregated serving under TP
-DISAGG_TP_ITEM = ("disaggregated serving under tp > 1 (prefill and decode "
-                  "as two rank groups, the transfer between them): ROADMAP "
-                  "queue A item 15")
 # the paged engine serves decoder-only stacks, as the reference's
 AUDIO_MSG = ("encoder-decoder (audio) models are served by the dense Engine "
              "(serving/engine.py), not the paged one")
+
+
+def pool_pages(sv: ServingConfig) -> int:
+    """Pages in the pool of an engine serving with ``sv``: ``num_pages``,
+    else enough for ``max_batch`` requests of ``max_len``."""
+    return sv.num_pages or sv.max_batch * -(-sv.max_len // sv.page_size)
 
 
 def _decode_schedule_for(cfg, sv: ServingConfig, tp_mesh: bool) -> str:
@@ -293,8 +301,6 @@ class PagedEngine:
                  kv_pool: KVPool = None):
         if phase not in ("mixed", "prefill", "decode"):
             raise ValueError(f"unknown engine phase {phase!r}")
-        if mesh is not None and phase != "mixed":
-            raise NotImplementedError(DISAGG_TP_ITEM)
         if mesh is not None and not isinstance(mesh, TPGroup):
             raise TypeError(f"mesh must be a launch.mesh.TPGroup, got "
                             f"{type(mesh).__name__}")
@@ -321,7 +327,7 @@ class PagedEngine:
         self.max_batch = sv.max_batch
         self.max_len = sv.max_len
         self.max_blocks = -(-sv.max_len // sv.page_size)
-        num_pages = sv.num_pages or sv.max_batch * self.max_blocks
+        num_pages = pool_pages(sv)
         if mesh is not None:
             if config.parallel.model != mesh.tp:
                 raise ValueError(f"ParallelConfig.model="

@@ -109,11 +109,15 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
 
 
 @pytest.mark.parametrize("setting,model,item", [
-    # disaggregated serving is in the slice at tp=1; under TP (a prefill or
-    # decode engine on a TP group, a router over TP groups) it raises
-    (dict(disagg=True), {}, "item 15"),
-    # the cost model is in the slice: it does not shield disagg under TP
-    (dict(disagg=True, cost_table="auto"), {}, "item 15"),
+    # disaggregated serving is in the slice at tp=1 and under TP: a phase
+    # engine builds on a TP group; the router under TP takes the two rank
+    # groups of a DisaggGroup, and a lone TPGroup raises
+    pytest.param(dict(disagg=True), {}, "DisaggGroup",
+                 id="setting0-model0-item 15"),
+    # the cost model under TP too; a recurrent stack never migrates
+    pytest.param(dict(disagg=True, cost_table="auto"),
+                 dict(block_pattern=("hybrid",)), "recurrent",
+                 id="setting1-model1-item 15"),
     # every family the reference registers is in the slice (the VLM since
     # its patches were ported); a family it does not know raises
     ({}, dict(family="vision"), "not ported"),
@@ -123,18 +127,26 @@ def test_settings_outside_the_slice_raise(setting, model, item):
     from repro_torch.serving.disagg import DisaggRouter
     params = api.init_params(0, TINY, dtype=torch.float32, device="cpu")
     config = _config(**setting)
-    config = dataclasses.replace(
-        config, model=dataclasses.replace(config.model, **model))
     if setting.get("disagg"):
         PagedEngine(config, params, device="cpu")       # tp=1: fine
         group = TPGroup(rank=0, tp=2, device=torch.device("cpu"),
                         backend="gloo")
+        tp2 = dataclasses.replace(config, parallel=ParallelConfig(data=1,
+                                                                  model=2))
+        shard = api.init_params(0, TINY, tp=2, rank=0, dtype=torch.float32,
+                                device="cpu")
         for phase in ("prefill", "decode"):
-            with pytest.raises(NotImplementedError, match=item):
-                PagedEngine(config, params, mesh=group, phase=phase)
-        with pytest.raises(NotImplementedError, match=item):
-            DisaggRouter(config, params, decode_mesh=group)
+            eng = PagedEngine(tp2, shard, mesh=group, phase=phase)
+            assert eng.phase == phase and eng.tp == 2
+            assert eng.kv.k[0].shape[-2] == TINY.num_kv_heads // 2
+        bad = dataclasses.replace(tp2, model=dataclasses.replace(
+            tp2.model, **model))
+        with pytest.raises(TypeError if item == "DisaggGroup"
+                           else AssertionError, match=item):
+            DisaggRouter(bad, shard, mesh=group)
     else:
+        config = dataclasses.replace(
+            config, model=dataclasses.replace(config.model, **model))
         with pytest.raises(NotImplementedError, match=item):
             PagedEngine(config, params, device="cpu")
     # tensor parallelism is in the slice: the mesh is a launch.mesh.TPGroup

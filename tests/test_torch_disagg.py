@@ -18,7 +18,13 @@ single-mesh cases of tests/test_disagg.py:
     closure on the decode engine), replay == registry on each engine, both
     pools drained, one set of weights under both engines, and the decode
     pool written in place by every attach (``data_ptr`` unchanged);
-  * tp > 1 raises ``NotImplementedError`` naming its ROADMAP item."""
+  * under TP a lone ``TPGroup`` raises (the router takes a
+    ``DisaggGroup``), and the launcher's ``--disagg --tp 2`` serves on four
+    gloo ranks with the tokens and migration counters of ``--disagg`` at
+    tp=1 (tests/test_torch_disagg_tp.py holds the tp=2 router against the
+    reference)."""
+import re
+
 import numpy as np
 import pytest
 
@@ -305,17 +311,36 @@ def test_single_engine_takes_disagg_serving_config(weights):
     assert eng.sv.disagg and len(got[0]) == 8
 
 
-def test_disagg_under_tp_raises(weights, monkeypatch):
+def test_disagg_under_tp_raises(weights, capsys):
+    """Under TP the router runs on the two rank groups of a
+    ``DisaggGroup``: a lone ``TPGroup`` still raises, and the launcher's
+    ``--disagg --tp 2`` serves on four gloo ranks, printing the reference's
+    disagg lines and the tokens the same command prints at tp=1."""
     group = mesh.TPGroup(rank=0, tp=2, device=torch.device("cpu"),
                          backend="gloo")
-    with pytest.raises(NotImplementedError, match="queue A item 15"):
-        DisaggRouter(_config(), weights[1], prefill_mesh=group)
-    with pytest.raises(NotImplementedError, match="queue A item 15"):
-        PagedEngine(_config(), weights[1], mesh=group, phase="prefill")
+    with pytest.raises(TypeError, match="DisaggGroup"):
+        DisaggRouter(_config(), weights[1], mesh=group)
     from repro_torch.launch import serve
-    with pytest.raises(NotImplementedError, match="queue A item 15"):
-        serve.main(["--arch", "qwen3-8b", "--paged", "--device", "cpu",
-                    "--disagg", "--tp", "2"])
+    args = ["--arch", "qwen3-8b", "--preset", "tiny", "--paged", "--device",
+            "cpu", "--dtype", "float32", "--requests", "3", "--prompt-len",
+            "40", "--max-new", "4", "--prefill-budget", "16", "--disagg",
+            "--decode-pool-pages", "12"]
+    outs = {}
+    for tp in ("1", "2"):
+        assert serve.main(args + ["--tp", tp]) == 0
+        outs[tp] = capsys.readouterr().out
+    for out in outs.values():
+        assert "disagg requests=3 new_tokens=12" in out
+        assert "prefill phase: " in out and "decode phase: " in out
+    assert "tp=2 " in outs["2"] and "decode_schedule=batch_split" in outs["2"]
+    tokens = {tp: re.findall(r"rid \d+: (\[.*\])", out)
+              for tp, out in outs.items()}
+    assert len(tokens["1"]) == 3 and tokens["2"] == tokens["1"]
+    migration = {tp: re.search(r"migration: .*", out).group(0).split()
+                 for tp, out in outs.items()}
+    # the same transfers, pages, deferrals and bounce-backs (not the µs)
+    assert [f for f in migration["2"] if not f.startswith("us=")] == \
+        [f for f in migration["1"] if not f.startswith("us=")]
 
 
 def test_decode_phase_engine_admits_nothing(weights):
