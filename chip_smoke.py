@@ -39,10 +39,14 @@ Phases, each fatal on failure:
                CUDA-graph replays;
                the int8 quantize kernel over bf16/fp32 rows of width
                64..4096 (the 16-byte and the scalar path, an all-zero row,
-               .5 ties), q and scales EQUAL to the plain version, and the
-               int8 all-reduce's three kernels (shards quantize, rank sum
-               and re-quantize, gathered dequantize) at tp 2 and 4 EQUAL to
-               theirs; the dense
+               .5 ties) and on rows of 2^21 + 8, q and scales EQUAL to the
+               plain version, and the int8 all-reduce's three kernels
+               (shards quantize, rank sum and re-quantize, gathered
+               dequantize) at tp 2 and 4 EQUAL to theirs, the two quantize
+               kernels also on long rows (2^24 + 1184 elements, the
+               abs-max in the ragged last segment) that their launch plan
+               splits over many blocks (each call counted under its
+               ``/split`` variant); the dense
                flash-prefill kernel at the CPU tests' shapes and at full
                width (Hq/Hkv 32/8, 16/4, hd 128), MHA, GQA and MQA, ragged
                Sq/Sk, causal or not, windows > 0, rows with no key (0),
@@ -328,9 +332,11 @@ Phases, each fatal on failure:
                the fp32 twin under plain AdamW and ZeRO-1 (parameters
                within 1e-4 after 3 steps), the bf16 twin under the int8
                gradient mean (the three int8 kernels launched, counted as
-               ``launches_train``), then those kernels on the embedding
-               gradient's rows against their plain versions (bit-equal)
-               with their times.  (d) the fp32 twin at tp=2 (two ranks on
+               ``launches_train``; both quantize kernels on the split path
+               at every launch), then those kernels on the embedding
+               gradient's rows against their plain versions (bit-equal,
+               the quantize pair split) with their times on rank 0 beside
+               their bounds and their plain versions' times.  (d) the fp32 twin at tp=2 (two ranks on
                the card over gloo) against tp=1: equal losses, gradient
                norm twice tp=1's, as the reference's.
  15. runner    ``launch/runner`` and the dense ``Engine`` under TP, after
@@ -853,9 +859,12 @@ def check_quantize(gen) -> float:
     (``torch.equal``), so the max abs error reported is 0."""
     import torch
     from repro_torch.kernels import int8_quant as q8
+    from repro_torch.kernels import native
     n = 0
+    split0 = native.VARIANTS["quantize_int8/split"]
     for dtype in (torch.bfloat16, torch.float32):
-        for d in (64, 96, 100, 256, 1024, 2048, 2056, 4096):
+        # 2^21 + 8: a long row, split over blocks (no path launches B7 so)
+        for d in (64, 96, 100, 256, 1024, 2048, 2056, 4096, 2 ** 21 + 8):
             for rows in (1, 37):
                 x = (torch.randn((rows, d), generator=gen, device="cuda")
                      * 5).to(dtype)
@@ -881,9 +890,14 @@ def check_quantize(gen) -> float:
             raise AssertionError(f"quantize_int8 ties: {q[0].tolist()}")
         n += 1
     torch.cuda.synchronize()
+    split = native.VARIANTS["quantize_int8/split"] - split0
+    if split != 8:
+        raise AssertionError(f"quantize_int8: {split} of the 8 calls on rows "
+                             f"of 2^21 + 8 took the split path")
     log(f"[kernels] quantize_int8: {n} cases bit-equal to the plain version "
-        f"(bf16/fp32, d 64..4096, vector and scalar paths, zero row, .5 "
-        f"ties round half to even)")
+        f"(bf16/fp32, d 64..4096 and 2^21 + 8 (split over blocks, {split} "
+        f"calls), vector and scalar paths, zero row, .5 ties round half to "
+        f"even)")
     return 0.0
 
 
@@ -973,12 +987,82 @@ def check_int8_reduce(gen) -> dict:
                           q8.dequantize_int8_gathered(qq, s, dtype),
                           q8.dequantize_int8_gathered_plain(qq, s, dtype))
                 n += 3
+    n_long = check_int8_reduce_long(gen, equal)
     torch.cuda.synchronize()
     log(f"[kernels] int8 reduce: quantize_int8_shards, "
         f"dequant_sum_quantize_int8, dequantize_int8_gathered: {n} cases "
         f"bit-equal to their plain versions (tp 2 and 4, bf16/fp32, vector "
-        f"and scalar paths, zero rows)")
+        f"and scalar paths, zero rows), and {n_long} on long rows split over "
+        f"blocks")
     return {k: 0.0 for k in INT8_REDUCE_KERNELS}
+
+
+# a flattened row of at least 2^24 elements whose shards at tp 2 and 4 are
+# whole vectors but not whole segments (native.row_plan)
+INT8_LONG_ROW = 2 ** 24 + 4 * 8 * 37
+
+
+def check_int8_reduce_long(gen, equal) -> int:
+    """The int8 reduce's two quantize kernels on long rows, which their
+    launch plan splits over many blocks, EQUAL to their plain versions:
+    ``quantize_int8_shards`` at tp 2 and 4, bf16 and fp32, on a row of
+    ``INT8_LONG_ROW`` (shard 0's abs-max in its ragged last segment, shard
+    1 all zeros for the floor scale), at a 16-byte base and one element
+    past it (the scalar path); ``dequant_sum_quantize_int8`` on a (tp, 1,
+    d) exchange with its largest rank sum in the last segment, both paths.
+    Each call must count under its ``/split`` variant.  Returns the cases
+    checked."""
+    import torch
+    from repro_torch.kernels import int8_quant as q8
+    from repro_torch.kernels import native
+
+    def shifted(t):
+        """t's values one element past its base: the scalar path."""
+        flat = torch.empty(t.numel() + 1, dtype=t.dtype, device="cuda")
+        flat[1:] = t.reshape(-1)
+        return flat[1:].view(t.shape)
+
+    def split_call(name, got, want):
+        before = native.VARIANTS[f"{name}/split"]
+        equal(name, got(), want)
+        if native.VARIANTS[f"{name}/split"] != before + 1:
+            raise AssertionError(f"{name}: a long row did not take the "
+                                 f"split path")
+
+    def tail_of(rows, d, elem, vec_bytes=16):
+        """Where a split row's last (ragged) segment starts."""
+        plan = native.row_plan(rows, d, elem, True, vec_bytes)
+        if plan.mode != "split" or d % plan.seg_len == 0:
+            raise AssertionError(f"long-row plan {plan} at d={d}")
+        return (plan.segments - 1) * plan.seg_len
+
+    n = 0
+    for tp in (2, 4):
+        d = INT8_LONG_ROW // tp
+        for dtype in (torch.bfloat16, torch.float32):
+            x = (torch.randn(INT8_LONG_ROW, generator=gen, device="cuda")
+                 * 5).to(dtype)
+            tail = tail_of(tp, d, x.element_size())
+            x[tail + (d - tail) // 2] = -100.0       # shard 0's abs-max
+            x[d:2 * d] = 0                             # shard 1: floor scale
+            for xx in (x, shifted(x)):
+                split_call("quantize_int8_shards",
+                           lambda: q8.quantize_int8_shards(xx, tp),
+                           q8.quantize_int8_shards_plain(xx, tp))
+                n += 1
+        q = torch.randint(-126, 127, (tp, 1, d), generator=gen,
+                          device="cuda").to(torch.int8)
+        s = torch.rand((tp, 1, 1), generator=gen, device="cuda") + 1e-3
+        if d - 5 < tail_of(1, d, 1, vec_bytes=8):
+            raise AssertionError("the planted rank sum is not in the last "
+                                 "segment")
+        q[:, 0, d - 5] = 127                           # the largest sum
+        for qq in (q, shifted(q)):
+            split_call("dequant_sum_quantize_int8",
+                       lambda: q8.dequant_sum_quantize_int8(qq, s),
+                       q8.dequant_sum_quantize_int8_plain(qq, s))
+            n += 1
+    return n
 
 
 def check_ops_kernels(gen) -> dict:
@@ -4140,9 +4224,11 @@ def train_dp_rank(group, cfg32, cfg16):
     """Body of each rank of phase 14 (c) (module level: the spawned ranks
     import it): dp=2 sharing the card over gloo.  The fp32 twin, plain
     AdamW and then ZeRO-1 from the same weights; the bf16 twin under the
-    int8 gradient mean, its kernel launches counted; then the three int8
-    kernels on this rank's actual gradient rows (the embedding table's,
-    split in dp shards) against their plain versions, and their times."""
+    int8 gradient mean, its kernel launches and split-path variants
+    counted; then the three int8 kernels on this rank's actual gradient
+    rows (the embedding table's, split in dp shards) against their plain
+    versions, and, on rank 0 once both ranks are past that, their times:
+    device ms (a CUDA graph of 10 calls), eager ms, plain ms."""
     import torch
     from repro_torch.kernels import int8_quant as q8
     from repro_torch.kernels import native
@@ -4182,6 +4268,7 @@ def train_dp_rank(group, cfg32, cfg16):
     torch.cuda.synchronize()
     out["int8_s"] = time.perf_counter() - t
     out["launches"] = dict(native.LAUNCHES)
+    out["variants"] = dict(native.VARIANTS)
     # the kernels on this rank's gradient rows: the embedding table's
     step_fn = make_train_step(config, group)
     _, leaves, grads = step_fn.grads(params, make_training_batch(
@@ -4190,6 +4277,7 @@ def train_dp_rank(group, cfg32, cfg16):
     flat = grads[i][0].reshape(-1)
     flat = torch.nn.functional.pad(flat, (0, (-flat.numel()) % 2))
     del grads, step_fn, params, opt
+    native.reset_launches()
     q, s = q8.quantize_int8_shards(flat, 2)
     qp, sp = q8.quantize_int8_shards_plain(flat, 2)
     q2, s2 = q8.dequant_sum_quantize_int8(q, s)
@@ -4197,24 +4285,38 @@ def train_dp_rank(group, cfg32, cfg16):
     qg, sg = torch.stack([q2, q2]), torch.stack([s2, s2])
     o = q8.dequantize_int8_gathered(qg, sg, flat.dtype)
     op = q8.dequantize_int8_gathered_plain(qg, sg, flat.dtype)
+    n, d = flat.numel(), flat.numel() // 2
     out["rows"] = dict(
-        elements=flat.numel(), dtype=str(flat.dtype),
+        elements=n, dtype=str(flat.dtype),
         equal=[bool(torch.equal(q, qp)), bool(torch.equal(s, sp)),
                bool(torch.equal(q2, q2p)), bool(torch.equal(s2, s2p)),
                bool(torch.equal(o, op))],
-        ms={"quantize_int8_shards": call_ms(
-                lambda: q8.quantize_int8_shards(flat, 2), 5),
-            "dequant_sum_quantize_int8": call_ms(
-                lambda: q8.dequant_sum_quantize_int8(q, s), 5),
-            "dequantize_int8_gathered": call_ms(
-                lambda: q8.dequantize_int8_gathered(qg, sg, flat.dtype), 5)},
-        plain_ms={"quantize_int8_shards": call_ms(
-                      lambda: q8.quantize_int8_shards_plain(flat, 2), 5),
-                  "dequant_sum_quantize_int8": call_ms(
-                      lambda: q8.dequant_sum_quantize_int8_plain(q, s), 5),
-                  "dequantize_int8_gathered": call_ms(
-                      lambda: q8.dequantize_int8_gathered_plain(
-                          qg, sg, flat.dtype), 5)})
+        split={k: native.VARIANTS[f"{k}/split"]
+               for k in INT8_REDUCE_KERNELS[:2]},
+        # each input read once, each output written once
+        bytes={"quantize_int8_shards": n * flat.element_size() + n + 2 * 4,
+               "dequant_sum_quantize_int8": n + 2 * 4 + d + 4,
+               "dequantize_int8_gathered": n + 2 * 4
+               + n * flat.element_size()})
+    # timed on rank 0 alone, once both ranks are past their checks (they
+    # share the card)
+    torch.distributed.barrier(group=group.dp_group)
+    if group.dp_rank != 0:
+        return out
+    calls = {"quantize_int8_shards": (
+                 lambda: q8.quantize_int8_shards(flat, 2),
+                 lambda: q8.quantize_int8_shards_plain(flat, 2)),
+             "dequant_sum_quantize_int8": (
+                 lambda: q8.dequant_sum_quantize_int8(q, s),
+                 lambda: q8.dequant_sum_quantize_int8_plain(q, s)),
+             "dequantize_int8_gathered": (
+                 lambda: q8.dequantize_int8_gathered(qg, sg, flat.dtype),
+                 lambda: q8.dequantize_int8_gathered_plain(qg, sg,
+                                                           flat.dtype))}
+    out["rows"].update(
+        ms={k: time_ms(fn, reps=10) for k, (fn, _) in calls.items()},
+        eager_ms={k: call_ms(fn, 5) for k, (fn, _) in calls.items()},
+        plain_ms={k: call_ms(plain, 5) for k, (_, plain) in calls.items()})
     return out
 
 
@@ -4223,8 +4325,10 @@ def train_dp(report, card: str):
     gloo.  Gates: ZeRO-1's parameters after ``DP_STEPS`` steps equal plain
     AdamW's within 1e-4 (fp32; the reference's tests/test_zero1.py bound),
     both ranks' losses and norms agree, the three int8 kernels launched in
-    the int8 run (no standalone B7) and equal their plain versions on the
-    gradient rows."""
+    the int8 run (no standalone B7), the quantize pair on the split path at
+    every launch there, and all three equal their plain versions on the
+    gradient rows, where the pair splits too.  Logs the int8 run's seconds
+    and each kernel's ms on the rows beside its bound and plain ms."""
     from repro_torch.launch.mesh import spawn
     cfg32, cfg16 = train_twin(), train_twin("bfloat16")
     t0 = time.perf_counter()
@@ -4244,23 +4348,41 @@ def train_dp(report, card: str):
     if not d < 1e-4:
         raise AssertionError(f"[train] ZeRO-1 params differ from plain "
                              f"AdamW's by {d}")
-    launches = r0["launches"]
+    launches, variants = r0["launches"], r0["variants"]
     if any(launches[k] <= 0 for k in INT8_REDUCE_KERNELS) or \
             launches["quantize_int8"] != 0:
         raise AssertionError(f"[train] int8 gradient mean launches: "
                              f"{launches}")
+    # every int8 leaf is a long row at dp=2: both quantize kernels split
+    for k in INT8_REDUCE_KERNELS[:2]:
+        if variants[f"{k}/split"] != launches[k]:
+            raise AssertionError(f"[train] {k}: {variants[f'{k}/split']} of "
+                                 f"{launches[k]} launches took the split "
+                                 f"path in the int8 run")
     rows = r0["rows"]
-    if not all(rows["equal"]):
+    if not all(rows["equal"]) or any(
+            r["rows"]["split"][k] != 1 for r in ranks
+            for k in INT8_REDUCE_KERNELS[:2]):
         raise AssertionError(f"[train] int8 kernels differ from their plain "
-                             f"versions on the gradient rows: {rows}")
+                             f"versions on the gradient rows, or did not "
+                             f"split them: {rows}")
     report["launches_train"] = launches
     report["train_rows"] = rows
     log(f"[train] ZeRO-1 == plain AdamW, max |diff| {d:.3e} over the params "
-        f"(fp32); int8 run launches per rank {launches}")
+        f"(fp32); int8 run launches per rank {launches}, split "
+        + ", ".join(f"{k} {variants[k + '/split']}"
+                    for k in INT8_REDUCE_KERNELS[:2]))
+    log(f"[train] dp=2 int8 run: {r0['int8_s']:.3f} s for {DP_STEPS} steps "
+        f"(rank 0, gloo on one card) [{card}]")
+    bound = {k: rows["bytes"][k] / HBM_BYTES_PER_S * 1e3
+             for k in INT8_REDUCE_KERNELS}
+    rows["bound_ms"] = bound
     log(f"[train] int8 kernels on rank 0's embedding-table gradient "
         f"({rows['elements']} {rows['dtype']} elements, 2 shard rows): "
-        f"bit-equal to their plain versions; ms (plain ms) "
-        + ", ".join(f"{k} {rows['ms'][k]:.3f} ({rows['plain_ms'][k]:.3f})"
+        f"bit-equal to their plain versions, both quantize kernels split; "
+        f"device ms (eager ms, plain ms, bound ms by bytes) "
+        + ", ".join(f"{k} {rows['ms'][k]:.4f} ({rows['eager_ms'][k]:.4f}, "
+                    f"{rows['plain_ms'][k]:.3f}, {bound[k]:.4f})"
                     for k in INT8_REDUCE_KERNELS) + f" [{card}]")
 
 

@@ -32,9 +32,16 @@ without fast-math) and round each dequantize product and rank sum to
 nearest, one operation at a time, as the plain versions do (the rank sum is
 an explicit loop in rank order), so on the card q, the scales and the
 dequantized values are bit-equal to the plain versions'.  Bound by bytes:
-each element is read once and written once.  A warp owns a short row and a
-block of 256 threads a long one; a row is read with vector loads for the
-abs-max and read again, from L1/L2, to write q.
+each element is read once and written once.  The three quantize kernels
+take a launch plan (``native.row_plan``): a warp owns a short row and a
+block of 256 threads a longer one, which it reads with vector loads for the
+abs-max and again, from L1/L2, to write q; a row too long for its rows'
+blocks to fill the card (the gradient mean's ``dp`` rows of a flattened
+leaf) is split over many blocks, in two launches: the segments' abs-maxes
+into a scratch buffer, then each segment's q.  Such a call counts once in
+``native.LAUNCHES`` under its name and once under ``<name>/split`` in
+``native.VARIANTS``.  The max does not depend on order, so the bits are the
+same on every path.
 
 The plain versions follow ``repro/kernels/ref.quantize_int8_ref`` and
 ``repro/core/quantized_collectives.quantized_psum``; the wrappers use them
@@ -71,9 +78,27 @@ def dequantize_int8(q: torch.Tensor, scale: torch.Tensor,
     return (q.float() * scale).to(dtype)
 
 
-def _launch_check(name: str, err: int) -> None:
+def _launch_check(name: str, err: int, plan=None) -> None:
     native.check_launch(name, err)
     native.LAUNCHES[name] += 1
+    if plan is not None and plan.mode == "split":
+        native.VARIANTS[f"{name}/split"] += 1
+
+
+def _plan(name: str, rows: int, d: int, x: torch.Tensor, out: torch.Tensor,
+          vec_bytes: int = 16):
+    """The launch plan of a quantize kernel over ``rows`` rows of ``d`` of
+    x into out, with its C arguments: (plan, partial scratch (rows,
+    segments) fp32 under a split, else None, (partial pointer, vec, mode,
+    segments, seg_len))."""
+    plan = native.row_plan(rows, d, x.element_size(),
+                           x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0,
+                           vec_bytes, kernel=name)
+    partial = torch.empty((rows, plan.segments), dtype=torch.float32,
+                          device=x.device) if plan.mode == "split" else None
+    args = (0 if partial is None else partial.data_ptr(), int(plan.vec),
+            native.ROW_MODES.index(plan.mode), plan.segments, plan.seg_len)
+    return plan, partial, args
 
 
 def _check_float(name: str, x: torch.Tensor) -> None:
@@ -98,10 +123,10 @@ def quantize_int8(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
                         device=x.device)
     if rows == 0:
         return q, scale
-    vec, block_per_row = native.row_launch(x2, q)
+    plan, partial, (p, *launch) = _plan("quantize_int8", rows, d, x2, q)
     _launch_check("quantize_int8", native.library(_SOURCE).quantize_int8(
         native.dtype_code(x2), x2.data_ptr(), q.data_ptr(), scale.data_ptr(),
-        rows, d, int(vec), int(block_per_row), native.stream_of(x2)))
+        p, rows, d, *launch, native.stream_of(x2)), plan)
     return q, scale
 
 
@@ -148,11 +173,12 @@ def quantize_int8_shards(x: torch.Tensor, tp: int
                         device=x.device)
     if R == 0:
         return q, scale
-    vec, block_per_row = native.row_launch(x2, q)
+    plan, partial, (p, *launch) = _plan("quantize_int8_shards", R * tp, d,
+                                        x2, q)
     _launch_check("quantize_int8_shards", native.library(
         _SOURCE).quantize_int8_shards(
         native.dtype_code(x2), x2.data_ptr(), q.data_ptr(), scale.data_ptr(),
-        R, d, tp, int(vec), int(block_per_row), native.stream_of(x2)))
+        p, R, d, tp, *launch, native.stream_of(x2)), plan)
     return q, scale
 
 
@@ -184,12 +210,12 @@ def dequant_sum_quantize_int8(q: torch.Tensor, scale: torch.Tensor
     R = q2.numel() // d
     if R == 0:
         return q2, s2
-    vec, block_per_row = native.row_launch(q.reshape(-1, d), q2,
-                                           vec_bytes=8)
+    plan, partial, (p, *launch) = _plan("dequant_sum_quantize_int8", R, d,
+                                        q, q2, vec_bytes=8)
     _launch_check("dequant_sum_quantize_int8", native.library(
         _SOURCE).dequant_sum_quantize_int8(
-        q.data_ptr(), scale.data_ptr(), q2.data_ptr(), s2.data_ptr(), R, d,
-        tp, int(vec), int(block_per_row), native.stream_of(q)))
+        q.data_ptr(), scale.data_ptr(), q2.data_ptr(), s2.data_ptr(), p, R,
+        d, tp, *launch, native.stream_of(q)), plan)
     return q2, s2
 
 

@@ -16,9 +16,13 @@ counts by instantiation: ``/tc`` for bf16 inputs (the tensor-core tile loop of
 ``csrc/flash_tc.cuh``), ``/fp32`` for float32 inputs (CUDA cores); and counts
 the paged-decode launches that fold their split-KV spans themselves
 (``paged_decode/fold``, a part of the ``paged_decode`` count), those over a
-verify window of more than one token (``paged_decode/verify``) and the
+verify window of more than one token (``paged_decode/verify``), the
 paged-prefill launches over more than one row, a pack
-(``paged_prefill/packed``).  A CUDA graph
+(``paged_prefill/packed``), and the int8 quantize calls whose rows were
+split over many blocks (``quantize_int8/split``,
+``quantize_int8_shards/split``, ``dequant_sum_quantize_int8/split``: a
+wrapper call there is two kernel launches, counted once under its name, as
+every call is; see ``row_plan``).  A CUDA graph
 launches its kernels without the wrappers: whoever captures one takes the
 counts made while capturing back out (``launch_counts``, ``add_launches``)
 and adds them again at every replay.
@@ -34,7 +38,7 @@ import subprocess
 import threading
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
-from typing import Dict, Tuple
+from typing import Dict, NamedTuple, Tuple
 
 import torch
 
@@ -49,6 +53,16 @@ MAX_SMEM_BYTES = 232448
 MAX_HEAD_DIM = 256
 # threads of a block-per-row launch (kThreads of int8_quant.cu, rmsnorm.cu)
 ROW_THREADS = 256
+# the int8 quantize kernels' launch plan (``row_plan``): modes as
+# int8_quant.cu numbers them; a row is split when its rows would give fewer
+# blocks than SPLIT_BLOCKS (4 on each of an H100's 132 SMs), into segments
+# of at least SPLIT_MIN elements
+ROW_MODES = ("warp", "block", "split")
+CARD_SMS = 132
+SPLIT_BLOCKS = 4 * CARD_SMS
+SPLIT_MIN = 16384
+# the widest row or row count a kernel takes as a 32-bit int
+INT_MAX = 2 ** 31 - 1
 
 LAUNCHES: Dict[str, int] = {"paged_decode": 0, "decode_reduce": 0,
                             "paged_prefill": 0, "quantize_int8": 0,
@@ -57,12 +71,16 @@ LAUNCHES: Dict[str, int] = {"paged_decode": 0, "decode_reduce": 0,
                             "dequantize_int8_gathered": 0,
                             "flash_prefill": 0, "rms_norm": 0, "swiglu": 0}
 # launches of B3 and B4 by instantiation (/tc + /fp32 is the LAUNCHES count),
-# of B1 with the split-KV fold inside and on a K > 1 window, of B3 on a pack
+# of B1 with the split-KV fold inside and on a K > 1 window, of B3 on a pack,
+# of the int8 quantize kernels with their rows split over blocks
 VARIANTS: Dict[str, int] = {"paged_prefill/tc": 0, "paged_prefill/fp32": 0,
                             "flash_prefill/tc": 0, "flash_prefill/fp32": 0,
                             "paged_decode/fold": 0,
                             "paged_prefill/packed": 0,
-                            "paged_decode/verify": 0}
+                            "paged_decode/verify": 0,
+                            "quantize_int8/split": 0,
+                            "quantize_int8_shards/split": 0,
+                            "dequant_sum_quantize_int8/split": 0}
 # nvcc output (register / shared-memory report) of each build, by source
 BUILD_LOGS: Dict[str, str] = {}
 
@@ -79,9 +97,9 @@ _SIGNATURES = {
         "paged_attention_smem_bytes": [_I, _I, _I],
     },
     "int8_quant.cu": {
-        "quantize_int8": [_I] + [_P] * 3 + [_I] * 4 + [_P],
-        "quantize_int8_shards": [_I] + [_P] * 3 + [_L] + [_I] * 4 + [_P],
-        "dequant_sum_quantize_int8": [_P] * 4 + [_L] + [_I] * 4 + [_P],
+        "quantize_int8": [_I] + [_P] * 4 + [_I] * 6 + [_P],
+        "quantize_int8_shards": [_I] + [_P] * 4 + [_L] + [_I] * 6 + [_P],
+        "dequant_sum_quantize_int8": [_P] * 5 + [_L] + [_I] * 6 + [_P],
         "dequantize_int8_gathered": [_I] + [_P] * 3 + [_L] + [_I] * 3 + [_P],
     },
     "rmsnorm.cu": {
@@ -243,16 +261,61 @@ def check_inputs(q, k_pages, v_pages, block_tables, lengths,
             raise TypeError(f"{kernel}: {name} must be integer, got {t.dtype}")
 
 
+def _row_mode(d: int, elem_size: int, aligned: bool,
+              vec_bytes: int) -> Tuple[bool, bool]:
+    n_vec = vec_bytes // elem_size          # elements per vector load
+    vec = d % n_vec == 0 and aligned
+    return vec, vec and d // n_vec >= ROW_THREADS
+
+
 def row_launch(x: torch.Tensor, out: torch.Tensor,
                vec_bytes: int = 16) -> Tuple[bool, bool]:
     """``(vec, block_per_row)`` of a row kernel over x (rows, d) into out:
     vectors of ``vec_bytes`` of x where d and both base addresses allow
     them, and a block of ``ROW_THREADS`` per row once a row holds that many
     vectors (a warp per row below that, or on the scalar path)."""
-    n_vec = vec_bytes // x.element_size()   # elements per vector load
-    vec = x.shape[-1] % n_vec == 0 and x.data_ptr() % 16 == 0 \
-        and out.data_ptr() % 16 == 0
-    return vec, vec and x.shape[-1] // n_vec >= ROW_THREADS
+    return _row_mode(x.shape[-1], x.element_size(),
+                     x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0,
+                     vec_bytes)
+
+
+class RowPlan(NamedTuple):
+    """How the int8 quantize kernels map rows onto blocks: vector loads or
+    not; ``mode`` one of ``ROW_MODES``; under ``"split"`` each row is cut
+    into ``segments`` segments of ``seg_len`` elements (whole vectors, the
+    last one ragged), one block each (else 1 and the row width)."""
+    vec: bool
+    mode: str
+    segments: int
+    seg_len: int
+
+
+def row_plan(rows: int, d: int, elem_size: int, aligned: bool,
+             vec_bytes: int = 16, kernel: str = "row kernel") -> RowPlan:
+    """The launch plan of ``rows`` rows of ``d`` elements of ``elem_size``
+    bytes (``aligned``: both base addresses 16-byte aligned) for the int8
+    quantize kernels.  Rows whose blocks fill the card keep
+    ``row_launch``'s choice (a warp a row, or a block a row).  Rows of at
+    least ``2 * SPLIT_MIN`` elements that would give fewer than
+    ``SPLIT_BLOCKS`` blocks are split into ``ceil(SPLIT_BLOCKS / rows)``
+    segments (fewer where a segment would fall under ``SPLIT_MIN``), on the
+    vector path or the scalar one alike.  Raises ValueError naming
+    ``kernel`` where ``rows`` or ``d`` is 2^31 or more: the kernels take
+    them as 32-bit ints, which ctypes would cut without a word."""
+    for what, n in (("row width", d), ("row count", rows)):
+        if n > INT_MAX:
+            raise ValueError(f"{kernel}: {what} {n} is 2^31 or more; the "
+                             f"kernel takes it as a 32-bit int")
+        if n < 1:
+            raise ValueError(f"{kernel}: {what} {n} is not positive")
+    vec, block = _row_mode(d, elem_size, aligned, vec_bytes)
+    segments = min(-(-SPLIT_BLOCKS // rows), d // SPLIT_MIN)
+    if segments < 2:
+        return RowPlan(vec, "block" if block else "warp", 1, d)
+    n = vec_bytes // elem_size if vec else 1
+    units = d // n
+    seg_units = -(-units // segments)
+    return RowPlan(vec, "split", -(-units // seg_units), seg_units * n)
 
 
 def stream_of(t: torch.Tensor) -> int:

@@ -32,13 +32,20 @@ from repro_torch import bridge  # noqa: E402
 from repro_torch.kernels import int8_quant as q8  # noqa: E402
 
 torch.set_num_threads(1)
-# (shape per rank, seed): decode- and prefill-like rows, a 3-D partial, and
-# shards of 18 (off the kernel's 8-value vectors)
-SHAPES = [((4, 64), 0), ((2, 3, 32), 1), ((7, 72), 2)]
+# (shape per rank, seed): decode- and prefill-like rows, a 3-D partial,
+# shards of 18 (off the kernel's 8-value vectors), and a flattened gradient
+# leaf of 2^21 elements, as the int8 gradient mean sends it
+SHAPES = [((4, 64), 0), ((2, 3, 32), 1), ((7, 72), 2), ((2 ** 21,), 3)]
+# rows at least this wide get each shard's abs-max planted near its end,
+# where the card's split path puts its ragged last segment
+LONG_ROW = 2 ** 16
 
 
 def _inputs(tp, shape, seed, dtype):
     x = np.random.default_rng(seed).standard_normal((tp, *shape)) * 3
+    if shape[-1] >= LONG_ROW:
+        shards = x.reshape(*x.shape[:-1], tp, -1)
+        shards[..., -3] = -(40.0 + np.arange(tp))
     x = x.astype(np.float32)
     if dtype == "bfloat16":
         import ml_dtypes
@@ -116,7 +123,16 @@ def test_int8_reduce_steps_match_reference(tp, shape, seed, dtype):
         assert np.all(np.abs(got - want) <= _step(want, tp) * 1.001 + 1e-7)
     for r in range(tp):
         w = np.asarray(whole[r], np.float32)
-        assert np.all(np.abs(got - w) <= _step(w, tp) * 1.001 + 1e-7)
+        within = np.abs(got - w) <= _step(w, tp) * 1.001 + 1e-7
+        if dtype == "bfloat16" and shape[-1] >= LONG_ROW:
+            # over 2^21 elements the whole program's FMA flips some q2 by a
+            # step that bf16's rounding of the output widens by up to a
+            # bf16 ulp, and the reference's own steps miss the bound there
+            # (19,267 elements at tp 2): at those the port must give the
+            # steps' value exactly
+            missed = np.abs(want - w) > _step(w, tp) * 1.001 + 1e-7
+            within |= missed & (got == want)
+        assert np.all(within)
     # the sum really is a reduce: far from any single rank's input
     assert np.abs(want - np.asarray(x[0], np.float32)).max() > 1.0
 
