@@ -228,23 +228,29 @@ Phases, each fatal on failure:
                requests served again with the same tokens and no graph
                captured.  No overlap claim (no collective at tp=1; gloo
                through host memory at tp=2).
- 10. dense     the dense-cache ``Engine`` (``serving/engine.py``), last,
-               eager, bf16, full width and depth: (a) qwen3-8b (max_batch 4,
-               max_len 2048, bucket 64) on phase 3's six prompts, 32 greedy
-               tokens each; prints prefill tok/s, decode ms/step, the
-               dispatch shares, TTFT and peak memory; (b) whisper-medium (24 +
-               24 layers; max_len 448, the decoder's ``n_text_ctx``) on 4
-               requests with seeded float32 frames of (1500, 1024) x 0.1 and
-               prompts of 4-64 tokens; prints the encoder's ms a request,
-               prefill tok/s, decode ms/step and peak memory.  Every logits
+ 10. dense     the dense-cache ``Engine`` (``serving/engine.py``), bf16,
+               full width and depth, each model first on an eager engine
+               (``cuda_graphs=False``), then on a graphed one (each prefill
+               bucket, the decode step and the verify window one CUDA-graph
+               replay): a capture pass, then a timed pass that must capture
+               nothing; graphed tokens equal the eager ones on both passes:
+               (a) qwen3-8b (max_batch 4, max_len 2048, bucket 64) on phase
+               3's six prompts, 32 greedy tokens each; prints prefill tok/s,
+               decode ms/step, the dispatch shares, TTFT, the graph count,
+               the capture seconds and the peak memory of both engines; (b)
+               whisper-medium (24 + 24 layers; max_len 448, the decoder's
+               ``n_text_ctx``) on 4 requests with seeded float32 frames of
+               (1500, 1024) x 0.1 and prompts of 4-64 tokens; prints the
+               encoder's ms a request and the same figures.  Every logits
                row finite, every request complete, and no hand-written
                kernel launched (dense caches attend in plain PyTorch, as
-               the reference's in XLA).  The gates, in fp32 at 2 (2 + 2)
-               layers: the dense engine's tokens equal a plain
+               the reference's in XLA).  The gates, graphed, in fp32 at 2
+               (2 + 2) layers: the dense engine's tokens equal a plain
                ``PagedEngine``'s and a spec_k=4 dense engine's; whisper's
                equal the argmax of a teacher-forced prefill over prompt +
                generated.  (c) last of all, a ``torch.profiler`` window on
-               each model: one step that prefills four requests, then four
+               each model's graphed engine after a capture pass of the same
+               requests: one step that prefills four requests, then four
                decode steps; wall, device busy time, idle share and the
                kernels that took the most device time.
  11. moe       the MoE family, before phase 10 (c): (a) granite-moe-3b-a800m
@@ -289,8 +295,8 @@ Phases, each fatal on failure:
                attention and must launch none of the hand-written kernels.
                (c) fp32 twins at full width (hymba 2 layers with its window
                cut to 64; xlstm one 4-layer period): graphed == eager, and
-               ``PagedEngine`` == the dense ``Engine`` (bucket 16) token
-               for token on prompt lengths that are multiples of 16 (the
+               ``PagedEngine`` == the graphed dense ``Engine`` (bucket 16)
+               token for token on prompt lengths that are multiples of 16 (the
                dense engine's bucket pad would advance the state).  Phase 2
                holds B1 (S 1/4) and B3 (256 and 173 queries) at hymba's
                25/5 hd 64 with windows 0, 2048 and 300; phase 5 serves
@@ -312,7 +318,7 @@ Phases, each fatal on failure:
                positions/s (patches counted), peak allocated memory, the
                graphs and capture seconds, then a ``torch.profiler`` window
                over one graphed prefill step and three decode steps.  (b)
-               the dense ``Engine``, eager, on the same requests.  (c) the
+               the dense ``Engine``, graphed, on the same requests.  (c) the
                fp32 2-layer twin at full width: graphed == eager, and
                ``PagedEngine`` == the dense ``Engine`` token for token.
                Phase 5 serves the twin at tp=2 (patches replicated), whose
@@ -3097,17 +3103,101 @@ def dense_pass(eng, prompts, label: str, card: str, frames=None,
         f"{m['decode_dispatch_s'] / m['decode_s']:.3f}; TTFT mean "
         f"{1e3 * m['ttft_sum'] / m['ttft_n']:.1f} ms, max "
         f"{1e3 * eng.registry.histogram('ttft').max:.1f} ms; {rows[0]} "
-        f"sampled logits rows finite (and every decode call's); wall {wall:.1f}s; launches of the hand-written "
-        f"kernels 0 [{card}]")
-    return dict(tokens=tokens, m=m, wall=wall, launches=launches)
+        f"sampled logits rows finite (and every decode call's); wall "
+        f"{wall:.1f}s; {eng.graphs} CUDA graphs captured so far "
+        f"({eng.capture_s:.2f}s); launches of the hand-written kernels 0 "
+        f"[{card}]")
+    return dict(tokens=tokens, m=m, wall=wall, launches=launches,
+                graphs=eng.graphs)
+
+
+def dense_eager_then_graphed(config, params, prompts, label: str, card: str,
+                             tag: str = "dense", frames=None, **kw) -> dict:
+    """``prompts`` on an eager dense ``Engine`` (``cuda_graphs=False``),
+    then on a graphed one (a capture pass, a timed pass of replays only),
+    ``dense_pass`` each; ``kw`` are the engines' settings.  The graphed
+    tokens must equal the eager ones on both passes and the timed pass must
+    capture nothing.  Prints (under ``[tag]``) the timed pass beside the
+    eager one, the graph count, the capture seconds and the peak allocated
+    memory of each engine; returns the timed pass (``dense_pass``'s dict,
+    with ``eager``, ``graphs``, ``capture_s``, the two peaks and the dense
+    caches' GiB)."""
+    import torch
+    from repro_torch.serving import Engine
+
+    held = torch.cuda.memory_allocated() / 2**30
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(config, params, device="cuda", cuda_graphs=False, **kw)
+    eager = dense_pass(eng, prompts, f"{label} eager", card, frames=frames)
+    eager_peak = torch.cuda.max_memory_allocated() / 2**30
+    caches_gib = sum(t.numel() * t.element_size() for c in eng.caches
+                     for t in c.values()) / 2**30
+    del eng
+    free_cuda()
+    torch.cuda.reset_peak_memory_stats()
+    eng = Engine(config, params, device="cuda", **kw)
+    first = dense_pass(eng, prompts, f"{label} graphed, capture pass", card,
+                       frames=frames)
+    graphs, capture_s = eng.graphs, eng.capture_s
+    timed = dense_pass(eng, prompts, f"{label} graphed, timed pass", card,
+                       frames=frames)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    if eng.graphs != graphs or graphs == 0:
+        raise AssertionError(f"[{tag}] {label}: {graphs} graphs captured by "
+                             f"the capture pass, {eng.graphs - graphs} by "
+                             f"the timed pass")
+    keys = sorted(eng._prefill_fns), sorted(eng._decode_fns)
+    del eng
+    free_cuda()
+    for name, r in (("capture pass", first), ("timed pass", timed)):
+        if r["tokens"] != eager["tokens"]:
+            diff = [i for i, (a, b) in enumerate(zip(r["tokens"],
+                                                     eager["tokens"]))
+                    if a != b]
+            raise AssertionError(f"[{tag}] {label}: graphed {name} tokens "
+                                 f"differ from the eager tokens in requests "
+                                 f"{diff}")
+    m, em = timed["m"], eager["m"]
+    log(f"[{tag}] {label}: graphed == eager tokens (both passes); {graphs} "
+        f"CUDA graphs (prefill keys {keys[0]}, decode windows {keys[1]}) "
+        f"captured in {capture_s:.2f}s; timed pass: prefill "
+        f"{m['prefill_tokens'] / m['prefill_s']:.1f} tok/s (eager "
+        f"{em['prefill_tokens'] / em['prefill_s']:.1f}), decode "
+        f"{1e3 * m['decode_s'] / m['decode_calls']:.3f} ms/step (eager "
+        f"{1e3 * em['decode_s'] / em['decode_calls']:.3f}), decode dispatch "
+        f"share {m['decode_dispatch_s'] / m['decode_s']:.4f} (eager "
+        f"{em['decode_dispatch_s'] / em['decode_s']:.4f}), prefill dispatch "
+        f"share {m['prefill_dispatch_s'] / m['prefill_s']:.4f} (eager "
+        f"{em['prefill_dispatch_s'] / em['prefill_s']:.4f}); peak allocated "
+        f"{eager_peak:.3f} GiB eager, {peak:.3f} GiB graphed ({held:.3f} GiB "
+        f"allocated before the passes, weights included; dense caches "
+        f"{caches_gib:.3f} GiB) [{card}]")
+    return dict(timed, eager=eager, graphs=graphs, capture_s=capture_s,
+                eager_peak=eager_peak, peak=peak, caches_gib=caches_gib)
+
+
+def dense_figures(r) -> dict:
+    """The report's figures of a ``dense_eager_then_graphed`` result."""
+    out = {}
+    for name, p in (("", r), ("eager_", r["eager"])):
+        m = p["m"]
+        out.update({f"{name}prefill_tok_s": m["prefill_tokens"] /
+                    m["prefill_s"],
+                    f"{name}decode_ms_step": 1e3 * m["decode_s"] /
+                    m["decode_calls"],
+                    f"{name}decode_dispatch_share": m["decode_dispatch_s"] /
+                    m["decode_s"]})
+    return dict(out, graphs=r["graphs"], capture_s=r["capture_s"],
+                peak_gib=r["peak"], eager_peak_gib=r["eager_peak"])
 
 
 def serve_dense(report, card: str):
     """Phase 10 (a): qwen3-8b at full width and depth, bf16, through the
     dense ``Engine`` (max_batch 4, max_len 2048, bucket 64) on phase 3's six
-    prompts; then the gate in fp32 at full width cut to 2 layers: the dense
-    engine's tokens equal a plain ``PagedEngine``'s (batch-1, no sharing,
-    K=1, eager) and a spec_k=4 dense engine's."""
+    prompts, eager and then graphed (``dense_eager_then_graphed``); then the
+    gate in fp32 at full width cut to 2 layers, graphed: the dense engine's
+    tokens equal a plain ``PagedEngine``'s (batch-1, no sharing, K=1,
+    eager) and a spec_k=4 dense engine's."""
     import dataclasses
     import torch
     from repro_torch.config import Config, ISOConfig, ParallelConfig, \
@@ -3122,21 +3212,12 @@ def serve_dense(report, card: str):
     params = api.init_params(0, cfg, tp=1, dtype=torch.bfloat16,
                              device="cuda")
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    eng = Engine(config, params, max_batch=4, max_len=2048, bucket=64,
-                 device="cuda")
-    res = dense_pass(eng, prompts, "qwen3-8b bf16", card)
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    m = res["m"]
-    report["dense_qwen3_8b"] = dict(
-        prefill_tok_s=m["prefill_tokens"] / m["prefill_s"],
-        decode_ms_step=1e3 * m["decode_s"] / m["decode_calls"],
-        peak_gib=peak)
-    log(f"[dense] qwen3-8b bf16 {cfg.num_layers}L, prompts {lengths}: peak "
-        f"allocated {peak:.3f} GiB (dense caches "
-        f"{sum(t.numel() * t.element_size() for c in eng.caches for t in c.values()) / 2**30:.3f}"
-        f" GiB) [{card}]")
-    del eng, params
+    r = dense_eager_then_graphed(config, params, prompts, "qwen3-8b bf16",
+                                 card, max_batch=4, max_len=2048, bucket=64)
+    report["dense_qwen3_8b"] = dense_figures(r)
+    log(f"[dense] qwen3-8b bf16 {cfg.num_layers}L: prompts {lengths} "
+        f"[{card}]")
+    del params
     free_cuda()
 
     cfg2 = dataclasses.replace(cfg, num_layers=2)
@@ -3152,6 +3233,8 @@ def serve_dense(report, card: str):
         del eng
     if out["dense spec_k=4"]["m"]["spec_calls"] <= 0:
         raise AssertionError("the spec_k=4 dense engine ran no verify step")
+    if not all(out[name]["graphs"] for name in out):
+        raise AssertionError("[dense] fp32 gate: an engine captured no graph")
     sv = ServingConfig(page_size=16, max_batch=4, max_len=2048,
                        prefill_token_budget=512, prefix_sharing=False,
                        prefill_batching=False)
@@ -3169,21 +3252,23 @@ def serve_dense(report, card: str):
             raise AssertionError(f"[dense] fp32 gate: the {name} engine's "
                                  f"tokens differ from PagedEngine's in "
                                  f"requests {diff}")
-    log(f"[dense] gate: qwen3-8b fp32 2-layer, the dense Engine's tokens == "
-        f"PagedEngine's == the spec_k=4 dense Engine's on {len(prompts)} of "
-        f"{len(prompts)} requests ({out['dense spec_k=4']['m']['spec_calls']}"
-        f" verify steps, {out['dense spec_k=4']['m']['spec_accepted']} "
-        f"drafts accepted) [{card}]")
+    log(f"[dense] gate: qwen3-8b fp32 2-layer, the graphed dense Engine's "
+        f"tokens == PagedEngine's == the graphed spec_k=4 dense Engine's on "
+        f"{len(prompts)} of {len(prompts)} requests "
+        f"({out['dense spec_k=4']['m']['spec_calls']} verify steps, "
+        f"{out['dense spec_k=4']['m']['spec_accepted']} drafts accepted) "
+        f"[{card}]")
 
 
 def serve_whisper(report, card: str):
     """Phase 10 (b): whisper-medium at full width and depth (24 + 24 layers),
     bf16, through the dense ``Engine`` (max_batch 4, max_len ``N_TEXT_CTX``
-    448, bucket 64): 4 requests with seeded frames of (1500, 1024) x 0.1
-    (float32, as the reference's launcher makes them) and prompts of 4-64
-    tokens, 32 new tokens each; the encoder timed alone on one request.
-    Then the gate in fp32 at 2 + 2 layers: the engine's tokens equal the
-    argmax of a teacher-forced prefill over prompt + generated tokens."""
+    448, bucket 64), eager and then graphed (``dense_eager_then_graphed``):
+    4 requests with seeded frames of (1500, 1024) x 0.1 (float32, as the
+    reference's launcher makes them) and prompts of 4-64 tokens, 32 new
+    tokens each; the encoder timed alone on one request.  Then the gate in
+    fp32 at 2 + 2 layers, graphed: the engine's tokens equal the argmax of
+    a teacher-forced prefill over prompt + generated tokens."""
     import dataclasses
     import numpy as np
     import torch
@@ -3213,27 +3298,19 @@ def serve_whisper(report, card: str):
     if not torch.isfinite(enc).all():
         raise AssertionError("[whisper] non-finite encoder output")
     del enc
-    eng = Engine(config, params, max_batch=4, max_len=N_TEXT_CTX, bucket=64,
-                 device="cuda")
-    res = dense_pass(eng, prompts, "whisper-medium bf16", card, frames=frames)
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    m = res["m"]
-    report["dense_whisper"] = dict(
-        encoder_ms=sorted(enc_ms[1:])[1],
-        prefill_tok_s=m["prefill_tokens"] / m["prefill_s"],
-        decode_ms_step=1e3 * m["decode_s"] / m["decode_calls"],
-        peak_gib=peak)
+    r = dense_eager_then_graphed(config, params, prompts,
+                                 "whisper-medium bf16", card, frames=frames,
+                                 max_batch=4, max_len=N_TEXT_CTX, bucket=64)
+    report["dense_whisper"] = dict(dense_figures(r),
+                                   encoder_ms=sorted(enc_ms[1:])[1])
     log(f"[whisper] whisper-medium {cfg.encoder_layers}+{cfg.num_layers}L "
         f"d={cfg.d_model}: {n_params / 1e9:.4f}B parameters (reference "
         f"count {cfg.param_count() / 1e9:.4f}B), prompts "
         f"{[len(p) for p in prompts]}: encoder ({cfg.encoder_frames} frames, "
         f"float32 "
         f"activations on bf16 weights) {[round(t, 2) for t in enc_ms]} ms a "
-        f"request (the first with warm-up); peak allocated {peak:.3f} GiB "
-        f"(caches "
-        f"{sum(t.numel() * t.element_size() for c in eng.caches for t in c.values()) / 2**30:.3f}"
-        f" GiB) [{card}]")
-    del eng, params, f0
+        f"request (the first with warm-up) [{card}]")
+    del params, f0
     free_cuda()
 
     cfg2 = dataclasses.replace(cfg, num_layers=2, encoder_layers=2)
@@ -3242,9 +3319,13 @@ def serve_whisper(report, card: str):
                              device="cuda")
     eng = Engine(config2, params, max_batch=4, max_len=N_TEXT_CTX, bucket=64,
                  device="cuda")
-    got = dense_pass(eng, prompts, "whisper-medium fp32 2+2-layer", card,
-                     frames=frames)["tokens"]
+    gate = dense_pass(eng, prompts, "whisper-medium fp32 2+2-layer", card,
+                      frames=frames)
+    got = gate["tokens"]
     del eng
+    if not gate["graphs"]:
+        raise AssertionError("[whisper] fp32 gate: the engine captured no "
+                             "graph")
     for i, (p, f) in enumerate(zip(prompts, frames)):
         seq = torch.from_numpy(np.concatenate([p, got[i]]).astype(
             np.int32)).to("cuda")[None]
@@ -3260,20 +3341,23 @@ def serve_whisper(report, card: str):
                 f"{got[i]}")
     del params
     free_cuda()
-    log(f"[whisper] gate: whisper-medium fp32 2+2-layer, the engine's tokens "
+    log(f"[whisper] gate: whisper-medium fp32 2+2-layer, the graphed "
+        f"engine's tokens "
         f"== the argmax of a teacher-forced prefill over prompt + generated "
         f"on {len(prompts)} of {len(prompts)} requests [{card}]")
 
 
 def dense_profiles(report, card: str):
     """Phase 10 (c), last in the script (a ``torch.profiler`` window leaves
-    a host cost on later work): where the dense path's time goes.  For
-    qwen3-8b (phase 3's first four prompts) and whisper-medium (phase 10
-    (b)'s traffic), bf16, full width and depth: one engine step that
+    a host cost on later work): where the graphed dense path's time goes.
+    For qwen3-8b (phase 3's first four prompts) and whisper-medium (phase
+    10 (b)'s traffic), bf16, full width and depth, on a graphed engine
+    after a capture pass of the same requests: one engine step that
     prefills four requests (and decodes once), then four decode steps, each
-    window under ``torch.profiler`` with CUDA activities; printed: the wall
-    time, the device's busy time (the union of its intervals) and idle
-    share, and the names that took the most device time."""
+    window under ``torch.profiler`` with CUDA activities and capturing no
+    graph; printed: the wall time, the device's busy time (the union of its
+    intervals) and idle share a step, and the names that took the most
+    device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile
     from repro_torch.config import Config, ISOConfig, ParallelConfig, \
@@ -3297,10 +3381,17 @@ def dense_profiles(report, card: str):
                                                                model=1),
                             iso=ISOConfig()), params, max_batch=4,
                      max_len=max_len, bucket=64, device="cuda")
-        for p, f in zip(prompts, frames):
-            eng.add_request(Request(prompt=p.copy(), frames=f,
-                                    sampling=SamplingParams(
-                                        max_new_tokens=8, eos_id=-1)))
+
+        def submit():
+            for p, f in zip(prompts, frames):
+                eng.add_request(Request(prompt=p.copy(), frames=f,
+                                        sampling=SamplingParams(
+                                            max_new_tokens=8, eos_id=-1)))
+
+        submit()                                 # the capture pass
+        eng.run_until_complete()
+        graphs = eng.graphs
+        submit()
         torch.cuda.synchronize()
         out = {}
         for window, steps in (("prefill step", 1), ("decode steps", 4)):
@@ -3315,12 +3406,17 @@ def dense_profiles(report, card: str):
             busy = act["busy_ms"] / steps
             out[window] = dict(wall_ms=wall, busy_ms=busy,
                                idle_share=1 - busy / wall)
-            log(f"[dense] {arch} bf16 profile, {window} ({steps} step(s), "
-                f"4 requests): {wall:.3f} ms of wall a step, device busy "
-                f"{busy:.3f} ms, idle share {1 - busy / wall:.3f} [{card}]")
+            log(f"[dense] {arch} bf16 graphed profile, {window} ({steps} "
+                f"step(s), 4 requests, {graphs} graphs replayed): "
+                f"{wall:.3f} ms of wall a step, device busy {busy:.3f} ms, "
+                f"idle share {1 - busy / wall:.3f} [{card}]")
             log_top(f"{arch} dense {window}", act, steps, card)
-        report[f"dense_profile_{arch}"] = out
         eng.run_until_complete()
+        if eng.graphs != graphs:
+            raise AssertionError(f"[dense] {arch} profile: the profiled "
+                                 f"steps captured {eng.graphs - graphs} "
+                                 f"graphs")
+        report[f"dense_profile_{arch}"] = out
         del eng, params
         free_cuda()
 
@@ -3974,12 +4070,12 @@ def serve_vlm(report, card: str):
                     prefill_steps=1, patches=patches)
     del eng, r
     free_cuda()
-    # (b) the dense Engine, eager, on the same requests
+    # (b) the dense Engine, graphed, on the same requests
     torch.cuda.reset_peak_memory_stats()
     dense = Engine(Config(model=cfg, parallel=ParallelConfig(data=1, model=1),
                           iso=ISOConfig()), params, max_batch=4,
                    max_len=VLM_SV["max_len"], bucket=32, device="cuda")
-    d = dense_pass(dense, prompts, "internvl2-2b dense Engine, eager", card,
+    d = dense_pass(dense, prompts, "internvl2-2b dense Engine, graphed", card,
                    patches=patches)
     del dense
     dm = d["m"]

@@ -247,20 +247,28 @@ def _scatter_token_to_pages(cache, kv_new, lengths, block_tables,
     vp.index_put_((page, off), v_new.to(vp.dtype))
 
 
+def ring_window(lengths, ring: int, K: int, device):
+    """(rows, cols) of the dense ring slots a K-token window at ``lengths``
+    (B,) writes: from slot ``lengths % ring``, the start clamped to ``ring -
+    K`` (the reference's ``dynamic_update_slice``)."""
+    lengths = lengths.to(device=device, dtype=torch.int64)
+    B = lengths.shape[0]
+    start = torch.clamp(lengths % ring, max=ring - K)
+    rows = torch.arange(B, device=device)[:, None].expand(B, K)
+    cols = start[:, None] + torch.arange(K, device=device)[None]
+    return rows, cols
+
+
 def _insert_ring(cache, kv_new, lengths) -> None:
     """Insert the window's K new tokens into a dense ring cache IN PLACE, at
-    slot ``lengths % ring`` (the reference's ``dynamic_update_slice``, whose
-    start clamps to ``ring - K``: a multi-token insert never straddles the
-    ring boundary, and the engine keeps it from needing to), and record
-    their positions in ``pos``."""
+    slot ``lengths % ring`` (``ring_window``: a multi-token insert never
+    straddles the ring boundary, and the engine keeps it from needing to),
+    and record their positions in ``pos``."""
     k_new, v_new = kv_new
-    B, K = k_new.shape[:2]
-    ring = cache["k"].shape[1]
+    K = k_new.shape[1]
     dev = k_new.device
     lengths = lengths.to(device=dev, dtype=torch.int64)
-    start = torch.clamp(lengths % ring, max=ring - K)
-    rows = torch.arange(B, device=dev)[:, None].expand(B, K)
-    cols = start[:, None] + torch.arange(K, device=dev)[None]
+    rows, cols = ring_window(lengths, cache["k"].shape[1], K, dev)
     cache["k"].index_put_((rows, cols), k_new.to(cache["k"].dtype))
     cache["v"].index_put_((rows, cols), v_new.to(cache["v"].dtype))
     cache["pos"].index_put_((rows, cols), (lengths[:, None] + torch.arange(

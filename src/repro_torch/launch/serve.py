@@ -275,7 +275,8 @@ def serve_rank(group, config: Config,
                 schedule_steps=dict(last.decode_schedule_steps),
                 accepted_per_call=last.accepted_per_call(),
                 decode_schedule=last._decode_schedule, rows_checked=rows[0],
-                wall=wall,
+                wall=wall, graphs=sum(e.graphs for e in engines),
+                capture_s=sum(e.capture_s for e in engines),
                 trace=[ev for e in engines for ev in e.trace.events()],
                 dropped=sum(e.trace.dropped for e in engines),
                 profile=profile,
@@ -534,7 +535,8 @@ def main(argv=None) -> int:
           f"device={dev_name} tp={args.tp} iso="
           f"{'off' if args.iso_off else 'on'} decode_schedule="
           f"{res['decode_schedule']} {res['schedule_steps']} "
-          f"wall={res['wall']:.2f}s")
+          f"wall={res['wall']:.2f}s graphs={res['graphs']} "
+          f"capture_s={res['capture_s']:.2f}")
     print(f"prefill: {m['prefill_tokens']} tok in {m['prefill_s']:.3f}s "
           f"({m['prefill_tokens'] / max(m['prefill_s'], 1e-9):.1f} tok/s) "
           f"calls={m['prefill_calls']} resumed={m['resumed_grants']} | "
@@ -636,7 +638,8 @@ def _serve_dense(args, config: Config, prompts, frames, device,
         else "cpu"
     print(f"arch={cfg.name} engine=dense device={dev_name} tp=1 iso="
           f"{'off' if args.iso_off else 'on'} requests={len(outs)} "
-          f"new_tokens={sum(len(t) for t in outs)} wall={wall:.2f}s")
+          f"new_tokens={sum(len(t) for t in outs)} wall={wall:.2f}s "
+          f"graphs={eng.graphs} capture_s={eng.capture_s:.2f}")
     print(f"prefill: {m['prefill_tokens']} tok in {m['prefill_s']:.3f}s "
           f"({m['prefill_tokens'] / max(m['prefill_s'], 1e-9):.1f} tok/s) "
           f"calls={m['prefill_calls']} ttft="

@@ -7,8 +7,8 @@ plain schedule.  Each slot owns a dense padded cache row of ``max_len``
 positions (``models/api.init_caches``): ``k``/``v`` and a ``pos`` array of
 each slot's absolute position (-1 = empty), which decode masks by.  Prompt
 lengths are bucketed (``bucket``); the padded tail's cache positions are
-scrubbed to -1 when the prefill's caches are written into the slot
-(``_write_slot``).  It is the only engine that serves the encoder-decoder
+scrubbed to -1 when the prefill's caches are written into the slot (inside
+the prefill closure).  It is the only engine that serves the encoder-decoder
 family (whisper): a request's ``frames`` ride into its prefill, and its
 cross K/V into the slot's ``cross_k``/``cross_v``.  A VLM request's
 ``patches`` ride into its prefill ahead of its text, and the slot's length
@@ -34,11 +34,29 @@ decode_call, accept and finish, and ``obs.torchprof`` ranges named
 (the card has finished the step, caches included); the ``*_dispatch_s``
 pair is the host time until the calls return.
 
-Eager: each step runs the model's ops as they come, where the reference
-jits them.  The caches are written in place (``index_put_``/``copy_``), and
-the decode body reads nothing back to the host but the logits, so a CUDA
-graph can capture it later.  A prefill copies one logits row to the host,
-the row it samples (the reference copies them all).
+Compiled closures.  As the reference jits one function per key, the engine
+builds one ``StepClosure`` (serving/closures.py, shared with
+``PagedEngine``) per key: a prefill closure per (bucket, frames?, patch
+count), the reference's ``(bucket, frames?, patches?)`` key with the
+patches' count for its flag (a static buffer has one shape), one decode
+closure (K = 1) and one verify closure per window K = spec_k + 1.  A
+prefill closure's inputs are the padded tokens, the frames or patches, and
+0-d device buffers of the slot and the effective prompt length; its body
+writes the batch-1 caches into the slot IN PLACE (``index_copy_`` along the
+batch dimension at the slot's index: every ring leaf, every field of a
+recurrent state, whisper's cross K/V; the padded tail's ``pos`` scrubbed to
+-1) and gathers the one logits row it samples on the device.  A decode or
+verify closure takes the (max_batch, K) tokens and the lengths; the ring
+caches are written in place (``core/iso._insert_ring``) and every slot's
+recurrent state advanced in place.  On the card at tp=1 each closure is
+captured once in a ``torch.cuda.CUDAGraph`` (every graph drawing on one
+shared memory pool) and each call is one replay; ``cuda_graphs=False``
+runs the same bodies eagerly, as do the CPU and a TP engine (its
+collectives go through gloo on the host, which a graph cannot hold).  A
+failed capture or replay raises; nothing falls back to the eager body.  The
+verify step's scrub of rejected positions runs eagerly after the replay,
+as the reference runs it outside its jits.  A prefill copies one logits
+row to the host, the row it samples (the reference copies them all).
 
 Tensor parallelism: ``mesh=`` takes this rank's ``launch.mesh.TPGroup``, as
 ``PagedEngine``'s does; ``params`` are then the rank's shard
@@ -59,18 +77,20 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.bridge import to_torch
 from repro_torch.config import BLOCK_ATTN_MLP, BLOCK_ATTN_MOE, Config, \
     padded_vocab
 from repro_torch.device import resolve_device, synchronize
+from repro_torch.core.iso import ring_window
 from repro_torch.launch import runner
 from repro_torch.launch.mesh import TPGroup
 from repro_torch.models import api
+from repro_torch.models.blocks import STATE_KEYS
 from repro_torch.models.decoder import check_supported
 from repro_torch.obs import torchprof
 from repro_torch.obs.registry import ACCEPT_LEN_BUCKETS, MetricsRegistry, \
     TPOT_BUCKETS_S, TTFT_BUCKETS_S
 from repro_torch.obs.trace import TraceRing
+from repro_torch.serving.closures import StepClosure
 from repro_torch.serving.requests import Request, RequestState
 from repro_torch.serving.sampler import sample
 from repro_torch.serving.speculative import BigramDraft, accept_greedy
@@ -94,11 +114,15 @@ def _first_leaf(tree) -> torch.Tensor:
 class Engine:
     """``device`` defaults to ``cuda`` (raises without it), or is the TP
     group's (``mesh=``); the params must live there
-    (``api.init_params(..., device=)``)."""
+    (``api.init_params(..., device=)``).  ``cuda_graphs`` (default True)
+    captures each closure in a CUDA graph on the card at tp=1; False runs
+    the closures eagerly (A/B runs).  CPU and TP engines always run them
+    eagerly (module doc)."""
 
     def __init__(self, config: Config, params, mesh: TPGroup = None, *,
                  max_batch: int = 4, max_len: int = 512, bucket: int = 64,
-                 spec_k: int = 0, observability: bool = True, device=None):
+                 spec_k: int = 0, observability: bool = True, device=None,
+                 cuda_graphs: bool = True):
         if mesh is not None and not isinstance(mesh, TPGroup):
             raise TypeError(f"mesh must be a launch.mesh.TPGroup, got "
                             f"{type(mesh).__name__}")
@@ -142,6 +166,27 @@ class Engine:
         self.caches = api.init_caches(self.cfg, max_batch, max_len, self.tp,
                                       dtype=leaf.dtype, device=self.device,
                                       local=True)
+        # the recurrent states a decode step advances in place: a capture's
+        # warm-up puts them back
+        self._state_tensors = tuple(t for c in self.caches
+                                    for sk in STATE_KEYS if sk in c
+                                    for t in c[sk])
+        # compiled closures, keyed as the reference's jits: prefill
+        # (bucket, frames?, n_patches); decode and verify by window K (1:
+        # the plain decode, spec_k + 1: the verify window)
+        self._prefill_fns: Dict[Tuple[int, bool, int], StepClosure] = {}
+        self._decode_fns: Dict[int, StepClosure] = {}
+        self._graphed = cuda_graphs and mesh is None \
+            and self.device.type == "cuda"
+        # one memory pool for every graph, and one side stream for every
+        # capture's warm-up
+        self._graph_pool = torch.cuda.graph_pool_handle() \
+            if self._graphed else None
+        self._capture_stream = torch.cuda.Stream(self.device) \
+            if self._graphed else None
+        # CUDA graphs captured, and the seconds their captures took
+        self.graphs = 0
+        self.capture_s = 0.0
         self.slots: List[Optional[RequestState]] = [None] * max_batch
         self.lengths = np.zeros(max_batch, np.int64)
         self.last_tokens = np.zeros(max_batch, np.int64)
@@ -184,6 +229,12 @@ class Engine:
         if req.frames is not None and tuple(req.frames.shape) != want:
             raise ValueError(f"request {req.rid}: frames of shape "
                              f"{tuple(req.frames.shape)}, want {want}")
+        if req.frames is not None and np.asarray(req.frames).dtype not in (
+                np.float32, np.float64):
+            # float64 is cast, as jnp.asarray does; the closure's frames
+            # buffer is float32
+            raise ValueError(f"request {req.rid}: frames of dtype "
+                             f"{np.asarray(req.frames).dtype}, want float32")
         eff = len(req.prompt) + _n_patches(req)
         if eff + req.sampling.max_new_tokens > self.max_len:
             raise ValueError(f"request {req.rid}: {eff} prompt + "
@@ -198,25 +249,21 @@ class Engine:
         blen = min(_bucket(plen, self.bucket), self.max_len)
         toks = np.zeros((1, blen), np.int32)
         toks[0, :plen] = req.prompt
-        batch = {"tokens": torch.from_numpy(toks).to(self.device)}
-        if req.frames is not None:
-            frames = np.asarray(req.frames)
-            if frames.dtype == np.float64:      # jnp.asarray's precision
-                frames = frames.astype(np.float32)
-            batch["frames"] = to_torch(frames, self.device)[None]
-        if req.patches is not None:
-            batch["patches"] = to_torch(np.asarray(req.patches, np.float32),
-                                        self.device)[None]
         # the prompt's length in the decoder stream (patches come first)
         eff_plen = plen + _n_patches(req)
+        fn = self._get_prefill(blen, req.frames is not None, _n_patches(req))
+        host = dict(tokens=toks, slot=slot, n_real=eff_plen)
+        if req.frames is not None:
+            host["frames"] = np.asarray(req.frames, np.float32)[None]
+        if req.patches is not None:
+            host["patches"] = np.asarray(req.patches, np.float32)[None]
+        self._compile(fn, host)
 
         t0 = time.perf_counter()
         with torchprof.annotate(f"prefill/T={blen}"):
-            out = self._prefill_fn(self.params, batch)
-            self._write_slot(out["caches"], slot, eff_plen)
+            fn.stage(**host)
             # the one row to sample, taken (and gathered) on the device
-            row = runner.gather_logits(
-                out["logits_local"][:, eff_plen - 1:eff_plen], self._ctx)[0, 0]
+            row = runner.gather_logits(fn()[None], self._ctx)[0]
         self.metrics["prefill_dispatch_s"] += time.perf_counter() - t0
         # fence the whole step, the caches' write included
         synchronize(self.device)
@@ -226,7 +273,6 @@ class Engine:
         self.metrics["prefill_calls"] += 1
         self.trace.emit("prefill_call", rid=req.rid, slot=slot, dur=dur,
                         ts=t0, tokens=plen, pad=blen - plen, rows=1)
-        del out
         logits = row.float().cpu().numpy()
         # sample over the REAL vocab only (the table is padded for TP)
         first = sample(logits[:self.cfg.vocab_size], req.sampling, step=0)
@@ -264,34 +310,131 @@ class Engine:
         self.last_tokens[slot] = 0
         self._drafts[slot] = None
 
-    def _write_slot(self, new_caches, slot: int, real_len: int) -> None:
-        """Copy a batch-1 prefill's caches into the engine's slot IN PLACE
-        (every leaf with a batch dim of 1, each field of a recurrent state;
-        cross K/V cast to the cache dtype), scrubbing the padded positions
-        (``pos >= real_len`` -> -1)."""
-        for big, small in zip(self.caches, new_caches):
-            for name, t in small.items():
-                if isinstance(t, tuple):          # a recurrent state
-                    for b, s in zip(big[name], t):
-                        b[:, slot].copy_(s[:, 0])
-                elif t.ndim >= 2 and t.shape[1] == 1:
-                    big[name][:, slot].copy_(t[:, 0])
-            if "pos" in big:
-                pos = big["pos"][:, slot]
-                pos.masked_fill_(pos >= real_len, -1)
+    # ------------------------------------------------------------------
+    # compiled closures
+    # ------------------------------------------------------------------
+    def _compile(self, fn: StepClosure, host: Dict) -> None:
+        """Capture ``fn`` on its first call, over the call's ``host`` inputs,
+        outside the timed window of the call (which stages them again)."""
+        if fn.graphed and fn.graph is None:
+            fn.stage(**host)
+            restore = self._save_window(fn)
+            self.capture_s += fn.capture(self._capture_stream,
+                                         self._graph_pool)
+            restore()
+            self.graphs += 1
+
+    def _save_window(self, fn: StepClosure):
+        """Save what the warm-up of a capture of ``fn`` (one run of its body
+        over the staged inputs) writes and the replay after it would read:
+        a decode or verify closure's window in every ring (k, v and pos at
+        ``ring_window``), which the replay would attend as already cached.
+        Returns the call that puts it back.  A prefill closure reads no
+        cache, and the recurrent states are the closure's ``mutates``."""
+        saved = []
+        if "lengths" in fn.inputs:
+            K = fn.inputs["tokens"].shape[1]
+            for c in self.caches:
+                if "k" in c:
+                    rows, cols = ring_window(fn.inputs["lengths"],
+                                             c["k"].shape[2], K, self.device)
+                    saved += [(t, rows, cols, t[:, rows, cols].clone())
+                              for t in (c["k"], c["v"], c["pos"])]
+
+        def restore():
+            for t, rows, cols, old in saved:
+                t[:, rows, cols] = old
+
+        return restore
+
+    def _get_prefill(self, blen: int, frames: bool,
+                     n_patches: int) -> StepClosure:
+        """Prefill closure of a bucket length ``blen``, with ``frames``
+        (audio) or ``n_patches`` patches ahead of the text (vlm).  Inputs:
+        ``tokens`` (1, blen), the 0-d ``slot`` and ``n_real`` (the prompt's
+        length in the decoder stream, patches counted), ``frames`` (1, F,
+        D) and ``patches`` (1, n_patches, D), both float32.  The body runs
+        the batch-1 prefill (all logits and the caches, as the reference),
+        copies every cache leaf (each field of a recurrent state, cross K/V
+        cast to the cache dtype) into the slot in place, positions
+        ``>= n_real`` scrubbed to -1, and returns the local logits row of
+        position ``n_real - 1`` (V_loc,).  The body holds the engine's
+        params and caches, never the engine."""
+        key = (blen, frames, n_patches)
+        if key in self._prefill_fns:
+            return self._prefill_fns[key]
+        dev, D = self.device, self.cfg.d_model
+        i32 = dict(dtype=torch.int32, device=dev)
+        f32 = dict(dtype=torch.float32, device=dev)
+        bufs = {"tokens": torch.zeros((1, blen), **i32),
+                "slot": torch.zeros((), **i32),
+                "n_real": torch.zeros((), **i32)}
+        if frames:
+            bufs["frames"] = torch.zeros((1, self.cfg.encoder_frames, D),
+                                         **f32)
+        if n_patches:
+            bufs["patches"] = torch.zeros((1, n_patches, D), **f32)
+        params, caches, prefill_fn = self.params, self.caches, \
+            self._prefill_fn
+
+        def body():
+            slot = bufs["slot"].reshape(1).long()
+            n_real = bufs["n_real"]
+            out = prefill_fn(params, {k: bufs[k] for k in
+                                      ("tokens", "frames", "patches")
+                                      if k in bufs})
+            for big, small in zip(caches, out["caches"]):
+                for name, t in small.items():
+                    if isinstance(t, tuple):          # a recurrent state
+                        for b, s in zip(big[name], t):
+                            b.index_copy_(1, slot, s.to(b.dtype))
+                    elif t.ndim >= 2 and t.shape[1] == 1:
+                        if name == "pos":         # the padded tail: empty
+                            t = t.masked_fill(t >= n_real, -1)
+                        big[name].index_copy_(1, slot,
+                                              t.to(big[name].dtype))
+            last = (n_real - 1).reshape(1).long()
+            return out["logits_local"][0].index_select(0, last)[0]
+
+        self._prefill_fns[key] = StepClosure(bufs, body, self._graphed)
+        return self._prefill_fns[key]
+
+    def _get_decode(self, K: int) -> StepClosure:
+        """Decode closure of a K-token window over every slot (K = 1 the
+        plain decode, K = spec_k + 1 a verify window).  Inputs: ``tokens``
+        (max_batch, K) and ``lengths`` (max_batch,).  The body writes the
+        window's KV into the ring caches and advances every slot's
+        recurrent state, both in place, and returns the local logits (B, K,
+        V_loc)."""
+        if K not in self._decode_fns:
+            i32 = dict(dtype=torch.int32, device=self.device)
+            bufs = {"tokens": torch.zeros((self.max_batch, K), **i32),
+                    "lengths": torch.zeros((self.max_batch,), **i32)}
+            params, caches, decode_fn = self.params, self.caches, \
+                self._decode_fn
+
+            def body():
+                logits, _ = decode_fn(params, bufs["tokens"], caches,
+                                      bufs["lengths"])
+                return logits
+
+            self._decode_fns[K] = StepClosure(bufs, body, self._graphed,
+                                              self._state_tensors)
+        return self._decode_fns[K]
 
     # ------------------------------------------------------------------
     def _decode(self, toks: np.ndarray, label: str):
-        """One decode call over every slot: stage the tokens and lengths,
-        run the stack (caches updated in place), fence, and return the
-        logits (B, K, V) on the host and the fenced seconds."""
+        """One decode call over every slot: stage the tokens and lengths
+        into the window's closure, call it (caches updated in place), fence,
+        and return the logits (B, K, V) on the host and the fenced
+        seconds."""
+        fn = self._get_decode(toks.shape[1])
+        host = dict(tokens=toks, lengths=self.lengths.astype(np.int32))
+        self._compile(fn, host)
         t0 = time.perf_counter()
         with torchprof.annotate(label):
-            tt = torch.from_numpy(toks).to(self.device)
-            lens = torch.from_numpy(self.lengths.astype(np.int32)).to(
-                self.device)
-            logits, _ = self._decode_fn(self.params, tt, self.caches, lens)
-            logits = runner.gather_logits(logits, self._ctx)
+            fn.stage(**host)
+            logits = runner.gather_logits(fn(), self._ctx)
         self.metrics["decode_dispatch_s"] += time.perf_counter() - t0
         synchronize(self.device)
         dur = time.perf_counter() - t0
