@@ -363,8 +363,10 @@ Phases, each fatal on failure:
                qwen3-8b's widths, one 1024-token prompt, logits within 1e-4;
                (e) the dry run (``launch/dryrun.py``, meta tensors, the
                ``"fake"`` process-group backend) of qwen3-8b decode_32k and
-               prefill_32k at 16 x 16, ISO's hideable fraction above
-               iso-off's, and the quantized train_4k cell refused.
+               prefill_32k at 16 x 16: prefill's ISO hideable fraction
+               above iso-off's, decode the same program with ISO on and off
+               (the reference applies ISO to prefill only), and the
+               quantized train_4k cell refused.
  16. disagg tp disaggregated serving under TP, after phase 15: one spawn
                of four ranks sharing the card over gloo, a prefill group
                (ranks 0-1) and a decode group (2-3) of tp=2, phase 3's
@@ -387,6 +389,28 @@ Phases, each fatal on failure:
                int8 reduce's three kernels on both roles, B7 none) they
                EQUAL the mixed tp=2 engine's with the same reduces, the int8
                reduces changing the numbers (tp=1's are printed beside).
+ 17. examples  the five ``examples/*_torch.py`` scripts, each loaded by path
+               and run in this process through its ``main(argv)`` (a
+               ``SystemExit`` or a return value other than 0 is fatal, as
+               is a failed assert inside it), fp32 without TF32: (a)
+               quickstart and iso_prefill_demo on ``cuda``, their fp32
+               exactness asserts (ISO == one chunk within 1e-4); (b)
+               serve_batch at its defaults (the tiny preset, the dense
+               ``Engine``), then qwen3-4b at full width and depth in bf16
+               (``--preset full``: 36 layers, d 2560, 32/8 heads, vocab
+               151,936) on the dense ``Engine``, with ``--paged`` (B1 and
+               B3 must launch: prompts of 48-95 tokens in two ISO chunks
+               under the 64-token budget resume) and with ``--paged
+               --iso-off`` (whole-prompt grants, B1 must launch), each
+               run's prefill tok/s, decode ms/step and peak allocated
+               (above what earlier phases still hold) printed; (c)
+               speculative_demo on the graphed dense ``Engine``, its
+               stream-identity assert; (d) train_small at
+               its defaults with ``--ckpt`` under ``build/``, the
+               checkpoint restored into the tiny model's leaves (names,
+               shapes, dtypes, finite, moved from the initial weights),
+               then qwen3-4b at full width, 3 steps of 4 x 128 (ms a step
+               after the first from the launcher's tok/s, peak allocated).
 
 Every pass resets its engine's registry and trace ring together
 (``reset_observability``), so a pass's trace replays into its registry.
@@ -409,7 +433,8 @@ int8 run (phase 14 (a) launches none, checked), its
 ``launches_runner`` from rank 0 of phase 15 (a)'s int8 pass and its
 ``launches_disagg_tp`` (``{"prefill": n, "decode": n}``) from group rank 0
 of each role in phase 16: the attention kernels from (a), the int8
-reduce's three from (b)'s quantized router run.  It
+reduce's three from (b)'s quantized router run; its ``launches_examples``
+is phase 17's, summed over its runs, each counted from 0.  It
 imports nothing of JAX or of the JAX package.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and
 power limit from nvidia-smi, and before that a JSON line with each kernel's
@@ -4861,9 +4886,11 @@ def runner_blockwise(report, card: str):
 def runner_dryrun(report, card: str):
     """Phase 15 (e): the dry run on this machine's PyTorch (the ``"fake"``
     process-group backend, meta tensors, no device): qwen3-8b x
-    ``DRYRUN_SHAPES`` at 16 x 16, ISO on and off; ISO's
-    ``hideable_fraction`` must exceed iso-off's; the quantized train_4k
-    cell must be reported as refused."""
+    ``DRYRUN_SHAPES`` at 16 x 16, ISO on and off; prefill's ISO
+    ``hideable_fraction`` must exceed iso-off's, and decode's collectives,
+    wire bytes and fraction must be the same with ISO on and off (the
+    reference's dry run applies ISO to prefill only); the quantized
+    train_4k cell must be reported as refused."""
     import tempfile
     from repro_torch.core.analysis import overlap_metric
     from repro_torch.launch import dryrun
@@ -4895,10 +4922,16 @@ def runner_dryrun(report, card: str):
                 f"({ov['avg_hideable_dots']:.2f} of {ov['total_dots']} dots "
                 f"over {ov['collectives']} collectives); traced in "
                 f"{rep['compile_s']}s")
-        if not frac[True] > frac[False]:
+        on, off = (out[f"{shape} iso={s}"] for s in ("on", "off"))
+        if shape.startswith("prefill") and not frac[True] > frac[False]:
             raise AssertionError(f"[dryrun] {shape}: ISO's hideable fraction"
                                  f" {frac[True]} is not above iso-off's "
                                  f"{frac[False]}")
+        if not shape.startswith("prefill") and any(
+                on[k] != off[k] for k in ("collectives", "wire_bytes",
+                                          "hideable_fraction")):
+            raise AssertionError(f"[dryrun] {shape}: ISO on {on} differs "
+                                 f"from ISO off {off}")
     with tempfile.TemporaryDirectory() as tmp:
         path = f"{tmp}/q.json"
         rc = dryrun.main(["--arch", "qwen3-8b", "--shape", "train_4k",
@@ -5894,6 +5927,237 @@ def serve_ops(report, card: str):
     report["launches"].update(launches)
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the examples/ scripts on the card
+# ---------------------------------------------------------------------------
+
+# serve_batch_torch.py's runs: (label, argv after its defaults)
+EXAMPLE_SERVE_RUNS = (("defaults", []),
+                      ("full dense", ["--preset", "full"]),
+                      ("full paged", ["--preset", "full", "--paged"]),
+                      ("full paged iso-off", ["--preset", "full", "--paged",
+                                              "--iso-off"]))
+EXAMPLE_CKPT = ROOT / "build" / "examples_ckpt"
+EXAMPLE_TRAIN_FULL = ["--preset", "full", "--steps", "3", "--seq-len", "128",
+                      "--batch", "4"]
+
+
+class _Tee:
+    """A stdout that writes to every stream given (the log and a buffer)."""
+
+    def __init__(self, *streams):
+        self.streams = streams
+
+    def write(self, text: str) -> int:
+        for st in self.streams:
+            st.write(text)
+        return len(text)
+
+    def flush(self) -> None:
+        for st in self.streams:
+            st.flush()
+
+
+def load_example(name: str):
+    """The module of ``examples/<name>_torch.py``, loaded by path."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        f"{name}_torch", ROOT / "examples" / f"{name}_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def run_example(name: str, argv: list, totals: dict) -> dict:
+    """Run ``examples/<name>_torch.py``'s ``main(argv)`` in this process
+    with the launch counts set to 0 just before and read just after (added
+    into ``totals``), its standard output teed into the log; a
+    ``SystemExit`` or a return value other than 0 is fatal.  Returns its
+    output, wall seconds, launches, the GiB allocated before it (what
+    earlier phases still hold) and its peak allocated GiB above that."""
+    import contextlib
+    import gc
+    import io
+    import torch
+    from repro_torch.kernels import native
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated() / 2**30
+    native.reset_launches()
+    buf = io.StringIO()
+    log(f"[examples] examples/{name}_torch.py {' '.join(argv)}")
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(_Tee(sys.stdout, buf)):
+        try:
+            rc = load_example(name).main(argv)
+        except SystemExit as e:
+            rc = e.code
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    if rc != 0:
+        raise AssertionError(f"[examples] {name}_torch.py {argv}: exit "
+                             f"{rc!r}")
+    launches = dict(native.LAUNCHES,
+                    decode_reduce=native.VARIANTS["paged_decode/fold"])
+    for k, n in launches.items():
+        totals[k] = totals.get(k, 0) + n
+    peak = torch.cuda.max_memory_allocated() / 2**30 - base
+    gc.collect()
+    free_cuda()
+    return dict(out=buf.getvalue(), wall_s=wall, launches=launches,
+                base_gib=base, peak_gib=peak)
+
+
+def _last_value(argv: list, flag: str) -> str:
+    """The value of the last ``flag`` in ``argv`` (argparse's pick)."""
+    return argv[len(argv) - argv[::-1].index(flag)]
+
+
+def _floats(pattern: str, text: str) -> list:
+    import re
+    return [float(x.replace(",", "")) for x in re.findall(pattern, text)]
+
+
+def serve_examples(report, card: str, totals: dict) -> None:
+    """Phase 17 (b): ``serve_batch_torch.py`` at its defaults, then
+    qwen3-4b at full width and depth on the dense ``Engine``, on
+    ``PagedEngine`` (prompts of 48-95 tokens in two ISO chunks under the
+    64-token budget resume: B3 and B1 must launch) and on it with ISO off
+    (whole-prompt grants: B1 must launch)."""
+    runs = {}
+    for label, extra in EXAMPLE_SERVE_RUNS:
+        r = run_example("serve_batch", extra, totals)
+        tok_s = _floats(r"\(([\d.]+) tok/s\)", r["out"])
+        ms = _floats(r"\(([\d.]+) ms/step\)", r["out"])
+        if len(tok_s) != 1 or len(ms) != 1 or "completed=5" not in r["out"]:
+            raise AssertionError(f"[examples] serve_batch {label}: no "
+                                 f"prefill/decode line or not every request "
+                                 f"completed:\n{r['out']}")
+        paged = "--paged" in extra
+        # B1 decodes every paged run; B3 runs the resumed grants, which
+        # ISO's chunks (the scheduling quantum) make: with ISO off a
+        # prompt is one chunk, granted whole
+        want = ("paged_decode", "paged_prefill") if paged and \
+            "--iso-off" not in extra else ("paged_decode",) if paged else ()
+        if any(r["launches"][k] <= 0 for k in want):
+            raise AssertionError(f"[examples] serve_batch {label}: {want} "
+                                 f"must launch: {r['launches']}")
+        runs[label] = dict(prefill_tok_s=tok_s[0], decode_ms_step=ms[0],
+                           peak_gib=r["peak_gib"], wall_s=r["wall_s"],
+                           launches={k: n for k, n in r["launches"].items()
+                                     if n})
+        log(f"[examples] serve_batch {label} (qwen3-4b, "
+            f"{'full width and depth, bf16' if extra else 'tiny preset'}, "
+            f"{'PagedEngine' if paged else 'dense Engine'}, 5 requests of "
+            f"48-95 prompt tokens, 12 new each): prefill {tok_s[0]:.1f} "
+            f"tok/s, decode {ms[0]:.2f} ms/step, peak allocated "
+            f"{r['peak_gib']:.3f} GiB above the {r['base_gib']:.3f} held "
+            f"before it, {r['wall_s']:.1f}s in all; launches "
+            f"{runs[label]['launches']} [{card}]")
+    report["examples"]["serve"] = runs
+
+
+def train_examples(report, card: str, totals: dict) -> None:
+    """Phase 17 (d): ``train_small_torch.py`` at its defaults with a
+    checkpoint under ``build/``, loaded back into the model's leaves; then
+    qwen3-4b at full width for ``EXAMPLE_TRAIN_FULL``'s steps."""
+    import re
+    import shutil
+    import numpy as np
+    import torch
+    from repro_torch.config import get_model_config
+    from repro_torch.launch.train import reduce_cfg
+    from repro_torch.models import api
+    from repro_torch.training import checkpoint
+    from repro_torch.training.trainer import param_leaves
+
+    shutil.rmtree(EXAMPLE_CKPT, ignore_errors=True)
+    defaults = load_example("train_small").DEFAULTS
+    out = {}
+    for label, argv in (("defaults", ["--ckpt", str(EXAMPLE_CKPT)]),
+                        ("full", EXAMPLE_TRAIN_FULL)):
+        r = run_example("train_small", argv, totals)
+        rows = [tuple(float(x.replace(",", "")) for x in m) for m in
+                re.findall(r"^step\s+\d+ loss (\S+) gnorm (\S+) tok/s "
+                           r"(\S+)", r["out"], re.M)]
+        if len(rows) < 2 or not np.isfinite(np.array(rows)).all():
+            raise AssertionError(f"[examples] train_small {label}: losses "
+                                 f"{rows}")
+        full_argv = defaults + argv
+        steps, batch, seq = (int(_last_value(full_argv, f)) for f in
+                             ("--steps", "--batch", "--seq-len"))
+        # the launcher prints tok/s since its first step at steps 0 and the
+        # last: the seconds to each, and so ms a step after the first
+        t_first = batch * seq / rows[0][2]
+        t_last = steps * batch * seq / rows[-1][2]
+        ms = 1e3 * (t_last - t_first) / (steps - 1)
+        out[label] = dict(losses=[x[0] for x in rows], ms_step=ms,
+                          peak_gib=r["peak_gib"], wall_s=r["wall_s"],
+                          launches={k: n for k, n in r["launches"].items()
+                                    if n})
+        log(f"[examples] train_small {label} (qwen3-4b "
+            f"{'full width and depth' if label == 'full' else 'tiny'}, "
+            f"bf16, {steps} steps of {batch} x {seq}, remat): losses "
+            f"{[x[0] for x in rows]}, {ms:.1f} ms a step after the first "
+            f"(from the launcher's tok/s), peak allocated "
+            f"{r['peak_gib']:.3f} GiB above the {r['base_gib']:.3f} held "
+            f"before it, {r['wall_s']:.1f}s in all; launches "
+            f"{out[label]['launches']} [{card}]")
+        if label == "defaults":
+            cfg = reduce_cfg(get_model_config("qwen3-4b"), "tiny")
+            init = api.init_params(0, cfg, dtype=torch.bfloat16,
+                                   device="cuda")
+            tree, step = checkpoint.restore(str(EXAMPLE_CKPT),
+                                            {"params": init})
+            got, want = param_leaves(tree), param_leaves({"params": init})
+            moved = False
+            if step != steps or [g.name for g in got] != \
+                    [w.name for w in want]:
+                raise AssertionError(f"[examples] checkpoint: step {step}, "
+                                     f"leaves {[g.name for g in got]}")
+            for g, w in zip(got, want):
+                for a, b in zip(g.tensors, w.tensors):
+                    if a.shape != b.shape or a.dtype != b.dtype or \
+                            not torch.isfinite(a.float()).all():
+                        raise AssertionError(f"[examples] checkpoint leaf "
+                                             f"{g.name}: {a.shape} "
+                                             f"{a.dtype}")
+                    moved |= not torch.equal(a, b)
+            if not moved:
+                raise AssertionError("[examples] the checkpoint holds the "
+                                     "untrained weights")
+            log(f"[examples] checkpoint {EXAMPLE_CKPT.name}: step {step}, "
+                f"{len(got)} leaves restored with the model's names, "
+                f"shapes and dtypes, trained away from the initial weights")
+            del tree, init, got, want
+            free_cuda()
+    report["examples"]["train"] = out
+
+
+def examples_all(report, card: str) -> None:
+    """Phase 17: the five ``examples/*_torch.py`` scripts in this process:
+    (a) quickstart and iso_prefill_demo (their fp32 exactness asserts),
+    (b) ``serve_examples``, (c) speculative_demo (its stream identity),
+    (d) ``train_examples``; ``report["launches_examples"]`` the phase's
+    launches."""
+    import torch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    report["examples"] = {}
+    totals: dict = {}
+    for name in ("quickstart", "iso_prefill_demo"):
+        r = run_example(name, [], totals)
+        log(f"[examples] {name}: passed its fp32 asserts in "
+            f"{r['wall_s']:.1f}s [{card}]")
+    serve_examples(report, card, totals)
+    r = run_example("speculative_demo", [], totals)
+    log(f"[examples] speculative_demo: streams identical on the graphed "
+        f"dense Engine, {r['wall_s']:.1f}s [{card}]")
+    train_examples(report, card, totals)
+    report["launches_examples"] = totals
+    log(f"[examples] phase launches {totals}")
+
+
 def tc_report(logs: str) -> list:
     """ptxas's register and spill lines of the tensor-core instantiations
     (``*_tc_kernel<KD>``), one line each."""
@@ -5945,6 +6209,7 @@ def main() -> int:
               ("14 train", lambda: train_all(report, card)),
               ("15 runner", lambda: runner_all(report, card)),
               ("16 disagg tp", lambda: disagg_tp(report, card)),
+              ("17 examples", lambda: examples_all(report, card)),
               ("10 (c) profiles", lambda: dense_profiles(report, card)),
               ("11 profile", lambda: moe_profile(card)),
               ("12 (e) profiles", lambda: recurrent_profile(report, card)))
@@ -5975,6 +6240,8 @@ def main() -> int:
                             name, 0),
                         "launches_runner": report["launches_runner"].get(
                             name, 0),
+                        "launches_examples": report[
+                            "launches_examples"].get(name, 0),
                         "launches_disagg_tp": {
                             role: n.get(name, 0) for role, n in
                             report["launches_disagg_tp"].items()}})

@@ -411,7 +411,8 @@ def run_stack_decode_overlap(params_periods, pattern: Sequence[str], x,
     shared by both halves and scattered in place; dense ring caches (and
     recurrent states) are split with the batch, each half writing its own
     rows in place (the reference runs this schedule on paged caches only;
-    the dry run also gives it the dense caches of ``launch/runner``).
+    no engine or dry-run cell gives it dense caches, ``api.decode_step``
+    takes them).
     ``B < 2`` has no second half and runs the sequential schedule."""
     B = x.shape[0]
     if B < 2:

@@ -21,16 +21,12 @@ once; the port has no loops to fold).  How the counts differ from XLA's
 ``cost_analysis`` and ``memory_analysis``: see ``core/analysis.py``;
 ``memory.code_bytes`` is 0 (nothing is compiled).
 
-ISO on and off: the reference applies ISO to prefill only, so its decode
-and train cells are the same program under ``--iso-off``.  Here ISO on
-gives each kind an overlapped schedule: the ISO chunk split in prefill (as
-the reference), the ISO forward of training
-(``RuntimeConfig(mode="train_iso")``), and in decode the batch-split
-schedule over the dense ring caches of ``launch/runner``, so
-``--iso-off`` is an A/B in every cell.  That decode program is served by
-no engine: ``PagedEngine`` runs batch-split over its page pools, and the
-dense ``Engine`` decodes sequentially.  Its ``hideable_fraction`` shows
-what the batch split frees in the dataflow graph, not a served program's.
+ISO on and off, as the reference: ISO applies to prefill only.  A
+prefill cell with ISO on splits into ISO chunks; a decode cell runs
+``runner.make_decode_fn``'s sequential schedule and a train cell the
+step's plain forward (the runtime mode is never ``"train_iso"``), so a
+decode or train cell is the same program with and without ``--iso-off``:
+the same collectives, wire bytes and ``hideable_fraction``.
 
 A default process group is created for the trace and destroyed after it;
 the dry run refuses to start where one exists (run it in its own process).
@@ -89,9 +85,7 @@ def build_config(cfg: ModelConfig, parallel: ParallelConfig,
     iso = ISOConfig(enabled=iso_on, num_chunks=num_chunks,
                     split_policy=policy, quantized_comm=quantized)
     return Config(model=cfg, parallel=parallel, iso=iso,
-                  runtime=RuntimeConfig(mode="train_iso" if iso_on
-                                        else "train",
-                                        grad_comm_int8=grad_int8,
+                  runtime=RuntimeConfig(grad_comm_int8=grad_int8,
                                         zero1=zero1))
 
 
@@ -163,9 +157,7 @@ def _program(config: Config, group: TPGroup, shape):
     local_b = B // group.dp if runner._b_axes(config, B) else B
     caches = api.init_caches(cfg, local_b, S, tp, dtype=dtype, device=META,
                              local=True)
-    fn = runner.make_decode_fn(config, group, global_batch=B,
-                               schedule="batch_split" if config.iso.enabled
-                               else None)
+    fn = runner.make_decode_fn(config, group, global_batch=B)
     toks = torch.empty((B, 1), dtype=torch.int32, device=META)
     lens = torch.empty((B,), dtype=torch.int32, device=META)
     return fn, (params, toks, caches, lens)

@@ -83,21 +83,20 @@ def make_prefill_fn(config: Config, group: Optional[TPGroup] = None, *,
 
 
 def make_decode_fn(config: Config, group: Optional[TPGroup] = None, *,
-                   global_batch: int, schedule: Optional[str] = None
+                   global_batch: int
                    ) -> Callable[..., Tuple[torch.Tensor, Any]]:
     """``fn(params, tokens, caches, lengths) -> (logits_local, caches)``:
     one decode step of this rank over its local caches (its rows and kv
-    heads, ``api.init_caches(..., local=True)``), updated in place; tokens
-    and lengths are the global batch's, of which the rank runs its rows.
-    ``schedule`` is ``api.decode_step``'s (None: sequential, the
-    reference's)."""
+    heads, ``api.init_caches(..., local=True)``), updated in place, on the
+    sequential schedule, as the reference's; tokens and lengths are the
+    global batch's, of which the rank runs its rows."""
     cfg = config.model
     ctx = rank_ctx(config, group)
     rows = _rows(ctx, _b_axes(config, global_batch), global_batch)
 
     def fn(params, tokens, caches, lengths):
         return api.decode_step(params, cfg, ctx, tokens[rows], caches,
-                               lengths[rows], schedule=schedule)
+                               lengths[rows])
 
     fn.ctx = ctx
     return fn

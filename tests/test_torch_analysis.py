@@ -14,9 +14,12 @@ with no devices (``core/analysis.py``, ``launch/dryrun.py``,
   * ``lower_shape`` on the tiny dense twin for prefill, decode and train at
     a (data 2, model 4) fake mesh: the traced all-reduces are every
     all-reduce the program issued (and, serving, every ``psum_start``),
-    ISO's ``hideable_fraction`` above iso-off's, the reference's report
-    keys; one production cell (qwen3-8b x decode_32k, 16 x 16); the
-    quantized train_4k cell listed as a failure, not a crash;
+    the reference's report keys; prefill's ISO ``hideable_fraction`` above
+    iso-off's, and decode and train the same program with ISO on and off
+    (equal collectives, wire bytes and ``hideable_fraction``: the
+    reference applies ISO to prefill only); one production cell (qwen3-8b
+    x decode_32k, 16 x 16, the sequential decode); the quantized train_4k
+    cell listed as a failure, not a crash;
   * ``sdpa_blockwise`` against the reference's past one key block (window,
     ``k_valid``, group 4), and a tiny dense prefill with
     ``attn_impl="blockwise"`` against the reference's (fp32, atol 1e-5).
@@ -233,12 +236,13 @@ def test_lower_shape_tiny_counts_and_overlap(shape, monkeypatch):
     monkeypatch.setattr(overlap, "psum_start", counting_start)
     monkeypatch.setattr(iso, "psum_start", counting_start)
     monkeypatch.setattr(dist, "all_reduce", counting_ar)
-    frac = {}
+    frac, reports = {}, {}
     for iso_on in (True, False):
         calls.update(psum_start=0, all_reduce=0)
         report, tr = dryrun.trace_shape("t-dense", shape, cfg=PORT_CFG,
                                         parallel=SMALL_MESH, iso_on=iso_on,
                                         verbose=False)
+        reports[iso_on] = report
         n_ar = report["collective_counts"]["all-reduce"]
         assert n_ar == calls["all_reduce"] > 0
         if shape != "train_4k":
@@ -251,7 +255,14 @@ def test_lower_shape_tiny_counts_and_overlap(shape, monkeypatch):
             r["collective_s"] > 0
         assert report["devices"] == 8 and report["mesh"] == "2x4"
         assert report["memory"]["temp_bytes"] > 0
-    assert frac[True] > frac[False]
+    if shape == "prefill_32k":
+        assert frac[True] > frac[False]
+    else:
+        # the reference's dry run: ISO on prefill only, so a decode or
+        # train cell is the same program with and without it
+        for key in ("collective_counts", "collective_wire_bytes_per_device"):
+            assert reports[True][key] == reports[False][key], key
+        assert frac[True] == frac[False]
 
 
 def test_production_pair_and_quantized_refusal(tmp_path, capsys):
@@ -259,8 +270,8 @@ def test_production_pair_and_quantized_refusal(tmp_path, capsys):
     report = dryrun.lower_shape("qwen3-8b", "decode_32k")
     assert time.perf_counter() - t0 < 60
     assert report["devices"] == 256 and report["mesh"] == "16x16"
-    # an all-reduce per stage and batch half, and the embedding's
-    assert report["collective_counts"] == {"all-reduce": 2 * 2 * 36 + 1}
+    # the sequential decode: an all-reduce per stage, and the embedding's
+    assert report["collective_counts"] == {"all-reduce": 2 * 36 + 1}
     assert report["collective_wire_bytes_per_device"] > 0
     assert report["roofline"]["bottleneck"] == "memory"
     assert "hideable_fraction" in capsys.readouterr().out

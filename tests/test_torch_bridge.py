@@ -3,6 +3,7 @@ package, its device rule (CUDA unless the CPU is asked for), the settings
 outside its slice, the reference's default serving features, and the
 launcher end to end on the CPU."""
 import dataclasses
+import importlib.util
 import os
 import re
 import subprocess
@@ -22,6 +23,9 @@ from repro_torch.serving import PagedEngine
 torch.set_num_threads(1)
 ROOT = Path(__file__).resolve().parents[1]
 PORT = ROOT / "src" / "repro_torch"
+# the port's examples/<name>_torch.py scripts
+EXAMPLES = ("quickstart", "iso_prefill_demo", "serve_batch",
+            "speculative_demo", "train_small")
 TINY = ModelConfig(name="t-dense", family="dense", num_layers=2, d_model=64,
                    num_heads=4, num_kv_heads=2, d_ff=128, vocab_size=64,
                    qk_norm=True)
@@ -77,7 +81,8 @@ def test_port_imports_without_jax_or_reference():
 def test_no_jax_or_reference_imports_in_port_sources():
     bad = re.compile(r"^\s*(import jax|from jax|import repro\.|from repro[ .])",
                      re.M)
-    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    files = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"] + \
+        [ROOT / "examples" / f"{name}_torch.py" for name in EXAMPLES]
     assert len(files) > 25
     for f in files:
         text = f.read_text()
@@ -105,6 +110,14 @@ def test_entry_points_refuse_the_cpu_unless_asked(monkeypatch):
     from repro_torch.launch import serve
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--arch", "qwen3-8b", "--paged"])
+    # each example script, loaded by path, at its defaults
+    for name in EXAMPLES:
+        spec = importlib.util.spec_from_file_location(
+            f"{name}_torch", ROOT / "examples" / f"{name}_torch.py")
+        script = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(script)
+        with pytest.raises(RuntimeError, match="CUDA"):
+            script.main([])
     PagedEngine(_config(), params, device="cpu")           # asked: fine
 
 
