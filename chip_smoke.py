@@ -197,8 +197,9 @@ Phases, each fatal on failure:
                ms/step with the ring on and off in turns, tokens unchanged;
                (d) a short ``obs.torchprof``
                window: one host range named as the reference names it for
-               each closure call, and device kernels under every decode
-               range.  Phase 5 also holds the two ranks' traces equal once
+               each closure call, device kernels under every decode
+               range, the step's ``engine/…`` phase ranges, and no
+               device-side copy of a host range.  Phase 5 also holds the two ranks' traces equal once
                timings are removed.
   9. disagg    disaggregated serving, the ladder twin and the overlap probe,
                inside phases 3 and 5 (before the profilers): (a) a
@@ -2847,9 +2848,10 @@ def check_replay(eng, label: str) -> dict:
 def profile_window(eng, prompts, card: str) -> None:
     """Phase 8 (d): a short ``obs.torchprof`` window over ``eng`` serving
     two requests for 4 tokens.  Gates: one host range a closure call, named
-    as the reference names them, and device kernels under every decode
-    range (a replay's kernels carry the correlation id of the graph launch
-    made inside the range)."""
+    as the reference names them, device kernels under every decode range
+    (a replay's kernels carry the correlation id of the graph launch made
+    inside the range), the step's ``engine/…`` phase ranges, and no
+    device-side copy of any of them (they are host ops' ranges)."""
     import torch
     from repro_torch.obs import torchprof
     from repro_torch.serving import Request
@@ -2868,17 +2870,20 @@ def profile_window(eng, prompts, card: str) -> None:
         raise AssertionError("[obs] profile window: requests incomplete")
     with open(path) as f:
         evs = json.load(f)["traceEvents"]
-    ranges = [e for e in evs if e.get("cat") == "user_annotation"]
+    ranges = [e for e in evs if e.get("cat") == "cpu_op"
+              and e["name"].startswith(("decode/K=", "prefill/T="))]
+    phases = {e["name"] for e in evs if e.get("cat") == "cpu_op"
+              and e["name"].startswith("engine/")}
     calls = eng.metrics["prefill_calls"] + eng.metrics["decode_calls"]
     names = {}
     for e in ranges:
         names[e["name"]] = names.get(e["name"], 0) + 1
     if len(ranges) != calls or not any(n.startswith("decode/K=")
                                        for n in names) \
-            or not all(n.startswith(("decode/K=", "prefill/T="))
-                       for n in names):
+            or not {"engine/schedule", "engine/decode.launch",
+                    "engine/sample"} <= phases:
         raise AssertionError(f"[obs] profile window: ranges {names} for "
-                             f"{calls} closure calls")
+                             f"{calls} closure calls, phases {phases}")
     launch = {e["args"]["correlation"]: e for e in evs
               if e.get("cat") in ("cuda_runtime", "cuda_driver")
               and "correlation" in e.get("args", {})}
@@ -2902,10 +2907,13 @@ def profile_window(eng, prompts, card: str) -> None:
         raise AssertionError(f"[obs] profile window: no kernels under "
                              f"{empty}")
     gpu = sum(1 for e in evs if e.get("cat") == "gpu_user_annotation")
+    if gpu:
+        raise AssertionError(f"[obs] profile window: {gpu} device-side "
+                             f"copies of host ranges (gpu_user_annotation)")
     log(f"[obs] (d) torch.profiler window ({len(evs)} trace events): "
         f"{len(ranges)} ranges for {calls} closure calls, kernels under "
-        f"each range by name {by_name}; {gpu} device-side copies of the "
-        f"ranges (gpu_user_annotation) [{card}]")
+        f"each range by name {by_name}; phase ranges {sorted(phases)} "
+        f"[{card}]")
 
 
 def serve_observability(report, card: str, cfg, params, lengths) -> None:

@@ -26,7 +26,10 @@ sweeps, on a throwaway engine) and serves with it, ``--trace-out T.json``
 writes the engine's trace as Chrome-trace JSON (Perfetto), ``--metrics-every
 N`` prints a metrics line every N engine steps, and ``--profile DIR``
 records a ``torch.profiler`` trace of the run into DIR (``obs.torchprof``;
-one subdirectory a rank under ``--tp``).
+one subdirectory a rank under ``--tp``), the engine's ``engine/…`` phase
+ranges in it.  A paged run's ``host:`` line splits the engines' host time
+by those phases (their counters, ``prep_s`` … ``sample_s``) and gives the
+mean wait before a request's first prefill call (``grant_wait_s``).
 
 Serving modes and traffic, as the reference's launcher: ``--disagg`` serves
 through a prefill engine and a decode engine with KV pages migrating
@@ -543,6 +546,14 @@ def main(argv=None) -> int:
           f"decode: {m['decode_calls']} steps in {m['decode_s']:.3f}s "
           f"({1e3 * m['decode_s'] / max(m['decode_calls'], 1):.2f} ms/step) "
           f"| preemptions={m['preemptions']} completed={m['completed']}")
+    launch = m["prefill_dispatch_s"] + m["decode_dispatch_s"]
+    print(f"host: {m['step_s']:.3f}s in {m['steps']} steps = schedule "
+          f"{m['prep_s']:.3f} + capture {res['capture_s']:.3f} + launch "
+          f"{launch:.3f} + wait {m['prefill_s'] + m['decode_s'] - launch:.3f}"
+          f" + logits copy {m['logits_copy_s']:.3f} + sample "
+          f"{m['sample_s']:.3f} | grant wait "
+          f"{1e3 * m['grant_wait_s'] / max(m['grant_wait_n'], 1):.1f}ms "
+          f"over {m['grant_wait_n']} requests")
     print(f"sharing: prefix_shared_tokens={m['prefix_shared_tokens']} "
           f"cow_copies={m['cow_copies']} peak_used_pages="
           f"{m['peak_used_pages']} | packs: prefill_grants="

@@ -11,13 +11,16 @@
     validation;
   * ``replay``    — recompute counters from a trace stream; the conservation
     oracle (trace must reproduce the registry) tests pin;
-  * ``torchprof`` — ``torch.profiler`` record_function/start/stop hooks so
-    device timelines line up with host events (``jaxprof`` in the
-    reference).
+  * ``torchprof`` — ``Span``: a named stretch of host code timed into
+    registry counters always, and marked with a ``torch.profiler`` range of
+    its name while any profile records, so device timelines line up with
+    the host's phases (``PagedEngine.step``'s ``engine/…`` spans and the
+    closure calls' ranges); ``start``/``stop`` of a profile (``jaxprof`` in
+    the reference).
 """
-from repro_torch.obs.registry import (ACCEPT_LEN_BUCKETS, GRANT_SIZE_BUCKETS,
-                                      TPOT_BUCKETS_S, TTFT_BUCKETS_S, Counter,
-                                      Gauge, Histogram, MetricsRegistry,
+from repro_torch.obs.registry import (ACCEPT_LEN_BUCKETS, TPOT_BUCKETS_S,
+                                      TTFT_BUCKETS_S, Counter, Gauge,
+                                      Histogram, MetricsRegistry,
                                       MetricsView)
 from repro_torch.obs.trace import TraceEvent, TraceRing
 from repro_torch.obs.export import (chrome_trace, validate_chrome_trace,
@@ -25,8 +28,8 @@ from repro_torch.obs.export import (chrome_trace, validate_chrome_trace,
 from repro_torch.obs.replay import replay_counters
 
 __all__ = [
-    "ACCEPT_LEN_BUCKETS", "GRANT_SIZE_BUCKETS", "TPOT_BUCKETS_S",
-    "TTFT_BUCKETS_S", "Counter", "Gauge", "Histogram", "MetricsRegistry",
-    "MetricsView", "TraceEvent", "TraceRing", "chrome_trace",
-    "validate_chrome_trace", "write_chrome_trace", "replay_counters",
+    "ACCEPT_LEN_BUCKETS", "TPOT_BUCKETS_S", "TTFT_BUCKETS_S", "Counter",
+    "Gauge", "Histogram", "MetricsRegistry", "MetricsView", "TraceEvent",
+    "TraceRing", "chrome_trace", "validate_chrome_trace",
+    "write_chrome_trace", "replay_counters",
 ]

@@ -41,10 +41,6 @@ TPOT_BUCKETS_S: Tuple[float, ...] = (
     0.0001, 0.00025, 0.0005, 0.001, 0.0025, 0.005, 0.01, 0.025, 0.05,
     0.1, 0.25, 0.5, 1.0)
 
-# prefill grant size, tokens: power-of-two ladder mirroring grant bucketing
-GRANT_SIZE_BUCKETS: Tuple[float, ...] = (
-    1, 2, 4, 8, 16, 32, 64, 128, 256, 512, 1024, 2048, 4096)
-
 # tokens accepted per speculative verify call (K is small)
 ACCEPT_LEN_BUCKETS: Tuple[float, ...] = (1, 2, 3, 4, 6, 8, 12, 16)
 

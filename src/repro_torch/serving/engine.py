@@ -27,8 +27,8 @@ a (spec_k+1)-token window through the same dense decode and scrubs the
 rejected positions (``pos >= confirmed length`` -> -1).
 
 Observability as the reference's (and ``PagedEngine``'s): the same counter
-names (plus the dense-only ``spec_accepted``), the ``ttft``/``tpot``/
-``accept_len`` histograms, the trace events admit, prefill_call, sample,
+names (plus the dense-only ``spec_accepted``), the ``ttft`` histogram,
+the trace events admit, prefill_call, sample,
 decode_call, accept and finish, and ``obs.torchprof`` ranges named
 ``prefill/T=…`` and ``decode/K=…``.  ``prefill_s``/``decode_s`` are fenced
 (the card has finished the step, caches included); the ``*_dispatch_s``
@@ -87,8 +87,7 @@ from repro_torch.models import api
 from repro_torch.models.blocks import STATE_KEYS
 from repro_torch.models.decoder import check_supported
 from repro_torch.obs import torchprof
-from repro_torch.obs.registry import ACCEPT_LEN_BUCKETS, MetricsRegistry, \
-    TPOT_BUCKETS_S, TTFT_BUCKETS_S
+from repro_torch.obs.registry import MetricsRegistry, TTFT_BUCKETS_S
 from repro_torch.obs.trace import TraceRing
 from repro_torch.serving.closures import StepClosure
 from repro_torch.serving.requests import Request, RequestState
@@ -203,8 +202,6 @@ class Engine:
         self.registry = MetricsRegistry()
         self.trace = TraceRing(enabled=observability)
         self.registry.histogram("ttft", TTFT_BUCKETS_S)
-        self.registry.histogram("tpot", TPOT_BUCKETS_S)
-        self.registry.histogram("accept_len", ACCEPT_LEN_BUCKETS)
         self.registry.counters((
             "prefill_s", "decode_s", "prefill_dispatch_s",
             "decode_dispatch_s", "prefill_tokens", "decode_tokens",
@@ -484,7 +481,6 @@ class Engine:
             self.metrics["decode_tokens"] += 1
             self.trace.emit("accept", rid=st.request.rid, slot=i, n=1,
                             spec=False)
-            self.registry.histogram("tpot").observe(dur)
             events.append((st.request.rid, tok))
             st.finish_check()
             if st.done:
@@ -522,8 +518,6 @@ class Engine:
             self.metrics["spec_accepted"] += len(acc) - 1
             self.metrics["spec_tokens"] += len(acc)
             self.metrics["decode_tokens"] += len(acc)
-            self.registry.histogram("accept_len").observe(len(acc))
-            self.registry.histogram("tpot").observe(dur / len(acc))
             self.trace.emit("accept", rid=st.request.rid, slot=i, n=len(acc),
                             spec=True)
             for tok in acc:

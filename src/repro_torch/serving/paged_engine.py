@@ -45,8 +45,7 @@ is an always-on ``MetricsRegistry`` and ``metrics`` its dict view over the
 reference's whole counter set (``prefill_calls``: forward calls, packs or
 batch-1 grants; ``spec_calls``: decode steps that verified a window;
 ``migrations``, ``migrated_pages`` and ``migration_us``: page transfers), with
-the ``ttft``, ``tpot``, ``grant_size`` and ``accept_len`` histograms and
-the ``pool_occupancy`` and ``free_list_fragmentation`` gauges.  ``trace``
+the ``tpot`` and ``accept_len`` histograms.  ``trace``
 is a bounded ``TraceRing`` the scheduler, the allocator and every phase of
 the host loop narrate into at the reference's points with its payloads
 (admit, grant, pack, defer, grant_commit, prefill_call, sample,
@@ -55,9 +54,27 @@ allocator's alloc/free/cow/adopt/rc_drop, and detach, attach and migrate
 of a page transfer); ``observability=False``
 silences the ring and leaves the registry.  Every emit and every
 histogram observation runs on the host between closure calls, never in a
-captured body.  Each closure call runs under ``obs.torchprof.annotate``
-with the reference's names (``prefill/T=…``, ``prefill/T=…x…``,
-``decode/K=…/S=…``).
+captured body.
+
+Phase spans (``obs.torchprof.Span``, ``STEP_SPANS``) tile each ``step()``:
+``engine/schedule`` (admission, grants and packs, sharing, page growth,
+copy-on-write, the host arrays and block tables, the split count and the
+closure lookup, the pool's narration; counter ``prep_s``),
+``engine/capture`` (a graph's capture; ``capture_s``),
+``engine/prefill.launch`` and ``engine/decode.launch`` (staging, replay and
+the logits' gather until the calls return; ``prefill_dispatch_s``,
+``decode_dispatch_s``), ``engine/prefill.wait`` and ``engine/decode.wait``
+(the fence; with the launch, ``prefill_s`` and ``decode_s``),
+``engine/logits.to_host`` (``logits_copy_s``) and ``engine/sample``
+(commit, sampling or greedy accept, retiring; ``sample_s``).  One is open at
+a time, so their seconds add up to the step's host time ``step_s``.  Their
+counters are always on; while any ``torch.profiler`` records, each also
+puts a range of its name on the profile, so the card's idle gaps can be put
+down to them.  Inside a launch span each closure call runs under
+``obs.torchprof.annotate`` with the reference's names (``prefill/T=…``,
+``prefill/T=…x…``, ``decode/K=…/S=…``).  ``grant_wait_s`` over
+``grant_wait_n``: the time from a request's submission, or its recompute
+preemption, to the start of its first prefill call after it.
 
 Measured cost model (``perf/costmodel.py``): ``ServingConfig.cost_model``,
 or a table loaded from ``cost_table`` (``"auto"``: the bundled
@@ -145,8 +162,8 @@ from repro_torch.layers import embeddings as emb_lib
 from repro_torch.models import api
 from repro_torch.models.decoder import check_supported
 from repro_torch.obs import torchprof
-from repro_torch.obs.registry import ACCEPT_LEN_BUCKETS, GRANT_SIZE_BUCKETS, \
-    MetricsRegistry, TPOT_BUCKETS_S, TTFT_BUCKETS_S
+from repro_torch.obs.registry import ACCEPT_LEN_BUCKETS, MetricsRegistry, \
+    TPOT_BUCKETS_S
 from repro_torch.obs.trace import TraceRing
 from repro_torch.perf.costmodel import load_cost_model
 from repro_torch.serving.kvcache import OutOfPages, PrefixCache, pages_for, \
@@ -159,6 +176,19 @@ from repro_torch.serving.scheduler import PrefillGrant, \
     TokenBudgetScheduler, plan_chunks
 from repro_torch.serving.speculative import BigramDraft, accept_greedy
 
+
+# the phase spans that tile ``step()``: (name, the counters each adds its
+# host seconds to); the profiler range of each is ``engine/<name>``
+STEP_SPANS = (
+    ("schedule", ("prep_s",)),
+    ("capture", ()),                  # its seconds: the captures' capture_s
+    ("prefill.launch", ("prefill_dispatch_s", "prefill_s")),
+    ("prefill.wait", ("prefill_s",)),
+    ("decode.launch", ("decode_dispatch_s", "decode_s")),
+    ("decode.wait", ("decode_s",)),
+    ("logits.to_host", ("logits_copy_s",)),
+    ("sample", ("sample_s",)),
+)
 
 # the paged engine serves decoder-only stacks, as the reference's
 AUDIO_MSG = ("encoder-decoder (audio) models are served by the dense Engine "
@@ -264,12 +294,8 @@ class PagedEngine:
         self.registry = MetricsRegistry()
         self.trace = TraceRing(capacity=sv.trace_events,
                                enabled=sv.observability)
-        self.registry.histogram("ttft", TTFT_BUCKETS_S)
         self.registry.histogram("tpot", TPOT_BUCKETS_S)
-        self.registry.histogram("grant_size", GRANT_SIZE_BUCKETS)
         self.registry.histogram("accept_len", ACCEPT_LEN_BUCKETS)
-        self.registry.gauge("pool_occupancy")
-        self.registry.gauge("free_list_fragmentation")
         # measured cost model: an injected CostModel, or one loaded from
         # ``cost_table`` ("" off, "auto" the bundled per-platform table,
         # else a path); a failed load emits one warning and leaves None, so
@@ -348,8 +374,13 @@ class PagedEngine:
         self._finished: List[RequestState] = []
         # the reference's counter set, pre-registered so ``metrics[k] == 0``
         # holds before first use; timed sums are fenced execution time, the
-        # *_dispatch_s pair the host time until the calls return
+        # *_dispatch_s pair the host time until the calls return.  The port
+        # adds the step's host time by phase (STEP_SPANS: step_s, prep_s,
+        # logits_copy_s, sample_s) and the wait before a request's first
+        # prefill call (grant_wait_s over grant_wait_n)
         self.registry.counters((
+            "step_s", "prep_s", "logits_copy_s", "sample_s", "grant_wait_s",
+            "grant_wait_n",
             "prefill_s", "decode_s", "prefill_dispatch_s",
             "decode_dispatch_s", "prefill_tokens", "decode_tokens",
             "completed", "decode_calls", "prefill_calls", "steps",
@@ -359,6 +390,14 @@ class PagedEngine:
             "resumed_grants", "prefill_pad_rows", "migrations",
             "migrated_pages", "migration_us"))
         self.metrics = self.registry.view()
+        # the step's phase spans (obs/torchprof.Span) on one tile: one is
+        # open at a time, so their counters add up to the step
+        tile = [None]
+        self._spans = {
+            name: torchprof.Span(f"engine/{name}",
+                                 *map(self.registry.counter, keys),
+                                 tile=tile)
+            for name, keys in STEP_SPANS}
         # decode steps run per split count S
         self.decode_splits: Dict[int, int] = {}
         # compiled closures, keyed as the reference's jit caches: prefill
@@ -418,6 +457,7 @@ class PagedEngine:
                              f"{self.alloc.num_pages} (raise "
                              f"ServingConfig.num_pages)")
         st = RequestState(request=req, slot=-1, t_submit=time.perf_counter())
+        st.t_queued = st.t_submit
         st.prompt_len = eff
         st.chunk_plan = plan_chunks(eff, self.config.iso, self.cfg,
                                     whole=req.patches is not None, tp=self.tp)
@@ -521,6 +561,7 @@ class PagedEngine:
                                     whole=st.request.patches is not None,
                                     tp=self.tp)
         self.scheduler.requeue_front(victim)
+        st.t_queued = time.perf_counter()
         self.metrics["preemptions"] += 1
         return True
 
@@ -597,10 +638,11 @@ class PagedEngine:
         """Capture ``fn`` on its first call, over the call's ``host`` inputs,
         outside the timed window of the call (which stages them again)."""
         if fn.graphed and fn.graph is None:
-            fn.stage(**host)
-            self.capture_s += fn.capture(self._capture_stream,
-                                         self._graph_pool)
-            self.graphs += 1
+            with self._spans["capture"]:
+                fn.stage(**host)
+                self.capture_s += fn.capture(self._capture_stream,
+                                             self._graph_pool)
+                self.graphs += 1
 
     def _get_prefill(self, n_text: int, resumed: bool,
                      n_patches: int = 0) -> StepClosure:
@@ -836,9 +878,33 @@ class PagedEngine:
     # ------------------------------------------------------------------
     # step phases
     # ------------------------------------------------------------------
+    def _call_prefill(self, fn: StepClosure, host: Dict, label: str,
+                      gather: bool, states: List[RequestState]) -> Tuple:
+        """One fenced prefill call of ``fn`` over ``host`` (captured first if
+        it must be), under the launch and wait spans and the closure-call
+        range ``label``; ``gather``: the full vocab rows, to sample.  A
+        request in ``states`` that waited for its first call adds that wait
+        to ``grant_wait_s``.  Returns (logits, call start, fenced seconds)."""
+        self._compile(fn, host)
+        sp = self._spans
+        with sp["prefill.launch"] as launch, torchprof.annotate(label):
+            fn.stage(**host)
+            logits = fn()
+            if gather:
+                logits = all_gather_last(logits, self._ctx)
+        with sp["prefill.wait"] as wait:
+            synchronize(self.device)
+        for st in states:
+            if st.t_queued >= 0:
+                self.metrics["grant_wait_s"] += launch.t0 - st.t_queued
+                self.metrics["grant_wait_n"] += 1
+                st.t_queued = -1.0
+        return logits, launch.t0, launch.dt + wait.dt
+
     def _run_grant(self, st: RequestState, start: int, n_tokens: int,
-                   padded: int, last: bool) -> Optional[int]:
-        """Execute one prefill grant; returns the sampled token if ``last``.
+                   padded: int, last: bool,
+                   events: List[Tuple[int, int]]) -> None:
+        """Execute one prefill grant, sampling its token if ``last``.
         ``padded`` (>= n_tokens) is the forward-call length; the pad tail is
         token 0, masked out of attention and scattered to the scratch page."""
         req = st.request
@@ -860,25 +926,35 @@ class PagedEngine:
             host["slot"] = st.slot
         if n_patches:
             host["patches"] = np.asarray(req.patches, np.float32)[None]
-        self._compile(fn, host)
-        t0 = time.perf_counter()
-        with torchprof.annotate(f"prefill/T={padded}"):
-            fn.stage(**host)
-            logits_last = fn()
-            if last:                          # the full vocab row to sample
-                logits_last = all_gather_last(logits_last, self._ctx)
-        self.metrics["prefill_dispatch_s"] += time.perf_counter() - t0
-        synchronize(self.device)
-        dur = time.perf_counter() - t0
-        self.metrics["prefill_s"] += dur
+        logits, t0, dur = self._call_prefill(fn, host, f"prefill/T={padded}",
+                                             last, [st])
         self.metrics["prefill_tokens"] += n_tokens
         self.metrics["prefill_pad_tokens"] += padded - n_tokens
         self.metrics["prefill_calls"] += 1
         self.trace.emit("prefill_call", rid=st.request.rid, slot=st.slot,
                         dur=dur, ts=t0, tokens=n_tokens,
                         pad=padded - n_tokens, rows=1)
-        logits_row = logits_last[0].float().cpu().numpy() if last else None
-        return self._commit_grant_row(st, start, n_tokens, logits_row, last)
+        self._commit_rows([(st, start, n_tokens, padded, last)], logits,
+                          events)
+
+    def _commit_rows(self, group: List[Tuple], logits,
+                     events: List[Tuple[int, int]]) -> None:
+        """After a prefill call over prepped grants ``group`` (its rows, in
+        order): the logits to the host when a row samples, then each row's
+        commit and sample, and the requests it finished retired."""
+        sp = self._spans
+        logits_np = None
+        if any(p[4] for p in group):
+            with sp["logits.to_host"]:
+                logits_np = logits.float().cpu().numpy()
+        with sp["sample"]:
+            for r, (st, start, n, _, last) in enumerate(group):
+                tok = self._commit_grant_row(
+                    st, start, n, logits_np[r] if last else None, last)
+                if tok is not None:
+                    events.append((st.request.rid, tok))
+                    if st.done:
+                        self._finish(st)
 
     def _commit_grant_row(self, st: RequestState, start: int, n_tokens: int,
                           logits_row, last: bool) -> Optional[int]:
@@ -892,7 +968,6 @@ class PagedEngine:
         st.prefilled = start + n_tokens
         self.lengths[slot] = st.prefilled
         self.metrics["prefill_grants"] += 1
-        self.registry.histogram("grant_size").observe(n_tokens)
         if start > 0:
             self.metrics["resumed_grants"] += 1
         # a scheduler grant can be dropped and re-issued (packmate eviction,
@@ -910,7 +985,6 @@ class PagedEngine:
             ttft = st.t_first - st.t_submit
             self.metrics["ttft_sum"] += ttft
             self.metrics["ttft_n"] += 1
-            self.registry.histogram("ttft").observe(ttft)
         self.trace.emit("sample", rid=req.rid, slot=slot, first=first)
         if self.spec_k:
             # (re)build the self-draft over everything resident: after a
@@ -943,33 +1017,17 @@ class PagedEngine:
         fn = self._get_prefill_batched(T, rows,
                                        all_fresh=bool(np.all(starts == 0)))
         host = dict(tokens=toks, bt=bts, starts=starts, n_reals=n_reals)
-        self._compile(fn, host)
-        any_last = any(p[4] for p in group)
-        t0 = time.perf_counter()
-        with torchprof.annotate(f"prefill/T={T}x{rows}"):
-            fn.stage(**host)
-            logits_last = fn()
-            if any_last:                      # the full vocab rows to sample
-                logits_last = all_gather_last(logits_last, self._ctx)
-        self.metrics["prefill_dispatch_s"] += time.perf_counter() - t0
-        synchronize(self.device)
-        dur = time.perf_counter() - t0
+        logits, t0, dur = self._call_prefill(
+            fn, host, f"prefill/T={T}x{rows}", any(p[4] for p in group),
+            [p[0] for p in group])
         n_total = int(n_reals.sum())
-        self.metrics["prefill_s"] += dur
         self.metrics["prefill_tokens"] += n_total
         self.metrics["prefill_pad_tokens"] += rows * T - n_total
         self.metrics["prefill_pad_rows"] += rows - R
         self.metrics["prefill_calls"] += 1
         self.trace.emit("prefill_call", dur=dur, ts=t0, tokens=n_total,
                         pad=rows * T - n_total, rows=R)
-        logits_np = logits_last.float().cpu().numpy() if any_last else None
-        for r, (st, start, n, _, last) in enumerate(group):
-            tok = self._commit_grant_row(
-                st, start, n, logits_np[r] if last else None, last)
-            if tok is not None:
-                events.append((st.request.rid, tok))
-                if st.done:
-                    self._finish(st)
+        self._commit_rows(group, logits, events)
 
     def _finish(self, st: RequestState) -> None:
         self.metrics["completed"] += 1
@@ -1033,12 +1091,7 @@ class PagedEngine:
                 prep = self._prep_grant(g)
                 if prep is None:
                     continue
-                st, start, n, padded, last = prep
-                tok = self._run_grant(st, start, n, padded, last)
-                if tok is not None:
-                    events.append((st.request.rid, tok))
-                    if st.done:
-                        self._finish(st)
+                self._run_grant(*prep, events)
             return
         # packed: prep runs pack by pack in policy order, so eviction and
         # copy-on-write go as on the batch-1 path; a prep that evicts a
@@ -1189,80 +1242,85 @@ class PagedEngine:
             self.decode_schedule_steps.get(schedule, 0) + 1
         host = dict(toks=toks, lengths=self.lengths, bt=bt, mask=mask)
         self._compile(fn, host)
-        t0 = time.perf_counter()
-        with torchprof.annotate(f"decode/K={K}/S={S}"):
+        sp = self._spans
+        with sp["decode.launch"] as launch, \
+                torchprof.annotate(f"decode/K={K}/S={S}"):
             fn.stage(**host)
             logits = all_gather_last(fn(), self._ctx)
-        self.metrics["decode_dispatch_s"] += time.perf_counter() - t0
-        synchronize(self.device)
-        dur = time.perf_counter() - t0
-        logits = logits.float().cpu().numpy()
-        self.metrics["decode_s"] += dur
+        with sp["decode.wait"] as wait:
+            synchronize(self.device)
+        dur = launch.dt + wait.dt
+        with sp["logits.to_host"]:
+            logits = logits.float().cpu().numpy()
         self.metrics["decode_calls"] += 1
-        self.trace.emit("decode_call", dur=dur, ts=t0, k=K, active=len(active))
+        self.trace.emit("decode_call", dur=dur, ts=launch.t0, k=K,
+                        active=len(active))
         if K > 1:
             self.metrics["spec_calls"] += 1
-
-        # rejected window positions: the reference invalidates their pos
-        # entries; the port has no pos pool (its KV past a length is never
-        # read) and narrates the same count
-        rejected = 0
-        for st in active:
-            i = st.slot
-            if K == 1:
-                acc = [sample(logits[i, 0][:self.cfg.vocab_size],
-                              st.request.sampling, len(st.generated))]
-                if self._drafts[i] is not None:
-                    # keep the draft fresh across K=1 fallbacks, or the
-                    # next verify drafts from a stale anchor
-                    self._drafts[i].observe([int(acc[0])])
-            else:
-                # greedy accept: the longest matching prefix of the drafts,
-                # plus the model's bonus token when all of them hit; the
-                # rejected positions' KV stays past the length, unread
-                argmaxes = logits[i, :, :self.cfg.vocab_size].argmax(axis=-1)
-                budget = st.request.sampling.max_new_tokens \
-                    - len(st.generated)
-                acc = accept_greedy(drafts[i], argmaxes)[:max(budget, 1)]
-                self.metrics["spec_tokens"] += len(acc)
-                self.registry.histogram("accept_len").observe(len(acc))
-                self._drafts[i].observe([int(t) for t in acc])
-                rejected += K - len(acc)
-            self.alloc.commit(st.request.rid, len(acc))
-            self.metrics["decode_tokens"] += len(acc)
-            self.trace.emit("accept", rid=st.request.rid, slot=i, n=len(acc),
-                            spec=K > 1)
-            self.registry.histogram("tpot").observe(dur / len(acc))
-            for tok in acc:
-                st.generated.append(int(tok))
-                events.append((st.request.rid, int(tok)))
-            self.lengths[i] += len(acc)
-            self.last_tokens[i] = int(acc[-1])
-            st.finish_check()
-            if st.done:
-                self._finish(st)
-        if rejected:
-            self.trace.emit("spec_rollback", n=rejected)
+        with sp["sample"]:
+            # rejected window positions: the reference invalidates their
+            # pos entries; the port has no pos pool (its KV past a length is
+            # never read) and narrates the same count
+            rejected = 0
+            for st in active:
+                i = st.slot
+                if K == 1:
+                    acc = [sample(logits[i, 0][:self.cfg.vocab_size],
+                                  st.request.sampling, len(st.generated))]
+                    if self._drafts[i] is not None:
+                        # keep the draft fresh across K=1 fallbacks, or the
+                        # next verify drafts from a stale anchor
+                        self._drafts[i].observe([int(acc[0])])
+                else:
+                    # greedy accept: the longest matching prefix of the
+                    # drafts, plus the model's bonus token when all of them
+                    # hit; the rejected positions' KV stays past the
+                    # length, unread
+                    argmaxes = logits[i, :, :self.cfg.vocab_size].argmax(
+                        axis=-1)
+                    budget = st.request.sampling.max_new_tokens \
+                        - len(st.generated)
+                    acc = accept_greedy(drafts[i], argmaxes)[:max(budget, 1)]
+                    self.metrics["spec_tokens"] += len(acc)
+                    self.registry.histogram("accept_len").observe(len(acc))
+                    self._drafts[i].observe([int(t) for t in acc])
+                    rejected += K - len(acc)
+                self.alloc.commit(st.request.rid, len(acc))
+                self.metrics["decode_tokens"] += len(acc)
+                self.trace.emit("accept", rid=st.request.rid, slot=i,
+                                n=len(acc), spec=K > 1)
+                self.registry.histogram("tpot").observe(dur / len(acc))
+                for tok in acc:
+                    st.generated.append(int(tok))
+                    events.append((st.request.rid, int(tok)))
+                self.lengths[i] += len(acc)
+                self.last_tokens[i] = int(acc[-1])
+                st.finish_check()
+                if st.done:
+                    self._finish(st)
+            if rejected:
+                self.trace.emit("spec_rollback", n=rejected)
 
     # ------------------------------------------------------------------
     def step(self) -> List[Tuple[int, int]]:
         """One engine iteration: admission -> budgeted prefill grants ->
         batched decode.  Returns (rid, token) events."""
+        t0 = time.perf_counter()
         events: List[Tuple[int, int]] = []
-        self.metrics["steps"] += 1
-        if self.scheduler.runs_prefill:
-            self._admit()
-            self._prefill_phase(events)
-        if self.scheduler.runs_decode:
-            self._decode_phase(events)
-        used = self.alloc.used_pages
-        frag = self.alloc.fragmentation()
-        self.registry.gauge("pool_occupancy").set(used)
-        self.registry.gauge("free_list_fragmentation").set(frag)
-        self.metrics["peak_used_pages"] = max(self.metrics["peak_used_pages"],
-                                              used)
-        self.trace.emit("pool", used=used, free=self.alloc.free_pages,
-                        frag=frag)
+        # the schedule span holds the step; the other phases pause it
+        with self._spans["schedule"]:
+            self.metrics["steps"] += 1
+            if self.scheduler.runs_prefill:
+                self._admit()
+                self._prefill_phase(events)
+            if self.scheduler.runs_decode:
+                self._decode_phase(events)
+            used = self.alloc.used_pages
+            self.metrics["peak_used_pages"] = max(
+                self.metrics["peak_used_pages"], used)
+            self.trace.emit("pool", used=used, free=self.alloc.free_pages,
+                            frag=self.alloc.fragmentation())
+        self.metrics["step_s"] += time.perf_counter() - t0
         return events
 
     def run_until_complete(self, max_steps: int = 10_000

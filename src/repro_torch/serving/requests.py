@@ -43,6 +43,9 @@ class RequestState:
     chunk_plan: Tuple[int, ...] = ()  # ISO chunk boundaries = scheduling quanta
     t_submit: float = 0.0
     t_first: float = -1.0             # wall time of the first sampled token
+    # since when it waits for its first prefill call: its submission, or
+    # its recompute preemption (-1 once a call took it, or never queued)
+    t_queued: float = -1.0
 
     @property
     def total_len(self) -> int:

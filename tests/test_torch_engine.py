@@ -194,8 +194,8 @@ def _stream(events):
 
 def test_engine_trace_equals_reference_and_replays(weights):
     """test_obs.py:415 on both engines: the same event stream once timings
-    are removed, the port's replaying into its registry, one TTFT a request
-    and one TPOT observation a decoded token."""
+    are removed, the port's replaying into its registry, one TTFT a
+    request."""
     rng = np.random.default_rng(1)
     prompts = [rng.integers(2, 64, n).astype(np.int32) for n in (20, 11, 15)]
     got, eng, want, ref = _pair(weights, prompts, 4, max_len=96)
@@ -205,7 +205,6 @@ def test_engine_trace_equals_reference_and_replays(weights):
     m = eng.metrics
     assert m["ttft_n"] == 3 and m["ttft_sum"] > 0 and m["preemptions"] == 0
     assert eng.registry.histogram("ttft").n == 3
-    assert eng.registry.histogram("tpot").n == m["decode_tokens"]
     rep = obs.replay_counters(eng.trace.events())
     assert {k: rep[k] for k in REPLAYABLE if k in m} == \
         {k: m[k] for k in REPLAYABLE if k in m}
@@ -238,7 +237,9 @@ def test_dense_and_paged_share_replayable_key_set(weights):
                           iso=REF_ISO), weights[0], mesh=None, max_batch=2,
                   max_len=96, bucket=16)
     assert set(dense.metrics) == set(ref.metrics)
-    assert set(dense.registry.histograms) == set(ref.registry.histograms)
+    # the port keeps the one histogram something reads (chip_smoke.py)
+    assert set(dense.registry.histograms) == \
+        set(ref.registry.histograms) - {"tpot", "accept_len"} == {"ttft"}
 
 
 def test_outside_the_slice_raises(weights):
