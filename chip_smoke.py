@@ -1829,11 +1829,11 @@ def serve_full(report, card: str):
     """Phase 3: the six requests on an eager engine (``cuda_graphs=False``),
     then on a graphed one, a capture pass and a timed pass; the graphed
     tokens must equal the eager ones."""
-    import numpy as np
     import torch
     from repro_torch.config import Config, ISOConfig, ParallelConfig, \
         ServingConfig, get_model_config
     from repro_torch.kernels import flash_decode as fd
+    from repro_torch.launch.serve import FiniteRows
     from repro_torch.models import api
     from repro_torch.serving import PagedEngine, paged_engine
 
@@ -1863,15 +1863,6 @@ def serve_full(report, card: str):
     serve_defaults_fp32(report, card, lengths)
     serve_disagg(report, card, cfg, params, lengths)
     serve_disagg_fp32(report, card, lengths)
-    checked = {"rows": 0}
-    real_sample = paged_engine.sample
-
-    def finite_sample(logits, sp, step):
-        if not np.isfinite(logits).all():
-            raise AssertionError("non-finite logits")
-        checked["rows"] += 1
-        return real_sample(logits, sp, step)
-
     # the card's reserved memory after each capture
     reserved = []
     capture = paged_engine.StepClosure.capture
@@ -1885,35 +1876,35 @@ def serve_full(report, card: str):
         return (torch.cuda.max_memory_allocated() / 2**30,
                 torch.cuda.max_memory_reserved() / 2**30)
 
-    paged_engine.sample = finite_sample
     paged_engine.StepClosure.capture = noted_capture
-    try:
-        torch.cuda.reset_peak_memory_stats()
-        eng = PagedEngine(config, params, device="cuda", cuda_graphs=False)
-        eager = serve_pass(eng, prompts, "eager", card)
-        eager_peak = peaks()
-        del eng
-        free_cuda()
-        torch.cuda.reset_peak_memory_stats()
-        before = torch.cuda.memory_reserved() / 2**30
-        eng = PagedEngine(config, params, device="cuda")
-        first = serve_pass(eng, prompts, "graphed, capture pass", card)
-        graphs, capture_s = eng.graphs, eng.capture_s
-        res = serve_pass(eng, prompts, "graphed, timed pass", card)
-        peak = peaks()
-        m = res["m"]
-        report["serve"] = dict(
-            prefill_tok_s=m["prefill_tokens"] / m["prefill_s"],
-            decode_ms_step=1e3 * m["decode_s"] / m["decode_calls"],
-            peak_gib=peak[0])
-        # phase 9 (c) and (b), before the idle share's profiler
-        report["probe_tp1"] = probe_engine(eng, prompts, res,
-                                           "qwen3-8b graphed tp=1", card)
-        serve_ladder(report, card, params, prompts)
-        decode_idle_share(eng, prompts, card)
-    finally:
-        paged_engine.sample = real_sample
-        paged_engine.StepClosure.capture = capture
+    with FiniteRows() as finite:
+        try:
+            torch.cuda.reset_peak_memory_stats()
+            eng = PagedEngine(config, params, device="cuda",
+                              cuda_graphs=False)
+            eager = serve_pass(eng, prompts, "eager", card)
+            eager_peak = peaks()
+            del eng
+            free_cuda()
+            torch.cuda.reset_peak_memory_stats()
+            before = torch.cuda.memory_reserved() / 2**30
+            eng = PagedEngine(config, params, device="cuda")
+            first = serve_pass(eng, prompts, "graphed, capture pass", card)
+            graphs, capture_s = eng.graphs, eng.capture_s
+            res = serve_pass(eng, prompts, "graphed, timed pass", card)
+            peak = peaks()
+            m = res["m"]
+            report["serve"] = dict(
+                prefill_tok_s=m["prefill_tokens"] / m["prefill_s"],
+                decode_ms_step=1e3 * m["decode_s"] / m["decode_calls"],
+                peak_gib=peak[0])
+            # phase 9 (c) and (b), before the idle share's profiler
+            report["probe_tp1"] = probe_engine(eng, prompts, res,
+                                               "qwen3-8b graphed tp=1", card)
+            serve_ladder(report, card, params, prompts)
+            decode_idle_share(eng, prompts, card)
+        finally:
+            paged_engine.StepClosure.capture = capture
     closures = (len(eng._prefill_fns) + len(eng._decode_fns)
                 + len(eng._decode_fallback_fns))
     bound = eng.max_prefill_compiles() + len(eng._decode_fns) \
@@ -1967,7 +1958,7 @@ def serve_full(report, card: str):
         raise AssertionError(f"decode dispatch share {shares}: graphed not "
                              f"below eager")
     log(f"[serve] {len(prompts)} requests, prompts {lengths}, 32 new tokens "
-        f"each, {checked['rows']} logits rows finite; graphed tokens == "
+        f"each, {finite.rows} logits rows finite; graphed tokens == "
         f"eager tokens (both passes); timed pass launches {launches} (through "
         f"replays); paged_prefill by instantiation {variants}; {split_steps} "
         f"of {m['decode_calls']} decode steps at S > 1 (steps by S "
@@ -2070,11 +2061,11 @@ def defaults_prompts(cfg, lengths):
 class LogitsRecorder:
     """While active, records the logits row (fp32, on the host, the vocab's
     columns) of every emitted token by (rid, index into the request's
-    generated tokens): a prompt-finishing grant's row from
-    ``_commit_grant_row``, a decode step's rows from the logits
-    ``all_gather_last`` hands the engine (the rows of a verify window that
-    were emitted), and whether every logit it saw was finite.  Adds a check
-    and a copy to the host to every call, so it is kept off timed passes."""
+    generated tokens), from the logits ``all_gather_last`` hands the
+    engine: a prefill call's prompt-finishing rows in ``_commit_rows``, a
+    decode step's rows (the rows of a verify window that were emitted), and
+    whether every logit it saw was finite.  Adds a check and a copy to the
+    host to every call, so it is kept off timed passes."""
 
     def __init__(self, vocab: int):
         self.vocab = vocab
@@ -2083,12 +2074,11 @@ class LogitsRecorder:
         self._last = None
 
     def __enter__(self):
-        import numpy as np
         import torch
         from repro_torch.serving import paged_engine
         E = paged_engine.PagedEngine
         self.orig = (paged_engine.all_gather_last, E._decode_phase,
-                     E._commit_grant_row)
+                     E._commit_rows)
         gather, decode_phase, commit = self.orig
 
         def rec_gather(x, ctx):
@@ -2110,22 +2100,26 @@ class LogitsRecorder:
                     self.rec[(st.request.rid, g0 + qi)] = \
                         rows[slot, qi].copy()
 
-        def rec_commit(eng, st, start, n_tokens, logits_row, last):
-            if last:
-                self.rec[(st.request.rid, len(st.generated))] = np.array(
-                    logits_row[:self.vocab], np.float32)
-            return commit(eng, st, start, n_tokens, logits_row, last)
+        def rec_commit(eng, group, picks, events):
+            # the gather of this prefill call, when a row samples
+            if picks is not None:
+                rows = self._last.cpu().numpy()             # (R, V)
+                for r, (st, _, _, _, last) in enumerate(group):
+                    if last:
+                        self.rec[(st.request.rid, len(st.generated))] = \
+                            rows[r].copy()
+            return commit(eng, group, picks, events)
 
         paged_engine.all_gather_last = rec_gather
         E._decode_phase = rec_decode_phase
-        E._commit_grant_row = rec_commit
+        E._commit_rows = rec_commit
         return self
 
     def __exit__(self, *exc):
         from repro_torch.serving import paged_engine
         E = paged_engine.PagedEngine
         paged_engine.all_gather_last, E._decode_phase, \
-            E._commit_grant_row = self.orig
+            E._commit_rows = self.orig
         self._last = None
         return False
 

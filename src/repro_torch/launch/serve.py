@@ -29,7 +29,9 @@ records a ``torch.profiler`` trace of the run into DIR (``obs.torchprof``;
 one subdirectory a rank under ``--tp``), the engine's ``engine/…`` phase
 ranges in it.  A paged run's ``host:`` line splits the engines' host time
 by those phases (their counters, ``prep_s`` … ``sample_s``) and gives the
-mean wait before a request's first prefill call (``grant_wait_s``).
+mean wait before a request's first prefill call (``grant_wait_s``) and the
+share of sampled rows whose token was picked on the device
+(``sampled_rows_device`` of it and ``sampled_rows_host``).
 
 Serving modes and traffic, as the reference's launcher: ``--disagg`` serves
 through a prefill engine and a decode engine with KV pages migrating
@@ -75,8 +77,7 @@ from repro_torch.launch.mesh import DisaggGroup, disagg_devices, spawn
 from repro_torch.launch.train import reduce_cfg  # noqa: F401
 from repro_torch.models import api
 from repro_torch.obs import torchprof, write_chrome_trace
-from repro_torch.serving import Engine, PagedEngine, Request, engine, \
-    paged_engine
+from repro_torch.serving import Engine, PagedEngine, Request, engine
 from repro_torch.serving.disagg import DisaggRouter
 from repro_torch.serving.requests import SamplingParams
 
@@ -87,6 +88,38 @@ LATENCY_HIDING_NOTE = (
     "scheduler; the port runs eagerly, so program order is the schedule "
     "(core/overlap.py): each reduce is issued the moment its partial "
     "exists and waited on after the next unit's compute")
+
+
+class FiniteRows:
+    """While active, every row a ``PagedEngine`` samples, greedy or on the
+    host, is held to finite logits: ``PagedEngine._pick`` is wrapped to flag
+    each row of the call's logits finite on the device, and
+    ``PagedEngine._fetch``, after the call's fence, to read the flags of the
+    rows that sample and raise on a non-finite one.  ``rows`` counts the
+    rows checked."""
+
+    def __enter__(self):
+        self.real = pick, fetch = PagedEngine._pick, PagedEngine._fetch
+        self.rows, flags = 0, [None]
+
+        def checked_pick(eng, logits, rows, host_rows):
+            flags[0] = torch.isfinite(
+                logits[..., :eng.cfg.vocab_size]).all(-1)
+            return pick(eng, logits, rows, host_rows)
+
+        def checked_fetch(eng, picks):
+            rows = picks[0]
+            if not flags[0].cpu().numpy()[rows].all():
+                raise FloatingPointError("non-finite logits row")
+            self.rows += len(rows)
+            return fetch(eng, picks)
+
+        PagedEngine._pick, PagedEngine._fetch = checked_pick, checked_fetch
+        return self
+
+    def __exit__(self, *exc):
+        PagedEngine._pick, PagedEngine._fetch = self.real
+        return False
 
 
 def _engines(eng) -> tuple:
@@ -220,15 +253,6 @@ def serve_rank(group, config: Config,
                                  dtype=getattr(torch, dtype), device=dev,
                                  rank=rank if tp_group is not None
                                  else None)
-    real_sample = paged_engine.sample
-    rows = [0]
-
-    def finite_sample(logits, sp, step):
-        if not np.isfinite(logits).all():
-            raise FloatingPointError("non-finite logits row")
-        rows[0] += 1
-        return real_sample(logits, sp, step)
-
     if autotune:
         from repro_torch.perf.costmodel import CostModel
         from repro_torch.perf.costmodel import autotune as measure
@@ -243,8 +267,7 @@ def serve_rank(group, config: Config,
         profile_dir = os.path.join(
             profile_dir, f"rank{getattr(group, 'global_rank', rank)}")
     results = []
-    paged_engine.sample = finite_sample
-    try:
+    with FiniteRows() as finite:
         for v in variants:
             cfg_v = dataclasses.replace(
                 config,
@@ -256,7 +279,7 @@ def serve_rank(group, config: Config,
             rids = _submit(eng, v)
             synchronize(dev)
             native.reset_launches()
-            rows[0] = 0
+            finite.rows = 0
             if profile_dir is not None:
                 torchprof.start(profile_dir)
             lead = getattr(group, "global_rank", rank) == 0
@@ -277,7 +300,8 @@ def serve_rank(group, config: Config,
                 launches=dict(native.LAUNCHES),
                 schedule_steps=dict(last.decode_schedule_steps),
                 accepted_per_call=last.accepted_per_call(),
-                decode_schedule=last._decode_schedule, rows_checked=rows[0],
+                decode_schedule=last._decode_schedule,
+                rows_checked=finite.rows,
                 wall=wall, graphs=sum(e.graphs for e in engines),
                 capture_s=sum(e.capture_s for e in engines),
                 trace=[ev for e in engines for ev in e.trace.events()],
@@ -303,8 +327,6 @@ def serve_rank(group, config: Config,
                         f"captured {eng.graphs - graphs} graphs")
             results.append(res)
             del eng
-    finally:
-        paged_engine.sample = real_sample
     return results
 
 
@@ -547,13 +569,16 @@ def main(argv=None) -> int:
           f"({1e3 * m['decode_s'] / max(m['decode_calls'], 1):.2f} ms/step) "
           f"| preemptions={m['preemptions']} completed={m['completed']}")
     launch = m["prefill_dispatch_s"] + m["decode_dispatch_s"]
+    sampled = m["sampled_rows_device"] + m["sampled_rows_host"]
     print(f"host: {m['step_s']:.3f}s in {m['steps']} steps = schedule "
           f"{m['prep_s']:.3f} + capture {res['capture_s']:.3f} + launch "
           f"{launch:.3f} + wait {m['prefill_s'] + m['decode_s'] - launch:.3f}"
           f" + logits copy {m['logits_copy_s']:.3f} + sample "
           f"{m['sample_s']:.3f} | grant wait "
           f"{1e3 * m['grant_wait_s'] / max(m['grant_wait_n'], 1):.1f}ms "
-          f"over {m['grant_wait_n']} requests")
+          f"over {m['grant_wait_n']} requests | sampled on the device "
+          f"{m['sampled_rows_device']} of {sampled} rows "
+          f"({100 * m['sampled_rows_device'] / max(sampled, 1):.1f}%)")
     print(f"sharing: prefix_shared_tokens={m['prefix_shared_tokens']} "
           f"cow_copies={m['cow_copies']} peak_used_pages="
           f"{m['peak_used_pages']} | packs: prefill_grants="

@@ -61,12 +61,14 @@ Phase spans (``obs.torchprof.Span``, ``STEP_SPANS``) tile each ``step()``:
 copy-on-write, the host arrays and block tables, the split count and the
 closure lookup, the pool's narration; counter ``prep_s``),
 ``engine/capture`` (a graph's capture; ``capture_s``),
-``engine/prefill.launch`` and ``engine/decode.launch`` (staging, replay and
-the logits' gather until the calls return; ``prefill_dispatch_s``,
-``decode_dispatch_s``), ``engine/prefill.wait`` and ``engine/decode.wait``
-(the fence; with the launch, ``prefill_s`` and ``decode_s``),
-``engine/logits.to_host`` (``logits_copy_s``) and ``engine/sample``
-(commit, sampling or greedy accept, retiring; ``sample_s``).  One is open at
+``engine/prefill.launch`` and ``engine/decode.launch`` (staging, replay,
+the logits' gather and the greedy pick until the calls return;
+``prefill_dispatch_s``, ``decode_dispatch_s``), ``engine/prefill.wait``
+and ``engine/decode.wait`` (the fence; with the launch, ``prefill_s`` and
+``decode_s``), ``engine/logits.to_host`` (the rows' greedy ids, and the
+logits of rows that sample on the host; ``logits_copy_s``) and
+``engine/sample`` (commit, sampling or greedy accept, retiring;
+``sample_s``).  One is open at
 a time, so their seconds add up to the step's host time ``step_s``.  Their
 counters are always on; while any ``torch.profiler`` records, each also
 puts a range of its name on the profile, so the card's idle gaps can be put
@@ -116,6 +118,16 @@ a sequential step whenever fewer than 2 requests decode; ``sequential``,
 (``residual_wiring="ladder"``) always runs the ladder decode stack: deferred
 collectives (``ladder``) when ``decode_overlap``, immediate ones
 (``ladder_seq``) otherwise, or the one ``decode_schedule`` names.
+
+Sampling: right after each call that samples, still inside its launch
+span, every row's greedy token is picked on the device (``pick_greedy``, the
+argmax over the vocab's columns of the gathered logits) and only those
+(B, K) ids are copied to the host after the fence.  A row whose
+``SamplingParams`` has ``temperature > 0`` (never inside a verify window)
+has its logits row selected on the device and copied, and samples on the
+host (``serving/sampler.sample``) as the reference does; a call with no
+such row copies no logits.  ``sampled_rows_device`` and
+``sampled_rows_host`` count the rows each way.
 
 When the pool runs dry a victim is evicted (recompute preemption: its pages
 are freed and prompt + generated re-enter the waiting queue).
@@ -189,6 +201,20 @@ STEP_SPANS = (
     ("logits.to_host", ("logits_copy_s",)),
     ("sample", ("sample_s",)),
 )
+
+
+def pick_greedy(logits: torch.Tensor, vocab: int) -> torch.Tensor:
+    """The greedy token of every row of gathered logits (..., V_pad): the
+    argmax over the first ``vocab`` columns (a padded column never wins) in
+    the logits' own dtype, the first of equal maxima as ``np.argmax`` takes
+    it; int32 on the logits' device."""
+    return logits[..., :vocab].argmax(-1).to(torch.int32)
+
+
+def _on_host(sampling) -> bool:
+    """Whether a row with these ``SamplingParams`` samples on the host."""
+    return sampling.temperature > 0
+
 
 # the paged engine serves decoder-only stacks, as the reference's
 AUDIO_MSG = ("encoder-decoder (audio) models are served by the dense Engine "
@@ -376,11 +402,12 @@ class PagedEngine:
         # holds before first use; timed sums are fenced execution time, the
         # *_dispatch_s pair the host time until the calls return.  The port
         # adds the step's host time by phase (STEP_SPANS: step_s, prep_s,
-        # logits_copy_s, sample_s) and the wait before a request's first
-        # prefill call (grant_wait_s over grant_wait_n)
+        # logits_copy_s, sample_s), the wait before a request's first
+        # prefill call (grant_wait_s over grant_wait_n) and the sampled rows
+        # whose token was picked on the device or on the host
         self.registry.counters((
             "step_s", "prep_s", "logits_copy_s", "sample_s", "grant_wait_s",
-            "grant_wait_n",
+            "grant_wait_n", "sampled_rows_device", "sampled_rows_host",
             "prefill_s", "decode_s", "prefill_dispatch_s",
             "decode_dispatch_s", "prefill_tokens", "decode_tokens",
             "completed", "decode_calls", "prefill_calls", "steps",
@@ -879,27 +906,59 @@ class PagedEngine:
     # step phases
     # ------------------------------------------------------------------
     def _call_prefill(self, fn: StepClosure, host: Dict, label: str,
-                      gather: bool, states: List[RequestState]) -> Tuple:
+                      group: List[Tuple]) -> Tuple:
         """One fenced prefill call of ``fn`` over ``host`` (captured first if
         it must be), under the launch and wait spans and the closure-call
-        range ``label``; ``gather``: the full vocab rows, to sample.  A
-        request in ``states`` that waited for its first call adds that wait
-        to ``grant_wait_s``.  Returns (logits, call start, fenced seconds)."""
+        range ``label``, for the prepped grants ``group`` (its rows, in
+        order): when a row samples, the full vocab rows are gathered and
+        picked (``_pick``).  A request of ``group`` that waited for its
+        first call adds that wait to ``grant_wait_s``.  Returns (the picks
+        or None, call start, fenced seconds)."""
         self._compile(fn, host)
         sp = self._spans
+        picks = None
         with sp["prefill.launch"] as launch, torchprof.annotate(label):
             fn.stage(**host)
             logits = fn()
-            if gather:
-                logits = all_gather_last(logits, self._ctx)
+            rows = [r for r, p in enumerate(group) if p[4]]
+            if rows:
+                picks = self._pick(
+                    all_gather_last(logits, self._ctx), rows,
+                    [r for r in rows
+                     if _on_host(group[r][0].request.sampling)])
         with sp["prefill.wait"] as wait:
             synchronize(self.device)
-        for st in states:
+        for st, *_ in group:
             if st.t_queued >= 0:
                 self.metrics["grant_wait_s"] += launch.t0 - st.t_queued
                 self.metrics["grant_wait_n"] += 1
                 st.t_queued = -1.0
-        return logits, launch.t0, launch.dt + wait.dt
+        return picks, launch.t0, launch.dt + wait.dt
+
+    def _pick(self, logits: torch.Tensor, rows: List[int],
+              host_rows: List[int]) -> Tuple:
+        """Right after a call, while its output holds this call's gathered
+        ``logits`` ((R, V_pad) or (B, K, V_pad)): every row's greedy id on
+        the device, and the vocab columns of ``host_rows`` (those of the
+        sampling ``rows`` that sample on the host) selected for their
+        copy."""
+        V = self.cfg.vocab_size
+        self.metrics["sampled_rows_device"] += len(rows) - len(host_rows)
+        self.metrics["sampled_rows_host"] += len(host_rows)
+        # the greedy ids are indexed on the host: a list index on the device
+        # is copied from pageable memory and waits for the replay to end
+        return (rows, pick_greedy(logits, V), host_rows,
+                logits[host_rows, ..., :V] if host_rows else None)
+
+    def _fetch(self, picks: Tuple) -> Tuple[Dict, Dict]:
+        """After the fence, under ``engine/logits.to_host``: the picked ids
+        to the host, and the host rows' logits (fp32) when there are any;
+        each as ``{row: ...}`` over the rows that sample."""
+        rows, ids, host_rows, logits = picks
+        with self._spans["logits.to_host"]:
+            ids = ids.cpu().numpy()
+            logits = logits.float().cpu().numpy() if host_rows else ()
+        return {r: ids[r] for r in rows}, dict(zip(host_rows, logits))
 
     def _run_grant(self, st: RequestState, start: int, n_tokens: int,
                    padded: int, last: bool,
@@ -926,42 +985,45 @@ class PagedEngine:
             host["slot"] = st.slot
         if n_patches:
             host["patches"] = np.asarray(req.patches, np.float32)[None]
-        logits, t0, dur = self._call_prefill(fn, host, f"prefill/T={padded}",
-                                             last, [st])
+        group = [(st, start, n_tokens, padded, last)]
+        picks, t0, dur = self._call_prefill(fn, host, f"prefill/T={padded}",
+                                            group)
         self.metrics["prefill_tokens"] += n_tokens
         self.metrics["prefill_pad_tokens"] += padded - n_tokens
         self.metrics["prefill_calls"] += 1
         self.trace.emit("prefill_call", rid=st.request.rid, slot=st.slot,
                         dur=dur, ts=t0, tokens=n_tokens,
                         pad=padded - n_tokens, rows=1)
-        self._commit_rows([(st, start, n_tokens, padded, last)], logits,
-                          events)
+        self._commit_rows(group, picks, events)
 
-    def _commit_rows(self, group: List[Tuple], logits,
+    def _commit_rows(self, group: List[Tuple], picks,
                      events: List[Tuple[int, int]]) -> None:
         """After a prefill call over prepped grants ``group`` (its rows, in
-        order): the logits to the host when a row samples, then each row's
-        commit and sample, and the requests it finished retired."""
-        sp = self._spans
-        logits_np = None
-        if any(p[4] for p in group):
-            with sp["logits.to_host"]:
-                logits_np = logits.float().cpu().numpy()
-        with sp["sample"]:
+        order): the picks to the host when a row samples, then each row's
+        commit and token (its greedy id, or sampled from its logits on the
+        host), and the requests it finished retired."""
+        if picks is not None:
+            ids, logits = self._fetch(picks)
+        with self._spans["sample"]:
             for r, (st, start, n, _, last) in enumerate(group):
-                tok = self._commit_grant_row(
-                    st, start, n, logits_np[r] if last else None, last)
+                tok = None
+                if last:
+                    tok = sample(logits[r], st.request.sampling,
+                                 step=len(st.generated)) if r in logits \
+                        else int(ids[r])
+                tok = self._commit_grant_row(st, start, n, tok)
                 if tok is not None:
                     events.append((st.request.rid, tok))
                     if st.done:
                         self._finish(st)
 
     def _commit_grant_row(self, st: RequestState, start: int, n_tokens: int,
-                          logits_row, last: bool) -> Optional[int]:
+                          tok: Optional[int]) -> Optional[int]:
         """Post-forward bookkeeping for one grant (batch-1 or a pack's row):
         commit tokens, advance prefill progress and, for a prompt-finishing
-        grant, sample the first token, stamp TTFT and (re)build the
-        speculative self-draft."""
+        grant (``tok``, its sampled first token, not None), stamp TTFT and
+        (re)build the speculative self-draft."""
+        last = tok is not None
         req = st.request
         slot = st.slot
         self.alloc.commit(req.rid, n_tokens)
@@ -976,8 +1038,6 @@ class PagedEngine:
                         n=n_tokens, last=last)
         if not last:
             return None
-        tok = sample(logits_row[:self.cfg.vocab_size], req.sampling,
-                     step=len(st.generated))
         self.metrics["prefill_samples"] += 1
         first = st.t_first < 0
         if first:
@@ -1017,9 +1077,8 @@ class PagedEngine:
         fn = self._get_prefill_batched(T, rows,
                                        all_fresh=bool(np.all(starts == 0)))
         host = dict(tokens=toks, bt=bts, starts=starts, n_reals=n_reals)
-        logits, t0, dur = self._call_prefill(
-            fn, host, f"prefill/T={T}x{rows}", any(p[4] for p in group),
-            [p[0] for p in group])
+        picks, t0, dur = self._call_prefill(fn, host,
+                                            f"prefill/T={T}x{rows}", group)
         n_total = int(n_reals.sum())
         self.metrics["prefill_tokens"] += n_total
         self.metrics["prefill_pad_tokens"] += rows * T - n_total
@@ -1027,7 +1086,7 @@ class PagedEngine:
         self.metrics["prefill_calls"] += 1
         self.trace.emit("prefill_call", dur=dur, ts=t0, tokens=n_total,
                         pad=rows * T - n_total, rows=R)
-        self._commit_rows(group, logits, events)
+        self._commit_rows(group, picks, events)
 
     def _finish(self, st: RequestState) -> None:
         self.metrics["completed"] += 1
@@ -1243,15 +1302,20 @@ class PagedEngine:
         host = dict(toks=toks, lengths=self.lengths, bt=bt, mask=mask)
         self._compile(fn, host)
         sp = self._spans
+        rows = [st.slot for st in active]
+        # rows that sample on the host (never in a verify window: the gate
+        # takes K > 1 only when every decoding request is greedy)
+        host_rows = [st.slot for st in active
+                     if _on_host(st.request.sampling)]
         with sp["decode.launch"] as launch, \
                 torchprof.annotate(f"decode/K={K}/S={S}"):
             fn.stage(**host)
-            logits = all_gather_last(fn(), self._ctx)
+            picks = self._pick(all_gather_last(fn(), self._ctx), rows,
+                               host_rows)
         with sp["decode.wait"] as wait:
             synchronize(self.device)
         dur = launch.dt + wait.dt
-        with sp["logits.to_host"]:
-            logits = logits.float().cpu().numpy()
+        ids, logits = self._fetch(picks)
         self.metrics["decode_calls"] += 1
         self.trace.emit("decode_call", dur=dur, ts=launch.t0, k=K,
                         active=len(active))
@@ -1265,8 +1329,9 @@ class PagedEngine:
             for st in active:
                 i = st.slot
                 if K == 1:
-                    acc = [sample(logits[i, 0][:self.cfg.vocab_size],
-                                  st.request.sampling, len(st.generated))]
+                    acc = [sample(logits[i][0], st.request.sampling,
+                                  len(st.generated)) if i in logits
+                           else int(ids[i][0])]
                     if self._drafts[i] is not None:
                         # keep the draft fresh across K=1 fallbacks, or the
                         # next verify drafts from a stale anchor
@@ -1276,11 +1341,9 @@ class PagedEngine:
                     # drafts, plus the model's bonus token when all of them
                     # hit; the rejected positions' KV stays past the
                     # length, unread
-                    argmaxes = logits[i, :, :self.cfg.vocab_size].argmax(
-                        axis=-1)
                     budget = st.request.sampling.max_new_tokens \
                         - len(st.generated)
-                    acc = accept_greedy(drafts[i], argmaxes)[:max(budget, 1)]
+                    acc = accept_greedy(drafts[i], ids[i])[:max(budget, 1)]
                     self.metrics["spec_tokens"] += len(acc)
                     self.registry.histogram("accept_len").observe(len(acc))
                     self._drafts[i].observe([int(t) for t in acc])

@@ -64,10 +64,10 @@ PORT_ISO = ISOConfig(enabled=True, num_chunks=2, min_chunk_tokens=8,
 # payload keys that hold wall-clock readings
 TIMING_KEYS = ("us",)
 # the port's own counters (the step's phase spans, the wait before a first
-# prefill call), and the reference's instruments the port does not keep
-# since nothing reads them
+# prefill call, the sampled rows picked on the device or the host), and the
+# reference's instruments the port does not keep since nothing reads them
 PORT_ONLY = {"step_s", "prep_s", "logits_copy_s", "sample_s", "grant_wait_s",
-             "grant_wait_n"}
+             "grant_wait_n", "sampled_rows_device", "sampled_rows_host"}
 REF_ONLY = {"pool_occupancy", "free_list_fragmentation"}
 REF_ONLY_HISTOGRAMS = {"ttft", "grant_size"}
 # every kind the two traffic cases below must narrate between them
