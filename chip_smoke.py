@@ -412,6 +412,31 @@ Phases, each fatal on failure:
                shapes, dtypes, finite, moved from the initial weights),
                then qwen3-4b at full width, 3 steps of 4 x 128 (ms a step
                after the first from the launcher's tok/s, peak allocated).
+ 18. afmoe     the dropless MoE of Trinity-Mini (``bench/configs/
+               trinity-mini.json`` through ``bench/port_afmoe.py``), after
+               phase 17: (a) the grouped expert kernels
+               (``kernels/moe_experts.py``) at its widths, 128 experts of
+               2048 -> 1024 -> 2048, top 8, bf16, at 24 rows (the
+               trinity-mini.mixed-chat cell's decode call) and 1024 (a full
+               grant call), each on the decode pair and the grant pair and
+               on one rank of a tp=2 split: within 2e-2 of the largest
+               output of ``moe_experts_plain``, the expert counts equal,
+               the call counted on the pair it picked, half the batch
+               bit-equal to its rows of the whole and a graph replay
+               bit-equal to the eager call; then the serving path's two
+               calls (decode pair at 24 rows, grant pair at 1024) timed
+               beside the plain path, ``torch._grouped_mm`` three times over
+               the same sort, and their bound.  (b) Trinity-Mini at full
+               width and depth, bf16, ``PagedEngine`` tp=1 at the cell's
+               1024-token budget, on four prompts of 300-2600 tokens (past
+               the 2048 window; a resumed grant), 16 new each, eager then
+               graphed, graphed tokens equal to eager, B1 and B3 launched;
+               in the timed pass the decode pair must run once a MoE layer
+               of every decode step and the grant pair in whole MoE stacks.
+
+``--phase N`` (repeatable) runs the build and the phases numbered N alone,
+e.g. ``python3 chip_smoke.py --phase 18``; the kernel line then holds the
+kernels those phases measured.
 
 Every pass resets its engine's registry and trace ring together
 (``reset_observability``), so a pass's trace replays into its registry.
@@ -435,7 +460,10 @@ int8 run (phase 14 (a) launches none, checked), its
 ``launches_disagg_tp`` (``{"prefill": n, "decode": n}``) from group rank 0
 of each role in phase 16: the attention kernels from (a), the int8
 reduce's three from (b)'s quantized router run; its ``launches_examples``
-is phase 17's, summed over its runs, each counted from 0.  It
+is phase 17's, summed over its runs, each counted from 0.  The grouped
+expert kernels' entry (``moe_experts``) is phase 18's: its ``launches``
+from (b)'s timed pass (kernel launches, two a call, by pair), its error,
+times and bound by call (``decode``, ``grant``) from (a).  It
 imports nothing of JAX or of the JAX package.  The last line is
 ``{"ok": true, "device": {...}}``; the line before it is the card's name and
 power limit from nvidia-smi, and before that a JSON line with each kernel's
@@ -6160,6 +6188,263 @@ def examples_all(report, card: str) -> None:
     log(f"[examples] phase launches {totals}")
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the grouped expert kernels of the dropless afmoe MoE
+# ---------------------------------------------------------------------------
+
+AFMOE_CONFIG = ROOT / "bench" / "configs" / "trinity-mini.json"
+# (rows, decode) of the kernel check: the trinity-mini.mixed-chat cell's
+# decode call (24 rows) and a full grant call (1024), each on both kernel
+# pairs; the timed cases are the two the serving path launches
+MOE_CASES = ((24, True), (1024, False), (24, False), (1024, True))
+MOE_TIMED = {"decode": (24, True), "grant": (1024, False)}
+# phase 18 (b)'s engine: one prompt past the 2048-token window and past the
+# 1024-token budget (a resumed grant), the cell's budget
+AFMOE_SV = dict(page_size=16, max_batch=4, max_len=4096,
+                prefill_token_budget=1024)
+AFMOE_LENGTHS = (2600, 700, 1500, 300)
+
+
+def afmoe_model():
+    """Trinity-Mini's ``AfmoeModelConfig`` from the benchmark's
+    configuration file, through ``bench/port_afmoe.py`` (loaded by path; it
+    imports only ``repro_torch``)."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "port_afmoe", ROOT / "bench" / "port_afmoe.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.model_config(json.loads(AFMOE_CONFIG.read_text()))
+
+
+def moe_case(gen, ws, T: int, decode: bool, k: int, scale: float,
+             e_loc: int = 0) -> dict:
+    """One call of the grouped kernels on ``T`` rows routed like the
+    sigmoid router (top k of uniform scores, normalised, times ``scale``)
+    against ``moe_experts_plain``; with ``e_loc`` the rank holding experts
+    ``e_loc .. 2 e_loc - 1`` of a tp=2 split (the other slots another
+    rank's).  Checks the launch counter of the pair it picked, the counts,
+    a half batch bit-equal to its rows of the whole and, at decode, a CUDA
+    graph's replay bit-equal to the eager call."""
+    import torch
+    from repro_torch.kernels import moe_experts as mx
+    from repro_torch.kernels import native
+
+    E, D = ws[0].shape[0], ws[0].shape[1]
+    x = torch.randn((T, D), generator=gen, device="cuda").bfloat16()
+    s = torch.rand((T, E), generator=gen, device="cuda")
+    w, idx = torch.topk(s, k, dim=-1)
+    w = w / (w.sum(-1, keepdim=True) + 1e-20) * scale
+    if e_loc:
+        idx = torch.where((idx >= e_loc) & (idx < 2 * e_loc), idx - e_loc,
+                          torch.full_like(idx, e_loc))
+        ws = tuple(t[e_loc:2 * e_loc] for t in ws)
+    label = (f"T {T} {'decode' if decode else 'grant'}"
+             + (f", rank 1 of 2 ({e_loc} experts)" if e_loc else ""))
+    native.reset_launches()
+    y, c = mx.moe_experts(x, idx, w, *ws, decode=decode)
+    torch.cuda.synchronize()
+    picked = {v: native.VARIANTS[f"moe_experts/{v}"]
+              for v in ("decode", "grant")}
+    want = {"decode": int(decode), "grant": int(not decode)}
+    if native.LAUNCHES["moe_experts"] != 1 or picked != want:
+        raise AssertionError(f"[afmoe] {label}: launches "
+                             f"{native.LAUNCHES['moe_experts']}, variants "
+                             f"{picked}; want one call, {want}")
+    yp, cp = mx.moe_experts_plain(x, idx, w, *ws)
+    y32, _ = mx.moe_experts_plain(x.float(), idx, w,
+                                  *(t.float() for t in ws))
+    top = yp.abs().max().item()
+    err = (y - yp).abs().max().item()
+    if not torch.equal(c, cp) or not err <= 2e-2 * top:
+        raise AssertionError(f"[afmoe] {label}: max |kernel - plain| {err} "
+                             f"against 2e-2 x {top}; counts equal "
+                             f"{torch.equal(c, cp)}")
+    h = T // 2
+    yh, _ = mx.moe_experts(x[:h], idx[:h], w[:h], *ws, decode=decode)
+    if not torch.equal(yh, y[:h]):
+        raise AssertionError(f"[afmoe] {label}: the first {h} rows alone "
+                             f"differ from their rows of the whole batch")
+    if decode:
+        st = torch.cuda.Stream()
+        st.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(st):
+            mx.moe_experts(x, idx, w, *ws, decode=decode)
+        torch.cuda.current_stream().wait_stream(st)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            yg, _ = mx.moe_experts(x, idx, w, *ws, decode=decode)
+        graph.replay()
+        torch.cuda.synchronize()
+        if not torch.equal(yg, y):
+            raise AssertionError(f"[afmoe] {label}: a graph replay differs "
+                                 f"from the eager call")
+    hit = int((c[:-1] > 0).sum())
+    res = dict(label=label, err=err / top,
+               err32=(y - y32).abs().max().item() / y32.abs().max().item(),
+               plain_err32=(yp - y32).abs().max().item()
+               / y32.abs().max().item(), hit=hit,
+               args=(x, idx, w, ws, decode))
+    log(f"[afmoe] {label}: max |kernel - plain| {res['err']:.5f} of the "
+        f"plain path's largest output (limit 0.02); against fp32: kernel "
+        f"{res['err32']:.5f}, plain bf16 {res['plain_err32']:.5f}; counts "
+        f"equal, half batch and{' graph replay and' if decode else ''} "
+        f"launch counter right; {hit} experts reached")
+    return res
+
+
+def grouped_mm_ms(x, idx, ws, k: int):
+    """``torch._grouped_mm`` three times (gate, up, down, the SiLU product
+    between) over the same sort by expert as the kernels': the library
+    yardstick; a string where this torch has no such call or it fails."""
+    import torch
+    import torch.nn.functional as F
+    if not hasattr(torch, "_grouped_mm"):
+        return "none: torch._grouped_mm is absent"
+    wg, wu, wd = ws
+    flat = idx.reshape(-1)
+    order = torch.sort(flat, stable=True).indices
+    xs = x[order // k].contiguous()
+    offs = torch.cumsum(torch.bincount(flat, minlength=wg.shape[0]),
+                        0).to(torch.int32)
+
+    def call():
+        g = torch._grouped_mm(xs, wg, offs=offs)
+        u = torch._grouped_mm(xs, wu, offs=offs)
+        return torch._grouped_mm((F.silu(g.float()) * u.float()).bfloat16(),
+                                 wd, offs=offs)
+    try:
+        return time_ms(call)
+    except Exception as e:  # noqa: BLE001  (a yardstick only)
+        return f"failed: {e}"[:200]
+
+
+def check_moe_experts(report, card: str, cfg) -> None:
+    """Phase 18 (a): the grouped kernels at ``cfg``'s widths (Trinity-Mini:
+    128 experts of 2048 -> 1024 -> 2048, top 8), bf16, against
+    ``moe_experts_plain`` (``moe_case``) at 24 and 1024 rows on both pairs
+    and on one rank of a tp=2 split; then the serving path's two calls
+    timed (``time_ms``) beside the plain path, ``torch._grouped_mm`` and
+    their bound (the bytes of the experts the call reached, of x and of
+    y, over 3.35 TB/s, or the operations over 989 TFLOP/s)."""
+    import torch
+    from repro_torch.kernels import moe_experts as mx
+
+    mc = cfg.moe
+    E, D, Fw, k = mc.num_experts, cfg.d_model, mc.d_ff_expert, mc.top_k
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    ws = tuple((torch.randn(sh, generator=gen, device="cuda") * std
+                ).bfloat16() for sh, std in (((E, D, Fw), 0.02),
+                                             ((E, D, Fw), 0.02),
+                                             ((E, Fw, D), 0.0025)))
+    cases = {}
+    for T, decode in MOE_CASES:
+        cases[(T, decode)] = moe_case(gen, ws, T, decode, k, mc.route_scale)
+    for T, decode in ((24, True), (1024, False)):
+        moe_case(gen, ws, T, decode, k, mc.route_scale, e_loc=E // 2)
+    timing, errs = {}, {}
+    for name, key in MOE_TIMED.items():
+        r = cases[key]
+        x, idx, w, ws_, decode = r["args"]
+        T = x.shape[0]
+        nbytes = r["hit"] * 3 * D * Fw * 2 + 2 * T * D * 2
+        flops = 2.0 * T * k * 3 * D * Fw
+        by_bytes = nbytes / HBM_BYTES_PER_S >= flops / PEAK_FLOPS["bfloat16"]
+        timing[name] = dict(
+            ms=time_ms(lambda: mx.moe_experts(x, idx, w, *ws_,
+                                              decode=decode)),
+            plain_ms=time_ms(lambda: mx.moe_experts_plain(x, idx, w, *ws_),
+                             reps=3),
+            bound_ms=1e3 * max(nbytes / HBM_BYTES_PER_S,
+                               flops / PEAK_FLOPS["bfloat16"]),
+            bound_by="bytes" if by_bytes else "operations",
+            library_ms=grouped_mm_ms(x, idx, ws_, k), rows=T,
+            experts_reached=r["hit"])
+        errs[name] = r["err"]
+        t = timing[name]
+        lib = t["library_ms"]
+        lib = lib if isinstance(lib, str) else f"{lib:.4f}"
+        log(f"[afmoe] {name} call, {T} rows, {r['hit']} experts: "
+            f"{t['ms']:.4f} ms (the wrapper: sort, offsets, both kernels, "
+            f"the slot sum), bound {t['bound_ms']:.4f} ms ({t['bound_by']}; "
+            f"{t['bound_ms'] / t['ms']:.1%} of it), plain "
+            f"{t['plain_ms']:.3f} ms, torch._grouped_mm x3 {lib} [{card}]")
+    report["moe_timing"], report["moe_errs"] = timing, errs
+
+
+def serve_afmoe(report, card: str, cfg) -> None:
+    """Phase 18 (b): Trinity-Mini at full width and depth, bf16, tp=1, on
+    ``PagedEngine`` (``AFMOE_SV``: the cell's budget) over
+    ``AFMOE_LENGTHS``, eager then graphed (``eager_then_graphed``: graphed
+    tokens equal to eager, B1 and B3 launched).  The timed pass's launch
+    counts, through its replays, are the kernel line's ``launches``: one
+    decode-pair call a MoE layer of every decode step, and grant-pair calls
+    in whole MoE stacks, none on the other pair's side."""
+    import numpy as np
+    import torch
+    from repro_torch.config import MOE_KINDS
+    from repro_torch.models import api
+
+    t0 = time.perf_counter()
+    params = api.init_params(0, cfg, tp=1, dtype=torch.bfloat16,
+                             device="cuda")
+    torch.cuda.synchronize()
+    moe_layers = sum(1 for i in range(cfg.num_layers)
+                     if cfg.block_kind(i) in MOE_KINDS)
+    log(f"[afmoe] trinity-mini {cfg.num_layers}L ({moe_layers} MoE) d="
+        f"{cfg.d_model}, {cfg.moe.num_experts} experts top-"
+        f"{cfg.moe.top_k}: {cfg.param_count() / 1e9:.4f}B params bf16 made "
+        f"on the card in {time.perf_counter() - t0:.1f}s, "
+        f"{torch.cuda.memory_allocated() / 2**30:.3f} GiB allocated [{card}]")
+    rng = np.random.default_rng(18)
+    prompts = [rng.integers(2, cfg.vocab_size, n).astype(np.int32)
+               for n in AFMOE_LENGTHS]
+    d = eager_then_graphed(cfg, params, AFMOE_SV, prompts,
+                           "trinity-mini (the cell's budget)", card, new=16,
+                           tag="afmoe")
+    m, v = d["m"], d["variants"]
+    dec, grant = v["moe_experts/decode"], v["moe_experts/grant"]
+    if dec != moe_layers * m["decode_calls"] or grant <= 0 or \
+            grant % moe_layers or \
+            d["launches"]["moe_experts"] != dec + grant:
+        raise AssertionError(f"[afmoe] timed pass: decode-pair calls {dec} "
+                             f"for {m['decode_calls']} decode steps x "
+                             f"{moe_layers} MoE layers, grant-pair calls "
+                             f"{grant}, wrapper calls "
+                             f"{d['launches']['moe_experts']}")
+    report["launches_afmoe"] = {
+        "moe_experts": 2 * (dec + grant), "moe_experts/decode": 2 * dec,
+        "moe_experts/grant": 2 * grant, "decode_calls": m["decode_calls"],
+        "prefill_calls": m["prefill_calls"]}
+    log(f"[afmoe] timed pass: kernel launches {2 * dec} on the decode pair "
+        f"({2 * dec // m['decode_calls']} a decode step over "
+        f"{m['decode_calls']} steps), {2 * grant} on the grant pair over "
+        f"{m['prefill_calls']} prefill calls ({2 * moe_layers} a MoE stack "
+        f"pass) [{card}]")
+    del params
+    free_cuda()
+
+
+def afmoe_all(report, card: str) -> None:
+    """Phase 18: (a) ``check_moe_experts``, (b) ``serve_afmoe``."""
+    cfg = afmoe_model()
+    check_moe_experts(report, card, cfg)
+    free_cuda()
+    serve_afmoe(report, card, cfg)
+
+
+def moe_kernel_entry(report) -> dict:
+    """The kernel line's entry of the grouped expert kernels (phase 18)."""
+    t, launches = report["moe_timing"], report["launches_afmoe"]
+    return {"name": "moe_experts", "route": "cuda",
+            "source": "src/repro_torch/kernels/csrc/moe_experts.cu",
+            "replaces": "none (the reference's expert einsums)",
+            "launches": launches, "max_abs_err": report["moe_errs"],
+            **{key: {name: t[name][key] for name in t}
+               for key in ("ms", "plain_ms", "bound_ms", "bound_by",
+                           "library_ms", "rows", "experts_reached")}}
+
+
 def tc_report(logs: str) -> list:
     """ptxas's register and spill lines of the tensor-core instantiations
     (``*_tc_kernel<KD>``), one line each."""
@@ -6174,7 +6459,15 @@ def tc_report(logs: str) -> list:
     return out
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--phase", action="append", default=[],
+                    help="run only the phases whose number is given "
+                         "(repeatable; the build runs always), e.g. "
+                         "--phase 18; the kernel line then holds the "
+                         "kernels those phases measured")
+    only = ap.parse_args(argv).phase
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -6212,18 +6505,26 @@ def main() -> int:
               ("15 runner", lambda: runner_all(report, card)),
               ("16 disagg tp", lambda: disagg_tp(report, card)),
               ("17 examples", lambda: examples_all(report, card)),
+              ("18 afmoe", lambda: afmoe_all(report, card)),
               ("10 (c) profiles", lambda: dense_profiles(report, card)),
               ("11 profile", lambda: moe_profile(card)),
               ("12 (e) profiles", lambda: recurrent_profile(report, card)))
+    if only:
+        phases = tuple(p for p in phases if p[0].split()[0] in only)
+        if not phases:
+            log(f"chip_smoke: no phase numbered {only}")
+            return 2
     for name, run in phases:
         t = time.perf_counter()
         run()
         log(f"[time] phase {name}: {time.perf_counter() - t:.1f}s")
 
-    log(f"[done] every phase passed in {time.perf_counter() - t0:.1f}s "
-        f"(the build included) [{card}]")
+    ran = ("phases " + ", ".join(p[0] for p in phases) if only
+           else "every phase")
+    log(f"[done] {ran} passed in {time.perf_counter() - t0:.1f}s (the "
+        f"build included) [{card}]")
     kernels = []
-    for name, (source, replaces) in SOURCES.items():
+    for name, (source, replaces) in ({} if only else SOURCES).items():
         t = report["timing"][name]
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces,
@@ -6249,6 +6550,8 @@ def main() -> int:
                             report["launches_disagg_tp"].items()}})
         assert all(math.isfinite(x) for x in (t["ms"], t["plain_ms"],
                                               t["bound_ms"]))
+    if "moe_timing" in report:
+        kernels.append(moe_kernel_entry(report))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

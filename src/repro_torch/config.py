@@ -20,6 +20,19 @@ BLOCK_HYBRID = "hybrid"              # parallel attention + mamba heads (hymba)
 BLOCK_MLSTM = "mlstm"                # xLSTM matrix-memory block
 BLOCK_SLSTM = "slstm"                # xLSTM scalar-memory block
 BLOCK_DEC = "dec_block"              # whisper decoder: self-, cross-attn, MLP
+# afmoe (Arcee Trinity): gated attention with q/k norm, norms before and
+# after each sublayer; a sliding-window layer with RoPE or a full one with
+# no position embedding (NoPE); a dense SwiGLU or a dropless MoE FFN
+BLOCK_AF_SWA_MLP = "afmoe_swa_mlp"
+BLOCK_AF_FULL_MLP = "afmoe_full_mlp"
+BLOCK_AF_SWA_MOE = "afmoe_swa_moe"
+BLOCK_AF_FULL_MOE = "afmoe_full_moe"
+AFMOE_KINDS = (BLOCK_AF_SWA_MLP, BLOCK_AF_FULL_MLP, BLOCK_AF_SWA_MOE,
+               BLOCK_AF_FULL_MOE)
+MOE_KINDS = (BLOCK_ATTN_MOE, BLOCK_AF_SWA_MOE, BLOCK_AF_FULL_MOE)
+# stacks of these kinds carry no recurrent state: grants may be padded,
+# packed, shared and speculated
+ATTN_KINDS = (BLOCK_ATTN_MLP, BLOCK_ATTN_MOE) + AFMOE_KINDS
 
 
 @dataclass(frozen=True)
@@ -33,6 +46,19 @@ class MoEConfig:
 
     def padded_experts(self, shards: int) -> int:
         return int(math.ceil(self.num_experts / shards) * shards)
+
+
+@dataclass(frozen=True)
+class SigmoidMoEConfig(MoEConfig):
+    """afmoe's router (not in the reference; a ``MoEConfig`` routes as the
+    reference does: softmax, capacity drops): fp32 sigmoid scores s; the top
+    k of s + b, b a per-expert bias (the ``expert_bias`` leaf) that chooses
+    experts and weighs nothing; weights s at the chosen experts, divided by
+    their sum + 1e-20 where ``route_norm``, times ``route_scale``; every
+    assignment computed (dropless: no capacity, so the output does not
+    depend on how tokens are batched).  ``capacity_factor`` is unused."""
+    route_scale: float = 1.0
+    route_norm: bool = True
 
 
 @dataclass(frozen=True)
@@ -93,14 +119,19 @@ class ModelConfig:
         for layer in range(self.num_layers):
             kind = self.block_kind(layer)
             if kind in (BLOCK_ATTN_MLP, BLOCK_ATTN_MOE, BLOCK_HYBRID,
-                        BLOCK_DEC):
+                        BLOCK_DEC) + AFMOE_KINDS:
                 total += attn
-            if kind == BLOCK_ATTN_MOE:
+            if kind in AFMOE_KINDS:
+                # the output gate; the norms after each sublayer
+                total += d * self.num_heads * hd + 2 * d
+            if kind in MOE_KINDS:
                 m = self.moe
                 n_e = m.top_k if active_only else m.num_experts
                 total += 3 * d * m.d_ff_expert * n_e
                 total += d * m.num_experts                  # router
                 total += 3 * d * m.shared_expert_d_ff
+                if isinstance(m, SigmoidMoEConfig):
+                    total += m.num_experts                  # expert bias
             elif kind == BLOCK_HYBRID:
                 s = self.ssm
                 inner = s.expand * d
@@ -117,6 +148,27 @@ class ModelConfig:
             total += 2 * d                                  # norms
         total += self.encoder_layers * (4 * d * d + 2 * d * self.d_ff + 2 * d)
         return int(total)
+
+
+@dataclass(frozen=True)
+class AfmoeModelConfig(ModelConfig):
+    """A configuration of the afmoe family (Arcee Trinity; not in the
+    reference's registry).  Its ``block_pattern`` names one kind a layer
+    (``AFMOE_KINDS``: sliding or full attention, dense or MoE FFN), so it
+    is one period long; ``sliding_window`` is the sliding layers' window
+    and ``moe`` a ``SigmoidMoEConfig``.  ``embed_scale`` multiplies the
+    token embeddings (sqrt(d_model) under muP)."""
+    embed_scale: float = 1.0
+
+
+def afmoe_pattern(full: Tuple[bool, ...], dense_layers: int
+                  ) -> Tuple[str, ...]:
+    """An afmoe ``block_pattern``: layer i full attention where ``full[i]``
+    (else sliding), a dense FFN below ``dense_layers`` (else MoE)."""
+    kinds = {(False, True): BLOCK_AF_SWA_MLP, (True, True): BLOCK_AF_FULL_MLP,
+             (False, False): BLOCK_AF_SWA_MOE,
+             (True, False): BLOCK_AF_FULL_MOE}
+    return tuple(kinds[(f, i < dense_layers)] for i, f in enumerate(full))
 
 
 @dataclass(frozen=True)

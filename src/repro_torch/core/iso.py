@@ -14,7 +14,10 @@ chunk's compute.  Eager PyTorch keeps the program order, so this issue
 order IS the schedule (the reference leaves the placement to XLA).  The
 pending collective crosses layer boundaries.  The KV prefix is threaded
 chunk to chunk within each layer.  At tp=1 the collectives are identities,
-so every schedule is numerically the plain stack.  ``lax.scan`` over periods
+so every schedule is numerically the plain stack.  A stage whose extras
+carry ``post`` (the afmoe norm after a sublayer) has that function applied
+to its reduced output before the residual add, in every schedule.
+``lax.scan`` over periods
 becomes a Python loop; the decode drivers update the caches in place (page
 pools, or dense ring caches, and the recurrent states, which advance only
 in the slots of ``decode_mask`` when one is given).
@@ -49,6 +52,13 @@ class PipeState:
     xs: Tuple[torch.Tensor, ...]           # per-chunk hidden states
     pend: Optional[Pending]                # issued reduce of the last unit
     pend_base: Optional[torch.Tensor]      # its residual base
+    pend_post: Any = None                  # its stage's ``post``, or None
+
+
+def _post(post, reduced: torch.Tensor) -> torch.Tensor:
+    """A stage's reduced output as the residual adds it: through the
+    stage's ``post`` function when it has one (blocks.py)."""
+    return reduced if post is None else post(reduced)
 
 
 # the page pools of a paged cache: shared by every request, never sliced
@@ -96,7 +106,7 @@ def run_layer(p_layer, kind: str, state: PipeState, sctx: StageCtx,
     assert not ladder or all(r for _, r in stages), \
         "ladder wiring needs every stage reducing (attention-style blocks)"
     xs = list(state.xs)
-    pend, pend_base = state.pend, state.pend_base
+    pend, pend_base, pend_post = state.pend, state.pend_base, state.pend_post
     pend_chunk = n_chunks - 1                 # invariant at layer entry
     kv_chunks: List = [None] * n_chunks
     extras_out: Dict[str, Any] = {}
@@ -118,8 +128,8 @@ def run_layer(p_layer, kind: str, state: PipeState, sctx: StageCtx,
             # Ladder skips it: the stage computes on the lagged residual
             if not ladder and pend is not None and pend_chunk == c:
                 reduced, _ = psum_wait(pend)
-                xs[c] = pend_base + reduced
-                pend = pend_base = None
+                xs[c] = pend_base + _post(pend_post, reduced)
+                pend = pend_base = pend_post = None
             out, seq_state_new, extras = fn(
                 p_layer, xs[c], starts[c], seq_state, sctx, layer_cache)
             # issue this unit's reduce at once: the next unit's compute is
@@ -129,8 +139,8 @@ def run_layer(p_layer, kind: str, state: PipeState, sctx: StageCtx,
             if pend is not None:
                 reduced, (out, seq_state_new) = psum_wait(
                     pend, (out, seq_state_new))
-                xs[pend_chunk] = pend_base + reduced
-                pend = pend_base = None
+                xs[pend_chunk] = pend_base + _post(pend_post, reduced)
+                pend = pend_base = pend_post = None
             seq_state = seq_state_new
             if "kv" in extras:
                 kv_chunks[c] = extras["kv"]
@@ -142,14 +152,15 @@ def run_layer(p_layer, kind: str, state: PipeState, sctx: StageCtx,
                     extras_out[sk] = extras[sk]
             if reduces:
                 pend, pend_base, pend_chunk = started, xs[c], c
+                pend_post = extras.get("post")
             else:
-                xs[c] = xs[c] + out
+                xs[c] = xs[c] + _post(extras.get("post"), out)
         seq_state = None                      # stage boundary
 
     if kv_chunks[0] is not None:
         extras_out["kv_k"] = torch.cat([kv[0] for kv in kv_chunks], dim=1)
         extras_out["kv_v"] = torch.cat([kv[1] for kv in kv_chunks], dim=1)
-    return PipeState(tuple(xs), pend, pend_base), extras_out
+    return PipeState(tuple(xs), pend, pend_base, pend_post), extras_out
 
 
 def flush_pending(state: PipeState) -> Tuple[torch.Tensor, ...]:
@@ -157,7 +168,7 @@ def flush_pending(state: PipeState) -> Tuple[torch.Tensor, ...]:
     xs = list(state.xs)
     if state.pend is not None:
         reduced, _ = psum_wait(state.pend)
-        xs[-1] = state.pend_base + reduced
+        xs[-1] = state.pend_base + _post(state.pend_post, reduced)
     return tuple(xs)
 
 
@@ -328,25 +339,27 @@ def run_stack_decode(params_periods, pattern: Sequence[str], x, caches,
         raise ValueError(f"unknown decode schedule {schedule!r}; one of "
                          f"{DECODE_SCHEDULES}")
     defer = schedule == "cross_block"
-    pend = None
+    pend = pend_post = None
     for p in range(len(params_periods[0])):
         for i, kind in enumerate(pattern):
             cache_i = _period(caches[i], p)
             for fn, reduces in BLOCK_STAGES[kind]:
                 if pend is not None:          # cross-block: resolve here
-                    x = x + psum_wait(pend)[0]
+                    x = x + _post(pend_post, psum_wait(pend)[0])
                     pend = None
                 out, _, extras = fn(params_periods[i][p], x, 0, None, sctx,
                                     cache_i)
+                post = extras.get("post")
                 if reduces and defer:
                     pend = psum_start(out, ctx)       # scatter in the window
+                    pend_post = post
                 elif reduces:
-                    x = x + psum_now(out, ctx)
+                    x = x + _post(post, psum_now(out, ctx))
                 else:
-                    x = x + out
+                    x = x + _post(post, out)
                 _apply_decode_cache_update(cache_i, extras, sctx)
     if pend is not None:
-        x = x + psum_wait(pend)[0]
+        x = x + _post(pend_post, psum_wait(pend)[0])
     return x, caches
 
 
@@ -374,7 +387,7 @@ def run_stack_decode_ladder(params_periods, pattern: Sequence[str], x,
     for kind in pattern:
         assert all(r for _, r in BLOCK_STAGES[kind]), \
             "ladder wiring needs every stage reducing (attention-style blocks)"
-    pend = None          # deferred: the issued reduce; else the raw partial
+    pend = pend_post = None   # deferred: the issued reduce; else the partial
     for p in range(len(params_periods[0])):
         for i, kind in enumerate(pattern):
             cache_i = _period(caches[i], p)
@@ -385,15 +398,17 @@ def run_stack_decode_ladder(params_periods, pattern: Sequence[str], x,
                 if defer:
                     started = psum_start(out, ctx)
                     if pend is not None:    # ran beside this stage's compute
-                        x = x + psum_wait(pend)[0]
+                        x = x + _post(pend_post, psum_wait(pend)[0])
                     pend = started
                 else:
                     if pend is not None:
-                        x = x + psum_now(pend, ctx)
+                        x = x + _post(pend_post, psum_now(pend, ctx))
                     pend = out
+                pend_post = extras.get("post")
                 _apply_decode_cache_update(cache_i, extras, sctx)
     if pend is not None:                    # trailing flush
-        x = x + (psum_wait(pend)[0] if defer else psum_now(pend, ctx))
+        x = x + _post(pend_post, psum_wait(pend)[0] if defer
+                      else psum_now(pend, ctx))
     return x, caches
 
 
@@ -430,7 +445,7 @@ def run_stack_decode_overlap(params_periods, pattern: Sequence[str], x,
 
     sctxs = [sctx_half(lo, hi) for lo, hi in bounds]
     xs = [x[lo:hi] for lo, hi in bounds]
-    pend, pend_base, pend_h = None, None, 1
+    pend, pend_base, pend_h, pend_post = None, None, 1, None
     for p in range(len(params_periods[0])):
         for i, kind in enumerate(pattern):
             cache_i = _period(caches[i], p)
@@ -447,12 +462,14 @@ def run_stack_decode_overlap(params_periods, pattern: Sequence[str], x,
                     _apply_decode_cache_update(halves[h], extras, sctxs[h])
                     # the other half's reduce ran beside this half's compute
                     if pend is not None:
-                        xs[pend_h] = pend_base + psum_wait(pend)[0]
+                        xs[pend_h] = pend_base + _post(pend_post,
+                                                       psum_wait(pend)[0])
                         pend = None
                     if reduces:
                         pend, pend_base, pend_h = started, xs[h], h
+                        pend_post = extras.get("post")
                     else:
-                        xs[h] = xs[h] + out
+                        xs[h] = xs[h] + _post(extras.get("post"), out)
     if pend is not None:
-        xs[pend_h] = pend_base + psum_wait(pend)[0]
+        xs[pend_h] = pend_base + _post(pend_post, psum_wait(pend)[0])
     return torch.cat(xs, dim=0), caches

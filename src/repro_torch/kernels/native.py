@@ -44,7 +44,7 @@ import torch
 
 CSRC = Path(__file__).with_name("csrc")
 SOURCES = ("paged_attention.cu", "int8_quant.cu", "rmsnorm.cu", "swiglu.cu",
-           "flash_prefill.cu")
+           "flash_prefill.cu", "moe_experts.cu")
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
@@ -69,7 +69,8 @@ LAUNCHES: Dict[str, int] = {"paged_decode": 0, "decode_reduce": 0,
                             "quantize_int8_shards": 0,
                             "dequant_sum_quantize_int8": 0,
                             "dequantize_int8_gathered": 0,
-                            "flash_prefill": 0, "rms_norm": 0, "swiglu": 0}
+                            "flash_prefill": 0, "rms_norm": 0, "swiglu": 0,
+                            "moe_experts": 0}
 # launches of B3 and B4 by instantiation (/tc + /fp32 is the LAUNCHES count),
 # of B1 with the split-KV fold inside and on a K > 1 window, of B3 on a pack,
 # of the int8 quantize kernels with their rows split over blocks
@@ -80,7 +81,9 @@ VARIANTS: Dict[str, int] = {"paged_prefill/tc": 0, "paged_prefill/fp32": 0,
                             "paged_decode/verify": 0,
                             "quantize_int8/split": 0,
                             "quantize_int8_shards/split": 0,
-                            "dequant_sum_quantize_int8/split": 0}
+                            "dequant_sum_quantize_int8/split": 0,
+                            "moe_experts/decode": 0,
+                            "moe_experts/grant": 0}
 # nvcc output (register / shared-memory report) of each build, by source
 BUILD_LOGS: Dict[str, str] = {}
 
@@ -110,6 +113,11 @@ _SIGNATURES = {
     },
     "flash_prefill.cu": {
         "flash_prefill": [_I] + [_P] * 4 + [_I] * 10 + [_F, _P],
+    },
+    "moe_experts.cu": {
+        "moe_gate_up": [_I] + [_P] * 6 + [_I] * 5 + [_P],
+        "moe_down": [_I] + [_P] * 6 + [_I] * 4 + [_P],
+        "moe_experts_smem_bytes": [_I, _I],
     },
 }
 _RESTYPES = {"paged_attention_smem_bytes": _L}

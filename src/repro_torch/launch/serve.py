@@ -31,7 +31,9 @@ ranges in it.  A paged run's ``host:`` line splits the engines' host time
 by those phases (their counters, ``prep_s`` … ``sample_s``) and gives the
 mean wait before a request's first prefill call (``grant_wait_s``) and the
 share of sampled rows whose token was picked on the device
-(``sampled_rows_device`` of it and ``sampled_rows_host``).
+(``sampled_rows_device`` of it and ``sampled_rows_host``); a dropless MoE
+stack adds a ``moe:`` line (``moe_calls``, ``moe_rows`` and the device
+counter ``moe_experts_hit``, read once the requests are served).
 
 Serving modes and traffic, as the reference's launcher: ``--disagg`` serves
 through a prefill engine and a decode engine with KV pages migrating
@@ -293,6 +295,9 @@ def serve_rank(group, config: Config,
                 raise AssertionError(f"rank {rank}: pages leaked")
             last = engines[-1]
             cm = last.cost_model
+            for e in engines:
+                if isinstance(e, PagedEngine):
+                    e.read_moe_hits()       # the device counter, off the path
             res = dict(
                 tokens=[outs[r] for r in rids],
                 metrics={k: sum(e.metrics[k] for e in engines)
@@ -579,6 +584,10 @@ def main(argv=None) -> int:
           f"over {m['grant_wait_n']} requests | sampled on the device "
           f"{m['sampled_rows_device']} of {sampled} rows "
           f"({100 * m['sampled_rows_device'] / max(sampled, 1):.1f}%)")
+    if "moe_calls" in m:
+        print(f"moe: {m['moe_calls']} layer calls over {m['moe_rows']} rows, "
+              f"{m['moe_experts_hit']} experts reached "
+              f"({m['moe_experts_hit'] / max(m['moe_calls'], 1):.1f} a call)")
     print(f"sharing: prefix_shared_tokens={m['prefix_shared_tokens']} "
           f"cow_copies={m['cow_copies']} peak_used_pages="
           f"{m['peak_used_pages']} | packs: prefill_grants="

@@ -18,7 +18,7 @@ import time
 from typing import Optional
 
 from repro_torch.config import Config, ISOConfig, ModelConfig, \
-    ParallelConfig, RuntimeConfig, get_model_config
+    ParallelConfig, RuntimeConfig, afmoe_pattern, get_model_config
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.launch.mesh import TPGroup, spawn
 from repro_torch.training import checkpoint as ckpt_lib
@@ -29,17 +29,30 @@ from repro_torch.training.trainer import init_train_state, \
 
 def reduce_cfg(cfg: ModelConfig, preset: str) -> ModelConfig:
     """Shrink an arch to a trainable-on-CPU size, keeping its
-    family/structure (copy of the reference's)."""
+    family/structure (copy of the reference's; an afmoe config, which the
+    reference lacks, keeps 8 layers of its pattern's shape)."""
     if preset == "full":
         return cfg
     sizes = {"tiny": (2, 128, 512), "100m": (4, 512, 8192)}
     layers, d, vocab = sizes[preset]
     n_pat = len(cfg.block_pattern)
+    kw = {}
+    if cfg.family == "afmoe":
+        # one kind a layer: 8 layers keep the dense lead (at most 2) and
+        # two periods of the sliding/full cycle
+        pat = cfg.block_pattern
+        dense = sum(1 for k in pat[:2] if k.endswith("_mlp"))
+        every = next((i + 1 for i, k in enumerate(pat) if "_full_" in k),
+                     len(pat))
+        layers = n_pat = 8
+        kw["block_pattern"] = afmoe_pattern(
+            tuple(i % every == every - 1 for i in range(8)), dense)
+        kw["embed_scale"] = d ** 0.5 if cfg.embed_scale != 1.0 else 1.0
     layers = max(layers, n_pat)
     layers -= layers % n_pat
     heads = max(2, min(cfg.num_heads, d // 64))
     kv = max(1, min(cfg.num_kv_heads, heads))
-    kw = dict(num_layers=layers, d_model=d, num_heads=heads, num_kv_heads=kv,
+    kw.update(num_layers=layers, d_model=d, num_heads=heads, num_kv_heads=kv,
               head_dim=0, d_ff=(d * 4 if cfg.d_ff else 0),
               vocab_size=min(cfg.vocab_size, vocab),
               encoder_layers=min(cfg.encoder_layers, layers),

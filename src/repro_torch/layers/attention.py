@@ -181,10 +181,19 @@ def merge_softmax_states(o_a, m_a, l_a, o_b, m_b, l_b):
     return (o_a * wa + o_b * wb) / torch.clamp(wa + wb, min=1e-30)
 
 
-def o_proj_partial(p: dict, attn_out: torch.Tensor) -> torch.Tensor:
-    """Row-parallel output projection; returns the UNREDUCED partial sum."""
+def o_proj_partial(p: dict, attn_out: torch.Tensor,
+                   x: torch.Tensor = None) -> torch.Tensor:
+    """Row-parallel output projection; returns the UNREDUCED partial sum.
+    With a gate ``wg`` (D, Hq, hd) among the weights (afmoe), the heads'
+    output is first multiplied by sigmoid(x wg), in fp32, x the attention's
+    (normed) input."""
     wo = p["wo"]
     B, S = attn_out.shape[:2]
+    if "wg" in p:
+        wg = p["wg"]
+        gate = matmul(x, wg.reshape(wg.shape[0], -1)).reshape(
+            attn_out.shape)
+        attn_out = attn_out.float() * torch.sigmoid(gate.float())
     return torch.matmul(attn_out.to(wo.dtype).reshape(B, S, -1),
                         wo.reshape(-1, wo.shape[-1]))
 
@@ -196,18 +205,19 @@ def o_proj_partial(p: dict, attn_out: torch.Tensor) -> torch.Tensor:
 def attn_prefill_partial(p: dict, x, cfg: ModelConfig, layout_group: int, *,
                          start_pos, prefix_kv: Optional[Tuple] = None,
                          prefix_pos=None, window: int = 0, causal: bool = True,
-                         k_limit=None):
+                         k_limit=None, rope: bool = True):
     """Chunked-prefill attention against a dense prefix (earlier ISO chunks
     of this call).  ``start_pos``: absolute position of the chunk's first
     token, int or per-row (B,).  ``prefix_pos``: optional (B, S_prefix)
     absolute positions of the prefix slots (-1 = empty); without it the
     prefix is contiguous from position 0.  ``k_limit``: keys at positions
-    >= k_limit are masked (bucket-padded tails).  Returns (partial_out,
-    (k, v) of THIS chunk)."""
+    >= k_limit are masked (bucket-padded tails).  ``rope=False``: no
+    rotary embedding (an afmoe full-attention layer, NoPE).  Returns
+    (partial_out, (k, v) of THIS chunk)."""
     B, S, _ = x.shape
     dev = x.device
     q_pos = row_positions(start_pos, B, S, dev)
-    q, k, v = project_qkv(p, x, cfg, q_pos)
+    q, k, v = project_qkv(p, x, cfg, q_pos, use_rope=rope)
     k_valid = None
     if prefix_kv is not None:
         pk, pv = prefix_kv
@@ -236,14 +246,15 @@ def attn_prefill_partial(p: dict, x, cfg: ModelConfig, layout_group: int, *,
                    window=window, k_valid=k_valid, group_eff=layout_group)
     else:
         raise ValueError(f"unknown attn_impl {cfg.attn_impl!r}")
-    return o_proj_partial(p, out), (k, v)
+    return o_proj_partial(p, out, x), (k, v)
 
 
 def attn_prefill_paged_partial(p: dict, x, cfg: ModelConfig,
                                layout_group: int, *, k_pages, v_pages,
                                block_tables, prefix_lens, start_pos,
                                intra_kv: Optional[Tuple] = None,
-                               intra_pos=None, window: int = 0, k_limit=None):
+                               intra_pos=None, window: int = 0, k_limit=None,
+                               rope: bool = True):
     """Chunked-prefill attention against a PAGED KV prefix (no dense gather).
 
     x: (B,S,D) one ISO chunk; k_pages/v_pages: (N, ps, Hkv_loc, hd);
@@ -259,7 +270,7 @@ def attn_prefill_paged_partial(p: dict, x, cfg: ModelConfig,
     B, S, _ = x.shape
     dev = x.device
     q_pos = row_positions(start_pos, B, S, dev)
-    q, k, v = project_qkv(p, x, cfg, q_pos)
+    q, k, v = project_qkv(p, x, cfg, q_pos, use_rope=rope)
     q_starts = row_starts(start_pos, B, dev)
     out_p, m_p, l_p = flash_prefill_paged(
         q.transpose(1, 2).contiguous(), k_pages, v_pages, block_tables,
@@ -280,12 +291,13 @@ def attn_prefill_paged_partial(p: dict, x, cfg: ModelConfig,
                                    causal=True, window=window,
                                    k_valid=k_valid, group_eff=layout_group)
     out = merge_softmax_states(out_p, m_p, l_p, out_i, m_i, l_i)
-    return o_proj_partial(p, out), (k, v)
+    return o_proj_partial(p, out, x), (k, v)
 
 
 def attn_decode_paged_partial(p: dict, x, cfg: ModelConfig, layout_group: int,
                               *, k_pages, v_pages, block_tables, lengths,
-                              window: int = 0, kv_splits: int = 1):
+                              window: int = 0, kv_splits: int = 1,
+                              rope: bool = True):
     """Decode straight against the paged KV pool (no dense gather).
 
     x: (B,K,D), K=1 plain decode (window token qi sits at position
@@ -302,7 +314,7 @@ def attn_decode_paged_partial(p: dict, x, cfg: ModelConfig, layout_group: int,
     lengths = lengths.to(torch.int32)
     q_pos = lengths[:, None] + torch.arange(K, dtype=torch.int32,
                                             device=dev)[None]
-    q, k_new, v_new = project_qkv(p, x, cfg, q_pos)
+    q, k_new, v_new = project_qkv(p, x, cfg, q_pos, use_rope=rope)
     out_p, m_p, l_p = flash_decode(q.contiguous(), k_pages, v_pages,
                                    block_tables, lengths, window=window,
                                    kv_splits=kv_splits)  # (B,K,Hq,·)
@@ -310,12 +322,12 @@ def attn_decode_paged_partial(p: dict, x, cfg: ModelConfig, layout_group: int,
                                    causal=True, window=window,
                                    group_eff=layout_group)
     out = merge_softmax_states(out_p, m_p, l_p, out_i, m_i, l_i)
-    return o_proj_partial(p, out), (k_new, v_new)
+    return o_proj_partial(p, out, x), (k_new, v_new)
 
 
 def attn_decode_partial(p: dict, x, cfg: ModelConfig, layout_group: int, *,
                         cache_k, cache_v, lengths, window: int = 0,
-                        cache_pos=None):
+                        cache_pos=None, rope: bool = True):
     """Decode against a dense padded cache (the dense ``Engine``).
 
     x: (B,K,D), K=1 plain decode or a K-token verify window whose token qi
@@ -330,7 +342,7 @@ def attn_decode_partial(p: dict, x, cfg: ModelConfig, layout_group: int, *,
     lengths = lengths.to(torch.int32)
     q_pos = lengths[:, None] + torch.arange(K, dtype=torch.int32,
                                             device=dev)[None]
-    q, k_new, v_new = project_qkv(p, x, cfg, q_pos)
+    q, k_new, v_new = project_qkv(p, x, cfg, q_pos, use_rope=rope)
     Smax = cache_k.shape[1]
     if cache_pos is not None:
         k_pos = cache_pos.to(torch.int32)
@@ -346,7 +358,7 @@ def attn_decode_partial(p: dict, x, cfg: ModelConfig, layout_group: int, *,
                                              device=dev)], dim=1)
     out = sdpa(q, k_all, v_all, q_pos=q_pos, k_pos=k_pos, causal=True,
                window=window, k_valid=k_valid, group_eff=layout_group)
-    return o_proj_partial(p, out), (k_new, v_new)
+    return o_proj_partial(p, out, x), (k_new, v_new)
 
 
 def _zero_pos(B: int, S: int, device) -> torch.Tensor:
@@ -364,7 +376,7 @@ def attn_encode_partial(p: dict, x, cfg: ModelConfig, layout_group: int, *,
     k, v = kv_full
     out = sdpa(q, k, v, q_pos=pos, k_pos=_zero_pos(B, k.shape[1], x.device),
                causal=False, group_eff=layout_group)
-    return o_proj_partial(p, out)
+    return o_proj_partial(p, out, x)
 
 
 def attn_cross_partial(p: dict, x, cfg: ModelConfig, layout_group: int, *,
@@ -377,7 +389,7 @@ def attn_cross_partial(p: dict, x, cfg: ModelConfig, layout_group: int, *,
     out = sdpa(q, enc_k, enc_v, q_pos=pos,
                k_pos=_zero_pos(B, enc_k.shape[1], x.device), causal=False,
                k_valid=enc_valid, group_eff=layout_group)
-    return o_proj_partial(p, out)
+    return o_proj_partial(p, out, x)
 
 
 def cross_kv(p: dict, enc_out, cfg: ModelConfig):

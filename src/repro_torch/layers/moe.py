@@ -26,6 +26,17 @@ kernel).
 (the lower index first).  With ``top_k`` at most the number of real experts
 (the padding experts sit at probability 0), only exact fp32 ties between
 real experts' probabilities could pick or order experts differently.
+
+A ``SigmoidMoEConfig`` (afmoe; not in the reference) routes and dispatches
+otherwise: ``route_sigmoid`` (fp32 sigmoid scores, the top k of scores plus
+the ``expert_bias`` leaf, weights from the scores alone) and
+``moe_dropless``, which computes every assignment through the grouped
+expert kernels of ``kernels/moe_experts.py`` (the plain per-expert path on
+the CPU): no capacity, so a token's output does not depend on the batch it
+rode in.  Its host ranges ``moe/route``, ``moe/experts`` and
+``moe/combine`` mark the eager path under a recording profiler
+(``obs.torchprof.annotate``); a caller's ``hits`` buffer (0-d int64)
+accumulates, on the device, the local experts each call reached.
 """
 from __future__ import annotations
 
@@ -35,8 +46,11 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.config import MoEConfig
+from repro_torch.config import MoEConfig, SigmoidMoEConfig
 from repro_torch.layers.mlp import matmul
+from repro_torch.obs import torchprof
+
+EXPERT_BIAS_STD = 0.02
 
 
 def init_moe(gen: torch.Generator, d_model: int, mcfg: MoEConfig, tp: int,
@@ -72,6 +86,11 @@ def init_moe(gen: torch.Generator, d_model: int, mcfg: MoEConfig, tp: int,
         p["shared"] = {"w_up": normal((d_model, fs), s),
                        "w_gate": normal((d_model, fs), s),
                        "w_down": normal((fs, d_model), so)}
+    if isinstance(mcfg, SigmoidMoEConfig):
+        # fp32, replicated: the sigmoid router's selection bias
+        p["expert_bias"] = torch.randn((e_pad,), generator=gen,
+                                       dtype=torch.float32,
+                                       device=device) * EXPERT_BIAS_STD
     return p
 
 
@@ -96,6 +115,68 @@ def route(router_w: torch.Tensor, x: torch.Tensor, mcfg: MoEConfig,
     return w, idx, aux
 
 
+def route_sigmoid(router_w: torch.Tensor, bias: torch.Tensor,
+                  x: torch.Tensor, mcfg: MoEConfig, e_pad: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """afmoe routing in fp32.  x: (T, D) -> weights (T, k) fp32 and expert
+    ids (T, k) int64: s = sigmoid(x router); the top k of s + bias, the
+    padding experts masked to -inf; the weights are s there (the bias only
+    chooses), divided by their sum + 1e-20 when ``route_norm``, times
+    ``route_scale``."""
+    experts = torch.arange(e_pad, device=x.device)
+    scores = torch.sigmoid(x.float() @ router_w.float())       # (T, E_pad)
+    choose = torch.where((experts < mcfg.num_experts)[None],
+                         scores + bias.float()[None],
+                         torch.full_like(scores, float("-inf")))
+    idx = torch.topk(choose, mcfg.top_k, dim=-1).indices
+    w = scores.gather(1, idx)
+    if mcfg.route_norm:
+        w = w / (w.sum(dim=-1, keepdim=True) + 1e-20)
+    return w * mcfg.route_scale, idx
+
+
+def local_experts(idx: torch.Tensor, expert_offset: int,
+                  e_loc: int) -> torch.Tensor:
+    """Global expert ids -> this rank's local ids, ``e_loc`` for an expert
+    another rank holds."""
+    local = idx - expert_offset
+    return torch.where((local >= 0) & (local < e_loc), local,
+                       torch.full_like(local, e_loc))
+
+
+def moe_dropless(p: dict, x: torch.Tensor, mcfg: MoEConfig, *, tp: int,
+                 expert_offset: int, decode: bool = False,
+                 hits: torch.Tensor = None) -> torch.Tensor:
+    """The sigmoid router's layer, dropless: x (B, S, D), replicated across
+    the TP ranks -> this rank's unreduced partial (B, S, D): its experts'
+    weighted outputs (fp32, slot order) plus its shard of the shared
+    expert, in x's dtype.  ``decode`` picks the decode call's kernels;
+    ``hits`` (0-d int64) gains the local experts this call reached."""
+    from repro_torch.kernels.moe_experts import moe_experts
+    B, S, D = x.shape
+    xt = x.reshape(B * S, D)
+    e_pad = p["router"].shape[1]
+    e_loc = e_pad // tp
+    with torchprof.annotate("moe/route"):
+        w, idx = route_sigmoid(p["router"], p["expert_bias"], xt, mcfg,
+                               e_pad)
+        local = local_experts(idx, expert_offset, e_loc)
+    with torchprof.annotate("moe/experts"):
+        y, counts = moe_experts(xt, local, w, p["w_gate"], p["w_up"],
+                                p["w_down"], decode=decode)
+        if hits is not None:
+            hits.add_((counts[:e_loc] > 0).sum())
+    with torchprof.annotate("moe/combine"):
+        y = y.reshape(B, S, D)
+        if "shared" in p:
+            sh = p["shared"]
+            u = matmul(x, sh["w_up"])
+            g = matmul(x, sh["w_gate"])
+            y = y + matmul(F.silu(g.float()).to(x.dtype) * u,
+                           sh["w_down"]).float()
+        return y.to(x.dtype)
+
+
 def capacity(tokens: int, mcfg: MoEConfig, e_pad: int) -> int:
     """Slots per expert for a call of ``tokens`` tokens."""
     return max(4, int(math.ceil(tokens * mcfg.top_k / e_pad
@@ -103,10 +184,17 @@ def capacity(tokens: int, mcfg: MoEConfig, e_pad: int) -> int:
 
 
 def moe_partial(p: dict, x: torch.Tensor, mcfg: MoEConfig, *, tp: int,
-                expert_offset: int) -> Tuple[torch.Tensor, torch.Tensor]:
+                expert_offset: int, decode: bool = False,
+                hits: torch.Tensor = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, D), replicated across the TP ranks.  Returns (the unreduced
     partial output (B, S, D), the aux loss / tp).  ``expert_offset``: the
-    first global expert id this rank owns."""
+    first global expert id this rank owns.  A ``SigmoidMoEConfig``'s layer is
+    ``moe_dropless`` (``decode``, ``hits``), its aux 0."""
+    if isinstance(mcfg, SigmoidMoEConfig):
+        return (moe_dropless(p, x, mcfg, tp=tp, expert_offset=expert_offset,
+                             decode=decode, hits=hits),
+                torch.zeros((), device=x.device))
     B, S, D = x.shape
     T, k = B * S, mcfg.top_k
     xt = x.reshape(T, D)

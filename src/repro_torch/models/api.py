@@ -64,7 +64,7 @@ def prefill(params, cfg: ModelConfig, ctx: AxisCtx, iso: ISOConfig,
 
 def decode_step(params, cfg: ModelConfig, ctx: AxisCtx, tokens, caches,
                 lengths, block_tables=None, decode_mask=None,
-                kv_splits: int = 1, schedule: str = None):
+                kv_splits: int = 1, schedule: str = None, moe_hits=None):
     """See models/decoder.decode_step; audio decodes its dense caches."""
     if cfg.family == "audio":
         if block_tables is not None:
@@ -75,7 +75,7 @@ def decode_step(params, cfg: ModelConfig, ctx: AxisCtx, tokens, caches,
     return dec_lib.decode_step(params, cfg, ctx, tokens, caches, lengths,
                                block_tables=block_tables,
                                decode_mask=decode_mask, kv_splits=kv_splits,
-                               schedule=schedule)
+                               schedule=schedule, moe_hits=moe_hits)
 
 
 def init_caches(cfg: ModelConfig, batch: int, cache_len: int, tp: int = 1,

@@ -1,6 +1,7 @@
 """Block stage functions, the unit the ISO scheduler drives (port of
 ``repro/models/blocks.py``: ``attn_mlp``, ``attn_moe``, hymba's ``hybrid``,
-xLSTM's ``mlstm`` and ``slstm``, and whisper's ``dec_block``).
+xLSTM's ``mlstm`` and ``slstm``, and whisper's ``dec_block``; and the afmoe
+kinds, which the reference does not have).
 
 A layer is a list of stages; each maps a chunk of the residual stream to an
 output that either NEEDS the TP all-reduce (``reduces=True``, an unreduced
@@ -13,6 +14,11 @@ its ``SSMState``); ``mlstm``/``slstm`` their ``MLSTMState``/``SLSTMState``;
 cross-attention, the MLP and the MoE FFN carry none.  A recurrent stage's
 first chunk starts from ``cache[ssm|mlstm|slstm]`` when the cache has one
 (a decode step, or a resumed grant's carry), else from zero state.
+
+An afmoe stage (``AFMOE_KINDS``) norms its output again before the
+residual add (the "sandwich" norm), which needs the whole, reduced output:
+its extras carry ``post``, the function the scheduler applies to the
+reduced partial before adding it (core/iso.py).
 """
 from __future__ import annotations
 
@@ -21,8 +27,9 @@ from typing import Any, Optional
 
 import torch
 
-from repro_torch.config import BLOCK_ATTN_MLP, BLOCK_ATTN_MOE, BLOCK_DEC, \
-    BLOCK_HYBRID, BLOCK_MLSTM, BLOCK_SLSTM, ModelConfig
+from repro_torch.config import BLOCK_AF_FULL_MLP, BLOCK_AF_FULL_MOE, \
+    BLOCK_AF_SWA_MLP, BLOCK_AF_SWA_MOE, BLOCK_ATTN_MLP, BLOCK_ATTN_MOE, \
+    BLOCK_DEC, BLOCK_HYBRID, BLOCK_MLSTM, BLOCK_SLSTM, ModelConfig
 from repro_torch.layers import attention as attn_lib
 from repro_torch.layers import mlp as mlp_lib
 from repro_torch.layers import moe as moe_lib
@@ -64,17 +71,20 @@ def _n2(p, x, cfg):
     return norm(p["norm2"], x, cfg.norm_type, cfg.rms_eps)
 
 
-def _prefill_attn(p_attn, xn, kv_state, cache, sctx: StageCtx, start_pos, B):
+def _prefill_attn(p_attn, xn, kv_state, cache, sctx: StageCtx, start_pos, B,
+                  window: Optional[int] = None, rope: bool = True):
     """One chunk's prefill attention, dispatched on the cache layout.
 
     A cache with ``k_pages``/``v_pages`` means the persistent prefix lives in
     the page pool: the chunk attends it in place through the paged
     flash-prefill kernel, and only the intra-call KV (``kv_state``, earlier
     ISO chunks of this call) is attended densely.  Otherwise (a fresh grant)
-    the prefix is the intra-call KV alone.  Returns (partial, kv of this
-    chunk)."""
+    the prefix is the intra-call KV alone.  ``window`` (default the
+    model's) and ``rope``: the layer's own (afmoe).  Returns (partial, kv
+    of this chunk)."""
     cfg = sctx.cfg
     dev = xn.device
+    window = sctx.window if window is None else window
     k_limit = None
     if sctx.valid_len is not None:
         k_limit = sctx.pos_offset + sctx.valid_len
@@ -88,30 +98,33 @@ def _prefill_attn(p_attn, xn, kv_state, cache, sctx: StageCtx, start_pos, B):
             k_pages=cache["k_pages"], v_pages=cache["v_pages"],
             block_tables=sctx.block_tables, prefix_lens=sctx.lengths,
             start_pos=sctx.pos_offset + start_pos, intra_kv=kv_state,
-            intra_pos=intra_pos, window=sctx.window, k_limit=k_limit)
+            intra_pos=intra_pos, window=window, k_limit=k_limit, rope=rope)
     prefix_pos = None
     if kv_state is not None:
         prefix_pos = attn_lib.row_positions(sctx.pos_offset, B, start_pos, dev)
     return attn_lib.attn_prefill_partial(
         p_attn, xn, cfg, sctx.group_eff,
         start_pos=sctx.pos_offset + start_pos, prefix_kv=kv_state,
-        prefix_pos=prefix_pos, window=sctx.window, k_limit=k_limit)
+        prefix_pos=prefix_pos, window=window, k_limit=k_limit, rope=rope)
 
 
-def _decode_attn(p_attn, xn, sctx: StageCtx, cache):
+def _decode_attn(p_attn, xn, sctx: StageCtx, cache,
+                 window: Optional[int] = None, rope: bool = True):
     """One decode window's attention over the page pools or a dense ring
-    cache; returns (partial, the window's kv)."""
+    cache; returns (partial, the window's kv).  ``window`` and ``rope`` as
+    ``_prefill_attn``'s."""
     cfg = sctx.cfg
+    window = sctx.window if window is None else window
     if "k_pages" in cache:
         return attn_lib.attn_decode_paged_partial(
             p_attn, xn, cfg, sctx.group_eff,
             k_pages=cache["k_pages"], v_pages=cache["v_pages"],
             block_tables=sctx.block_tables, lengths=sctx.lengths,
-            window=sctx.window, kv_splits=sctx.kv_splits)
+            window=window, kv_splits=sctx.kv_splits, rope=rope)
     return attn_lib.attn_decode_partial(
         p_attn, xn, cfg, sctx.group_eff,
         cache_k=cache["k"], cache_v=cache["v"], lengths=sctx.lengths,
-        window=sctx.window, cache_pos=cache.get("pos"))
+        window=window, cache_pos=cache.get("pos"), rope=rope)
 
 
 def _grow_kv(kv_state, kv_new):
@@ -162,6 +175,61 @@ def moe_stage(p, x, start_pos, seq_state, sctx: StageCtx, cache=None):
                                        tp=sctx.tp,
                                        expert_offset=sctx.expert_offset)
     return partial, seq_state, {"moe_aux": aux}
+
+
+def _post_norm(p, key: str, cfg: ModelConfig):
+    """The afmoe norm after a sublayer, as a function of its reduced
+    output."""
+    return lambda out: norm(p[key], out, cfg.norm_type, cfg.rms_eps)
+
+
+def afmoe_attn_stage(p, x, start_pos, seq_state, sctx: StageCtx, cache=None,
+                     full: bool = False):
+    """afmoe attention: the input norm, GQA with per-head q/k norm and the
+    output gate (``attn.wg``), then ``post_attn_norm`` on the reduced
+    output.  A sliding layer attends the model's ``sliding_window`` with
+    RoPE; a ``full`` one every earlier position with no rotary embedding
+    (NoPE)."""
+    cfg = sctx.cfg
+    xn = _n1(p, x, cfg)
+    window, rope = (0, False) if full else (sctx.window, True)
+    post = _post_norm(p, "post_attn_norm", cfg)
+    if sctx.mode == "decode":
+        partial, kv_new = _decode_attn(p["attn"], xn, sctx, cache,
+                                       window=window, rope=rope)
+        return partial, seq_state, {"kv": kv_new, "post": post}
+    if sctx.mode == "encode":
+        raise NotImplementedError("afmoe blocks are decoder layers")
+    partial, kv_new = _prefill_attn(p["attn"], xn, seq_state, cache, sctx,
+                                    start_pos, x.shape[0], window=window,
+                                    rope=rope)
+    return partial, _grow_kv(seq_state, kv_new), {"kv": kv_new,
+                                                  "post": post}
+
+
+def afmoe_full_attn_stage(p, x, start_pos, seq_state, sctx: StageCtx,
+                          cache=None):
+    return afmoe_attn_stage(p, x, start_pos, seq_state, sctx, cache,
+                            full=True)
+
+
+def afmoe_mlp_stage(p, x, start_pos, seq_state, sctx: StageCtx, cache=None):
+    """afmoe's dense FFN (the leading layers): ``mlp_stage`` with
+    ``post_mlp_norm`` on the reduced output."""
+    out, seq_state, _ = mlp_stage(p, x, start_pos, seq_state, sctx, cache)
+    return out, seq_state, {"post": _post_norm(p, "post_mlp_norm", sctx.cfg)}
+
+
+def afmoe_moe_stage(p, x, start_pos, seq_state, sctx: StageCtx, cache=None):
+    """afmoe's MoE FFN: the dropless sigmoid-routed layer (a decode step
+    takes the decode kernels), ``post_mlp_norm`` on the reduced output."""
+    cfg = sctx.cfg
+    xn = _n2(p, x, cfg)
+    partial, aux = moe_lib.moe_partial(
+        p["moe"], xn, cfg.moe, tp=sctx.tp, expert_offset=sctx.expert_offset,
+        decode=sctx.mode == "decode", hits=sctx.moe_hits)
+    return partial, seq_state, {"moe_aux": aux,
+                                "post": _post_norm(p, "post_mlp_norm", cfg)}
 
 
 def _carry(seq_state, cache, key):
@@ -219,6 +287,12 @@ BLOCK_STAGES = {
     BLOCK_SLSTM: ((slstm_stage, False),),
     BLOCK_DEC: ((attn_stage, True), (cross_attn_stage, True),
                 (mlp_stage, True)),
+    BLOCK_AF_SWA_MLP: ((afmoe_attn_stage, True), (afmoe_mlp_stage, True)),
+    BLOCK_AF_FULL_MLP: ((afmoe_full_attn_stage, True),
+                        (afmoe_mlp_stage, True)),
+    BLOCK_AF_SWA_MOE: ((afmoe_attn_stage, True), (afmoe_moe_stage, True)),
+    BLOCK_AF_FULL_MOE: ((afmoe_full_attn_stage, True),
+                        (afmoe_moe_stage, True)),
 }
 
 # the per-slot recurrent states a block kind carries, by cache key

@@ -24,9 +24,9 @@ from typing import Any, Dict, Optional
 
 import torch
 
-from repro_torch.config import BLOCK_ATTN_MLP, BLOCK_ATTN_MOE, BLOCK_DEC, \
-    BLOCK_HYBRID, BLOCK_MLSTM, BLOCK_SLSTM, ISOConfig, ModelConfig, \
-    padded_vocab
+from repro_torch.config import AFMOE_KINDS, BLOCK_ATTN_MLP, BLOCK_ATTN_MOE, \
+    BLOCK_DEC, BLOCK_HYBRID, BLOCK_MLSTM, BLOCK_SLSTM, MOE_KINDS, ISOConfig, \
+    ModelConfig, SigmoidMoEConfig, padded_vocab
 from repro_torch.core.chunking import split_chunks
 from repro_torch.core.iso import run_stack_decode, run_stack_prefill
 from repro_torch.core.overlap import AxisCtx, psum_now
@@ -47,15 +47,17 @@ FAMILY_KINDS = {"dense": (BLOCK_ATTN_MLP,),
                 "hybrid": (BLOCK_HYBRID,),
                 "ssm": (BLOCK_MLSTM, BLOCK_SLSTM),
                 "audio": (BLOCK_ATTN_MLP, BLOCK_DEC),
-                "vlm": (BLOCK_ATTN_MLP,)}
+                "vlm": (BLOCK_ATTN_MLP,),
+                "afmoe": AFMOE_KINDS}
 
 
 def check_supported(cfg: ModelConfig) -> None:
     """The port serves dense and VLM ``attn_mlp`` and MoE ``attn_moe``
     stacks, standard- or ladder-wired, hymba's ``hybrid`` and xLSTM's
     ``mlstm`` / ``slstm`` stacks, and whisper's encoder (``attn_mlp``) and
-    decoder (``dec_block``) stacks, the reference's whole registry; any
-    other family or block kind raises."""
+    decoder (``dec_block``) stacks, the reference's whole registry, and
+    the afmoe family's stacks (``AFMOE_KINDS``, standard-wired); any other
+    family or block kind raises."""
     kinds = FAMILY_KINDS.get(cfg.family, ())
     if not kinds or any(k not in kinds for k in cfg.block_pattern):
         raise NotImplementedError(
@@ -64,6 +66,11 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.residual_wiring not in ("standard", "ladder"):
         raise ValueError(f"{cfg.name}: unknown residual wiring "
                          f"{cfg.residual_wiring!r}")
+    if cfg.family == "afmoe" and (
+            cfg.residual_wiring != "standard"
+            or not isinstance(cfg.moe, SigmoidMoEConfig)):
+        raise ValueError(f"{cfg.name}: an afmoe stack is standard-wired with "
+                         f"a dropless (SigmoidMoEConfig) router")
 
 
 # ---------------------------------------------------------------------------
@@ -77,6 +84,7 @@ def check_supported(cfg: ModelConfig) -> None:
 SHARD_AXIS = {
     "table": 0, "head": 0,                   # vocab-split
     "wq": 1, "wk": 1, "wv": 1,               # (D, H, hd): column-split heads
+    "wg": 1,                                 # afmoe's output gate, as wq
     "wo": 0,                                 # (H, hd, D): row-split
     "w_up": 1, "w_gate": 1,                  # (D, F): column-split
     "w_down": 0,                             # (F, D): row-split
@@ -149,7 +157,7 @@ def _normal(gen, shape, std, dtype, device):
 
 
 def _init_attention(gen, cfg: ModelConfig, layout, dtype, device,
-                    cross: bool = False) -> Dict:
+                    cross: bool = False, gate: bool = False) -> Dict:
     d, hd = cfg.d_model, cfg.resolved_head_dim
     s = 0.02
     so = s / (2 * cfg.num_layers) ** 0.5
@@ -168,6 +176,8 @@ def _init_attention(gen, cfg: ModelConfig, layout, dtype, device,
     if cfg.qk_norm and not cross:
         attn["q_norm"] = torch.ones((hd,), dtype=torch.float32, device=device)
         attn["k_norm"] = torch.ones((hd,), dtype=torch.float32, device=device)
+    if gate:
+        attn["wg"] = heads((d, layout.hq, hd), s, layout.q_map, 1)
     return attn
 
 
@@ -183,9 +193,13 @@ def _init_layer(gen, cfg: ModelConfig, kind: str, layout, dtype,
     if kind == BLOCK_SLSTM:
         p["slstm"] = xlstm_lib.init_slstm(gen, cfg, dtype, device)
         return p
-    p["attn"] = _init_attention(gen, cfg, layout, dtype, device)
+    afmoe = kind in AFMOE_KINDS
+    p["attn"] = _init_attention(gen, cfg, layout, dtype, device, gate=afmoe)
     p["norm2"] = init_norm(d, device, cfg.norm_type)
-    if kind == BLOCK_ATTN_MOE:
+    if afmoe:
+        p["post_attn_norm"] = init_norm(d, device, cfg.norm_type)
+        p["post_mlp_norm"] = init_norm(d, device, cfg.norm_type)
+    if kind in MOE_KINDS:
         p["moe"] = init_moe(gen, d, cfg.moe, tp, cfg.num_layers, dtype,
                             device)
         return p
@@ -257,7 +271,8 @@ def _stage_ctx(cfg: ModelConfig, ctx: AxisCtx, mode: str,
 def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig,
                  ctx: AxisCtx) -> torch.Tensor:
     """Token embeddings, plus the sinusoid table's rows 0..S-1 (cast to the
-    embedding dtype) for a sinusoidal-position config."""
+    embedding dtype) for a sinusoidal-position config, times the config's
+    ``embed_scale`` (in fp32)."""
     v_loc = params["embed"]["table"].shape[0]
     e = emb_lib.embed_partial(params["embed"], tokens,
                               ctx.axis_index() * v_loc)
@@ -265,6 +280,9 @@ def embed_tokens(params, tokens: torch.Tensor, cfg: ModelConfig,
     if cfg.pos_type == "sinusoidal":
         e = e + sinusoidal_embedding(tokens.shape[1], cfg.d_model,
                                      device=e.device).to(e.dtype)[None]
+    scale = getattr(cfg, "embed_scale", 1.0)   # AfmoeModelConfig's
+    if scale != 1.0:
+        e = (e.float() * scale).to(e.dtype)
     return e
 
 
@@ -283,7 +301,7 @@ def prefill(params, cfg: ModelConfig, ctx: AxisCtx, iso: ISOConfig, *,
             cache_len: int = 0, remat: bool = False, layer_statics=None,
             mode: str = "prefill", prefix_caches=None, pos_offset=0,
             block_tables=None, prefix_lens=None, valid_len=None,
-            return_extras: bool = False) -> Dict[str, Any]:
+            return_extras: bool = False, moe_hits=None) -> Dict[str, Any]:
     """Run the stack over a prompt, or one resumed slice of it, with the ISO
     schedule.  tokens: (B, S) integer, or embeds: (B, S, D) precomputed (the
     whisper encoder's frames).  ``extra_embeds`` (B, S0, D): continuous
@@ -311,7 +329,8 @@ def prefill(params, cfg: ModelConfig, ctx: AxisCtx, iso: ISOConfig, *,
     ISO chunking happens here, so overlap applies within a resumed slice as in
     a monolithic prefill.  A ladder-wired config runs single-chunk, always:
     the lagged residual supplies the overlap, and an ISO interleave would
-    restore the standard wiring per chunk."""
+    restore the standard wiring per chunk.  ``moe_hits`` (0-d int64 on the
+    device): a dropless MoE layer adds the local experts it reached."""
     check_supported(cfg)
     if embeds is None:
         embeds = embed_tokens(params, tokens, cfg, ctx)
@@ -336,6 +355,7 @@ def prefill(params, cfg: ModelConfig, ctx: AxisCtx, iso: ISOConfig, *,
     sctx.pos_offset = pos_offset
     sctx.block_tables = block_tables
     sctx.valid_len = valid_len
+    sctx.moe_hits = moe_hits
     xs_final, extras = run_stack_prefill(
         params["periods"], cfg.block_pattern, x_chunks, tuple(starts), sctx,
         ctx, layer_caches=layer_statics if prefix_caches is None
@@ -446,6 +466,10 @@ def init_caches(cfg: ModelConfig, batch: int, cache_len: int, tp: int = 1,
     state (``init_state_caches``).  ``local``: one tp rank's shard, Hkv /
     tp heads and the states as ``init_state_caches(local=True)`` makes
     them (the reference's ``cache_specs`` split)."""
+    if cfg.family == "afmoe":
+        raise NotImplementedError(
+            f"{cfg.name}: dense ring caches take one window for every layer;"
+            f" the afmoe stack's layers differ, and PagedEngine serves it")
     periods = pattern_periods(cfg)
     hkv = head_layout(cfg.num_heads, max(cfg.num_kv_heads, 1), tp).hkv_eff
     hkv //= tp if local else 1
@@ -468,7 +492,8 @@ def init_caches(cfg: ModelConfig, batch: int, cache_len: int, tp: int = 1,
 
 def decode_step(params, cfg: ModelConfig, ctx: AxisCtx, tokens, caches,
                 lengths, block_tables=None, decode_mask=None,
-                kv_splits: int = 1, schedule: Optional[str] = None):
+                kv_splits: int = 1, schedule: Optional[str] = None,
+                moe_hits=None):
     """tokens: (B, K) integer, K=1 plain decode or a K-token verify window
     (token qi at position ``lengths[b] + qi``); lengths: (B,) tokens already
     processed.
@@ -489,8 +514,8 @@ def decode_step(params, cfg: ModelConfig, ctx: AxisCtx, tokens, caches,
     the ladder decode stack (the wiring is part of the model function),
     deferred unless the schedule is ``sequential`` or ``ladder_seq``; forcing
     ``ladder`` on a standard-wired config runs the REWIRED function (the
-    overlap probe's timing proxy, never for serving).  Returns
-    (logits_local (B, K, V_loc), caches)."""
+    overlap probe's timing proxy, never for serving).  ``moe_hits`` as
+    ``prefill``'s.  Returns (logits_local (B, K, V_loc), caches)."""
     check_supported(cfg)
     schedule = schedule or "sequential"
     if cfg.residual_wiring == "ladder" and \
@@ -509,6 +534,7 @@ def decode_step(params, cfg: ModelConfig, ctx: AxisCtx, tokens, caches,
     sctx.block_tables = block_tables
     sctx.decode_mask = decode_mask
     sctx.kv_splits = kv_splits
+    sctx.moe_hits = moe_hits
     x, caches = run_stack_decode(params["periods"], cfg.block_pattern, x,
                                  caches, sctx, ctx, schedule=schedule)
     x = _final(params, x, cfg)

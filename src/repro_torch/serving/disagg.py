@@ -81,7 +81,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import torch
 import torch.distributed as dist
 
-from repro_torch.config import Config, ServingConfig
+from repro_torch.config import ATTN_KINDS, Config, ServingConfig
 from repro_torch.launch.mesh import DisaggGroup
 from repro_torch.serving.kvcache import OutOfPages, pages_for
 from repro_torch.serving.paged_engine import PagedEngine, pool_pages
@@ -164,7 +164,7 @@ class DisaggRouter:
                  prefill_device=None, decode_device=None,
                  cuda_graphs: bool = True):
         sv = serving or config.serving
-        assert all(k in ("attn_mlp", "attn_moe")
+        assert all(k in ATTN_KINDS
                    for k in config.model.block_pattern), \
             "disagg migrates KV pages only; recurrent per-slot state " \
             "does not transfer"

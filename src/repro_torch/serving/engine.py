@@ -77,8 +77,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.config import BLOCK_ATTN_MLP, BLOCK_ATTN_MOE, Config, \
-    padded_vocab
+from repro_torch.config import ATTN_KINDS, Config, padded_vocab
 from repro_torch.device import resolve_device, synchronize
 from repro_torch.core.iso import ring_window
 from repro_torch.launch import runner
@@ -193,7 +192,7 @@ class Engine:
         self._finished: List[RequestState] = []
         # speculative decoding: attention stacks only, as the paged engine;
         # whisper's decode (and a recurrent stack) falls back to plain
-        self.spec_k = spec_k if all(k in (BLOCK_ATTN_MLP, BLOCK_ATTN_MOE)
+        self.spec_k = spec_k if all(k in ATTN_KINDS
                                     for k in self.cfg.block_pattern) else 0
         self._drafts: List[Optional[BigramDraft]] = [None] * max_batch
         # observability: the paged engine's counter names (plus the

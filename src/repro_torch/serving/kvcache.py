@@ -35,11 +35,12 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.config import ModelConfig
+from repro_torch.config import AFMOE_KINDS, ModelConfig
 from repro_torch.layers.heads import head_layout
 
-# block kinds that own a KV cache
-KV_KINDS = ("attn_mlp", "attn_moe", "hybrid")
+# block kinds that own a KV cache (an afmoe sliding layer's pool keeps every
+# position too: its window is applied when the pool is read)
+KV_KINDS = ("attn_mlp", "attn_moe", "hybrid") + AFMOE_KINDS
 
 
 class OutOfPages(RuntimeError):

@@ -163,8 +163,8 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.config import BLOCK_ATTN_MLP, BLOCK_ATTN_MOE, Config, \
-    ServingConfig, padded_vocab
+from repro_torch.config import ATTN_KINDS, MOE_KINDS, Config, \
+    ServingConfig, SigmoidMoEConfig, padded_vocab
 from repro_torch.core.chunking import grant_buckets, round_to_bucket
 from repro_torch.core.iso import DECODE_SCHEDULES
 from repro_torch.core.overlap import AxisCtx, all_gather_last
@@ -367,8 +367,7 @@ class PagedEngine:
         # rows, shared pages and rejected verify tokens would each advance a
         # recurrent state wrongly); a recurrent stack runs one closure per
         # exact grant length
-        attn_only = all(k in (BLOCK_ATTN_MLP, BLOCK_ATTN_MOE)
-                        for k in self.cfg.block_pattern)
+        attn_only = all(k in ATTN_KINDS for k in self.cfg.block_pattern)
         # nor for a patch-carrying model: its patch grants run unbucketed
         # and unpacked (a row-heterogeneous embed layout)
         no_patches = self.cfg.num_patches == 0
@@ -416,6 +415,25 @@ class PagedEngine:
             "prefill_samples", "spec_calls", "spec_tokens", "prefill_grants",
             "resumed_grants", "prefill_pad_rows", "migrations",
             "migrated_pages", "migration_us"))
+        # a dropless MoE stack's layer counters: MoE layer calls and the
+        # rows they took (pads included), counted on the host, and the
+        # local experts the calls reached, summed on the device into
+        # ``moe_hits`` inside the closures (graphs included) and read into
+        # ``moe_experts_hit`` only by ``read_moe_hits``, off the step path
+        self._moe_layers = sum(
+            1 for layer in range(self.cfg.num_layers)
+            if self.cfg.block_kind(layer) in MOE_KINDS) \
+            if isinstance(self.cfg.moe, SigmoidMoEConfig) else 0
+        self.moe_hits = torch.zeros((), dtype=torch.int64,
+                                    device=self.device) \
+            if self._moe_layers else None
+        if self._moe_layers:
+            self.registry.counters(("moe_calls", "moe_rows",
+                                    "moe_experts_hit"))
+        # what a closure body advances in place, put back after a capture's
+        # warm-up
+        self._mutated = self._state_tensors + (
+            (self.moe_hits,) if self._moe_layers else ())
         self.metrics = self.registry.view()
         # the step's phase spans (obs/torchprof.Span) on one tile: one is
         # open at a time, so their counters add up to the step
@@ -708,6 +726,7 @@ class PagedEngine:
         params, cfg, ctx, iso, kv, ps = self._body_env()
         scratch = kv.scratch_page
         pools = self._paged_prefix() if resumed else None
+        hits = self.moe_hits
 
         def body():
             start, n_real, bt = bufs["start"], bufs["n_real"], bufs["bt"]
@@ -729,7 +748,7 @@ class PagedEngine:
                 prefix_caches=prefix, pos_offset=start,
                 block_tables=bt if resumed else None,
                 prefix_lens=start.reshape(1) if resumed else None,
-                valid_len=n_real, return_extras=True)
+                valid_len=n_real, return_extras=True, moe_hits=hits)
             # logits of the last REAL token (the pad tail carries garbage)
             h_last = out["hidden"].index_select(
                 1, (n_real - 1).reshape(1).long())
@@ -756,7 +775,7 @@ class PagedEngine:
             return logits_last
 
         self._prefill_fns[key] = StepClosure(bufs, body, self._graphed,
-                                             self._state_tensors)
+                                             self._mutated)
         return self._prefill_fns[key]
 
     def _get_prefill_batched(self, n_text: int, rows: int,
@@ -787,6 +806,7 @@ class PagedEngine:
         prefix = None if all_fresh else self._paged_prefix()
         params, cfg, ctx, iso, kv, ps = self._body_env()
         scratch = kv.scratch_page
+        hits = self.moe_hits
 
         def body():
             starts, n_reals, bt = bufs["starts"], bufs["n_reals"], bufs["bt"]
@@ -796,7 +816,7 @@ class PagedEngine:
                 prefix_caches=prefix, pos_offset=starts,
                 block_tables=None if all_fresh else bt,
                 prefix_lens=None if all_fresh else starts,
-                valid_len=n_reals, return_extras=True)
+                valid_len=n_reals, return_extras=True, moe_hits=hits)
             # logits of each row's last REAL token (pad tails carry garbage)
             last = (n_reals - 1).clamp(0, T - 1).long()
             h_last = out["hidden"][torch.arange(rows, device=dev), last]
@@ -814,7 +834,8 @@ class PagedEngine:
                 v_pool[:, page, off] = ex["kv_v"].to(v_pool.dtype)
             return logits_last
 
-        self._prefill_fns[key] = StepClosure(bufs, body, self._graphed)
+        self._prefill_fns[key] = StepClosure(bufs, body, self._graphed,
+                                             self._mutated)
         return self._prefill_fns[key]
 
     def prefill_compile_count(self) -> int:
@@ -892,15 +913,17 @@ class PagedEngine:
         caches = self._paged_prefix(self.states)
         params, cfg, engine_ctx = self._body_env()[:3]
         ctx = engine_ctx if ctx is None else ctx
+        hits = self.moe_hits
 
         def body():
             logits, _ = api.decode_step(
                 params, cfg, ctx, bufs["toks"], caches,
                 bufs["lengths"], block_tables=bufs["bt"],
-                decode_mask=bufs["mask"], kv_splits=S, schedule=schedule)
+                decode_mask=bufs["mask"], kv_splits=S, schedule=schedule,
+                moe_hits=hits)
             return logits
 
-        return StepClosure(bufs, body, self._graphed, self._state_tensors)
+        return StepClosure(bufs, body, self._graphed, self._mutated)
 
     # ------------------------------------------------------------------
     # step phases
@@ -915,6 +938,7 @@ class PagedEngine:
         first call adds that wait to ``grant_wait_s``.  Returns (the picks
         or None, call start, fenced seconds)."""
         self._compile(fn, host)
+        self._count_moe(np.size(host["tokens"]))
         sp = self._spans
         picks = None
         with sp["prefill.launch"] as launch, torchprof.annotate(label):
@@ -934,6 +958,23 @@ class PagedEngine:
                 self.metrics["grant_wait_n"] += 1
                 st.t_queued = -1.0
         return picks, launch.t0, launch.dt + wait.dt
+
+    def _count_moe(self, rows: int) -> None:
+        """A forward call of ``rows`` token rows through the stack's dropless
+        MoE layers."""
+        if self._moe_layers:
+            self.metrics["moe_calls"] += self._moe_layers
+            self.metrics["moe_rows"] += self._moe_layers * rows
+
+    def read_moe_hits(self) -> int:
+        """The local experts the dropless MoE layers' calls reached, summed
+        (the device counter ``moe_hits``, read into ``moe_experts_hit``).
+        Waits for the card: call it off the step path.  0 without such
+        layers."""
+        if self.moe_hits is None:
+            return 0
+        self.metrics["moe_experts_hit"] = int(self.moe_hits)
+        return int(self.metrics["moe_experts_hit"])
 
     def _pick(self, logits: torch.Tensor, rows: List[int],
               host_rows: List[int]) -> Tuple:
@@ -1301,6 +1342,7 @@ class PagedEngine:
             self.decode_schedule_steps.get(schedule, 0) + 1
         host = dict(toks=toks, lengths=self.lengths, bt=bt, mask=mask)
         self._compile(fn, host)
+        self._count_moe(toks.size)
         sp = self._spans
         rows = [st.slot for st in active]
         # rows that sample on the host (never in a verify window: the gate

@@ -14,7 +14,12 @@
     closure-call range lies inside a launch range;
   * with no profile recording a span enters no ``torch.profiler`` code;
   * a request queued behind a full prefill budget adds at least the wall
-    time of the step it waited through to ``grant_wait_s``."""
+    time of the step it waited through to ``grant_wait_s``;
+  * an afmoe engine's MoE counters count: ``moe_calls`` and ``moe_rows``
+    (each call's rows, pads included, through each MoE layer) on the
+    host, ``moe_experts_hit`` summed on the device and read by
+    ``read_moe_hits`` alone; its eager path marks ``moe/route``,
+    ``moe/experts`` and ``moe/combine`` as host ranges under a profile."""
 import time
 
 import numpy as np
@@ -164,3 +169,54 @@ def test_queued_request_waits_a_step(params):
     eng.run_until_complete()
     assert eng.metrics["grant_wait_n"] == 2
     assert eng.metrics["grant_wait_s"] - w0 >= first
+
+
+def test_moe_counters_count():
+    from repro_torch.config import AfmoeModelConfig, SigmoidMoEConfig, \
+        afmoe_pattern
+    cfg = AfmoeModelConfig(
+        name="t-afmoe", family="afmoe", num_layers=4, d_model=32,
+        num_heads=2, num_kv_heads=1, head_dim=16, d_ff=64, vocab_size=64,
+        qk_norm=True, sliding_window=8,
+        block_pattern=afmoe_pattern((False, False, False, True), 1),
+        moe=SigmoidMoEConfig(num_experts=4, top_k=2, d_ff_expert=16,
+                             shared_expert_d_ff=16, route_scale=2.0))
+    params = api.init_params(1, cfg, dtype=torch.float32, device="cpu")
+    eng = PagedEngine(Config(model=cfg,
+                             parallel=ParallelConfig(data=1, model=1),
+                             iso=ISO, serving=ServingConfig(
+                                 page_size=8, max_len=96, max_batch=3,
+                                 prefill_token_budget=32)),
+                      params, device="cpu")
+    rows = {"prefill": 0, "decode": 0}
+    stage = {"prefill": eng._call_prefill}
+
+    def prefill(fn, host, label, group):
+        rows["prefill"] += np.size(host["tokens"])
+        return stage["prefill"](fn, host, label, group)
+
+    eng._call_prefill = prefill
+    for i, n in enumerate((30, 12, 41)):
+        eng.add_request(Request(prompt=np.arange(2, 2 + n, dtype=np.int32)
+                                % 60 + 2, rid=i,
+                                sampling=SamplingParams(max_new_tokens=6,
+                                                        eos_id=-1)))
+    with torch.profiler.profile(activities=[ProfilerActivity.CPU]) as prof:
+        eng.run_until_complete()
+    m = eng.metrics
+    calls = m["prefill_calls"] + m["decode_calls"]
+    decode_rows = m["decode_calls"] * eng.max_batch        # K = 1
+    assert m["moe_calls"] == 3 * calls                     # 3 MoE layers
+    assert m["moe_rows"] == 3 * (rows["prefill"] + decode_rows)
+    assert m["moe_experts_hit"] == 0                       # not read yet
+    hit = eng.read_moe_hits()
+    assert m["moe_experts_hit"] == hit
+    assert 3 * calls <= hit <= 3 * calls * 4      # 1 to 4 experts a call
+    # a range a MoE layer a chunk: ISO splits the longer grants in two
+    names = [e.name for e in prof.events()]
+    counts = {r: names.count(r) for r in ("moe/route", "moe/experts",
+                                          "moe/combine")}
+    assert len(set(counts.values())) == 1, counts
+    assert m["moe_calls"] < counts["moe/route"] <= 2 * m["moe_calls"]
+    assert not any(e.is_user_annotation for e in prof.events()
+                   if e.name.startswith("moe/"))
